@@ -11,7 +11,10 @@
 //
 // and h_final[g, b] = h after step L-1 (zeros when L = 0 or the row has
 // length 0).  The semantics are those of _lstm_recurrence_fwd_impl in
-// icl/models/rnn.py.
+// icl/models/rnn.py.  For training, the kernel also writes the backward
+// pass's residuals when their pointers are non-null: gates[g, t, b] = the
+// post-activation i, f, c~, o slabs (not masked) and cs[g, t, b] = c after
+// the mask.  The predict path passes null and writes nothing more.
 //
 // Replaces: icl/ops/lstm_kernel.py bilstm_recurrence_pallas (_lstm_kernel,
 // batch tiles of 32) and bilstm_stream_pallas (_stream_kernel, full batch,
@@ -64,7 +67,8 @@ __global__ void __launch_bounds__(1024)
 lstm_recurrence_kernel(const float* __restrict__ xp,
                        const uint8_t* __restrict__ mask,
                        const float* __restrict__ R, float* __restrict__ hs,
-                       float* __restrict__ h_final, int L, int B, int H) {
+                       float* __restrict__ h_final, float* __restrict__ gates,
+                       float* __restrict__ cs, int L, int B, int H) {
   extern __shared__ float4 smem4[];
   float* h_s = reinterpret_cast<float*>(smem4);   // [H][kTile]  h, k-major
   float* c_s = h_s + H * kTile;                   // [kTile][H]  c
@@ -145,6 +149,14 @@ lstm_recurrence_kernel(const float* __restrict__ xp,
         *hp = og * tanhf(ct);
       }
       hs[(row0 + b) * H + j] = *hp;
+      if (gates != nullptr) {
+        float* gp = gates + (row0 + b) * H4 + j;
+        gp[0] = ig;
+        gp[H] = fg;
+        gp[2 * H] = gg;
+        gp[3 * H] = og;
+        cs[(row0 + b) * H + j] = *cp;
+      }
     }
     __syncthreads();
   }
@@ -154,17 +166,21 @@ lstm_recurrence_kernel(const float* __restrict__ xp,
 }  // namespace
 
 // x_proj [G, L, B, 4H], mask [G, L, B] (bytes, 0 or 1), R [G, H, 4H] in;
-// hs [G, L, B, H] and h_final [G, B, H] out; all contiguous f32 except the
-// mask.  Launches on `stream` (a cudaStream_t from the caller) on `device`
-// and returns the cudaError_t of the launch: 0 on success.  G, L and B must
-// be positive (the caller handles empty inputs without a launch), and
-// 1 <= H <= 256 (a block holds kSplit * H threads, rounded up to warps).
+// hs [G, L, B, H] and h_final [G, B, H] out, and, when `gates` is non-null,
+// the residuals gates [G, L, B, 4H] and cs [G, L, B, H]; all contiguous f32
+// except the mask.  Launches on `stream` (a cudaStream_t from the caller)
+// on `device` and returns the cudaError_t of the launch: 0 on success.  G,
+// L and B must be positive (the caller handles empty inputs without a
+// launch), and 1 <= H <= 256 (a block holds kSplit * H threads, rounded up
+// to warps).
 extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
                                        const uint8_t* mask, const float* R,
-                                       float* hs, float* h_final, int G,
-                                       int L, int B, int H, int device,
+                                       float* hs, float* h_final,
+                                       float* gates, float* cs, int G, int L,
+                                       int B, int H, int device,
                                        void* stream) {
   const int threads = kSplit * ((H + 31) / 32 * 32);
+  if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
   if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || threads > 1024 || G > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -178,6 +194,6 @@ extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
   }
   const dim3 grid((B + kTile - 1) / kTile, G);
   lstm_recurrence_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x_proj, mask, R, hs, h_final, L, B, H);
+      x_proj, mask, R, hs, h_final, gates, cs, L, B, H);
   return (int)cudaGetLastError();
 }

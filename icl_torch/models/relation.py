@@ -3,8 +3,7 @@
 4-way ``{null, coref, subset_ij, subset_ji}`` classifier over mention pairs:
 a BiLSTM caption encoder (hidden H per direction over the word vectors),
 mention rep = [fwd; bwd] states at the mention's first and last token
-(4H), pair vector [m_i; m_j], head Dense(K, relu) -> Dense(O).  Predict
-only: dropout is the identity.
+(4H), pair vector [m_i; m_j], head Dense(K, relu) -> Dropout -> Dense(O).
 
 Each caption of the image batch is encoded once.  The head is computed in
 the distributed form ``relu(m_i @ W1[:R] + m_j @ W1[R:] + b1) @ W2 + b2``,
@@ -13,11 +12,20 @@ so each mention is projected once.  Two forms:
 * gather form (``fused=False``): gathers the two projections of every pair
   and runs the head on the pair rows.  Plain PyTorch throughout (the
   recurrence too): the oracle, and the CPU path.
-* fused form (``fused=True``): the M x M grid head
-  (:func:`icl_torch.ops.grid_head`) over every ordered mention pair, then a
-  plain index gather of the pair cells; the recurrence goes through
-  :func:`icl_torch.ops.lstm_recurrence`.  On CUDA both are hand-written
-  kernels; on the CPU both wrappers run their plain versions.
+* fused form (``fused=True``): the M x M grid head over every ordered
+  mention pair, then a plain index gather of the pair cells; the recurrence
+  goes through :func:`icl_torch.ops.lstm_recurrence`.  Predict runs
+  :func:`icl_torch.ops.grid_head.grid_head`; training runs
+  :func:`icl_torch.ops.grid_head_train.grid_head_train`, or, with a grid
+  loss, :func:`~icl_torch.ops.grid_head_train.grid_head_train_loss` (the CE
+  inside the kernel).  On CUDA these are hand-written kernels; on the CPU
+  their wrappers run the plain versions.
+
+Training mode is ``forward(..., seeds=...)``: per-image int32 dropout seeds.
+The dropout mask is a pure function of (seed, a, b, k)
+(:func:`icl_torch.ops.grid_head_train.keep_mask`), and the gather form
+applies it at the pair's cell (pair_ij[..., 0], pair_ij[..., 1]), so both
+forms give the same loss at any rate.
 """
 
 from __future__ import annotations
@@ -28,6 +36,11 @@ from torch import nn
 from icl.data.pairs import RELATION_CLASSES
 from icl_torch.models.rnn import BiLSTM
 from icl_torch.ops.grid_head import grid_head
+from icl_torch.ops.grid_head_train import (dropout_applies, dropout_scale,
+                                           grid_ce_sums, grid_head_train,
+                                           grid_head_train_loss,
+                                           grid_head_train_reference,
+                                           keep_mask)
 
 __all__ = ["RelationModel", "RELATION_CLASSES", "gather_mention_reps"]
 
@@ -70,9 +83,13 @@ class RelationModel(nn.Module):
 
     def __init__(self, emb_dim: int, lstm_hidden: int = 200,
                  head_hidden: int = 800, num_classes: int = 4,
-                 fused: bool = False, device: torch.device | None = None):
+                 fused: bool = False, dropout: float = 0.5,
+                 device: torch.device | None = None):
         super().__init__()
         self.fused = fused
+        self.dropout = float(dropout)
+        self.dims = {"emb_dim": emb_dim, "lstm_hidden": lstm_hidden,
+                     "head_hidden": head_hidden, "num_classes": num_classes}
         self.caption_bilstm = BiLSTM(emb_dim, lstm_hidden, use_kernel=fused,
                                      device=device)
         self.head_dense = Dense(8 * lstm_hidden, head_hidden, device)
@@ -87,7 +104,15 @@ class RelationModel(nn.Module):
     def flat_params(self) -> dict[str, torch.Tensor]:
         return {k.replace(".", "/"): v for k, v in self.state_dict().items()}
 
-    def forward(self, table: torch.Tensor, batch: dict) -> torch.Tensor:
+    def forward(self, table: torch.Tensor, batch: dict,
+                seeds: torch.Tensor | None = None,
+                loss_grid: tuple | None = None):
+        """Logits [I, P, O]; with ``loss_grid = (labels [I,M,M] int32,
+        weights [I,M,M])`` instead the grid CE sums ``(sum ce*w, sum hits,
+        sum valid)`` (see :func:`~icl_torch.ops.grid_head_train.grid_ce_sums`;
+        ``weights`` gets no gradient).  ``seeds`` (int32 [I]) turns training
+        mode on: dropout at ``self.dropout`` and the training kernels; None
+        is predict (dropout off)."""
         tokens = batch["tokens"]
         I, C, L = tokens.shape
         x = table[tokens.reshape(I * C, L).long()]            # [I*C, L, D]
@@ -100,11 +125,32 @@ class RelationModel(nn.Module):
         W2, b2 = self.head_out.kernel, self.head_out.bias
         proj_i = mreps @ W1[:R]                                # [I, M, K]
         proj_j = mreps @ W1[R:]
-        pair_ij = batch["pair_ij"].long()
+        train = seeds is not None
+        rate = self.dropout if train else 0.0
+
+        if loss_grid is not None:
+            labels, weights = loss_grid
+            weights = weights.detach()
+            if self.fused and train:
+                # the CE inside the kernel: only three sums leave it
+                return grid_head_train_loss(proj_i, proj_j, b1, W2, b2,
+                                            seeds, labels, weights, rate)
+            if self.fused:
+                grid = grid_head(proj_i, proj_j, b1, W2, b2)
+            else:
+                # plain oracle: materialises the [I, M, M, K] activation
+                grid = grid_head_train_reference(proj_i, proj_j, b1, W2, b2,
+                                                 seeds, rate)
+            return grid_ce_sums(grid, labels, weights)
+
+        pi, pj = batch["pair_ij"][..., 0].long(), batch["pair_ij"][..., 1].long()
         img = torch.arange(I, device=tokens.device)[:, None]
         if self.fused:
-            grid = grid_head(proj_i, proj_j, b1, W2, b2)       # [I, M, M, O]
-            return grid[img, pair_ij[..., 0], pair_ij[..., 1]]
-        h = (proj_i[img, pair_ij[..., 0]] + proj_j[img, pair_ij[..., 1]]
-             + b1)
-        return torch.relu(h) @ W2 + b2
+            grid = (grid_head_train(proj_i, proj_j, b1, W2, b2, seeds, rate)
+                    if train else grid_head(proj_i, proj_j, b1, W2, b2))
+            return grid[img, pi, pj]                           # [I, P, O]
+        h = torch.relu(proj_i[img, pi] + proj_j[img, pj] + b1)
+        if train and dropout_applies(rate):
+            keep = keep_mask(seeds[:, None], pi, pj, h.shape[-1], rate)
+            h = h * torch.where(keep, dropout_scale(rate), 0.0)
+        return h @ W2 + b2

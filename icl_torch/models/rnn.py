@@ -1,4 +1,4 @@
-"""Keras masked LSTM / BiLSTM, forward only (counterpart of icl/models/rnn.py).
+"""Keras masked LSTM / BiLSTM (counterpart of icl/models/rnn.py).
 
 Parameters keep the Keras layouts the JAX package pins: ``kernel [D, 4H]``,
 ``recurrent_kernel [H, 4H]``, ``bias [4H]``, gate slabs i, f, c~, o.  At a
@@ -6,8 +6,9 @@ padded step the carry passes through, so outputs at positions >= length
 hold the last valid state and ``final`` is the state at the last valid
 step.  The input projection is one plain matmul for all steps (and, in the
 BiLSTM, both directions); the recurrence goes to
-:func:`icl_torch.ops.lstm_recurrence` (the hand-written kernel on CUDA)
-when ``use_kernel`` is set, else to its plain version.
+:func:`icl_torch.ops.lstm_recurrence` (the hand-written kernel on CUDA, and
+the reference's residual-set backward) when ``use_kernel`` is set, else to
+its plain version (differentiated by autograd step by step).
 
 Parameters start at zero; real values come from ``load_state_dict`` (see
 :meth:`icl_torch.models.relation.RelationModel.load_flat`).

@@ -1,10 +1,10 @@
 """Build the CUDA sources under ``icl_torch/csrc`` and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` holds kernels plus a plain C entry point.  At first
+Each ``csrc/<name>.cu`` holds kernels plus plain C entry points.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``icl_torch/_build/`` (git-ignored), named by a hash of the source and
 the flags, so an edited source rebuilds and an unchanged one loads at once.
-The library is loaded with :mod:`ctypes` and its entry point given explicit
+The library is loaded with :mod:`ctypes` and each entry point given explicit
 ``argtypes``.  A failed build raises with the compiler's output; nothing
 falls back to another implementation.
 
@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: set[tuple[str, str]] = set()
 
 
 def nvcc() -> str:
@@ -79,17 +80,20 @@ def build(name: str) -> tuple[Path, float]:
 def load(name: str, symbol: str, argtypes: list) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; bind ``symbol``.
 
-    The entry point returns a ``cudaError_t`` as ``int``.
+    A source may hold several entry points; each is bound at its first
+    load.  An entry point returns a ``cudaError_t`` as ``int``.
     """
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             path, _ = build(name)
             lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        if (name, symbol) not in _bound:
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = lib
+            _bound.add((name, symbol))
         return lib
 
 

@@ -1,10 +1,10 @@
-"""Masked Keras LSTM recurrence over pre-projected inputs, forward.
+"""Masked Keras LSTM recurrence over pre-projected inputs, with its backward.
 
 Counterpart of ``icl/ops/lstm_kernel.py`` (both Pallas recurrences) with the
-semantics of ``_lstm_recurrence_fwd_impl`` in ``icl/models/rnn.py``: gate
-slabs i, f, c~, o; ``c = f*c_prev + i*c~``; ``h = o*tanh(c)``; at a masked
-step the carry passes through, so ``hs`` holds the carried state at padded
-steps and ``h_final == hs[:, L-1]`` (zeros for a length-0 row).
+semantics of ``lstm_recurrence`` in ``icl/models/rnn.py``: gate slabs i, f,
+c~, o; ``c = f*c_prev + i*c~``; ``h = o*tanh(c)``; at a masked step the carry
+passes through, so ``hs`` holds the carried state at padded steps and
+``h_final == hs[:, L-1]`` (zeros for a length-0 row).
 
 Layout, direction-major as the Pallas kernels had it::
 
@@ -15,10 +15,18 @@ Layout, direction-major as the Pallas kernels had it::
     ->  hs [G, L, B, H], h_final [G, B, H]
 
 * :func:`lstm_recurrence_reference` is the plain PyTorch version: L Python
-  steps of a batched matmul and the gate arithmetic.
-* :func:`lstm_recurrence` is the wrapper: for CUDA tensors it launches the
-  hand-written kernel ``icl_torch/csrc/lstm_recurrence.cu`` (all L steps in
-  one launch); for CPU tensors it runs the plain version.
+  steps of a batched matmul and the gate arithmetic (differentiable through
+  autograd).
+* :func:`lstm_recurrence` is a ``torch.autograd.Function``.  Its forward
+  launches the hand-written kernel ``icl_torch/csrc/lstm_recurrence.cu``
+  (all L steps in one launch) for CUDA tensors and runs the plain version
+  for CPU tensors.  When a gradient is needed, the forward also keeps the
+  reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
+  post-activation gates (not masked), c after the mask, and hs.  The
+  backward is a plain reverse loop mirroring ``_lstm_recurrence_bwd_impl``
+  that keeps only the dgates . R^T chain inside the loop; dR is one einsum
+  afterwards, and dx_proj is dgates.  The JAX package has no Pallas
+  backward, so neither does this module.
 """
 
 from __future__ import annotations
@@ -29,19 +37,22 @@ import torch
 
 from icl_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MAX_H = 256   # a block holds 4 threads per hidden unit (csrc/lstm_recurrence.cu)
 
 
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
-                              R: torch.Tensor
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: L steps of ``z = x_proj[:, t] + h @ R`` and the gates."""
+                              R: torch.Tensor, residuals: bool = False):
+    """Plain version: L steps of ``z = x_proj[:, t] + h @ R`` and the gates.
+
+    Returns ``(hs, h_final)``, and with ``residuals`` also ``(gates [G, L,
+    B, 4H], c [G, L, B, H])`` as the kernel writes them.
+    """
     G, L, B, H4 = x_proj.shape
     H = H4 // 4
     h = x_proj.new_zeros((G, B, H))
     c = x_proj.new_zeros((G, B, H))
-    hs = []
+    hs, gates, cs = [], [], []
     for t in range(L):
         z = x_proj[:, t] + torch.bmm(h, R)
         i = torch.sigmoid(z[..., :H])
@@ -54,16 +65,24 @@ def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,
         h = torch.where(m, h_t, h)          # Keras mask: carry through
         c = torch.where(m, c_t, c)
         hs.append(h)
-    hs = torch.stack(hs, 1) if hs else x_proj.new_zeros((G, 0, B, H))
-    return hs, h
+        if residuals:
+            gates.append(torch.cat([i, f, g, o], dim=-1))
+            cs.append(c)
+
+    def stack(steps, width):
+        return (torch.stack(steps, 1) if steps
+                else x_proj.new_zeros((G, 0, B, width)))
+
+    if not residuals:
+        return stack(hs, H), h
+    return stack(hs, H), h, stack(gates, H4), stack(cs, H)
 
 
-def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
-                    R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Same contract as :func:`lstm_recurrence_reference`; the kernel on
-    CUDA.  Empty inputs (G, L or B = 0) return without a launch."""
+def lstm_recurrence_fwd(x_proj, mask, R, residuals: bool = False):
+    """The forward: the kernel on CUDA, the plain version on the CPU.
+    Returns what :func:`lstm_recurrence_reference` does."""
     if x_proj.device.type == "cpu":
-        return lstm_recurrence_reference(x_proj, mask, R)
+        return lstm_recurrence_reference(x_proj, mask, R, residuals)
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_recurrence: unsupported device "
                          f"{x_proj.device}")
@@ -73,17 +92,78 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
     dev = x_proj.device
     hs = torch.empty((G, L, B, H), dtype=torch.float32, device=dev)
     h_final = torch.empty((G, B, H), dtype=torch.float32, device=dev)
+    res = ((torch.empty((G, L, B, 4 * H), dtype=torch.float32, device=dev),
+            torch.empty((G, L, B, H), dtype=torch.float32, device=dev))
+           if residuals else ())
     if G == 0 or L == 0 or B == 0:
-        return hs, h_final.zero_()
+        return hs, h_final.zero_(), *res
     lib = _build.load("lstm_recurrence", "icl_lstm_recurrence_f32",
                       _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.icl_lstm_recurrence_f32(
         x_proj.data_ptr(), mask.data_ptr(), R.data_ptr(), hs.data_ptr(),
-        h_final.data_ptr(), G, L, B, H, dev.index, stream)
+        h_final.data_ptr(), *((t.data_ptr() for t in res) if res
+                              else (None, None)),
+        G, L, B, H, dev.index, stream)
     _build.check(err, "lstm_recurrence")
     lstm_recurrence.launches += 1
-    return hs, h_final
+    return hs, h_final, *res
+
+
+def lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf):
+    """Reverse loop of ``_lstm_recurrence_bwd_impl`` -> (dx_proj, dR)."""
+    G, L, B, H = hs.shape
+    m = mask[..., None].to(hs.dtype)                      # [G, L, B, 1]
+    dh, dc = dhf, torch.zeros_like(dhf)
+    dgates = torch.empty_like(gates)
+    Rt = R.transpose(1, 2)
+    for t in reversed(range(L)):
+        dh = dh + dhs[:, t]
+        mt = m[:, t]
+        i, f, g, o = gates[:, t].split(H, dim=-1)
+        tc = torch.tanh(c[:, t])          # == tanh(c~) wherever m == 1
+        c_prev = c[:, t - 1] if t > 0 else torch.zeros_like(dc)
+        dh_t = dh * mt
+        dc_t = dc * mt + dh_t * o * (1 - tc * tc)
+        do = dh_t * tc * o * (1 - o)
+        df = dc_t * c_prev * f * (1 - f)
+        di = dc_t * g * i * (1 - i)
+        dg = dc_t * i * (1 - g * g)
+        dgates[:, t] = torch.cat([di, df, dg, do], dim=-1)
+        dh = torch.bmm(dgates[:, t], Rt) + dh * (1 - mt)
+        dc = dc_t * f + dc * (1 - mt)
+    # post-mask h shifted by one step is the true previous state
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    dR = torch.einsum("glbh,glbk->ghk", h_prev, dgates)  # one GEMM
+    return dgates, dR
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """Kernel (or plain) forward with residuals; plain reverse-loop
+    backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, mask, R):
+        if not any(ctx.needs_input_grad):
+            return lstm_recurrence_fwd(x_proj, mask, R, residuals=False)
+        hs, h_final, gates, c = lstm_recurrence_fwd(x_proj, mask, R,
+                                                    residuals=True)
+        ctx.save_for_backward(gates, c, hs, R, mask)
+        return hs, h_final
+
+    @staticmethod
+    def backward(ctx, dhs, dhf):
+        gates, c, hs, R, mask = ctx.saved_tensors
+        dx_proj, dR = lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf)
+        return dx_proj, None, dR
+
+
+def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
+                    R: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`lstm_recurrence_reference`; the kernel on
+    CUDA, differentiable in x_proj and R.  Empty inputs (G, L or B = 0)
+    return without a launch."""
+    return LSTMRecurrence.apply(x_proj, mask, R)
 
 
 lstm_recurrence.launches = 0   # kernel launches since the last reset

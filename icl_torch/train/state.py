@@ -1,0 +1,59 @@
+"""Train state: model + Adam + step counter + dropout seed.
+
+Counterpart of ``icl/train/state.py``.  ``optax.adam(lr)`` and
+``torch.optim.Adam(lr)`` share their defaults (b1 0.9, b2 0.999, eps 1e-8)
+and their formula (bias-corrected moments, eps outside the square root).
+The per-step dropout seeds come from a ``torch.Generator`` seeded from
+(seed, step), the counterpart of ``TrainState.step_rng``'s ``fold_in``: a
+step's seeds depend on nothing but the run's seed and the step number.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from icl_torch.models.relation import RelationModel
+from icl_torch.params import init_relation_params, load_npz
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: RelationModel
+    optimizer: torch.optim.Optimizer
+    seed: int
+    step: int = 0
+
+    def dropout_seeds(self, n: int) -> torch.Tensor:
+        """This step's per-image dropout seeds: int32 [n] in [0, 2**31-1),
+        on the model's device."""
+        gen = torch.Generator().manual_seed(
+            ((self.seed & 0xFFFFFFFF) << 32) | (self.step & 0xFFFFFFFF))
+        seeds = torch.randint(0, 2 ** 31 - 1, (n,), generator=gen,
+                              dtype=torch.int32)
+        return seeds.to(self.model.head_out.bias.device)
+
+    def apply_gradients(self) -> None:
+        """One Adam update from the parameters' ``.grad``; step += 1."""
+        self.optimizer.step()
+        self.step += 1
+
+
+def create_train_state(model: RelationModel, seed: int = 0,
+                       learn_rate: float = 1e-3,
+                       params: str | dict | None = None) -> TrainState:
+    """Load the model's weights and start Adam.
+
+    ``params``: None draws fresh weights (:func:`init_relation_params` from
+    ``seed``); a path loads an ``icl-export`` archive; a dict of key ->
+    tensor or numpy array is loaded as it is.
+    """
+    if params is None:
+        params = init_relation_params(seed, model.dims)
+    elif isinstance(params, str):
+        params, _ = load_npz(params)
+    model.load_flat({k: torch.as_tensor(v) for k, v in params.items()})
+    opt = torch.optim.Adam(model.parameters(), lr=learn_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(model=model, optimizer=opt, seed=seed)

@@ -6,18 +6,22 @@ no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 f32, TF32 off.  Gate: max |kernel - plain| <= 1e-5 * max(1, max |plain|);
-the kernels sum in another order than cuBLAS and the eager ops.
+the kernels sum in another order than cuBLAS and the eager ops.  The
+training kernels (K5-K8) are checked at dropout rate 0 and 0.5: kernels and
+plain versions compute one hash mask, so both rates compare exactly.
 """
 
 import pytest
 import torch
 
 from icl_torch.models.relation import RelationModel
+from icl_torch.ops import grid_head_train as ght
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
 from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
+                                           lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
 from icl_torch.params import init_relation_params
-from icl_torch.train.steps import relation_predict
+from icl_torch.train.steps import relation_loss, relation_predict
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +132,134 @@ def test_fused_model_matches_plain_model(dev):
         probs[fused] = relation_predict(model, table, batch)
     err = (probs[True] - probs[False]).abs().max().item()
     assert err <= 1e-5, err
+
+
+def _train_inputs(G, A, B, K, O, dev, seed=0):
+    X, Y, b1, W2, b2 = _head_inputs(G, A, B, K, O, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=g, device=dev,
+                          dtype=torch.int32)
+    labels = torch.randint(0, O, (G, A, B), generator=g, device=dev,
+                           dtype=torch.int32)
+    weights = ((torch.rand(G, A, B, generator=g, device=dev) > 0.25)
+               * torch.where(torch.rand(G, A, B, generator=g, device=dev)
+                             > 0.5, 1.0, 0.3))
+    cot = torch.randn(G, A, B, O, generator=g, device=dev)
+    return (X, Y, b1, W2, b2), seeds, labels, weights, cot
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("G,A,B,K,O", [
+    (1, 8, 8, 800, 4), (64, 16, 16, 800, 4), (64, 32, 32, 800, 4),
+    (2, 24, 40, 32, 4), (3, 9, 70, 16, 2), (2, 5, 7, 33, 3)])
+def test_grid_head_train_kernels_match_plain(dev, G, A, B, K, O, rate):
+    (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
+        G, A, B, K, O, dev)
+    gl = torch.tensor(0.37, device=dev)
+    cases = [
+        (ght.grid_head_train_fwd, (X, Y, b1, W2, b2, seeds, rate),
+         ght.grid_head_train_reference),
+        (ght.grid_head_train_bwd, (X, Y, b1, W2, seeds, cot, rate),
+         ght.grid_head_train_bwd_plain),
+        (ght.grid_head_train_loss_fwd,
+         (X, Y, b1, W2, b2, seeds, labels, weights, rate),
+         ght.grid_head_train_loss_reference),
+        (ght.grid_head_train_loss_bwd,
+         (X, Y, b1, W2, b2, seeds, labels, weights, gl, rate),
+         ght.grid_head_train_loss_bwd_plain)]
+    for fn, args, plain in cases:
+        n0 = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want, strict=True):
+            assert a.shape == b.shape
+            _assert_close(a, b)
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)                 # bitwise repeatable
+
+
+def test_grid_head_train_empty_grid_launches_nothing(dev):
+    (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
+        2, 0, 4, 800, 4, dev)
+    fns = (ght.grid_head_train_fwd, ght.grid_head_train_bwd,
+           ght.grid_head_train_loss_fwd, ght.grid_head_train_loss_bwd)
+    n0 = [f.launches for f in fns]
+    out = ght.grid_head_train_fwd(X, Y, b1, W2, b2, seeds, 0.5)
+    dX, dY, dW2, db1 = ght.grid_head_train_bwd(X, Y, b1, W2, seeds, cot, 0.5)
+    sums = ght.grid_head_train_loss_fwd(X, Y, b1, W2, b2, seeds, labels,
+                                        weights, 0.5)
+    grads = ght.grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels,
+                                         weights, torch.ones((), device=dev),
+                                         0.5)
+    assert out.shape == (2, 0, 4, 4) and dY.shape == (2, 4, 800)
+    assert not dY.any() and not dW2.any() and not any(s.item() for s in sums)
+    assert not any(g.any() for g in grads)
+    assert [f.launches for f in fns] == n0
+
+
+def test_grid_head_train_zero_weight_cells_are_inert(dev):
+    (X, Y, b1, W2, b2), seeds, labels, weights, _ = _train_inputs(
+        4, 16, 16, 800, 4, dev)
+    poisoned = torch.where(weights > 0, labels, 3).to(torch.int32)
+    for fn, extra in ((ght.grid_head_train_loss_fwd, ()),
+                      (ght.grid_head_train_loss_bwd,
+                       (torch.tensor(1.3, device=dev),))):
+        a = fn(X, Y, b1, W2, b2, seeds, labels, weights, *extra, 0.5)
+        b = fn(X, Y, b1, W2, b2, seeds, poisoned, weights, *extra, 0.5)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("G,L,B,H", [
+    (2, 32, 512, 200), (2, 16, 8, 200), (2, 9, 13, 40), (1, 7, 5, 256)])
+def test_recurrence_residuals_match_plain(dev, G, L, B, H):
+    args = _rec_inputs(G, L, B, H, dev)
+    hs0, fin0 = lstm_recurrence(*args)
+    hs, fin, gates, c = lstm_recurrence_fwd(*args, residuals=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs0) and torch.equal(fin, fin0)
+    want = lstm_recurrence_reference(*args, residuals=True)
+    for got, ref in zip((hs, fin, gates, c), want, strict=True):
+        _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("grid_loss", [True, False])
+def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
+    dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
+    flat = init_relation_params(0, dims)
+    g = torch.Generator().manual_seed(1)
+    table = torch.randn(100, 300, generator=g).to(dev)
+    I, C, L, M = 4, 8, 16, 8
+    iu, ju = torch.triu_indices(M, M, 1)
+    P = iu.numel()
+    batch = {"tokens": torch.randint(1, 100, (I, C, L), generator=g),
+             "tok_len": torch.randint(0, L + 1, (I, C), generator=g),
+             "m_cap": torch.randint(0, 5, (I, M), generator=g),
+             "m_first": torch.randint(0, 4, (I, M), generator=g),
+             "m_last": torch.randint(4, 8, (I, M), generator=g),
+             "pair_ij": torch.stack([iu, ju], 1).expand(I, P, 2),
+             "pair_label": torch.randint(0, 4, (I, P), generator=g),
+             "pair_valid": torch.rand(I, P, generator=g) < 0.9}
+    batch = {k: v.contiguous().to(dev) for k, v in batch.items()}
+    seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device=dev)
+    cw = torch.tensor([0.3, 1.0, 1.0, 1.0], device=dev)
+    out = {}
+    for fused in (True, False):
+        model = RelationModel(300, 200, 800, fused=fused, dropout=0.5,
+                              device=dev)
+        model.load_flat(flat)
+        loss, metrics = relation_loss(model, table, batch, seeds, cw,
+                                      grid_loss)
+        loss.backward()
+        out[fused] = (metrics, {k: p.grad for k, p in
+                                model.named_parameters()})
+    for k in out[False][0]:
+        _assert_close(out[True][0][k], out[False][0][k])
+    for k, want in out[False][1].items():
+        _assert_close(out[True][1][k], want)
