@@ -1,41 +1,63 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (icl_torch) on one NVIDIA GPU.
 
-Drives the port's two paths, relation scoring served over HTTP and
-relation training, at full width (BiLSTM 200 per direction over 300-d word
-vectors, head 800, O = 4, f32, TF32 off) with random weights made from a
-seed:
+Drives the port's paths at full width with random weights made from a
+seed, f32 with TF32 off: relation scoring served over HTTP and relation
+training (BiLSTM 200 per direction over 300-d word vectors, head 800,
+O = 4), and affinity scoring served over HTTP, affinity batch predict with
+the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
+4096-d VGG fc7 box features, head 1024, O = 2):
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
-2. builds the three hand-written CUDA sources from icl_torch/csrc, one nvcc
+2. builds the four hand-written CUDA sources from icl_torch/csrc, one nvcc
    each, side by side, and prints ptxas's registers and spills;
 3. checks each kernel against its plain PyTorch version on the card (gate:
-   max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head and
-   the recurrence at the served shapes, the recurrence's training residuals
-   (gates, c) at L=32 B=512, and the four training grid-head kernels (K5
-   forward, K6 backward, K7 loss forward, K8 loss backward) at G in {1, 64},
-   A = B in {8, 16, 32}, K=800, O=4, dropout rate 0 and 0.5 (kernels and
-   plain versions share one hash mask); then times each kernel against its
-   plain version, per call with CUDA events over back-to-back calls, and
-   device time alone with the profiler;
-4. serving: writes a data dir (synthetic 300-d word vectors, seeded weights
-   as an icl-export archive), serves it with icl_torch.serve on 127.0.0.1
-   and sends Flickr30k-shaped requests (8 single-image requests, one
-   8-image request, 4 concurrent ones, a repeat that must come back
-   byte-identical); served probs match the plain model within 1e-5; the
-   grid head and the recurrence launch over the requests;
-5. training: a planted synthetic dataset of 128 images (up to 32 tokens,
-   up to 15 mentions), batched 64 images at a time, trains the fused model
-   5 steps with the grid loss at dropout 0.5 and class weights
+   max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
+   and the recurrence at the served relation shapes, the recurrence's
+   training residuals (gates, c) at L=32 B=512, and the four training
+   grid-head kernels (K5 forward, K6 backward, K7 loss forward, K8 loss
+   backward) at G in {1, 64}, A = B in {8, 16, 32}, K=800, O=4, dropout
+   rate 0 and 0.5 (kernels and plain versions share one hash mask); then
+   at the affinity shapes: the box ranking (K9) at G in {1, 4, 64}, A in
+   {8, 16}, B in {8, 20, 32}, K=1024 with ragged box validity and an image
+   with no valid box, K1 and K5-K8 (rate 0 and 0.5) at A=16, B in {20, 32},
+   K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
+   in {16, 1024} (hs, final and the residuals); then times each kernel
+   against its plain version, per call with CUDA events over back-to-back
+   calls, and device time alone with the profiler;
+4. relation serving: writes a data dir (synthetic 300-d word vectors,
+   seeded relation and affinity weights as icl-export archives), serves it
+   with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
+   single-image requests, one 8-image request, 4 concurrent ones, a repeat
+   that must come back byte-identical); served probs match the plain model
+   within 1e-5; the grid head and the recurrence launch over the requests;
+5. affinity serving, same server: 8 single-image requests of 12 phrases of
+   up to 8 tokens and 20 boxes of 4096 floats, one 4-image request, 4
+   concurrent ones and a byte-identical repeat; the served grid matches the
+   plain model within 1e-5; the grid head and the recurrence launch;
+6. relation training: a planted synthetic dataset of 128 images (up to 32
+   tokens, up to 15 mentions), batched 64 images at a time, trains the
+   fused model 5 steps with the grid loss at dropout 0.5 and class weights
    [0.3, 1, 1, 1], then 2 steps with null weight 0 (the guard takes the
    pair form), then scores a batch.  At the first step of each form the
    kernel path's loss, metrics and every parameter gradient are held
    against the plain model's from the same params and seeds; every loss is
-   finite; all six kernels launch in this phase; per-step times of the
-   kernel path and the plain path;
-6. prints the times beside the card;
-7. prints one JSON line with the kernels' launches, errors and times, then,
-   last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   finite; all six relation kernels launch in this phase; per-step times of
+   the kernel path and the plain path;
+7. affinity batch predict with ranking: a planted synthetic split of 128
+   images (20 boxes each, rewritten at 4096-d, up to 15 phrases) through
+   AffinityBatcher (64 images, buckets (8, 16, 32), phrase_len 16);
+   probs and box rankings of the fused model against the plain model
+   within 1e-5; the grid head, the recurrence and the box ranking launch;
+   cells per second of both;
+8. affinity training on those batches: 5 grid-loss steps at dropout 0.5,
+   then 2 steps with class weights [0, 1] (the guard takes the cell form);
+   the first step of each form held against the plain path; the recurrence
+   and K5-K8 launch; per-step times;
+9. prints the times beside the card;
+10. prints one JSON line with the seven kernels' launches, errors and times,
+    then, last, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+    "count": ...}}.
 
 Any failed phase exits non-zero before the last line; without a CUDA
 device it exits 2 at once, and without the repository around it the
@@ -57,30 +79,39 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from icl.data.buckets import BucketSpec
 from icl.data.embeddings import EmbeddingStore
-from icl.data.imagebatch import RelationBatcher
-from icl.data.pipeline import load_relation_dataset
+from icl.data.imagebatch import AffinityBatcher, RelationBatcher
+from icl.data.pipeline import load_affinity_dataset, load_relation_dataset
+from icl.io.boxes import read_box_feats, write_box_feats
 from icl.testing.synth import SynthConfig, generate_dataset
+from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops import _build
 from icl_torch.ops import grid_head_train as ght
+from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
 from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
                                            lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
-from icl_torch.params import init_relation_params, save_npz
+from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
 from icl_torch.train.state import create_train_state
-from icl_torch.train.steps import (make_relation_train_step, relation_loss,
+from icl_torch.train.steps import (affinity_loss, affinity_predict,
+                                   make_affinity_train_step,
+                                   make_relation_train_step, relation_loss,
                                    relation_predict)
 
 KERNEL_GATE = 1e-5     # relative to max(1, max |plain|), f32, TF32 off
 PROBS_GATE = 1e-5      # served probs (6 decimals) vs the plain model
 DIMS = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
+AFF_DIMS = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 1024,
+            "box_dim": 4096}   # VGG fc7 boxes, phrase LSTM 200, O = 2
 VOCAB = 2000
 SEED = 0
-RATE = 0.5             # relation dropout (icl-relation's default)
-SOURCES = ("grid_head", "lstm_recurrence", "grid_head_train")
+RATE = 0.5             # dropout (the relation and affinity CLIs' default)
+SOURCES = ("grid_head", "lstm_recurrence", "grid_head_train",
+           "affinity_rank")
 TRAIN_KERNELS = {      # name -> wrapper carrying the launch count
     "grid_head_train_fwd": ght.grid_head_train_fwd,
     "grid_head_train_bwd": ght.grid_head_train_bwd,
@@ -99,7 +130,10 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
                                  "icl/ops/grid_head_train.py:706"),
     "grid_head_train_loss_bwd": ("icl_torch/csrc/grid_head_train.cu",
                                  "icl/ops/grid_head_train.py:789"),
+    "affinity_rank": ("icl_torch/csrc/affinity_rank.cu",
+                      "icl/ops/affinity_rank.py:90"),
 }
+PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
 def main() -> int:
@@ -149,25 +183,26 @@ def main() -> int:
             failures.append(what)
         return err, tol
 
-    def head_inputs(G, M):
-        K, O = DIMS["head_hidden"], 4
-        return (torch.randn(G, M, K, generator=gen, device=dev),
-                torch.randn(G, M, K, generator=gen, device=dev),
+    def head_inputs(G, A, B=None, K=DIMS["head_hidden"], O=4):
+        B = A if B is None else B
+        return (torch.randn(G, A, K, generator=gen, device=dev),
+                torch.randn(G, B, K, generator=gen, device=dev),
                 torch.randn(K, generator=gen, device=dev),
                 torch.randn(K, O, generator=gen, device=dev) / K ** 0.5,
                 torch.randn(O, generator=gen, device=dev))
 
-    def train_inputs(G, M):
+    def train_inputs(G, A, B=None, K=DIMS["head_hidden"], O=4):
         """The arguments of K5-K8, rate aside, over one random problem."""
-        X, Y, b1, W2, b2 = head_inputs(G, M)
+        B = A if B is None else B
+        X, Y, b1, W2, b2 = head_inputs(G, A, B, K, O)
         seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
                               device=dev, dtype=torch.int32)
-        labels = torch.randint(0, 4, (G, M, M), generator=gen, device=dev,
+        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
                                dtype=torch.int32)
-        weights = ((torch.rand(G, M, M, generator=gen, device=dev) > 0.25)
-                   * torch.where(torch.rand(G, M, M, generator=gen,
+        weights = ((torch.rand(G, A, B, generator=gen, device=dev) > 0.25)
+                   * torch.where(torch.rand(G, A, B, generator=gen,
                                             device=dev) > 0.5, 1.0, 0.3))
-        cot = torch.randn(G, M, M, 4, generator=gen, device=dev)
+        cot = torch.randn(G, A, B, O, generator=gen, device=dev)
         gl = torch.rand((), generator=gen, device=dev)
         return {"grid_head_train_fwd": (X, Y, b1, W2, b2, seeds),
                 "grid_head_train_bwd": (X, Y, b1, W2, seeds, cot),
@@ -176,15 +211,26 @@ def main() -> int:
                 "grid_head_train_loss_bwd": (X, Y, b1, W2, b2, seeds, labels,
                                              weights, gl)}
 
-    def rec_inputs(L, B):
+    def rec_inputs(L, B, G=2):
+        """G=2: a BiLSTM's two directions; G=1: the phrase LSTM."""
         H = DIMS["lstm_hidden"]
         lengths = torch.randint(0, L + 1, (B,), generator=gen, device=dev)
         lengths[0], lengths[-1] = 0, L
         t = torch.arange(L, device=dev)[:, None]
-        mask = torch.stack([t < lengths, (L - 1 - t) < lengths])
-        return (torch.randn(2, L, B, 4 * H, generator=gen, device=dev),
+        mask = torch.stack([t < lengths, (L - 1 - t) < lengths])[:G]
+        return (torch.randn(G, L, B, 4 * H, generator=gen, device=dev),
                 mask.contiguous(),
-                torch.randn(2, H, 4 * H, generator=gen, device=dev) / H ** .5)
+                torch.randn(G, H, 4 * H, generator=gen, device=dev) / H ** .5)
+
+    def rank_inputs(G, A, B):
+        """K9's arguments: ragged box validity, box 0 always valid, and
+        the last image (G > 1) with no valid box."""
+        valid = torch.rand(G, B, generator=gen, device=dev) < 0.7
+        valid[:, 0] = True
+        if G > 1:
+            valid[-1] = False
+        return (*head_inputs(G, A, B, AFF_DIMS["head_hidden"], 2),
+                valid.contiguous())
 
     plain_of = {"grid_head_train_fwd": ght.grid_head_train_reference,
                 "grid_head_train_bwd": ght.grid_head_train_bwd_plain,
@@ -233,6 +279,63 @@ def main() -> int:
         if any(t.numel() and t.any() for t in _tuple(out)):
             failures.append(f"{name} empty grid")
     print("check grid_head_train K5-K8 empty grid: zeros")
+
+    # the affinity shapes: K9, K1 and K5-K8 at K=1024 O=2 with A != B, the
+    # one-direction recurrence
+    K_AFF = AFF_DIMS["head_hidden"]
+    errs = []
+    for G in (1, 4, 64):
+        for A in (8, 16):
+            for B in (8, 20, 32):
+                args = rank_inputs(G, A, B)
+                got = affinity_rank(*args)
+                errs.append(check(f"affinity_rank G={G} A={A} B={B} "
+                                  f"K={K_AFF}", got,
+                                  affinity_rank_reference(*args), quiet=True))
+                if got[~args[-1][:, None, :].expand_as(got)].any():
+                    failures.append(f"affinity_rank G={G} A={A} B={B} "
+                                    f"invalid box not 0")
+                if not torch.equal(got, affinity_rank(*args)):
+                    failures.append(f"affinity_rank G={G} A={A} B={B} "
+                                    f"not repeatable")
+    bad = [f for f in failures if f.startswith("affinity_rank")]
+    print(f"check affinity_rank K9 at G in (1, 4, 64), A in (8, 16), B in "
+          f"(8, 20, 32), K={K_AFF}: max|d| {max(e for e, _ in errs):.3e} "
+          f"(gate {min(t for _, t in errs):.1e}), invalid boxes 0, repeated "
+          f"bits equal; {len(bad)} failures")
+    n0 = affinity_rank.launches
+    empty = affinity_rank(*rank_inputs(4, 0, 20))
+    if empty.shape != (4, 0, 20) or affinity_rank.launches != n0:
+        failures.append("affinity_rank empty grid")
+    print(f"check affinity_rank empty grid: shape {tuple(empty.shape)}, no "
+          f"launch")
+    for B in (20, 32):
+        for G in (4, 64):
+            args = head_inputs(G, 16, B, K_AFF, 2)
+            check(f"grid_head G={G} A=16 B={B} K={K_AFF} O=2",
+                  grid_head(*args), grid_head_reference(*args))
+        cases = train_inputs(64, 16, B, K_AFF, 2)
+        for rate in (0.0, RATE):
+            errs = {name: check(f"{name} G=64 A=16 B={B} K={K_AFF} O=2 "
+                                f"rate={rate}",
+                                TRAIN_KERNELS[name](*a, rate),
+                                plain_of[name](*a, rate), quiet=True)
+                    for name, a in cases.items()}
+            print(f"check grid_head_train K5-K8 G=64 A=16 B={B} K={K_AFF} "
+                  f"O=2 rate={rate}: max|d| (gate) " + ", ".join(
+                      f"{n[16:]} {e:.2e} ({t:.1e})"
+                      for n, (e, t) in errs.items()))
+    for L in (8, 16):
+        for B in (16, 1024):
+            args = rec_inputs(L, B, G=1)
+            got = lstm_recurrence_fwd(*args, residuals=True)
+            bare = lstm_recurrence(*args)
+            if not (torch.equal(got[0], bare[0])
+                    and torch.equal(got[1], bare[1])):
+                failures.append(f"lstm_recurrence G=1 L={L} B={B} "
+                                f"residuals changed hs")
+            check(f"lstm_recurrence G=1 L={L} B={B} H=200 (hs, final, gates, "
+                  f"c)", got, lstm_recurrence_reference(*args, True))
     if failures:
         raise RuntimeError(f"kernel checks failed: {failures}")
 
@@ -258,6 +361,33 @@ def main() -> int:
         cases[name] = ((lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
                        (lambda f=plain_of[name], a=a: f(*a, RATE)),
                        f"G=64 A=B=16 K=800 O=4 rate={RATE}")
+    # the affinity shapes: batch predict and training (64 images, 16
+    # phrases, 32 boxes), the served 4-image request, the phrase LSTM over
+    # 64 x 16 phrases
+    for G in (64, 4):
+        a = rank_inputs(G, 16, 32)
+        key = "affinity_rank" if G == 64 else f"affinity_rank G={G}"
+        cases[key] = ((lambda a=a: affinity_rank(*a)),
+                      (lambda a=a: affinity_rank_reference(*a)),
+                      f"G={G} A=16 B=32 K={K_AFF}")
+    aff_head = head_inputs(64, 16, 32, K_AFF, 2)
+    cases["grid_head affinity"] = ((lambda: grid_head(*aff_head)),
+                                   (lambda: grid_head_reference(*aff_head)),
+                                   f"G=64 A=16 B=32 K={K_AFF} O=2")
+    for name, a in train_inputs(64, 16, 32, K_AFF, 2).items():
+        cases[f"{name} affinity"] = (
+            (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
+            (lambda f=plain_of[name], a=a: f(*a, RATE)),
+            f"G=64 A=16 B=32 K={K_AFF} O=2 rate={RATE}")
+    phrase_rec = rec_inputs(16, 1024, G=1)
+    cases["lstm_recurrence G=1"] = (
+        (lambda: lstm_recurrence(*phrase_rec)[0]),
+        (lambda: lstm_recurrence_reference(*phrase_rec)[0]),
+        "G=1 L=16 B=1024 H=200")
+    cases["lstm_recurrence G=1 with residuals"] = (
+        (lambda: lstm_recurrence_fwd(*phrase_rec, residuals=True)),
+        (lambda: lstm_recurrence_reference(*phrase_rec, residuals=True)),
+        "G=1 L=16 B=1024 H=200")
     timing = {name: {"shape": shape,
                      "max_abs_err": _max_err(fn(), plain()),
                      "ms": _time_ms(fn),
@@ -273,6 +403,9 @@ def main() -> int:
             seed=SEED))
         flat = init_relation_params(SEED, DIMS)
         save_npz(f"{d}/relation.npz", flat, {"task": "relation", **DIMS})
+        aff_flat = init_params("affinity", SEED, AFF_DIMS)
+        save_npz(f"{d}/affinity.npz", aff_flat,
+                 {"task": "affinity", "phrase_enc": "lstm", **AFF_DIMS})
         httpd = serve(d, port=0, warmup="basic")
         server = threading.Thread(target=httpd.serve_forever, daemon=True)
         server.start()
@@ -296,17 +429,42 @@ def main() -> int:
             if perr > PROBS_GATE:
                 raise RuntimeError("served probs disagree with the plain "
                                    "model")
+            # 5. affinity serving, same server
+            aff_result = _drive_affinity(httpd)
+            aff_plain = AffinityModel(**AFF_DIMS, fused=False, device=dev)
+            aff_plain.load_flat(aff_flat)
+            prepped = [scorer._prep_affinity_image(img)
+                       for img in aff_result["images"]]
+            want = affinity_predict(aff_plain, scorer.table,
+                                    scorer._stack_arrays(
+                                        [p[1] for p in prepped])
+                                    ).cpu().numpy()
+            got = np.array([im["grid"]
+                            for im in aff_result["batch_body"]["images"]])
+            perr = float(np.abs(
+                got - want[:, :got.shape[1], :got.shape[2]]).max())
+            print(f"check served affinity grid vs plain model on the card: "
+                  f"max|d| {perr:.3e} (gate {PROBS_GATE:.0e}) "
+                  f"{'ok' if perr <= PROBS_GATE else 'FAIL'}")
+            if perr > PROBS_GATE:
+                raise RuntimeError("served affinity grid disagrees with the "
+                                   "plain model")
         finally:
             httpd.shutdown()
             httpd.server_close()
             server.join(timeout=10)
 
-    # 5. training
+    # 6. relation training
     train = _train(dev, check)
     if failures:
         raise RuntimeError(f"training checks failed: {failures}")
 
-    # 6. times, each beside the card
+    # 7. affinity batch predict with ranking; 8. affinity training
+    aff = _affinity(dev, check)
+    if failures:
+        raise RuntimeError(f"affinity checks failed: {failures}")
+
+    # 9. times, each beside the card
     for name, t in timing.items():
         print(f"time {name} [{t['shape']}]: per call kernel {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
@@ -320,10 +478,25 @@ def main() -> int:
     print(f"time train step [{train['shape']}], grid loss, dropout {RATE}: "
           f"kernel path {train['step_ms']:.2f} ms, plain path "
           f"{train['plain_step_ms']:.2f} ms per step ({card})")
+    lat = aff_result["latency_ms"]
+    print(f"time affinity request p50: client {lat['client_p50']:.2f} ms "
+          f"over {lat['n']} single-image requests (12 phrases, 20 boxes of "
+          f"4096), server predict p50 {lat['server_p50']} ms; 4-image "
+          f"request {lat['batch_ms']:.2f} ms ({card})")
+    print(f"time affinity batch predict with ranking [{aff['shape']}]: "
+          f"kernel path {aff['cells_per_s']:.0f} cells/s "
+          f"({aff['predict_ms']:.2f} ms per batch), plain path "
+          f"{aff['plain_cells_per_s']:.0f} cells/s "
+          f"({aff['plain_predict_ms']:.2f} ms per batch) ({card})")
+    print(f"time affinity train step [{aff['shape']}], grid loss, dropout "
+          f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
+          f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
-    # 7. result lines
-    launches = {**result["launches"],
-                **{k: train["launches"][k] for k in TRAIN_KERNELS}}
+    # 10. result lines: launches summed over the phases that drove the paths
+    launches = dict.fromkeys(REPLACES, 0)
+    for phase in (result, aff_result, train, aff):
+        for k, n in phase["launches"].items():
+            launches[k] += n
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": timing[name]["max_abs_err"],
@@ -406,10 +579,8 @@ def _train(dev, check) -> dict:
     state = create_train_state(model, seed=SEED)
     plain = RelationModel(**DIMS, fused=False, dropout=RATE, device=dev)
 
-    grid_head.launches = 0
-    lstm_recurrence.launches = 0
-    for fn in TRAIN_KERNELS.values():
-        fn.launches = 0
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS}
+    _reset(kernels)
     losses = []
     for form, cw, n in (("grid", [0.3, 1.0, 1.0, 1.0], 5),
                         ("pair", [0.0, 1.0, 1.0, 1.0], 2)):
@@ -450,15 +621,9 @@ def _train(dev, check) -> dict:
         raise RuntimeError("scoring after training: bad probabilities")
     acc = ((probs.argmax(-1) == batches[0]["pair_label"]) & valid).sum() \
         / valid.sum()
-    torch.cuda.synchronize()
-    launches = {"grid_head": grid_head.launches,
-                "lstm_recurrence": lstm_recurrence.launches,
-                **{k: fn.launches for k, fn in TRAIN_KERNELS.items()}}
-    print(f"check launches over the training path: {launches}")
+    launches = _read(kernels, "the relation training path")
     print(f"train: losses {[round(x, 6) for x in losses]}, pair accuracy "
           f"after training {acc.item():.4f} over {int(valid.sum())} pairs")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel was not launched: {launches}")
 
     # per-step times of both paths on the fullest batch, grid loss
     batch = batches[0]
@@ -495,9 +660,10 @@ def _image(rng, k: int) -> dict:
     return {"id": f"img{k}", "captions": caps, "mentions": ments}
 
 
-def _post(url: str, obj: dict) -> tuple[int, bytes, float]:
+def _post(url: str, obj: dict,
+          path: str = "/score/relation") -> tuple[int, bytes, float]:
     req = urllib.request.Request(
-        url + "/score/relation", data=json.dumps(obj).encode(),
+        url + path, data=json.dumps(obj).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=120) as r:
@@ -523,8 +689,7 @@ def _drive(httpd) -> dict:
     rng = np.random.default_rng(SEED)
     singles = [_image(rng, k) for k in range(8)]
     batch = [_image(rng, 8 + k) for k in range(8)]
-    grid_head.launches = 0
-    lstm_recurrence.launches = 0
+    _reset(PREDICT_KERNELS)
 
     lat, first = [], None
     for img in singles:
@@ -559,12 +724,7 @@ def _drive(httpd) -> dict:
     if again != first:
         raise RuntimeError("a repeated request gave different bytes")
     print("check repeated request: byte-identical JSON ok")
-    torch.cuda.synchronize()
-    launches = {"grid_head": grid_head.launches,
-                "lstm_recurrence": lstm_recurrence.launches}
-    print(f"check launches over the requests: {launches}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel was not launched: {launches}")
+    launches = _read(PREDICT_KERNELS, "the relation requests")
 
     with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
         health = json.loads(r.read())
@@ -577,6 +737,222 @@ def _drive(httpd) -> dict:
                 "client_p50": lat[len(lat) // 2], "n": len(lat),
                 "server_p50": health["latency_ms"]["relation"]["p50_ms"],
                 "batch_ms": batch_ms}}
+
+
+def _reset(kernels: dict) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _read(kernels: dict, phase: str) -> dict:
+    """The launch counts of a phase; raises if a kernel did not launch."""
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"check launches over {phase}: {launches}")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"a kernel was not launched over {phase}: "
+                           f"{launches}")
+    return launches
+
+
+def _affinity_image(rng, k: int) -> dict:
+    """A Flickr30k-shaped affinity request: 12 phrases of 1..8 tokens, 20
+    candidate boxes of 4096 VGG fc7 features (post-ReLU, 4 decimals)."""
+    phrases = [[f"w{int(t):03d}" for t in rng.integers(0, VOCAB, n)]
+               for n in rng.integers(1, 9, 12)]
+    boxes = np.round(np.maximum(rng.normal(size=(20, AFF_DIMS["box_dim"])),
+                                0.0), 4)
+    return {"id": f"aff{k}", "phrases": phrases, "boxes": boxes.tolist()}
+
+
+def _check_affinity_body(body: dict, n_images: int) -> None:
+    if len(body["images"]) != n_images:
+        raise RuntimeError(f"{len(body['images'])} images in the response, "
+                           f"{n_images} sent")
+    for im in body["images"]:
+        grid = np.array(im["grid"])
+        if grid.shape != (12, 20, 2) or not np.isfinite(grid).all():
+            raise RuntimeError(f"bad grid for {im['id']}: {grid.shape}")
+        if np.abs(grid.sum(-1) - 1).max() > 1e-5:
+            raise RuntimeError(f"probs of {im['id']} do not sum to 1")
+
+
+def _drive_affinity(httpd) -> dict:
+    """The served affinity path: HTTP requests; counts launches."""
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    path = "/score/affinity"
+    rng = np.random.default_rng(SEED + 1)
+    singles = [_affinity_image(rng, k) for k in range(8)]
+    batch = [_affinity_image(rng, 8 + k) for k in range(4)]
+    _reset(PREDICT_KERNELS)
+
+    lat, first = [], None
+    for img in singles:
+        status, raw, ms = _post(url, {"images": [img]}, path)
+        if status != 200:
+            raise RuntimeError(f"single affinity request: HTTP {status}")
+        _check_affinity_body(json.loads(raw), 1)
+        lat.append(ms)
+        first = first or raw
+    status, raw, batch_ms = _post(url, {"images": batch}, path)
+    if status != 200:
+        raise RuntimeError(f"4-image affinity request: HTTP {status}")
+    batch_body = json.loads(raw)
+    _check_affinity_body(batch_body, 4)
+
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(
+            lambda img: _post(url, {"images": [img]}, path), singles[:4]))
+    for r in results:
+        if r[0] != 200:
+            raise RuntimeError(f"concurrent affinity request: HTTP {r[0]}")
+        _check_affinity_body(json.loads(r[1]), 1)
+
+    status, again, _ = _post(url, {"images": [singles[0]]}, path)
+    if again != first:
+        raise RuntimeError("a repeated affinity request gave different "
+                           "bytes")
+    print("check repeated affinity request: byte-identical JSON ok")
+    launches = _read(PREDICT_KERNELS, "the affinity requests")
+    with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    lat.sort()
+    return {"images": batch, "batch_body": batch_body, "launches": launches,
+            "latency_ms": {
+                "client_p50": lat[len(lat) // 2], "n": len(lat),
+                "server_p50": health["latency_ms"]["affinity"]["p50_ms"],
+                "batch_ms": batch_ms}}
+
+
+def _widen_boxes(path: str, dim: int, seed: int) -> None:
+    """Rewrite a synthetic split's box features at ``dim`` (VGG fc7's 4096):
+    the 64 written features first (they carry the planted box signature),
+    then post-ReLU noise."""
+    ids, feats = read_box_feats(path)
+    rng = np.random.default_rng(seed)
+    wide = np.maximum(rng.normal(size=(len(ids), dim)), 0.0).astype(
+        np.float32)
+    wide[:, :feats.shape[1]] = feats
+    write_box_feats(path, ids, wide)
+
+
+def _affinity(dev, check) -> dict:
+    """Affinity batch predict with the box ranking, then 5 grid-loss and 2
+    cell-form train steps, over a planted 128-image split at full width;
+    counts the launches of each phase."""
+    with tempfile.TemporaryDirectory(prefix="icl_chip_affinity_") as d:
+        generate_dataset(d, "train", SynthConfig(
+            planted=True, emb_dim=AFF_DIMS["emb_dim"], vocab_size=VOCAB,
+            max_boxes_per_image=20, num_images=128, seed=SEED))
+        _widen_boxes(f"{d}/train.boxes.npz", AFF_DIMS["box_dim"], SEED)
+        emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+        ds = load_affinity_dataset(d, "train", emb)
+        batcher = AffinityBatcher(images_per_batch=64,
+                                  mention_spec=BucketSpec((8, 16, 32)),
+                                  box_spec=BucketSpec((8, 16, 32)),
+                                  phrase_len=16, with_ids=False)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in b.arrays.items()}
+                   for b in batcher.batches(ds)]
+    table = torch.from_numpy(emb.table).to(dev)
+    batches.sort(key=lambda b: -int(b["grid_valid"].sum()))
+    I, M, L = batches[0]["phrase_tokens"].shape
+    B = batches[0]["box_feats"].shape[1]
+    shape = f"I={I} M={M} B={B} L={L}, {len(batches)} batches"
+    flat = init_params("affinity", SEED, AFF_DIMS)
+    model = AffinityModel(**AFF_DIMS, fused=True, dropout=RATE, device=dev)
+    plain = AffinityModel(**AFF_DIMS, fused=False, dropout=RATE, device=dev)
+    model.load_flat(flat)
+    plain.load_flat(flat)
+
+    # 7. batch predict with ranking: kernel path, held against the plain
+    rank_kernels = {**PREDICT_KERNELS, "affinity_rank": affinity_rank}
+    _reset(rank_kernels)
+    outs = [affinity_predict(model, table, b, rank=True) for b in batches]
+    launches = _read(rank_kernels, "affinity batch predict")
+    for n, (b, got) in enumerate(zip(batches, outs)):
+        want = affinity_predict(plain, table, b, rank=True)
+        check(f"affinity batch {n} probs: kernel path vs plain", got[0],
+              want[0])
+        check(f"affinity batch {n} ranking: kernel path vs plain", got[1],
+              want[1])
+        if not torch.isfinite(got[1]).all() or got[1][
+                ~b["box_valid"][:, None, :].expand_as(got[1])].any():
+            raise RuntimeError("ranking: invalid box not 0")
+    cells = sum(int(b["grid_valid"].sum()) for b in batches)
+    times = {}
+    for name, m in (("kernel", model), ("plain", plain), ("kernel2", model),
+                    ("plain2", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            affinity_predict(m, table, b, rank=True)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    t_k = min(times["kernel"], times["kernel2"])
+    t_p = min(times["plain"], times["plain2"])
+
+    # 8. training: 5 grid-loss steps, 2 cell-form steps (weights [0, 1])
+    state = create_train_state(model, seed=SEED, params=flat)
+    train_kernels = {"lstm_recurrence": lstm_recurrence, **TRAIN_KERNELS}
+    _reset(train_kernels)
+    losses = []
+    for form, cw, n in (("grid", None, 5), ("cell", [0.0, 1.0], 2)):
+        step = make_affinity_train_step(class_weights=cw, grid_loss=True)
+        if step.grid_loss != (form == "grid"):
+            raise RuntimeError(f"affinity {form} form: wrong step form")
+        for i in range(n):
+            batch = batches[len(losses) % len(batches)]
+            if i == 0:      # the plain model's step from the same params
+                plain.load_flat(model.flat_params())
+                plain.zero_grad(set_to_none=True)
+                loss_p, want = affinity_loss(
+                    plain, table, batch, state.dropout_seeds(I),
+                    None if cw is None else torch.tensor(cw, device=dev),
+                    step.grid_loss)
+                loss_p.backward()
+            metrics = step(state, table, batch)
+            loss = metrics["loss"].item()
+            losses.append(loss)
+            print(f"affinity train step {state.step} ({form} form): loss "
+                  f"{loss:.6f} acc {metrics['acc'].item():.4f}")
+            if not np.isfinite(loss):
+                raise RuntimeError(f"non-finite affinity loss at step "
+                                   f"{state.step}")
+            if i == 0:
+                for k, v in want.items():
+                    check(f"affinity train {form} form step 1 {k}: kernel "
+                          f"path vs plain", metrics[k], v.detach())
+                grads = dict(plain.named_parameters())
+                errs = [check(f"affinity train {form} form grad {k}", p.grad,
+                              grads[k].grad, quiet=True)
+                        for k, p in model.named_parameters()]
+                print(f"check affinity train {form} form step 1: "
+                      f"{len(errs)} parameter gradients, kernel path vs "
+                      f"plain, max|d| {max(e for e, _ in errs):.3e} "
+                      f"(smallest gate {min(t for _, t in errs):.1e})")
+    launches.update({k: launches.get(k, 0) + n for k, n in
+                     _read(train_kernels, "affinity training").items()})
+    print(f"affinity train: losses {[round(x, 6) for x in losses]}")
+
+    # per-step times of both paths on the fullest batch, grid loss
+    step = make_affinity_train_step(grid_loss=True)
+    plain_state = create_train_state(plain, params=model.flat_params())
+    step_ms = {}
+    for name, st in (("kernel", state), ("plain", plain_state)):
+        step(st, table, batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(st, table, batches[0])
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) / 5 * 1e3
+    return {"launches": launches, "shape": shape,
+            "cells_per_s": cells / t_k, "plain_cells_per_s": cells / t_p,
+            "predict_ms": t_k / len(batches) * 1e3,
+            "plain_predict_ms": t_p / len(batches) * 1e3,
+            "step_ms": step_ms["kernel"],
+            "plain_step_ms": step_ms["plain"]}
 
 
 if __name__ == "__main__":

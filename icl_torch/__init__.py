@@ -8,10 +8,11 @@ flat ``.npz`` + manifest (:mod:`icl_torch.params`).
 
 Layers:
   icl_torch.ops     hand-written CUDA kernels (csrc/*.cu) + plain versions
-  icl_torch.models  nn.Modules: masked LSTM/BiLSTM, the relation model
+  icl_torch.models  nn.Modules: masked LSTM/BiLSTM, the relation and
+                    affinity models
   icl_torch.train   train state (Adam, dropout seeds), train and predict
                     steps
-  icl_torch.serve   HTTP scoring service (relation)
+  icl_torch.serve   HTTP scoring service (relation, affinity)
 """
 
 __version__ = "0.1.0"

@@ -31,9 +31,9 @@ forms give the same loss at any rate.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from icl.data.pairs import RELATION_CLASSES
+from icl_torch.models._layers import Dense, FlatParams
 from icl_torch.models.rnn import BiLSTM
 from icl_torch.ops.grid_head import grid_head
 from icl_torch.ops.grid_head_train import (dropout_applies, dropout_scale,
@@ -60,18 +60,7 @@ def gather_mention_reps(enc: torch.Tensor, m_cap: torch.Tensor,
                       flat[row + m_last.long()]], dim=-1)
 
 
-class Dense(nn.Module):
-    """``kernel [in, out]`` and ``bias [out]`` in the Keras layout."""
-
-    def __init__(self, in_features: int, features: int,
-                 device: torch.device | None = None):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(in_features, features,
-                                               device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
-
-
-class RelationModel(nn.Module):
+class RelationModel(FlatParams):
     """Image-batch relation model: ``forward(table, batch) -> [I, P, O]``.
 
     ``batch`` holds the padded arrays of ``icl.data.imagebatch`` as tensors:
@@ -80,6 +69,8 @@ class RelationModel(nn.Module):
     param-tree paths (``caption_bilstm/fwd/kernel``, ``head_dense/bias``,
     ...); :meth:`load_flat` takes the ``icl-export`` keys.
     """
+
+    task = "relation"
 
     def __init__(self, emb_dim: int, lstm_hidden: int = 200,
                  head_hidden: int = 800, num_classes: int = 4,
@@ -94,15 +85,6 @@ class RelationModel(nn.Module):
                                      device=device)
         self.head_dense = Dense(8 * lstm_hidden, head_hidden, device)
         self.head_out = Dense(head_hidden, num_classes, device)
-
-    def load_flat(self, flat: dict[str, torch.Tensor]) -> None:
-        """Copy ``icl-export`` keyed weights in; raises on any key or shape
-        mismatch."""
-        self.load_state_dict({k.replace("/", "."): v
-                              for k, v in flat.items()})
-
-    def flat_params(self) -> dict[str, torch.Tensor]:
-        return {k.replace(".", "/"): v for k, v in self.state_dict().items()}
 
     def forward(self, table: torch.Tensor, batch: dict,
                 seeds: torch.Tensor | None = None,

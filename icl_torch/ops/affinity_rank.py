@@ -1,0 +1,106 @@
+"""Box ranking (K9): the per-image masked softmax of the affinity logit.
+
+Counterpart of ``icl/ops/affinity_rank.py``.  For each image g and mention
+a, over the image's candidate boxes::
+
+    s[g,a,b]    = (relu(X[g,a] + Y[g,b] + b1) @ W2 + b2)[affinity_col]
+    rank[g,a,:] = softmax_b(s[g,a,:])  masked to box_valid[g]
+
+Invalid boxes get exactly 0; an image with no valid box gets zeros.
+
+* :func:`affinity_rank_reference` is the plain PyTorch version: the grid
+  head's plain version, then the model's :func:`~icl_torch.models.affinity.
+  rank_boxes`, so the masking convention has one source.  It materialises
+  the [G, A, B, K] activation.
+* :func:`affinity_rank` is the wrapper: for CUDA tensors it launches the
+  hand-written kernel ``icl_torch/csrc/affinity_rank.cu`` (only the
+  [G, A, B] ranking reaches device memory) and counts the launch in
+  ``affinity_rank.launches``; for CPU tensors it runs the plain version.  A
+  CUDA call that the kernel cannot take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from icl_torch.ops import _build
+from icl_torch.ops.grid_head import grid_head_reference
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def affinity_rank_reference(X: torch.Tensor, Y: torch.Tensor,
+                            b1: torch.Tensor, W2: torch.Tensor,
+                            b2: torch.Tensor, box_valid: torch.Tensor,
+                            affinity_col: int = 1) -> torch.Tensor:
+    """Plain version: [G,A,K], [G,B,K], [G,B] bool -> [G,A,B]."""
+    from icl_torch.models.affinity import rank_boxes
+
+    return rank_boxes(grid_head_reference(X, Y, b1, W2, b2), box_valid,
+                      affinity_col=affinity_col)
+
+
+def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
+                  W2: torch.Tensor, b2: torch.Tensor, box_valid: torch.Tensor,
+                  affinity_col: int = 1) -> torch.Tensor:
+    """Same contract as :func:`affinity_rank_reference`; the kernel on CUDA.
+
+    An empty grid (G, A or B = 0) returns zeros without a launch.
+    """
+    if X.device.type == "cpu":
+        return affinity_rank_reference(X, Y, b1, W2, b2, box_valid,
+                                       affinity_col)
+    G, A, B, K, O = _check(X, Y, b1, W2, b2, box_valid, affinity_col)
+    out = torch.empty((G, A, B), dtype=torch.float32, device=X.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("affinity_rank", "icl_affinity_rank_f32", _ARGTYPES)
+    dev = X.device
+    err = lib.icl_affinity_rank_f32(
+        X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
+        b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K, O,
+        affinity_col, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "affinity_rank")
+    affinity_rank.launches += 1
+    return out
+
+
+affinity_rank.launches = 0   # kernel launches since the last reset
+
+
+def _check(X, Y, b1, W2, b2, box_valid, col):
+    """Raise on what the kernel does not take; returns (G, A, B, K, O)."""
+    if X.device.type != "cuda":
+        raise ValueError(f"affinity_rank: unsupported device {X.device}")
+    G, A, K = X.shape
+    B, O = Y.shape[1], W2.shape[1]
+    want = {"X": (X, torch.float32, (G, A, K)),
+            "Y": (Y, torch.float32, (G, B, K)),
+            "b1": (b1, torch.float32, (K,)),
+            "W2": (W2, torch.float32, (K, O)),
+            "b2": (b2, torch.float32, (O,)),
+            "box_valid": (box_valid, torch.bool, (G, B))}
+    for name, (t, dtype, shape) in want.items():
+        if t.device != X.device:
+            raise ValueError(f"affinity_rank: {name} on {t.device}, X on "
+                             f"{X.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"affinity_rank: {name} is {t.dtype}, needs "
+                            f"{dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"affinity_rank: {name} has shape "
+                             f"{tuple(t.shape)}, needs {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"affinity_rank: {name} is not contiguous")
+    if not 0 <= col < O:
+        raise ValueError(f"affinity_rank: affinity_col={col} outside "
+                         f"0..{O - 1}")
+    if G * A >= 2 ** 31:
+        raise ValueError(f"affinity_rank: G*A={G * A} exceeds the launch "
+                         f"grid")
+    if (2 * K + B) * 4 > 227 * 1024:
+        raise ValueError(f"affinity_rank: K={K}, B={B} exceed a block's "
+                         f"shared memory")
+    return G, A, B, K, O

@@ -9,7 +9,14 @@ with the step, each leaf's shape and dtype, the parameter total and the
 * ``caption_bilstm/{fwd,bwd}/kernel [D, 4H]``, ``recurrent_kernel [H, 4H]``,
   ``bias [4H]``, gate slabs in the order i, f, c~, o;
 * ``head_dense/kernel [8H, K]``, ``head_dense/bias [K]``;
-* ``head_out/kernel [K, O]``, ``head_out/bias [O]``.
+* ``head_out/kernel [K, O]``, ``head_out/bias [O]``;
+* affinity: ``phrase_lstm/{kernel,recurrent_kernel,bias}`` (absent with
+  the ``mean_w2v`` phrase encoder), ``head_dense_phrase/{kernel,bias}``,
+  ``head_dense_box/kernel [box_dim, K]`` (no bias) and ``head_out``.
+
+The manifest's ``model_config`` names the task and the widths (``task``,
+``emb_dim``, ``lstm_hidden``, ``head_hidden``, and for affinity
+``phrase_enc`` and ``box_dim``).
 
 Loading and saving copy bytes and never convert, so an archive that goes
 numpy -> torch -> numpy comes back byte-identical.
@@ -34,9 +41,7 @@ def relation_param_shapes(dims: dict) -> dict[str, tuple[int, ...]]:
     K, O = dims["head_hidden"], dims.get("num_classes", 4)
     shapes = {}
     for d in ("fwd", "bwd"):
-        shapes[f"caption_bilstm/{d}/kernel"] = (D, 4 * H)
-        shapes[f"caption_bilstm/{d}/recurrent_kernel"] = (H, 4 * H)
-        shapes[f"caption_bilstm/{d}/bias"] = (4 * H,)
+        shapes.update(_lstm_shapes(f"caption_bilstm/{d}", D, H))
     shapes["head_dense/kernel"] = (8 * H, K)
     shapes["head_dense/bias"] = (K,)
     shapes["head_out/kernel"] = (K, O)
@@ -44,10 +49,46 @@ def relation_param_shapes(dims: dict) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-def init_relation_params(seed: int, dims: dict,
-                         generator: torch.Generator | None = None
-                         ) -> dict[str, torch.Tensor]:
-    """Fresh relation weights with the JAX package's initializer families.
+def affinity_param_shapes(dims: dict) -> dict[str, tuple[int, ...]]:
+    """Pinned affinity-model keys -> shapes (``icl/models/affinity.py``).
+
+    ``dims``: ``emb_dim``, ``lstm_hidden``, ``head_hidden``, ``box_dim`` and
+    optionally ``phrase_enc`` (``"lstm"``, the default, or ``"mean_w2v"``,
+    which has no LSTM and projects the mean word vector) and
+    ``num_classes`` (default 2).  The box side of the split head has no
+    bias.
+    """
+    D, H = dims["emb_dim"], dims["lstm_hidden"]
+    K, O = dims["head_hidden"], dims.get("num_classes", 2)
+    shapes = {}
+    if dims.get("phrase_enc", "lstm") == "lstm":
+        shapes.update(_lstm_shapes("phrase_lstm", D, H))
+        Dp = H
+    else:
+        Dp = D
+    shapes["head_dense_phrase/kernel"] = (Dp, K)
+    shapes["head_dense_phrase/bias"] = (K,)
+    shapes["head_dense_box/kernel"] = (dims["box_dim"], K)
+    shapes["head_out/kernel"] = (K, O)
+    shapes["head_out/bias"] = (O,)
+    return shapes
+
+
+PARAM_SHAPES = {"relation": relation_param_shapes,
+                "affinity": affinity_param_shapes}
+
+
+def _lstm_shapes(prefix: str, D: int, H: int) -> dict[str, tuple[int, ...]]:
+    return {f"{prefix}/kernel": (D, 4 * H),
+            f"{prefix}/recurrent_kernel": (H, 4 * H),
+            f"{prefix}/bias": (4 * H,)}
+
+
+def init_params(task: str, seed: int, dims: dict,
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
+    """Fresh weights of ``task``'s model with the JAX package's initializer
+    families.
 
     LSTM kernels glorot_uniform, recurrent kernels orthogonal, LSTM biases
     zeros with the forget slab at 1 (``icl/models/rnn.py``); Dense kernels
@@ -58,13 +99,14 @@ def init_relation_params(seed: int, dims: dict,
     """
     gen = generator or torch.Generator().manual_seed(seed)
     out = {}
-    for key, shape in relation_param_shapes(dims).items():
+    for key, shape in PARAM_SHAPES[task](dims).items():
+        lstm = "lstm/" in key
         if key.endswith("recurrent_kernel"):
             out[key] = _orthogonal(shape, gen)
-        elif key.startswith("caption_bilstm") and key.endswith("kernel"):
+        elif lstm and key.endswith("kernel"):
             limit = math.sqrt(6.0 / (shape[0] + shape[1]))
             out[key] = (torch.rand(shape, generator=gen) * 2 - 1) * limit
-        elif key.startswith("caption_bilstm"):          # LSTM bias
+        elif lstm:                                      # LSTM bias
             H = shape[0] // 4
             out[key] = torch.zeros(shape)
             out[key][H:2 * H] = 1.0
@@ -76,6 +118,13 @@ def init_relation_params(seed: int, dims: dict,
         else:                                           # Dense bias
             out[key] = torch.zeros(shape)
     return out
+
+
+def init_relation_params(seed: int, dims: dict,
+                         generator: torch.Generator | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """:func:`init_params` of the relation model."""
+    return init_params("relation", seed, dims, generator)
 
 
 def _orthogonal(shape: tuple[int, int], gen: torch.Generator) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""icl-torch-serve — HTTP relation scoring on PyTorch (counterpart of icl/serve.py).
+"""icl-torch-serve — HTTP relation and affinity scoring on PyTorch
+(counterpart of icl/serve.py).
 
-Loads the word vectors once and the relation weights from
-``<data_dir>/relation.npz`` (+ ``.manifest.json``, whose ``model_config``
-gives the widths; write one with ``icl-export``), then scores JSON requests
-with the same padding buckets, class order and response format as
-``icl-serve``.  On a CUDA device the model runs its fused form, through the
-hand-written grid-head and LSTM-recurrence kernels; on the CPU it runs the
-plain gather form.
+Loads the word vectors once and each task's weights from
+``<data_dir>/<task>.npz`` (+ ``.manifest.json``, whose ``model_config``
+gives the widths; write one with ``icl-export``) where that file exists,
+then scores JSON requests with the same padding buckets, class orders and
+response formats as ``icl-serve``.  It refuses to start when no task's
+archive exists.  On a CUDA device the models run their fused forms, through
+the hand-written grid-head and LSTM-recurrence kernels; on the CPU they run
+their plain forms.
 
 Endpoints (JSON in/out):
 
@@ -14,10 +16,15 @@ Endpoints (JSON in/out):
     POST /score/relation   {"images": [{"id", "captions": [[tok]],
                              "mentions": [{"caption", "first", "last"}],
                              "pairs": [[i, j], ...]}]}
+    POST /score/affinity   {"images": [{"id", "phrases": [[tok]],
+                             "boxes": [[f32 x D]]}]}
+                           -> {"class_order", "images": [{"id", "grid":
+                             [phrase][box] probs}]}
 
 Usage::
 
     python -m icl_torch.serve --data_dir D [--port 8414]
+        [--tasks relation,affinity]
 """
 
 from __future__ import annotations
@@ -37,19 +44,24 @@ import torch
 from icl.data.buckets import BucketSpec
 from icl.data.embeddings import EmbeddingStore
 from icl.util.log import LOG
+from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
 from icl_torch.models.relation import RELATION_CLASSES, RelationModel
 from icl_torch.params import load_npz
-from icl_torch.train.steps import relation_predict
+from icl_torch.train.steps import affinity_predict, relation_predict
 
 _LEN_SPEC = BucketSpec((8, 16, 32, 48))
 _CNT_SPEC = BucketSpec((4, 8, 16, 32))
 _IMG_SPEC = BucketSpec((1, 2, 4, 8))   # images per predict call (batched)
 
-# startup warm-up inventory, (I, C, L, M): the shapes a typical
-# Flickr30k-style client hits first.  C follows the _CNT_SPEC bucketing
-# _prep_relation_image applies (5 captions -> bucket 8).  On CUDA the first
-# call also builds the kernels and lets cuBLAS pick its algorithms.
-_WARMUP_BASIC = {"relation": [(1, 8, 16, 8), (4, 8, 16, 8)]}
+TASKS = ("relation", "affinity")
+
+# startup warm-up inventory: the shapes a typical Flickr30k-style client
+# hits first, relation (I, C, L, M) and affinity (I, M, B, L).  C follows
+# the _CNT_SPEC bucketing _prep_relation_image applies (5 captions ->
+# bucket 8).  On CUDA the first call also builds the kernels and lets
+# cuBLAS pick its algorithms.
+_WARMUP_BASIC = {"relation": [(1, 8, 16, 8), (4, 8, 16, 8)],
+                 "affinity": [(1, 8, 8, 16), (4, 8, 8, 16)]}
 
 
 class ServerOverloaded(Exception):
@@ -148,15 +160,19 @@ class _Coalescer:
 
 
 class Scorer:
-    """Loads the word vectors and the relation weights; scores payloads.
+    """Loads the word vectors and the task weights; scores payloads.
 
-    ``batch_window_ms``: cross-request micro-batching window (see
-    _Coalescer); negative disables coalescing (inline per-request scoring).
+    ``tasks``: the tasks to load (default all of :data:`TASKS`); a task
+    whose ``<data_dir>/<task>.npz`` does not exist is skipped, and none
+    found raises.  ``batch_window_ms``: cross-request micro-batching window
+    (see _Coalescer); negative disables coalescing (inline per-request
+    scoring).
     """
 
     def __init__(self, data_dir: str, embeddings_file: str | None = None,
                  device: torch.device | None = None,
-                 batch_window_ms: float = 2.0, max_pending: int = 256):
+                 batch_window_ms: float = 2.0, max_pending: int = 256,
+                 tasks: list[str] | None = None):
         self.device = torch.device(
             device or ("cuda" if torch.cuda.is_available() else "cpu"))
         emb_path = embeddings_file or os.path.join(data_dir, "embeddings.txt")
@@ -173,22 +189,45 @@ class Scorer:
                           _Coalescer(self._run_group,
                                      window_s=batch_window_ms / 1000.0,
                                      max_pending=max_pending))
-        self.tasks = {"relation": self._load_relation(data_dir)}
-        LOG.info("serve: loaded relation from %s on %s", data_dir,
-                 self.device)
+        self.tasks: dict[str, dict] = {}
+        for task in tasks or TASKS:
+            if task not in TASKS:
+                raise ValueError(f"unknown task {task!r}; known: {TASKS}")
+            path = os.path.join(data_dir, f"{task}.npz")
+            if not os.path.exists(path):
+                continue
+            self.tasks[task] = self._load_task(task, path)
+            LOG.info("serve: loaded %s from %s on %s", task, path,
+                     self.device)
+        if not self.tasks:
+            raise FileNotFoundError(
+                f"no <task>.npz weights archive under {data_dir} "
+                f"(tasks: {', '.join(tasks or TASKS)})")
 
-    def _load_relation(self, data_dir: str) -> dict:
-        flat, manifest = load_npz(os.path.join(data_dir, "relation.npz"))
+    def _load_task(self, task: str, path: str) -> dict:
+        flat, manifest = load_npz(path)
         cfg = manifest.get("model_config", {})
-        model = RelationModel(emb_dim=self.emb.dim,
-                              lstm_hidden=cfg.get("lstm_hidden", 200),
-                              head_hidden=cfg.get("head_hidden", 800),
-                              num_classes=len(RELATION_CLASSES),
-                              fused=self.device.type == "cuda",
-                              device=self.device)
+        fused = self.device.type == "cuda"
+        if task == "relation":
+            model = RelationModel(emb_dim=self.emb.dim,
+                                  lstm_hidden=cfg.get("lstm_hidden", 200),
+                                  head_hidden=cfg.get("head_hidden", 800),
+                                  num_classes=len(RELATION_CLASSES),
+                                  fused=fused, device=self.device)
+            classes = RELATION_CLASSES
+        else:
+            # the box width is a property of the weights (4096 for VGG fc7)
+            box_dim = flat["head_dense_box/kernel"].shape[0]
+            model = AffinityModel(emb_dim=self.emb.dim, box_dim=box_dim,
+                                  lstm_hidden=cfg.get("lstm_hidden", 200),
+                                  head_hidden=cfg.get("head_hidden", 1024),
+                                  num_classes=len(AFFINITY_CLASSES),
+                                  phrase_enc=cfg.get("phrase_enc", "lstm"),
+                                  fused=fused, device=self.device)
+            classes = AFFINITY_CLASSES
         model.load_flat(flat)
         model.eval()
-        return {"classes": RELATION_CLASSES, "model": model}
+        return {"classes": classes, "model": model}
 
     def warmup(self, level: str = "basic") -> int:
         """Run predict once per common bucket shape so first-request
@@ -198,16 +237,31 @@ class Scorer:
         cross-product."""
         if level == "off":
             return 0
-        inv = _WARMUP_BASIC["relation"]
+        inv = _WARMUP_BASIC
         if level == "full":
-            inv = [(I, _CNT_SPEC.bucket_of(5), L, M) for I in (1, 4)
-                   for L in _LEN_SPEC.boundaries
-                   for M in _CNT_SPEC.boundaries]
-        model = self.tasks["relation"]["model"]
-        for I, C, L, M in inv:
-            relation_predict(model, self.table,
-                             _empty_relation_batch(I, C, L, M, self.device))
-        return len(inv)
+            inv = {"relation": [(I, _CNT_SPEC.bucket_of(5), L, M)
+                                for I in (1, 4)
+                                for L in _LEN_SPEC.boundaries
+                                for M in _CNT_SPEC.boundaries],
+                   "affinity": [(I, M, B, 8) for I in (1, 4)
+                                for M in _CNT_SPEC.boundaries
+                                for B in _CNT_SPEC.boundaries]}
+        n = 0
+        for task, t in self.tasks.items():
+            for shape in inv[task]:
+                if task == "relation":
+                    relation_predict(t["model"], self.table,
+                                     _empty_relation_batch(*shape,
+                                                           self.device))
+                else:
+                    I, M, B, L = shape
+                    affinity_predict(t["model"], self.table,
+                                     _empty_affinity_batch(
+                                         I, L, M, B,
+                                         t["model"].dims["box_dim"],
+                                         self.device))
+                n += 1
+        return n
 
     def _prep_relation_image(self, img: dict):
         """One image -> (shape_key, host arrays without batch dim, pairs)."""
@@ -260,6 +314,30 @@ class Scorer:
                   "pair_label": np.zeros(P, np.int32), "pair_valid": pv}
         return (C, L, M, P), arrays, pairs
 
+    def _prep_affinity_image(self, img: dict):
+        """One image -> (shape_key, host arrays without batch dim,
+        (phrases, boxes))."""
+        phrases = img["phrases"]
+        boxes = np.asarray(img["boxes"], np.float32)
+        box_dim = self.tasks["affinity"]["model"].dims["box_dim"]
+        if boxes.ndim != 2 or boxes.shape[1] != box_dim:
+            raise ValueError(f"boxes must be [n, {box_dim}] floats, got "
+                             f"shape {list(boxes.shape)}")
+        M = _CNT_SPEC.bucket_of(max(len(phrases), 1))
+        B = _CNT_SPEC.bucket_of(max(boxes.shape[0], 1))
+        L = _LEN_SPEC.bucket_of(max((len(p) for p in phrases), default=1))
+        pt = np.zeros((M, L), np.int32)
+        pl = np.zeros(M, np.int32)
+        for r, toks in enumerate(phrases):
+            pt[r], pl[r] = self.emb.encode_tokens(toks, L)
+        bf = np.zeros((B, box_dim), np.float32)
+        bf[:boxes.shape[0]] = boxes
+        arrays = {"phrase_tokens": pt, "phrase_len": pl, "box_feats": bf,
+                  "box_valid": np.arange(B) < boxes.shape[0],
+                  "grid_label": np.zeros((M, B), np.int32),
+                  "grid_valid": np.ones((M, B), bool)}
+        return (M, B, L, box_dim), arrays, (len(phrases), boxes.shape[0])
+
     def _stack_arrays(self, arrays_list: list) -> dict:
         """Pad same-shape per-image array dicts to an _IMG_SPEC batch on
         the scoring device."""
@@ -286,8 +364,10 @@ class Scorer:
                 self.stats["device_calls"] += 1
                 self.stats["items"] += len(chunk)
             t0 = time.perf_counter()
-            probs = relation_predict(model, self.table,
-                                     self._stack_arrays(chunk)).cpu().numpy()
+            predict = (relation_predict if task == "relation"
+                       else affinity_predict)
+            probs = predict(model, self.table,
+                            self._stack_arrays(chunk)).cpu().numpy()
             self._record_latency(task, (time.perf_counter() - t0) * 1e3)
             rows.extend(probs[r] for r in range(len(chunk)))
         return rows
@@ -350,6 +430,22 @@ class Scorer:
             })
         return {"class_order": list(t["classes"]), "images": out}
 
+    def score_affinity(self, payload: dict) -> dict:
+        t = self.tasks["affinity"]
+        prepped = [self._prep_affinity_image(img)
+                   for img in payload["images"]]
+        results = self._score_images("affinity", prepped)
+        out = []
+        for idx, img in enumerate(payload["images"]):
+            n_phrases, n_boxes = prepped[idx][2]
+            out.append({
+                "id": img.get("id", ""),
+                "grid": [[[round(float(x), 6) for x in results[idx][r, c]]
+                          for c in range(n_boxes)]
+                         for r in range(n_phrases)],
+            })
+        return {"class_order": list(t["classes"]), "images": out}
+
 
 def _empty_relation_batch(I, C, L, M, device) -> dict:
     P = max(M * (M - 1) // 2, 1)
@@ -362,6 +458,20 @@ def _empty_relation_batch(I, C, L, M, device) -> dict:
             "m_cap": z(I, M), "m_first": z(I, M), "m_last": z(I, M),
             "m_valid": z(I, M, dtype=torch.bool), "pair_ij": z(I, P, 2),
             "pair_label": z(I, P), "pair_valid": z(I, P, dtype=torch.bool),
+            "img_valid": z(I, dtype=torch.bool)}
+
+
+def _empty_affinity_batch(I, L, M, B, D, device) -> dict:
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"phrase_tokens": z(I, M, L),
+            "phrase_len": torch.ones((I, M), dtype=torch.int32,
+                                     device=device),
+            "box_feats": z(I, B, D, dtype=torch.float32),
+            "box_valid": z(I, B, dtype=torch.bool),
+            "grid_label": z(I, M, B),
+            "grid_valid": z(I, M, B, dtype=torch.bool),
             "img_valid": z(I, dtype=torch.bool)}
 
 
@@ -426,8 +536,10 @@ class _Handler(BaseHTTPRequestHandler):
                                        f"{self.max_items}-item request "
                                        f"limit — split the request"})
             return
+        score = (self.scorer.score_relation if task == "relation"
+                 else self.scorer.score_affinity)
         try:
-            self._reply(200, self.scorer.score_relation(payload))
+            self._reply(200, score(payload))
         except ServerOverloaded as e:
             self._reply(503, {"error": str(e)}, headers={"Retry-After": "1"})
         except (KeyError, IndexError, ValueError, TypeError) as e:
@@ -438,13 +550,15 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
           warmup: str = "basic", batch_window_ms: float = 2.0,
           max_body_mb: float = 8.0, max_items: int = 64,
           max_pending: int = 256,
-          device: torch.device | None = None) -> ThreadingHTTPServer:
+          device: torch.device | None = None,
+          tasks: list[str] | None = None) -> ThreadingHTTPServer:
     """Build the server (caller decides serve_forever vs background)."""
     # parity-grade scoring: full f32 matmuls, no TF32 in cuBLAS or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     scorer = Scorer(data_dir, embeddings_file, device,
-                    batch_window_ms=batch_window_ms, max_pending=max_pending)
+                    batch_window_ms=batch_window_ms, max_pending=max_pending,
+                    tasks=tasks)
     t0 = time.perf_counter()
     n = scorer.warmup(warmup)
     if n:
@@ -459,21 +573,24 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
     server_cls = type("Server", (ThreadingHTTPServer,),
                       {"request_queue_size": 256})
     httpd = server_cls(("127.0.0.1", port), handler)
-    LOG.info("serve: listening on 127.0.0.1:%d (tasks: relation)",
-             httpd.server_port)
+    LOG.info("serve: listening on 127.0.0.1:%d (tasks: %s)",
+             httpd.server_port, ", ".join(sorted(scorer.tasks)))
     return httpd
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="icl-torch-serve",
-        description="HTTP relation scoring on PyTorch (CUDA kernels on a "
-                    "GPU) over an icl-export weights archive")
+        description="HTTP relation and affinity scoring on PyTorch (CUDA "
+                    "kernels on a GPU) over icl-export weights archives")
     p.add_argument("--data_dir", required=True,
-                   help="directory with relation.npz (+ .manifest.json) "
-                        "and embeddings.txt")
+                   help="directory with <task>.npz (+ .manifest.json) per "
+                        "task and embeddings.txt")
     p.add_argument("--embeddings_file", default=None)
     p.add_argument("--port", type=int, default=8414)
+    p.add_argument("--tasks", default=None,
+                   help="comma-separated subset of relation,affinity "
+                        "(default: every task with an archive)")
     p.add_argument("--warmup", default="basic",
                    choices=["off", "basic", "full"],
                    help="run predict at startup over the common bucket "
@@ -495,7 +612,8 @@ def main(argv=None) -> None:
     httpd = serve(args.data_dir, args.port, args.embeddings_file,
                   warmup=args.warmup, batch_window_ms=args.batch_window_ms,
                   max_body_mb=args.max_body_mb, max_items=args.max_items,
-                  max_pending=args.max_pending)
+                  max_pending=args.max_pending,
+                  tasks=args.tasks.split(",") if args.tasks else None)
     if threading.current_thread() is threading.main_thread():
         def _graceful(signum, frame):
             # stop accepting and drain instead of dying mid-response.

@@ -1,6 +1,9 @@
 from icl_torch.train.state import TrainState, create_train_state
-from icl_torch.train.steps import (make_relation_train_step, relation_loss,
+from icl_torch.train.steps import (affinity_loss, affinity_predict,
+                                   make_affinity_train_step,
+                                   make_relation_train_step, relation_loss,
                                    relation_predict)
 
-__all__ = ["TrainState", "create_train_state", "make_relation_train_step",
-           "relation_loss", "relation_predict"]
+__all__ = ["TrainState", "affinity_loss", "affinity_predict",
+           "create_train_state", "make_affinity_train_step",
+           "make_relation_train_step", "relation_loss", "relation_predict"]

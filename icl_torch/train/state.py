@@ -13,14 +13,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
-from icl_torch.models.relation import RelationModel
-from icl_torch.params import init_relation_params, load_npz
+from icl_torch.params import init_params, load_npz
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: RelationModel
+    model: nn.Module      # a RelationModel or an AffinityModel
     optimizer: torch.optim.Optimizer
     seed: int
     step: int = 0
@@ -40,17 +40,19 @@ class TrainState:
         self.step += 1
 
 
-def create_train_state(model: RelationModel, seed: int = 0,
+def create_train_state(model: nn.Module, seed: int = 0,
                        learn_rate: float = 1e-3,
                        params: str | dict | None = None) -> TrainState:
     """Load the model's weights and start Adam.
 
-    ``params``: None draws fresh weights (:func:`init_relation_params` from
-    ``seed``); a path loads an ``icl-export`` archive; a dict of key ->
-    tensor or numpy array is loaded as it is.
+    ``model``: a :class:`~icl_torch.models.relation.RelationModel` or an
+    :class:`~icl_torch.models.affinity.AffinityModel`.  ``params``: None
+    draws fresh weights (:func:`~icl_torch.params.init_params` of the
+    model's task, from ``seed``); a path loads an ``icl-export`` archive; a
+    dict of key -> tensor or numpy array is loaded as it is.
     """
     if params is None:
-        params = init_relation_params(seed, model.dims)
+        params = init_params(model.task, seed, model.dims)
     elif isinstance(params, str):
         params, _ = load_npz(params)
     model.load_flat({k: torch.as_tensor(v) for k, v in params.items()})

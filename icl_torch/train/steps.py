@@ -1,15 +1,21 @@
-"""Relation train and predict steps (counterpart of icl/train/steps.py).
+"""Relation and affinity train and predict steps (counterpart of
+icl/train/steps.py).
 
 All losses are masked cross-entropies: padded pairs and cells contribute
 zero loss and zero gradient, and the normaliser is the (class-weighted)
-count of valid examples.  Two train forms, as in the reference:
+count of valid examples.  Two train forms per task, as in the reference:
 
-* pair form: the model's pair logits, :func:`masked_weighted_ce`;
-* grid-loss form (``grid_loss=True``): pair labels in M x M grid form (the
-  batcher's ``grid_label``/``grid_valid``, or a device scatter for batches
-  without them) and the model's grid CE sums; on a fused model the CE runs
-  inside the training grid-head kernel and the logits never reach device
-  memory.  Same loss and accuracy as the pair form over the same cells.
+* pair form (relation) or cell form (affinity): the model's logits,
+  :func:`masked_weighted_ce`;
+* grid-loss form (``grid_loss=True``): labels in grid form (the batcher's
+  ``grid_label``/``grid_valid``; for relation batches without them, a
+  device scatter of the pair list) and the model's grid CE sums; on a fused
+  model the CE runs inside the training grid-head kernel and the logits
+  never reach device memory.  Same loss and accuracy as the other form over
+  the same cells.
+
+A class weight <= 0 turns the grid-loss form off (see
+:func:`make_relation_train_step`).
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from typing import Callable
 import torch
 
 from icl.util.log import LOG
+from icl_torch.models.affinity import AffinityModel, rank_boxes
 from icl_torch.models.relation import RelationModel
+from icl_torch.ops.affinity_rank import affinity_rank
 from icl_torch.ops.ce import onehot_ce
 from icl_torch.train.state import TrainState
 
@@ -70,6 +78,22 @@ def _grid_cells(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return glabel, gvalid > 0
 
 
+def _grid_loss(model, table, batch, seeds, glabel, gvalid, class_weights):
+    """The grid-loss form: the model's grid CE sums over the cells of
+    weight ``gvalid * class_weight[label]`` -> (loss, metrics)."""
+    gweight = _cell_weights(glabel, gvalid, class_weights)
+    loss_sum, hits, nval = model(table, batch, seeds=seeds,
+                                 loss_grid=(glabel, gweight))
+    loss = loss_sum / torch.clamp_min(gweight.sum(), 1.0)
+    return loss, {"loss": loss, "acc": hits / torch.clamp_min(nval, 1.0),
+                  "hits": hits, "nvalid": nval}
+
+
+def _logit_loss(logits, labels, valid, class_weights):
+    loss = masked_weighted_ce(logits, labels, valid, class_weights)
+    return loss, {"loss": loss, "acc": _accuracy(logits, labels, valid)}
+
+
 def relation_loss(model: RelationModel, table: torch.Tensor, batch: dict,
                   seeds: torch.Tensor | None,
                   class_weights: torch.Tensor | None = None,
@@ -80,19 +104,52 @@ def relation_loss(model: RelationModel, table: torch.Tensor, batch: dict,
     and ``nvalid``.  ``seeds``: per-image dropout seeds (None: no dropout).
     """
     if grid_loss:
-        glabel, gvalid = _grid_cells(batch)
-        gweight = _cell_weights(glabel, gvalid, class_weights)
-        loss_sum, hits, nval = model(table, batch, seeds=seeds,
-                                     loss_grid=(glabel, gweight))
-        loss = loss_sum / torch.clamp_min(gweight.sum(), 1.0)
-        return loss, {"loss": loss, "acc": hits / torch.clamp_min(nval, 1.0),
-                      "hits": hits, "nvalid": nval}
-    logits = model(table, batch, seeds=seeds)
-    loss = masked_weighted_ce(logits, batch["pair_label"],
-                              batch["pair_valid"], class_weights)
-    return loss, {"loss": loss,
-                  "acc": _accuracy(logits, batch["pair_label"],
-                                   batch["pair_valid"])}
+        return _grid_loss(model, table, batch, seeds, *_grid_cells(batch),
+                          class_weights)
+    return _logit_loss(model(table, batch, seeds=seeds), batch["pair_label"],
+                       batch["pair_valid"], class_weights)
+
+
+def affinity_loss(model: AffinityModel, table: torch.Tensor, batch: dict,
+                  seeds: torch.Tensor | None,
+                  class_weights: torch.Tensor | None = None,
+                  grid_loss: bool = False) -> tuple[torch.Tensor, dict]:
+    """As :func:`relation_loss`, over the (mention, box) cells: the labels
+    are grid-shaped already (``grid_label``/``grid_valid``), so the cell
+    form is :func:`masked_weighted_ce` over the logit grid."""
+    glabel, gvalid = batch["grid_label"].to(torch.int32), batch["grid_valid"]
+    if grid_loss:
+        return _grid_loss(model, table, batch, seeds, glabel, gvalid,
+                          class_weights)
+    return _logit_loss(model(table, batch, seeds=seeds), glabel, gvalid,
+                       class_weights)
+
+
+def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
+                     other_form: str) -> Callable:
+    if grid_loss and class_weights is not None and any(
+            w <= 0 for w in class_weights):
+        LOG.warning("grid_loss disabled: a class weight <= 0 would drop "
+                    "that class from the in-kernel accuracy denominator; "
+                    "keeping the %s-form step for consistent metrics",
+                    other_form)
+        grid_loss = False
+
+    def train_step(state: TrainState, table: torch.Tensor,
+                   batch: dict) -> dict:
+        cw = (None if class_weights is None else
+              torch.as_tensor(class_weights, dtype=torch.float32,
+                              device=table.device))
+        seeds = state.dropout_seeds(batch[images_key].shape[0])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
+                                grid_loss)
+        loss.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    train_step.grid_loss = grid_loss
+    return train_step
 
 
 def make_relation_train_step(class_weights=None,
@@ -105,28 +162,16 @@ def make_relation_train_step(class_weights=None,
     pair form is kept instead, so metric meanings never depend on the form.
     After the step, the parameters' ``.grad`` hold the step's gradients.
     """
-    if grid_loss and class_weights is not None and any(
-            w <= 0 for w in class_weights):
-        LOG.warning("grid_loss disabled: a class weight <= 0 would drop "
-                    "that class from the in-kernel accuracy denominator; "
-                    "keeping the pair-form step for consistent metrics")
-        grid_loss = False
+    return _make_train_step(relation_loss, "tokens", class_weights,
+                            grid_loss, "pair")
 
-    def relation_train_step(state: TrainState, table: torch.Tensor,
-                            batch: dict) -> dict:
-        cw = (None if class_weights is None else
-              torch.as_tensor(class_weights, dtype=torch.float32,
-                              device=table.device))
-        seeds = state.dropout_seeds(batch["tokens"].shape[0])
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = relation_loss(state.model, table, batch, seeds, cw,
-                                      grid_loss)
-        loss.backward()
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
 
-    relation_train_step.grid_loss = grid_loss
-    return relation_train_step
+def make_affinity_train_step(class_weights=None,
+                             grid_loss: bool = False) -> Callable:
+    """As :func:`make_relation_train_step` for the affinity model; a class
+    weight <= 0 keeps the cell form."""
+    return _make_train_step(affinity_loss, "phrase_tokens", class_weights,
+                            grid_loss, "cell")
 
 
 def relation_predict(model: RelationModel, table: torch.Tensor,
@@ -134,3 +179,30 @@ def relation_predict(model: RelationModel, table: torch.Tensor,
     """Relation class probabilities [I, P, 4] (softmax over the logits)."""
     with torch.inference_mode():
         return torch.softmax(model(table, batch), dim=-1)
+
+
+def affinity_predict(model: AffinityModel, table: torch.Tensor, batch: dict,
+                     rank: bool = False):
+    """Affinity class probabilities [I, M, B, 2] (softmax over the logits).
+
+    With ``rank=True`` returns ``(probs, ranking)``: ``ranking [I, M, B]``
+    is the per-image softmax of the affinity logit over the valid boxes
+    (``batch["box_valid"]``), the ranking a ``--rank_file`` writes.  A
+    fused model computes it with the box-ranking kernel
+    (:func:`icl_torch.ops.affinity_rank.affinity_rank`), a plain one with
+    :func:`~icl_torch.models.affinity.rank_boxes` over its logits.
+    """
+    with torch.inference_mode():
+        X, Y = model.project(table, batch)
+        logits = model.head(X, Y)
+        probs = torch.softmax(logits, dim=-1)
+        if not rank:
+            return probs
+        box_valid = batch["box_valid"]
+        if model.fused:
+            ranking = affinity_rank(X, Y, model.head_dense_phrase.bias,
+                                    model.head_out.kernel,
+                                    model.head_out.bias, box_valid)
+        else:
+            ranking = rank_boxes(logits, box_valid)
+        return probs, ranking

@@ -8,20 +8,25 @@ no JAX, so it runs on a machine that has only PyTorch:
 f32, TF32 off.  Gate: max |kernel - plain| <= 1e-5 * max(1, max |plain|);
 the kernels sum in another order than cuBLAS and the eager ops.  The
 training kernels (K5-K8) are checked at dropout rate 0 and 0.5: kernels and
-plain versions compute one hash mask, so both rates compare exactly.
+plain versions compute one hash mask, so both rates compare exactly.  The
+box ranking (K9) and the affinity model are checked at the affinity shapes
+(K=1024, O=2, A != B, a one-direction phrase LSTM).
 """
 
 import pytest
 import torch
 
+from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops import grid_head_train as ght
+from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
 from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
                                            lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
-from icl_torch.params import init_relation_params
-from icl_torch.train.steps import relation_loss, relation_predict
+from icl_torch.params import init_params, init_relation_params
+from icl_torch.train.steps import (affinity_loss, affinity_predict,
+                                   relation_loss, relation_predict)
 
 pytestmark = pytest.mark.cuda
 
@@ -255,6 +260,97 @@ def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
                               device=dev)
         model.load_flat(flat)
         loss, metrics = relation_loss(model, table, batch, seeds, cw,
+                                      grid_loss)
+        loss.backward()
+        out[fused] = (metrics, {k: p.grad for k, p in
+                                model.named_parameters()})
+    for k in out[False][0]:
+        _assert_close(out[True][0][k], out[False][0][k])
+    for k, want in out[False][1].items():
+        _assert_close(out[True][1][k], want)
+
+
+# --- affinity: K9 and the affinity model --------------------------------------
+
+def _rank_inputs(G, A, B, K, dev, seed=0):
+    args = _head_inputs(G, A, B, K, 2, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    valid = torch.rand(G, B, generator=g, device=dev) < 0.7
+    valid[:, 0] = True
+    if G > 1:
+        valid[-1] = False                           # an image with no box
+    return (*args, valid.contiguous())
+
+
+@pytest.mark.parametrize("G,A,B,K", [
+    (1, 8, 8, 1024), (4, 16, 32, 1024), (64, 16, 32, 1024),
+    (64, 16, 20, 1024), (3, 5, 70, 33), (2, 7, 3, 16)])
+def test_affinity_rank_kernel_matches_plain(dev, G, A, B, K):
+    args = _rank_inputs(G, A, B, K, dev)
+    n0 = affinity_rank.launches
+    out = affinity_rank(*args)
+    torch.cuda.synchronize()
+    assert affinity_rank.launches == n0 + 1
+    _assert_close(out, affinity_rank_reference(*args))
+    valid = args[-1][:, None, :].expand_as(out)
+    assert not out[~valid].any()                    # invalid boxes: exact 0
+    if G > 1:
+        assert not out[-1].any()                    # no valid box: zeros
+    assert torch.equal(out, affinity_rank(*args))   # bitwise repeatable
+
+
+def test_affinity_rank_empty_grid_and_rejects(dev):
+    n0 = affinity_rank.launches
+    out = affinity_rank(*_rank_inputs(2, 0, 5, 64, dev))
+    assert out.shape == (2, 0, 5) and affinity_rank.launches == n0
+    X, Y, b1, W2, b2, valid = _rank_inputs(2, 3, 5, 64, dev)
+    with pytest.raises(TypeError, match="box_valid"):
+        affinity_rank(X, Y, b1, W2, b2, valid.int())
+    with pytest.raises(ValueError, match="affinity_col"):
+        affinity_rank(X, Y, b1, W2, b2, valid, affinity_col=2)
+
+
+AFF_DIMS = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 1024,
+            "box_dim": 4096}
+
+
+def _affinity_batch(dev, I=4, M=16, B=32, L=16):
+    g = torch.Generator().manual_seed(2)
+    plen = torch.randint(0, 9, (I, M), generator=g)
+    box_valid = torch.arange(B)[None] < torch.tensor([20, 5, 1, 0])[:, None]
+    batch = {"phrase_tokens": torch.randint(1, 100, (I, M, L), generator=g),
+             "phrase_len": plen.to(torch.int32),
+             "box_feats": torch.relu(torch.randn(I, B, 4096, generator=g)),
+             "box_valid": box_valid,
+             "grid_label": torch.randint(0, 2, (I, M, B), generator=g),
+             "grid_valid": (plen > 0)[..., None] & box_valid[:, None, :]}
+    table = torch.randn(100, 300, generator=g).to(dev)
+    return table, {k: v.contiguous().to(dev) for k, v in batch.items()}
+
+
+def test_fused_affinity_model_matches_plain_model(dev):
+    flat = init_params("affinity", 0, AFF_DIMS)
+    table, batch = _affinity_batch(dev)
+    out = {}
+    for fused in (True, False):
+        model = AffinityModel(**AFF_DIMS, fused=fused, device=dev)
+        model.load_flat(flat)
+        out[fused] = affinity_predict(model, table, batch, rank=True)
+    for got, want in zip(out[True], out[False]):
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("grid_loss", [True, False])
+def test_affinity_train_kernel_path_matches_plain(dev, grid_loss):
+    flat = init_params("affinity", 0, AFF_DIMS)
+    table, batch = _affinity_batch(dev)
+    seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device=dev)
+    out = {}
+    for fused in (True, False):
+        model = AffinityModel(**AFF_DIMS, fused=fused, dropout=0.5,
+                              device=dev)
+        model.load_flat(flat)
+        loss, metrics = affinity_loss(model, table, batch, seeds, None,
                                       grid_loss)
         loss.backward()
         out[fused] = (metrics, {k: p.grad for k, p in
