@@ -22,9 +22,17 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    {8, 16}, B in {8, 20, 32}, K=1024 with ragged box validity and an image
    with no valid box, K1 and K5-K8 (rate 0 and 0.5) at A=16, B in {20, 32},
    K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
-   in {16, 1024} (hs, final and the residuals); then times each kernel
-   against its plain version, per call with CUDA events over back-to-back
-   calls, and device time alone with the profiler;
+   in {16, 1024} (hs, final and the residuals); the recurrence also with a
+   batch that is no multiple of its row tile (B=61) and at H in {64, 200,
+   256}, twice with equal bits; then times each kernel beside its plain
+   version, per call with CUDA events over back-to-back calls, and device
+   time alone with the profiler, and prints each kernel's time beside its
+   bound: the least time the card could take for the same work, the larger
+   of its bytes (every input read once, every output written once) over
+   3.35 TB/s and its operations over 67 T/s (f32 outside the tensor cores;
+   the dropout hash's 32-bit integer operations are counted at that rate
+   too), where the work is what this run's data needs (valid steps of the
+   recurrence, cells of weight > 0 for K7/K8, valid boxes for K9);
 4. relation serving: writes a data dir (synthetic 300-d word vectors,
    seeded relation and affinity weights as icl-export archives), serves it
    with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
@@ -54,10 +62,16 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    then 2 steps with class weights [0, 1] (the guard takes the cell form);
    the first step of each form held against the plain path; the recurrence
    and K5-K8 launch; per-step times;
-9. prints the times beside the card;
-10. prints one JSON line with the seven kernels' launches, errors and times,
-    then, last, {"ok": true, "device": {"platform": "gpu", "kind": ...,
-    "count": ...}}.
+9. prints the times beside the card, each kernel's bound and share, the
+   launches of each kernel per request, predict call and train step, and
+   per path (served relation predict, relation train step and predict,
+   affinity train step and ranked predict) a profile line: host-clock time
+   per call, device busy time, launches, the five longest kernels;
+10. prints one JSON line with every kernel at every timed shape (all nine
+    TPU kernels among them): launches over the driven paths, error, times,
+    bound, and the time of one PyTorch call for the same function (null:
+    there is none for any of them, NO_LIBRARY_CALL says why), then, last,
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase exits non-zero before the last line; without a CUDA
 device it exits 2 at once, and without the repository around it the
@@ -67,7 +81,7 @@ imports fail.  Usage, from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
-import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,12 +93,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from icl.data.buckets import BucketSpec
-from icl.data.embeddings import EmbeddingStore
-from icl.data.imagebatch import AffinityBatcher, RelationBatcher
-from icl.data.pipeline import load_affinity_dataset, load_relation_dataset
-from icl.io.boxes import read_box_feats, write_box_feats
-from icl.testing.synth import SynthConfig, generate_dataset
+from icl_torch.data.buckets import BucketSpec
+from icl_torch.data.embeddings import EmbeddingStore
+from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
+from icl_torch.data.pipeline import load_affinity_dataset, load_relation_dataset
+from icl_torch.io.boxes import read_box_feats, write_box_feats
+from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops import _build
@@ -133,6 +147,20 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
     "affinity_rank": ("icl_torch/csrc/affinity_rank.cu",
                       "icl/ops/affinity_rank.py:90"),
 }
+F32_RATE = 67e12       # H100 SXM, f32 outside the tensor cores, operations/s
+HBM_RATE = 3.35e12     # H100 SXM, bytes/s
+NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
+    "grid_head": "fuses broadcast add, ReLU and a narrow dot; the [A,B,K] "
+                 "activation never exists",
+    "lstm_recurrence": "pre-projected inputs and carry-through masked "
+                       "steps; torch.nn.LSTM (cuDNN) takes neither",
+    "grid_head_train_fwd": "as grid_head, plus the hash dropout",
+    "grid_head_train_bwd": "recompute backward with the hash dropout",
+    "grid_head_train_loss_fwd": "as grid_head_train_fwd, plus masked "
+                                "weighted CE sums",
+    "grid_head_train_loss_bwd": "backward of that, one call",
+    "affinity_rank": "grid head column plus a masked softmax over boxes",
+}
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
@@ -143,8 +171,6 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the shared data layer's optional C++ reader is not needed here
-    os.environ.setdefault("ICL_NO_NATIVE_BUILD", "1")
     dev = torch.device("cuda")
 
     # 1. the card
@@ -211,9 +237,8 @@ def main() -> int:
                 "grid_head_train_loss_bwd": (X, Y, b1, W2, b2, seeds, labels,
                                              weights, gl)}
 
-    def rec_inputs(L, B, G=2):
+    def rec_inputs(L, B, G=2, H=DIMS["lstm_hidden"]):
         """G=2: a BiLSTM's two directions; G=1: the phrase LSTM."""
-        H = DIMS["lstm_hidden"]
         lengths = torch.randint(0, L + 1, (B,), generator=gen, device=dev)
         lengths[0], lengths[-1] = 0, L
         t = torch.arange(L, device=dev)[:, None]
@@ -336,65 +361,129 @@ def main() -> int:
                                 f"residuals changed hs")
             check(f"lstm_recurrence G=1 L={L} B={B} H=200 (hs, final, gates, "
                   f"c)", got, lstm_recurrence_reference(*args, True))
+    # a batch that is no multiple of the kernel's 8-row tile, and other
+    # widths than the models' 200 (256 is the widest the kernel takes)
+    for G, L, B, H in ((2, 32, 61, 200), (2, 16, 61, 64), (2, 16, 61, 256),
+                       (1, 16, 9, 256), (2, 8, 5, 64)):
+        args = rec_inputs(L, B, G, H)
+        got = lstm_recurrence_fwd(*args, residuals=True)
+        again = lstm_recurrence_fwd(*args, residuals=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failures.append(f"lstm_recurrence G={G} L={L} B={B} H={H} not "
+                            f"repeatable")
+        check(f"lstm_recurrence G={G} L={L} B={B} H={H} (hs, final, gates, "
+              f"c), repeated bits equal", got,
+              lstm_recurrence_reference(*args, True))
     if failures:
         raise RuntimeError(f"kernel checks failed: {failures}")
 
     # timings: the served 8-image shape for the predict kernels; the
-    # training batch's shape (64 images, 16 mentions) for the training ones
+    # training batch's shape (64 images, 16 mentions) for the training ones.
+    # A case: (kernel, wrapper call, plain call, inputs, shape, TPU kernel
+    # line, operations this run's data needs).
+    def head_ops(kind, G, A, B, K, O, cells=None, rate=0.0):
+        """Operations of a grid-head kernel over `cells` cells (all, unless
+        the data needs fewer).  Per element of [cells, K]: add and ReLU (2)
+        and the O-wide dot (2 O) forward; the mask of z > 0, dh and dW2 (4
+        O), dz, dX, dY and the two scalings (6) backward; with dropout the
+        hash (10 integer operations) and the scaling."""
+        cells = G * A * B if cells is None else cells
+        drop = ght.dropout_applies(rate)
+        fwd = cells * K * (2 + 2 * O + (11 if drop else 0))
+        bwd = cells * K * (6 + 4 * O + (12 if drop else 0))
+        pre = G * A * K                                     # X + b1
+        return {"fwd": pre + fwd, "bwd": pre + bwd,
+                "loss_fwd": pre + fwd + cells * 6 * O,
+                "loss_bwd": 2 * pre + fwd + bwd + cells * 8 * O,
+                "rank": pre + cells * K * 4 + cells * 6}[kind]
+
+    def rec_ops(args):
+        """2 H 4H per valid (row, step) for h . R, and about 10 per unit
+        for the gates."""
+        H = args[2].shape[1]
+        return int(args[1].sum()) * (8 * H * H + 10 * H)
+
+    cases = {}
+
+    def add_case(name, kernel, fn, plain, inputs, shape, ops, replaces=None):
+        cases[name] = {"kernel": kernel, "fn": fn, "plain": plain,
+                       "inputs": inputs, "shape": shape, "ops": ops,
+                       "replaces": replaces or REPLACES[kernel][1]}
+
+    def add_train_cases(suffix, G, A, B, K, O):
+        kinds = {"grid_head_train_fwd": "fwd", "grid_head_train_bwd": "bwd",
+                 "grid_head_train_loss_fwd": "loss_fwd",
+                 "grid_head_train_loss_bwd": "loss_bwd"}
+        for name, a in train_inputs(G, A, B, K, O).items():
+            weighted = "loss" in name     # weight-0 cells need no work
+            cells = int((a[7] > 0).sum()) if weighted else None
+            add_case(name + suffix, name,
+                     (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
+                     (lambda f=plain_of[name], a=a: f(*a, RATE)), a,
+                     f"G={G} A={A} B={B} K={K} O={O} rate={RATE}",
+                     head_ops(kinds[name], G, A, B, K, O, cells, RATE))
+
     head_args = head_inputs(8, 16)
+    add_case("grid_head", "grid_head", lambda: grid_head(*head_args),
+             lambda: grid_head_reference(*head_args), head_args,
+             "G=8 A=B=16 K=800 O=4", head_ops("fwd", 8, 16, 16, 800, 4))
     rec_args = rec_inputs(32, 64)
+    add_case("lstm_recurrence", "lstm_recurrence",
+             lambda: lstm_recurrence(*rec_args),
+             lambda: lstm_recurrence_reference(*rec_args), rec_args,
+             "G=2 L=32 B=64 H=200", rec_ops(rec_args),
+             "icl/ops/lstm_kernel.py:282")      # both directions, full batch
     big_rec = rec_inputs(32, 512)
-    train_args = train_inputs(64, 16)
-    cases = {
-        "grid_head": (lambda: grid_head(*head_args),
-                      lambda: grid_head_reference(*head_args),
-                      "G=8 A=B=16 K=800 O=4"),
-        "lstm_recurrence": (lambda: lstm_recurrence(*rec_args)[0],
-                            lambda: lstm_recurrence_reference(*rec_args)[0],
-                            "G=2 L=32 B=64 H=200"),
-        "lstm_recurrence with residuals": (
-            lambda: lstm_recurrence_fwd(*big_rec, residuals=True),
-            lambda: lstm_recurrence_reference(*big_rec, residuals=True),
-            "G=2 L=32 B=512 H=200"),
-    }
-    for name, a in train_args.items():
-        cases[name] = ((lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
-                       (lambda f=plain_of[name], a=a: f(*a, RATE)),
-                       f"G=64 A=B=16 K=800 O=4 rate={RATE}")
+    add_case("lstm_recurrence with residuals", "lstm_recurrence",
+             lambda: lstm_recurrence_fwd(*big_rec, residuals=True),
+             lambda: lstm_recurrence_reference(*big_rec, residuals=True),
+             big_rec, "G=2 L=32 B=512 H=200", rec_ops(big_rec))
+    add_train_cases("", 64, 16, 16, DIMS["head_hidden"], 4)
     # the affinity shapes: batch predict and training (64 images, 16
     # phrases, 32 boxes), the served 4-image request, the phrase LSTM over
     # 64 x 16 phrases
     for G in (64, 4):
         a = rank_inputs(G, 16, 32)
-        key = "affinity_rank" if G == 64 else f"affinity_rank G={G}"
-        cases[key] = ((lambda a=a: affinity_rank(*a)),
-                      (lambda a=a: affinity_rank_reference(*a)),
-                      f"G={G} A=16 B=32 K={K_AFF}")
+        add_case("affinity_rank" if G == 64 else f"affinity_rank G={G}",
+                 "affinity_rank", (lambda a=a: affinity_rank(*a)),
+                 (lambda a=a: affinity_rank_reference(*a)), a,
+                 f"G={G} A=16 B=32 K={K_AFF}",
+                 head_ops("rank", G, 16, 32, K_AFF, 2,
+                          cells=16 * int(a[-1].sum())))
     aff_head = head_inputs(64, 16, 32, K_AFF, 2)
-    cases["grid_head affinity"] = ((lambda: grid_head(*aff_head)),
-                                   (lambda: grid_head_reference(*aff_head)),
-                                   f"G=64 A=16 B=32 K={K_AFF} O=2")
-    for name, a in train_inputs(64, 16, 32, K_AFF, 2).items():
-        cases[f"{name} affinity"] = (
-            (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
-            (lambda f=plain_of[name], a=a: f(*a, RATE)),
-            f"G=64 A=16 B=32 K={K_AFF} O=2 rate={RATE}")
+    add_case("grid_head affinity", "grid_head",
+             lambda: grid_head(*aff_head),
+             lambda: grid_head_reference(*aff_head), aff_head,
+             f"G=64 A=16 B=32 K={K_AFF} O=2",
+             head_ops("fwd", 64, 16, 32, K_AFF, 2),
+             "icl/ops/grid_head.py:173")        # the tiled kernel's size
+    add_train_cases(" affinity", 64, 16, 32, K_AFF, 2)
     phrase_rec = rec_inputs(16, 1024, G=1)
-    cases["lstm_recurrence G=1"] = (
-        (lambda: lstm_recurrence(*phrase_rec)[0]),
-        (lambda: lstm_recurrence_reference(*phrase_rec)[0]),
-        "G=1 L=16 B=1024 H=200")
-    cases["lstm_recurrence G=1 with residuals"] = (
-        (lambda: lstm_recurrence_fwd(*phrase_rec, residuals=True)),
-        (lambda: lstm_recurrence_reference(*phrase_rec, residuals=True)),
-        "G=1 L=16 B=1024 H=200")
-    timing = {name: {"shape": shape,
-                     "max_abs_err": _max_err(fn(), plain()),
-                     "ms": _time_ms(fn),
-                     "plain_ms": _time_ms(plain),
-                     "device_ms": _device_ms(fn),
-                     "plain_device_ms": _device_ms(plain)}
-              for name, (fn, plain, shape) in cases.items()}
+    add_case("lstm_recurrence G=1", "lstm_recurrence",
+             lambda: lstm_recurrence(*phrase_rec),
+             lambda: lstm_recurrence_reference(*phrase_rec), phrase_rec,
+             "G=1 L=16 B=1024 H=200", rec_ops(phrase_rec))
+    add_case("lstm_recurrence G=1 with residuals", "lstm_recurrence",
+             lambda: lstm_recurrence_fwd(*phrase_rec, residuals=True),
+             lambda: lstm_recurrence_reference(*phrase_rec, residuals=True),
+             phrase_rec, "G=1 L=16 B=1024 H=200", rec_ops(phrase_rec))
+    timing = {}
+    for name, c in cases.items():
+        got, want = c["fn"](), c["plain"]()
+        nbytes = _nbytes(c["inputs"]) + _nbytes(_tuple(got))
+        t_ops, t_bytes = c["ops"] / F32_RATE * 1e3, nbytes / HBM_RATE * 1e3
+        timing[name] = {"shape": c["shape"], "kernel": c["kernel"],
+                        "replaces": c["replaces"],
+                        "max_abs_err": _max_err(got, want),
+                        "ms": _time_ms(c["fn"]),
+                        "plain_ms": _time_ms(c["plain"]),
+                        "device_ms": _device_ms(c["fn"]),
+                        "plain_device_ms": _device_ms(c["plain"]),
+                        "ops": c["ops"], "bytes": nbytes,
+                        "bound_ms": max(t_ops, t_bytes),
+                        "bound_by": ("operations" if t_ops >= t_bytes
+                                     else "bytes")}
+    del cases
 
     # 4. serving
     with tempfile.TemporaryDirectory(prefix="icl_chip_smoke_") as d:
@@ -429,6 +518,15 @@ def main() -> int:
             if perr > PROBS_GATE:
                 raise RuntimeError("served probs disagree with the plain "
                                    "model")
+            served_batch = scorer._stack_arrays([p[1] for p in prepped])
+            served_model = scorer.tasks["relation"]["model"]
+            served_one = scorer._stack_arrays([prepped[0][1]])
+            served_profiles = [
+                _profile("served relation predict, the 8-image request's "
+                         "arrays", lambda: relation_predict(
+                             served_model, scorer.table, served_batch)),
+                _profile("the same, one image", lambda: relation_predict(
+                    served_model, scorer.table, served_one))]
             # 5. affinity serving, same server
             aff_result = _drive_affinity(httpd)
             aff_plain = AffinityModel(**AFF_DIMS, fused=False, device=dev)
@@ -470,6 +568,12 @@ def main() -> int:
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
               f"{t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms "
               f"({card})")
+        print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G "
+              f"operations, {t['bytes'] / 1e6:.3f} MB -> {t['bound_ms']:.4f} "
+              f"ms by {t['bound_by']}; device {t['device_ms']:.4f} ms = "
+              f"{t['device_ms'] / t['bound_ms']:.1f} x the bound, share "
+              f"{t['bound_ms'] / t['device_ms']:.3f}; one PyTorch call: none "
+              f"({NO_LIBRARY_CALL[t['kernel']]}) ({card})")
     lat = result["latency_ms"]
     print(f"time request p50: client {lat['client_p50']:.2f} ms over "
           f"{lat['n']} single-image requests, server predict p50 "
@@ -492,17 +596,25 @@ def main() -> int:
           f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
+    for line in served_profiles + train["profiles"] + aff["profiles"]:
+        print(f"{line} ({card})")
+
     # 10. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
     for phase in (result, aff_result, train, aff):
         for k, n in phase["launches"].items():
             launches[k] += n
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": timing[name]["max_abs_err"],
-                "ms": timing[name]["ms"],
-                "plain_ms": timing[name]["plain_ms"]}
-               for name, (src, replaces) in REPLACES.items()]
+        for unit, counts in phase["per_unit"].items():
+            print(f"launches per {unit}: "
+                  + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+    kernels = [{"name": name, "route": "cuda",
+                "source": REPLACES[t["kernel"]][0], "replaces": t["replaces"],
+                "shape": t["shape"], "launches": launches[t["kernel"]],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+               for name, t in timing.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -528,6 +640,12 @@ def _max_err(got, want) -> float:
                 if b.numel()), default=0.0)
 
 
+def _nbytes(tensors) -> int:
+    """Bytes of the tensors among `tensors`, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
 def _time_ms(fn, iters: int = 50) -> float:
     """Mean time per fn() call over iters back-to-back calls, by CUDA
     events: the device's time, or the host's where the host is slower."""
@@ -545,8 +663,24 @@ def _time_ms(fn, iters: int = 50) -> float:
 
 
 def _device_ms(fn, iters: int = 20) -> float:
-    """Mean device time per fn() call: the summed time of the GPU work the
-    profiler records over iters calls, without the host's share."""
+    """Mean device time per fn() call of a kernel wrapper or its plain
+    version, without the host's share.  A profiler window now and then
+    loses records of a kernel, or catches one of the call before; so a
+    kernel's time per call is its mean recorded time times its launches
+    per call (the recorded count over iters, rounded), kernels seen in
+    fewer than half the calls are left out, and a window that kept none
+    is taken again."""
+    for _ in range(3):
+        rows = [e for e in _device_rows(fn, iters) if 2 * e.count >= iters]
+        if rows:
+            return sum(e.self_device_time_total / e.count
+                       * round(e.count / iters) for e in rows) / 1e3
+    raise RuntimeError("the profiler recorded no kernel in three windows")
+
+
+def _device_rows(fn, iters: int) -> list:
+    """The profiler's rows (one per kernel name) of the GPU work of iters
+    calls of fn()."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -555,8 +689,39 @@ def _device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total
-               for e in prof.key_averages()) / iters / 1e3
+    return [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.count > 0]
+
+
+def _profile(what: str, fn, iters: int = 5) -> str:
+    """One line on where fn()'s time goes on the card: host-clock time per
+    call (ending in a synchronize), the summed device time of its kernels
+    and their share of it, launches per call, and the five kernels that
+    take the most device time (sums of what the profiler recorded)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    rows = sorted(_device_rows(fn, iters),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / iters / 1e3
+    return (f"profile {what}: {wall:.3f} ms per call, device busy "
+            f"{busy:.3f} ms ({busy / wall:.0%}), "
+            f"{sum(e.count for e in rows) / iters:.0f} launches; top: "
+            + "; ".join(f"{_kernel_name(e.key)} "
+                        f"{e.self_device_time_total / iters / 1e3:.3f} ms "
+                        f"x{e.count / iters:.0f}" for e in rows[:5]))
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler row's kernel name without namespaces and arguments."""
+    key = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    name = key.split("(")[0].split("<")[0].split("::")[-1]
+    inner = re.search(r"(\w*Functor\w*|cutlass_\w+)", key)   # what it applies
+    return (f"{name}[{inner.group(1)}]" if inner else name)[:60]
 
 
 def _train(dev, check) -> dict:
@@ -630,6 +795,14 @@ def _train(dev, check) -> dict:
     step = make_relation_train_step(class_weights=[0.3, 1.0, 1.0, 1.0],
                                     grid_loss=True)
     plain_state = create_train_state(plain, params=model.flat_params())
+    _reset(kernels)
+    step(state, table, batch)
+    per_step = _count(kernels, "one relation train step, grid loss")
+    profiles = [_profile(f"relation train step, grid loss, kernel path "
+                         f"[I={batch['tokens'].shape[0]}]",
+                         lambda: step(state, table, batch)),
+                _profile("relation predict, kernel path, the same batch",
+                         lambda: relation_predict(model, table, batch))]
     times = {}
     for name, st in (("kernel", state), ("plain", plain_state)):
         step(st, table, batch)
@@ -641,6 +814,8 @@ def _train(dev, check) -> dict:
         times[name] = (time.perf_counter() - t0) / 5 * 1e3
     I, C, L = batch["tokens"].shape
     return {"launches": launches, "step_ms": times["kernel"],
+            "per_unit": {"relation train step": per_step},
+            "profiles": profiles,
             "plain_step_ms": times["plain"],
             "shape": f"I={I} C={C} L={L} M={batch['m_cap'].shape[1]}"}
 
@@ -725,14 +900,18 @@ def _drive(httpd) -> dict:
         raise RuntimeError("a repeated request gave different bytes")
     print("check repeated request: byte-identical JSON ok")
     launches = _read(PREDICT_KERNELS, "the relation requests")
+    _reset(PREDICT_KERNELS)
+    _post(url, {"images": [singles[1]]})
+    per_unit = _read(PREDICT_KERNELS, "one relation request")
 
     with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
         health = json.loads(r.read())
-    if health["status"] != "ok" or health["coalescer"]["items"] < 21:
+    if health["status"] != "ok" or health["coalescer"]["items"] < 22:
         raise RuntimeError(f"bad /healthz: {health}")
     print(f"check /healthz: {json.dumps(health)}")
     lat.sort()
     return {"images": batch, "batch_body": batch_body, "launches": launches,
+            "per_unit": {"relation request": per_unit},
             "latency_ms": {
                 "client_p50": lat[len(lat) // 2], "n": len(lat),
                 "server_p50": health["latency_ms"]["relation"]["p50_ms"],
@@ -744,11 +923,17 @@ def _reset(kernels: dict) -> None:
         fn.launches = 0
 
 
-def _read(kernels: dict, phase: str) -> dict:
-    """The launch counts of a phase; raises if a kernel did not launch."""
+def _count(kernels: dict, phase: str) -> dict:
+    """The launch counts since the last reset."""
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     print(f"check launches over {phase}: {launches}")
+    return launches
+
+
+def _read(kernels: dict, phase: str) -> dict:
+    """The launch counts of a phase; raises if a kernel did not launch."""
+    launches = _count(kernels, phase)
     if min(launches.values()) < 1:
         raise RuntimeError(f"a kernel was not launched over {phase}: "
                            f"{launches}")
@@ -814,10 +999,14 @@ def _drive_affinity(httpd) -> dict:
                            "bytes")
     print("check repeated affinity request: byte-identical JSON ok")
     launches = _read(PREDICT_KERNELS, "the affinity requests")
+    _reset(PREDICT_KERNELS)
+    _post(url, {"images": [singles[1]]}, path)
+    per_unit = _read(PREDICT_KERNELS, "one affinity request")
     with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
         health = json.loads(r.read())
     lat.sort()
     return {"images": batch, "batch_body": batch_body, "launches": launches,
+            "per_unit": {"affinity request": per_unit},
             "latency_ms": {
                 "client_p50": lat[len(lat) // 2], "n": len(lat),
                 "server_p50": health["latency_ms"]["affinity"]["p50_ms"],
@@ -870,6 +1059,10 @@ def _affinity(dev, check) -> dict:
     _reset(rank_kernels)
     outs = [affinity_predict(model, table, b, rank=True) for b in batches]
     launches = _read(rank_kernels, "affinity batch predict")
+    _reset(rank_kernels)
+    affinity_predict(model, table, batches[0], rank=True)
+    per_unit = {"affinity ranked predict": _count(
+        rank_kernels, "one affinity predict call with ranking")}
     for n, (b, got) in enumerate(zip(batches, outs)):
         want = affinity_predict(plain, table, b, rank=True)
         check(f"affinity batch {n} probs: kernel path vs plain", got[0],
@@ -938,6 +1131,16 @@ def _affinity(dev, check) -> dict:
     # per-step times of both paths on the fullest batch, grid loss
     step = make_affinity_train_step(grid_loss=True)
     plain_state = create_train_state(plain, params=model.flat_params())
+    _reset(train_kernels)
+    step(state, table, batches[0])
+    per_unit["affinity train step"] = _count(
+        train_kernels, "one affinity train step, grid loss")
+    profiles = [_profile("affinity train step, grid loss, kernel path",
+                         lambda: step(state, table, batches[0])),
+                _profile("affinity predict with ranking, kernel path, the "
+                         "fullest batch",
+                         lambda: affinity_predict(model, table, batches[0],
+                                                  rank=True))]
     step_ms = {}
     for name, st in (("kernel", state), ("plain", plain_state)):
         step(st, table, batches[0])
@@ -947,7 +1150,8 @@ def _affinity(dev, check) -> dict:
             step(st, table, batches[0])
         torch.cuda.synchronize()
         step_ms[name] = (time.perf_counter() - t0) / 5 * 1e3
-    return {"launches": launches, "shape": shape,
+    return {"launches": launches, "shape": shape, "per_unit": per_unit,
+            "profiles": profiles,
             "cells_per_s": cells / t_k, "plain_cells_per_s": cells / t_p,
             "predict_ms": t_k / len(batches) * 1e3,
             "plain_predict_ms": t_p / len(batches) * 1e3,

@@ -35,12 +35,20 @@
 //    logit gradient g3 = (softmax - onehot) * w * gl, [G, A, B, O] (16 KB
 //    per image at A = B = 32).  The [A, B, K] activation never leaves the
 //    SM, and K7's logits never reach device memory.
-//  * Backward (K6, and the second half of K8): one thread per (g, k).  It
-//    walks the image's cells (a outer, b inner) and recomputes z, the mask
-//    and hd; dz = (g3 . W2[k, :]) * [z > 0] * keep * scale.  It sums dX[a, k]
-//    over b in a register, dY[b, k] over a in registers (32 columns of b at
-//    a time), and db1[k], dW2[k, :] (and in K8 db2) for the image.  Every
-//    sum over cells stays inside one thread, in a fixed order.
+//  * Backward (K6, and the second half of K8): one block per (g, tile of
+//    kBwdCols = 32 columns k), of kBwdSlices = 4 warps.  The image's cell
+//    cotangents g3 [A, B, O] and the per-cell hash keys
+//    hash32(hash32(hash32(seed) ^ a) ^ b) [A, B] are put into shared memory
+//    once per block, so an element costs one hash, not three, and one or
+//    two broadcast loads.  Thread (k, s) takes kBwdRows = 4 rows a of slice
+//    s (rows 4s .., then 4s + 16 .. where A > 16) and walks b: it recomputes
+//    z, the mask and hd; dz = (g3 . W2[k, :]) * [z > 0] * keep * scale.
+//    dX[a, k] is finished in that thread, in 4 independent sums over b;
+//    the slices' partial dY[b, k], db1[k] and dW2[k, :] (two accumulators
+//    each, even and odd rows) meet in shared memory and are added in the
+//    order s = 0, 1, 2, 3.  A first design had one thread per (g, k) walk
+//    all A * B cells in one chain at 134 registers (12 warps to an SM,
+//    three hashes an element, g3 read from L2): latency-bound.
 //  * The per-image (or per-row) partials are summed over rows by a second,
 //    fixed-order pass.  No atomics anywhere: results repeat bit for bit.
 //
@@ -56,8 +64,9 @@ namespace {
 
 constexpr int kMaxO = 8;         // head widths in this repo: 4 (relation), 2
 constexpr int kWarps = 8;        // forward family: warps per block
-constexpr int kBwdThreads = 128; // backward: threads (k columns) per block
-constexpr int kChunkB = 32;      // backward: dY columns held in registers
+constexpr int kBwdCols = 32;     // backward: k columns per block (a warp)
+constexpr int kBwdSlices = 4;    // backward: warps per block, slicing rows a
+constexpr int kBwdRows = 4;      // backward: rows a per thread at a time
 constexpr int kSumThreads = 128; // row-sum pass
 
 enum Mode { kLogits = 0, kLoss = 1, kDLogits = 2 };
@@ -80,7 +89,7 @@ head_fwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const float* __restrict__ weights,
                 const float* __restrict__ gl, float* __restrict__ out, int A,
                 int B, int K, int O, uint32_t thr, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* xa = smem;        // [K]     X[g, a] + b1
   float* w2t = smem + K;   // [O, K]  W2 transposed
   __shared__ float red[kWarps][3];
@@ -175,91 +184,134 @@ head_fwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
-// One thread per (g = blockIdx.y, k).  g3 [G, A, B, O] is the logits'
-// cotangent.  Writes dX [G, A, K], dY [G, B, K] and the image's partials
-// part[g] = [dW2 (K x O) | db1 (K) | db2 (O), when with_db2].
-__global__ void __launch_bounds__(kBwdThreads)
+// One block per (g = blockIdx.y, 32 columns k); thread (kl, s) = (lane,
+// warp).  g3 [G, A, B, O] is the logits' cotangent.  Writes dX [G, A, K],
+// dY [G, B, K] and the image's partials part[g] = [dW2 (K x O) | db1 (K) |
+// db2 (O), when with_db2].  kO is the head width the registers are sized
+// for: O == kO, or O <= kO = kMaxO.
+template <int kO>
+__global__ void __launch_bounds__(kBwdCols * kBwdSlices, kO <= 4 ? 8 : 4)
 head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const float* __restrict__ b1, const float* __restrict__ W2,
                 const int* __restrict__ seeds, const float* __restrict__ g3,
                 float* __restrict__ dX, float* __restrict__ dY,
                 float* __restrict__ part, int A, int B, int K, int O,
                 int with_db2, uint32_t thr, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int cells = A * B;
+  float* gs = smem;                                   // [A][B][O]  g3[g]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(gs + cells * O);  // [A][B]
+  float* red = gs + cells * (O + 1);   // [slices][B][32] dY partials
+  float* redw = red + kBwdSlices * B * kBwdCols;      // [slices][O + 1][32]
   const int g = blockIdx.y;
-  const int k = blockIdx.x * kBwdThreads + threadIdx.x;
+  const int kl = threadIdx.x & (kBwdCols - 1);
+  const int s = threadIdx.x / kBwdCols;
+  const int k = blockIdx.x * kBwdCols + kl;
+  const bool active = k < K;
   const int cols = K * O + K + (with_db2 ? O : 0);
   float* pg = part + (size_t)g * cols;
-  const float* gg = g3 + (size_t)g * A * B * O;
+
+  const float* gg = g3 + (size_t)g * cells * O;
+  for (int i = threadIdx.x; i < cells * O; i += blockDim.x) gs[i] = gg[i];
+  if (thr != 0u) {
+    const uint32_t seed_key = hash32((uint32_t)seeds[g]);
+    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+      const int a = c / B;
+      keys[c] = hash32(hash32(seed_key ^ (uint32_t)a) ^ (uint32_t)(c - a * B));
+    }
+  }
+  __syncthreads();
   if (with_db2 && blockIdx.x == 0 && threadIdx.x < O) {
-    float s = 0.f;                       // db2: the image's cells in order
-    for (int c = 0; c < A * B; ++c) s += gg[(size_t)c * O + threadIdx.x];
-    pg[K * O + K + threadIdx.x] = s;
+    float t = 0.f;                       // db2: the image's cells in order
+    for (int c = 0; c < cells; ++c) t += gs[c * O + threadIdx.x];
+    pg[K * O + K + threadIdx.x] = t;
   }
-  if (k >= K) return;
-  float w2[kMaxO], dw2[kMaxO];
+
+  float w2[kO], dw2[2][kO];
 #pragma unroll
-  for (int o = 0; o < kMaxO; ++o) {
-    w2[o] = o < O ? W2[k * O + o] : 0.f;
-    dw2[o] = 0.f;
+  for (int o = 0; o < kO; ++o) {
+    w2[o] = (active && o < O) ? W2[k * O + o] : 0.f;
+    dw2[0][o] = dw2[1][o] = 0.f;
   }
-  const float bk = b1[k];
-  const uint32_t seed_key = hash32((uint32_t)seeds[g]);
+  const float bk = active ? b1[k] : 0.f;
   const float* Xg = X + (size_t)g * A * K;
   const float* Yg = Y + (size_t)g * B * K;
   float db1 = 0.f;
-  for (int b0 = 0; b0 < B; b0 += kChunkB) {
-    const int nb = min(kChunkB, B - b0);
-    float yv[kChunkB], dy[kChunkB];
+  float* myred = red + (size_t)s * B * kBwdCols + kl;
+  for (int a0 = s * kBwdRows; a0 < A || a0 == s * kBwdRows;
+       a0 += kBwdSlices * kBwdRows) {
+    const bool first = a0 == s * kBwdRows;
+    float xk[kBwdRows], dx[kBwdRows];
 #pragma unroll
-    for (int j = 0; j < kChunkB; ++j) {
-      yv[j] = j < nb ? Yg[(size_t)(b0 + j) * K + k] : 0.f;
-      dy[j] = 0.f;
+    for (int i = 0; i < kBwdRows; ++i) {
+      xk[i] = (active && a0 + i < A) ? Xg[(size_t)(a0 + i) * K + k] + bk : 0.f;
+      dx[i] = 0.f;
     }
-    for (int a = 0; a < A; ++a) {
-      const float xk = Xg[(size_t)a * K + k] + bk;
-      const uint32_t row_key = hash32(seed_key ^ (uint32_t)a);
-      const float* ga = gg + (size_t)a * B * O;
-      float dx = 0.f;
+#pragma unroll 2
+    for (int b = 0; b < B; ++b) {
+      const float yv = active ? Yg[(size_t)b * K + k] : 0.f;
+      float dy = 0.f;
 #pragma unroll
-      for (int j = 0; j < kChunkB; ++j) {
-        if (j < nb) {
-          const int b = b0 + j;
-          const float* gc = ga + (size_t)b * O;
-          const float z = xk + yv[j];
-          float h = fmaxf(z, 0.f);
-          float s = z > 0.f ? 1.f : 0.f;
-          if (thr != 0u) {
-            const uint32_t cell = hash32(row_key ^ (uint32_t)b);
-            const float f =
-                hash32(cell ^ (uint32_t)k) >= thr ? scale : 0.f;
-            h *= f;
-            s *= f;
+      for (int i = 0; i < kBwdRows; ++i) {
+        if (a0 + i < A) {
+          const int c = (a0 + i) * B + b;
+          const float z = xk[i] + yv;
+          float f = 1.f;
+          if (thr != 0u) f = hash32(keys[c] ^ (uint32_t)k) >= thr ? scale : 0.f;
+          const float h = fmaxf(z, 0.f) * f;
+          const float sg = z > 0.f ? f : 0.f;
+          float gv[kO];
+          if constexpr (kO == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(gs + c * 4);
+            gv[0] = v.x, gv[1] = v.y, gv[2] = v.z, gv[3] = v.w;
+          } else if constexpr (kO == 2) {
+            const float2 v = *reinterpret_cast<const float2*>(gs + c * 2);
+            gv[0] = v.x, gv[1] = v.y;
+          } else {
+#pragma unroll
+            for (int o = 0; o < kO; ++o) gv[o] = o < O ? gs[c * O + o] : 0.f;
           }
           float dh = 0.f;
 #pragma unroll
-          for (int o = 0; o < kMaxO; ++o)
-            if (o < O) {
-              const float gv = __ldg(gc + o);
-              dh = fmaf(gv, w2[o], dh);
-              dw2[o] = fmaf(h, gv, dw2[o]);
-            }
-          const float dz = dh * s;
-          dx += dz;
-          dy[j] += dz;
-          db1 += dz;
+          for (int o = 0; o < kO; ++o) {
+            dh = fmaf(gv[o], w2[o], dh);
+            dw2[i & 1][o] = fmaf(h, gv[o], dw2[i & 1][o]);
+          }
+          const float dz = dh * sg;
+          dx[i] += dz;
+          dy += dz;
         }
       }
-      float* dxp = dX + ((size_t)g * A + a) * K + k;
-      *dxp = b0 == 0 ? dx : *dxp + dx;
+      myred[b * kBwdCols] = first ? dy : myred[b * kBwdCols] + dy;
     }
 #pragma unroll
-    for (int j = 0; j < kChunkB; ++j)
-      if (j < nb) dY[((size_t)g * B + b0 + j) * K + k] = dy[j];
+    for (int i = 0; i < kBwdRows; ++i) {
+      if (active && a0 + i < A) dX[((size_t)g * A + a0 + i) * K + k] = dx[i];
+      db1 += dx[i];
+    }
   }
+  float* myw = redw + (size_t)s * (O + 1) * kBwdCols + kl;
 #pragma unroll
-  for (int o = 0; o < kMaxO; ++o)
-    if (o < O) pg[k * O + o] = dw2[o];
-  pg[K * O + k] = db1;
+  for (int o = 0; o < kO; ++o)
+    if (o < O) myw[o * kBwdCols] = dw2[0][o] + dw2[1][o];
+  myw[O * kBwdCols] = db1;
+  __syncthreads();
+  if (!active) return;
+  // the slices' partials, added in the order s = 0, 1, ...
+  for (int b = s; b < B; b += kBwdSlices) {
+    float t = 0.f;
+#pragma unroll
+    for (int p = 0; p < kBwdSlices; ++p)
+      t += red[((size_t)p * B + b) * kBwdCols + kl];
+    dY[((size_t)g * B + b) * K + k] = t;
+  }
+  for (int o = s; o <= O; o += kBwdSlices) {
+    float t = 0.f;
+#pragma unroll
+    for (int p = 0; p < kBwdSlices; ++p)
+      t += redw[((size_t)p * (O + 1) + o) * kBwdCols + kl];
+    pg[o < O ? k * O + o : K * O + k] = t;
+  }
 }
 
 // out[c] = sum over n of part[n, c]: one block per column; thread t sums
@@ -301,16 +353,42 @@ cudaError_t launch_fwd(const float* X, const float* Y, const float* b1,
   return cudaGetLastError();
 }
 
+template <int kO>
+cudaError_t launch_bwd_o(const float* X, const float* Y, const float* b1,
+                         const float* W2, const int* seeds, const float* g3,
+                         float* dX, float* dY, float* part, int G, int A,
+                         int B, int K, int O, int with_db2, uint32_t thr,
+                         float scale, cudaStream_t stream) {
+  // g3 and keys of the image, the slices' dY, and their dW2 and db1
+  const size_t smem = ((size_t)A * B * (O + 1) + (size_t)kBwdSlices * kBwdCols
+                       * (B + O + 1)) * sizeof(float);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        head_bwd_kernel<kO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((K + kBwdCols - 1) / kBwdCols, G);
+  head_bwd_kernel<kO><<<grid, kBwdCols * kBwdSlices, smem, stream>>>(
+      X, Y, b1, W2, seeds, g3, dX, dY, part, A, B, K, O, with_db2, thr,
+      scale);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_bwd(const float* X, const float* Y, const float* b1,
                        const float* W2, const int* seeds, const float* g3,
                        float* dX, float* dY, float* part, float* sums, int G,
                        int A, int B, int K, int O, int with_db2, uint32_t thr,
                        float scale, cudaStream_t stream) {
-  const dim3 grid((K + kBwdThreads - 1) / kBwdThreads, G);
-  head_bwd_kernel<<<grid, kBwdThreads, 0, stream>>>(
-      X, Y, b1, W2, seeds, g3, dX, dY, part, A, B, K, O, with_db2, thr,
-      scale);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      O == 4 ? launch_bwd_o<4>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A, B,
+                               K, O, with_db2, thr, scale, stream)
+      : O == 2
+          ? launch_bwd_o<2>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A, B, K,
+                            O, with_db2, thr, scale, stream)
+          : launch_bwd_o<kMaxO>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A,
+                                B, K, O, with_db2, thr, scale, stream);
   if (err != cudaSuccess) return err;
   const int cols = K * O + K + (with_db2 ? O : 0);
   sum_rows_kernel<<<cols, kSumThreads, 0, stream>>>(part, sums, G, cols);
@@ -330,8 +408,11 @@ cudaError_t prologue(int G, int A, int B, int K, int O, int device) {
 // launches on `stream` (a cudaStream_t from the caller) on `device`, and
 // returns the cudaError_t of its launches: 0 on success.  G, A and B must
 // be positive (the caller handles an empty grid without a launch),
-// 1 <= O <= 8, G <= 65535.  `thr` and `scale` as in the header; thr = 0
-// turns dropout off.  Outputs and scratch are allocated by the caller.
+// 1 <= O <= 8, G <= 65535; the backward kernels also need the image's
+// cotangents and keys, 4 * A * B * (O + 1) bytes, and 512 * (B + O + 1) bytes
+// of partials within a block's 227 KB of shared memory.  `thr` and `scale`
+// as in the header; thr = 0 turns dropout off.  Outputs and scratch are
+// allocated by the caller.
 
 // K5: out [G, A, B, O] logits.
 extern "C" int icl_ght_fwd_f32(const float* X, const float* Y,

@@ -22,148 +22,386 @@
 // because one core runs grid programs in order; on the H100 the batch
 // tiles of both directions run side by side on separate SMs.
 //
-// What bounds it on the H100: the L steps are a sequential chain, and each
-// step of a block needs all of R[g] (H x 4H f32 = 640 KB at H=200), which
-// does not fit in a block's 227 KB of shared memory.  So every step streams
-// R[g] from L2 (both directions, 1.28 MB, stay resident in the 50 MB L2)
-// into the block's SM.  The floor is one SM's L2 bandwidth: a few
-// microseconds per step, whatever the batch, while the tiles of a batch up
-// to 132 SMs wide run side by side.  A first version (one thread per
-// hidden unit, 7 warps per SM, each walking all H values of k) measured
-// about 32 us per step on the H100: latency-bound on its chain of L2 loads,
-// with too few loads in flight to reach that floor.
+// What bounds it on the H100: operations.  The L steps are a sequential
+// chain of [rows, H] x [H, 4H] products in f32 FMAs (TF32 tensor cores
+// would break the 1e-5 gate); the bytes (x_proj in, hs out) take a tenth of
+// that time.  What stands in the way of the bound is R[g]: H x 4H f32 is
+// 640 KB at H=200, and a block has 227 KB of shared memory.  A first design
+// streamed R from L2 in every step of every block, which cost one SM's L2
+// bandwidth (about 10 us a step) whatever the batch.
 //
-// Design: one block per (group, tile of kTile rows), looping over all L
-// steps inside the block; rows are independent, so blocks never
-// synchronise.  Each step has two phases:
-//  A. kSplit slices of threads split the k (h) reduction: thread (s, j)
-//     sums h[k] * R[g, k, q*H + j] over its quarter of k for hidden unit j,
-//     the four gates q and the tile's rows (R loads coalesced across the
-//     warp; h broadcast from shared memory, k-major so one float4 holds a
-//     k's rows).  The partial sums go to shared memory.
-//  B. after one __syncthreads(), thread (s, j) finishes row s of unit j:
-//     it adds the kSplit partials in a fixed order (no atomics: bitwise
-//     repeatable) to x_proj (loaded before phase A, so its latency hides
-//     behind it), applies the gates and the mask, and writes h and c back
-//     to shared memory and h to hs.  Only that thread touches that (row,
-//     unit), so h and c need one buffer each and a second __syncthreads()
-//     ends the step.
-// Keeping R on chip (a thread-block cluster with distributed shared memory)
-// is left to a later change.
+// Design: R stays on chip for all L steps, split over a thread-block
+// cluster with distributed shared memory.
+//  * A cluster of kCluster = 8 blocks owns one group g and two tiles of
+//    kTile = 8 batch rows.  Block r of the cluster owns the hidden units
+//    [r*Hc, (r+1)*Hc), Hc = ceil(H / 8), and loads, once, the matching
+//    columns of all four gate slabs of R[g] into its shared memory, as
+//    [k][unit] float4 = the unit's (i, f, c~, o) weights: 80 KB at H=200,
+//    128 KB at H=256.  For each tile it also holds the full h [H][8]
+//    (k-major: a k's rows are two float4s) in two buffers.
+//  * Each half of the block's 16 warps runs one of the two tiles, with its
+//    own named barrier, in its own time: the two halves share the slice of
+//    R (a second block on the SM would need a second copy, and there is no
+//    room), and while one half adds partial sums, applies the gates or
+//    waits for its peers' h, the other half's FMAs keep the SM busy.
+//  * A step of a half.  A: warp s of its kSplit = 8 warps sums its eighth
+//    of k for every unit (lane = unit) into a register tile of 8 rows x 4
+//    gates: per k one 16-byte load of R and two broadcast 16-byte loads of
+//    h feed 32 FMAs, so FMA issue, not shared-memory bandwidth, is the
+//    limit.  The partial tiles go to shared memory.  B: after the half's
+//    barrier, thread (s, unit) finishes row s of its unit: it adds the
+//    kSplit partials in a fixed order (no atomics: bitwise repeatable) to
+//    x_proj (loaded a step ahead), applies the gates and the mask with c
+//    and h of that row in registers, and writes the new h into the other h
+//    buffer of its own block.  After a second barrier the half's threads
+//    push the block's units of the new h, 16 bytes each (st.async through
+//    distributed shared memory), to the 7 peers, which wait for it; only
+//    then do they load the next step's x_proj and mask and write hs and
+//    the residuals to device memory, from registers.
+//  * Hand-over of h without a cluster-wide barrier.  Every st.async
+//    reports its bytes to an mbarrier of the *receiving* block, one per
+//    tile and h buffer, armed with the bytes the peers' units take; a half
+//    starts step t + 1 when its own barrier says the buffer is whole,
+//    however far other tiles' work has come.  (A first version ended each
+//    step with barrier.cluster arrive.release / wait.acquire; the release
+//    alone took a fifth of the step.)  Two buffers are enough: a block can
+//    only be sent the h of step t + 1 by peers that have the whole h of
+//    step t, which this block sent after it last read the buffer that the
+//    new h overwrites.  The one cluster barrier is at the start: every
+//    block's barriers and buffers exist before a peer writes to them.
+//  * The gates use ex2.approx-based exp and the fast divide: sigmoid(x) =
+//    1 / (1 + __expf(-x)), tanh(x) = 2 sigmoid(2x) - 1.  Their absolute
+//    error is that of one f32 rounding (about 1e-7), a hundredth of the
+//    1e-5 gate, and the exact expf / tanhf / IEEE divide made phase B a
+//    third longer.
+//  * Rows beyond B and units beyond H read the last valid one's inputs and
+//    store nothing; a half whose tile lies beyond B leaves after the
+//    cluster barrier.
+//
+// Compiled with -DICL_LSTM_CLOCKS the kernel also adds up, for thread 0 of
+// block (0, 0), the cycles of each phase of a step (icl_torch/tools/
+// lstm_phase_clocks.py reads them): the machine this runs on has no
+// profiler that sees inside a kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kTile = 4;    // batch rows per block
-constexpr int kSplit = 4;   // thread slices splitting the k reduction
-static_assert(kTile == kSplit, "phase B gives each slice one row");
+constexpr int kCluster = 8;  // blocks per cluster: each owns ceil(H/8) units
+constexpr int kSplit = 8;    // warps per half block, splitting the k reduction
+constexpr int kTile = 8;     // batch rows per tile: one per warp in phase B
+constexpr int kHalf = kSplit * 32;   // threads per half block (one tile)
+static_assert(kTile == kSplit && kTile == 8,
+              "phase B gives each warp one row; phase A reads a k's rows as two "
+              "float4s");
+
+#ifdef ICL_LSTM_CLOCKS
+__device__ long long g_clocks[8];
+#define TICK(i)                                \
+  {                                            \
+    const long long now = clock64();           \
+    if (probe) g_clocks[i] += now - tick;      \
+    tick = now;                                \
+  }
+#else
+#define TICK(i)
+#endif
 
 __device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
+  return __fdividef(1.f, 1.f + __expf(-x));
 }
 
-__global__ void __launch_bounds__(1024)
-lstm_recurrence_kernel(const float* __restrict__ xp,
-                       const uint8_t* __restrict__ mask,
-                       const float* __restrict__ R, float* __restrict__ hs,
-                       float* __restrict__ h_final, float* __restrict__ gates,
-                       float* __restrict__ cs, int L, int B, int H) {
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 2.f * sigmoid(2.f * x) - 1.f;
+}
+
+// barrier of one half block (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void half_sync(int half) {
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + half), "n"(kHalf) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the address of this block's shared-memory address `addr` in block `rank`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(arrivals) : "memory");
+}
+
+// one arrival, and `bytes` more to be reported by st.async, in this phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// four floats to a peer's shared memory, their bytes reported to its barrier
+__device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(dst), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(2 * kHalf)
+lstm_cluster_kernel(const float* __restrict__ xp,
+                    const uint8_t* __restrict__ mask,
+                    const float* __restrict__ R, float* __restrict__ hs,
+                    float* __restrict__ h_final, float* __restrict__ gates,
+                    float* __restrict__ cs, int L, int B, int H) {
+  constexpr int T = kTile;
   extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);   // [H][kTile]  h, k-major
-  float* c_s = h_s + H * kTile;                   // [kTile][H]  c
-  float* red = c_s + kTile * H;                   // [kSplit][kTile][4][H]
-  const int Hp = blockDim.x / kSplit;             // H rounded up to warps
-  const int s = threadIdx.x / Hp;
-  const int j = threadIdx.x - s * Hp;
-  const bool active = j < H;
+  __shared__ __align__(8) uint64_t full[2][2];  // [half][buffer]: h is whole
+  const int Hc = (H + kCluster - 1) / kCluster;
+  const int half = threadIdx.x / kHalf;
+  const int ht = threadIdx.x - half * kHalf;
+  float4* Rs = smem4;                                   // [H][Hc] x (i,f,c~,o)
+  float* hbuf = reinterpret_cast<float*>(Rs + (size_t)H * Hc)
+                + half * 2 * H * T;                     // [2][H][T], this half's
+  float4* part = reinterpret_cast<float4*>(
+                     reinterpret_cast<float*>(Rs + (size_t)H * Hc)
+                     + 4 * H * T)
+                 + half * kSplit * T * Hc;              // [kSplit][T][Hc]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.y;
+  const int b0 = ((blockIdx.x / kCluster) * 2 + half) * T;  // the tile's row 0
+  const int s = ht >> 5;
+  const int ul = ht & 31;
+  const int u = rank * Hc + ul;                 // the hidden unit of this lane
+  const bool active = ul < Hc && u < H;
+  const int H4 = 4 * H;
   const int kc = (H + kSplit - 1) / kSplit;
   const int k0 = s * kc;
   const int k1 = min(H, k0 + kc);
-  const int g = blockIdx.y;
-  const int b = blockIdx.x * kTile + s;           // the row phase B updates
-  const bool updates = active && b < B;
-  const int H4 = 4 * H;
+
+  // once: this block's columns of R[g], h = 0, and the barriers
   const float* Rg = R + (size_t)g * H * H4;
-
-  for (int i = threadIdx.x; i < 2 * H * kTile; i += blockDim.x) h_s[i] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < L; ++t) {
-    const size_t row0 = ((size_t)g * L + t) * B;  // (g, t, b=0)
-    float zx[4];
-    if (updates) {
-      const float* z = xp + (row0 + b) * H4 + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) zx[q] = z[q * H];
+  for (int i = threadIdx.x; i < H * Hc; i += blockDim.x) {
+    const int k = i / Hc;
+    const int uu = rank * Hc + (i - k * Hc);
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (uu < H) {
+      const float* p = Rg + (size_t)k * H4 + uu;
+      w = make_float4(__ldg(p), __ldg(p + H), __ldg(p + 2 * H),
+                      __ldg(p + 3 * H));
     }
-    // phase A: partial h . R over this slice's k
-    if (active) {
-      float acc[kTile][4];
+    Rs[i] = w;
+  }
+  for (int i = ht; i < H * T; i += kHalf) hbuf[i] = 0.f;
+  const uint32_t bars = smem_addr(full[half]);
+  // a whole h less this block's own units, which it writes itself
+  const int own = max(0, min(Hc, H - rank * Hc));
+  const uint32_t h_bytes = (uint32_t)((H - own) * T * sizeof(float));
+  if (ht == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (L > 1) mbar_expect(bars + 8, h_bytes);   // step 1 reads buffer 1
+    if (L > 2) mbar_expect(bars, h_bytes);       // step 2 reads buffer 0
+  }
+  // every block of the cluster runs, and its R, h and barriers are in
+  // place, before any peer writes into its shared memory
+  cluster.sync();
+  if (b0 >= B) return;   // no second tile: the same half of every peer
+
+  // x_proj and the mask of step t for this thread's row; a row beyond B or
+  // a unit beyond H reads the last valid one's (and stores nothing), so no
+  // load waits on a condition
+  const int b = b0 + s;
+  const bool stores = active && b < B;
+  const float* xrow = xp + ((size_t)g * L * B + min(b, B - 1)) * H4
+                     + min(u, H - 1);
+  const uint8_t* mrow = mask + (size_t)g * L * B + min(b, B - 1);
+  float c = 0.f, h = 0.f, zx[4];
+  uint8_t m;
+  auto load_step = [&](int t) {
 #pragma unroll
-      for (int r = 0; r < kTile; ++r)
+    for (int q = 0; q < 4; ++q) zx[q] = __ldg(xrow + (size_t)t * B * H4 + q * H);
+    m = __ldg(mrow + (size_t)t * B);
+  };
+  load_step(0);
+
+  // The push's addresses do not change from step to step: this thread
+  // sends vector i = ht, and ht + kHalf where the 7 peers' share of the
+  // block's units has that many 16-byte vectors (at most 7 * 64), of the
+  // block's units of h to peer i / nvec.  Kept for buffer 0; buffer 1 lies
+  // H * T floats further in every block.
+  const int nvec = own * (T / 4);
+  uint32_t push_src[2], push_dst[2], push_bar[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = ht + j * kHalf;
+    const bool sends = i < (kCluster - 1) * nvec;
+    const int peer = sends ? i / nvec : 0;
+    const int dst = (rank + 1 + peer) % kCluster;
+    push_src[j] = (uint32_t)sizeof(float) * (rank * Hc * T)
+                  + 16u * (i - peer * nvec);
+    push_dst[j] = sends ? peer_addr(smem_addr(hbuf) + push_src[j], dst) : 0u;
+    push_bar[j] = peer_addr(bars, dst);
+  }
+  const uint32_t buf_bytes = (uint32_t)(H * T * sizeof(float));
+#ifdef ICL_LSTM_CLOCKS
+  const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0;
+  long long tick = clock64();
+#endif
+  for (int t = 0; t < L; ++t) {
+    const int cur = t & 1;
+    if (t > 0) {
+      mbar_wait(bars + 8 * cur, ((t - 1) >> 1) & 1);
+      // the buffer's next whole h is the one step t + 2 reads
+      if (ht == 0 && t + 2 < L) mbar_expect(bars + 8 * cur, h_bytes);
+    }
+    TICK(0)
+    // phase A: partial h . R over this warp's k, for the lane's unit
+    if (active) {
+      float acc[T][4];
+#pragma unroll
+      for (int r = 0; r < T; ++r)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-#pragma unroll 4
+      const float4* h4 = reinterpret_cast<const float4*>(hbuf + cur * H * T);
+      // the operands of k + 1 are loaded into their own registers before
+      // the FMAs of k, so no FMA waits on shared memory (the last k
+      // reloads itself)
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f), ha = w, hb = w;
+      if (k0 < k1) {
+        w = Rs[k0 * Hc + ul];
+        ha = h4[k0 * 2];
+        hb = h4[k0 * 2 + 1];
+      }
+#pragma unroll 5
       for (int k = k0; k < k1; ++k) {
-        const float* rk = Rg + (size_t)k * H4 + j;
-        const float w0 = __ldg(rk), w1 = __ldg(rk + H);
-        const float w2 = __ldg(rk + 2 * H), w3 = __ldg(rk + 3 * H);
-        const float4 h4 = *reinterpret_cast<const float4*>(h_s + k * kTile);
-        const float hv[kTile] = {h4.x, h4.y, h4.z, h4.w};
+        const int kn = min(k + 1, k1 - 1);
+        const float4 wn = Rs[kn * Hc + ul];
+        const float4 han = h4[kn * 2];
+        const float4 hbn = h4[kn * 2 + 1];
+        const float hv[T] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
 #pragma unroll
-        for (int r = 0; r < kTile; ++r) {
-          acc[r][0] = fmaf(hv[r], w0, acc[r][0]);
-          acc[r][1] = fmaf(hv[r], w1, acc[r][1]);
-          acc[r][2] = fmaf(hv[r], w2, acc[r][2]);
-          acc[r][3] = fmaf(hv[r], w3, acc[r][3]);
+        for (int r = 0; r < T; ++r) {
+          acc[r][0] = fmaf(hv[r], w.x, acc[r][0]);
+          acc[r][1] = fmaf(hv[r], w.y, acc[r][1]);
+          acc[r][2] = fmaf(hv[r], w.z, acc[r][2]);
+          acc[r][3] = fmaf(hv[r], w.w, acc[r][3]);
         }
+        w = wn;
+        ha = han;
+        hb = hbn;
       }
 #pragma unroll
-      for (int r = 0; r < kTile; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          red[((s * kTile + r) * 4 + q) * H + j] = acc[r][q];
+      for (int r = 0; r < T; ++r)
+        part[(s * T + r) * Hc + ul] =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
-    __syncthreads();
-    // phase B: row s of unit j
-    if (updates) {
-      float z[4];
+    TICK(1)
+    half_sync(half);
+    TICK(2)
+    // phase B: row s of the lane's unit
+    float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f;
+    if (active) {
+      float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float d = 0.f;
+      for (int p = 0; p < kSplit; ++p) {
+        const float4 v = part[(p * T + s) * Hc + ul];
+        d.x += v.x;
+        d.y += v.y;
+        d.z += v.z;
+        d.w += v.w;
+      }
+      ig = sigmoid(zx[0] + d.x);
+      fg = sigmoid(zx[1] + d.y);
+      gg = tanh_fast(zx[2] + d.z);
+      og = sigmoid(zx[3] + d.w);
+      const float ct = fg * c + ig * gg;
+      if (m) {
+        c = ct;
+        h = og * tanh_fast(ct);
+      }
+      // the new h of this unit's row, into this block's other buffer
+      hbuf[(cur ^ 1) * H * T + u * T + s] = h;
+    }
+    TICK(3)
+    if (t + 1 < L) {
+      // this block's units of the new h, 16 bytes a thread, to the same
+      // place in the 7 peers' other buffer: first, the peers wait for it
+      half_sync(half);
+      TICK(4)
 #pragma unroll
-        for (int p = 0; p < kSplit; ++p)
-          d += red[((p * kTile + s) * 4 + q) * H + j];
-        z[q] = zx[q] + d;
-      }
-      const float ig = sigmoid(z[0]);
-      const float fg = sigmoid(z[1]);
-      const float gg = tanhf(z[2]);
-      const float og = sigmoid(z[3]);
-      float* hp = h_s + j * kTile + s;
-      float* cp = c_s + s * H + j;
-      const float ct = fg * *cp + ig * gg;
-      if (mask[row0 + b]) {
-        *cp = ct;
-        *hp = og * tanhf(ct);
-      }
-      hs[(row0 + b) * H + j] = *hp;
+      for (int j = 0; j < 2; ++j)
+        if (push_dst[j] != 0u)
+          send4(push_dst[j] + (cur ^ 1) * buf_bytes,
+                push_bar[j] + 8 * (cur ^ 1),
+                *reinterpret_cast<const float4*>(
+                    reinterpret_cast<const char*>(hbuf) + push_src[j]
+                    + (cur ^ 1) * buf_bytes));
+      TICK(5)
+      load_step(t + 1);
+    }
+    if (stores) {
+      const size_t row = ((size_t)g * L + t) * B + b;
+      hs[row * H + u] = h;
       if (gates != nullptr) {
-        float* gp = gates + (row0 + b) * H4 + j;
+        float* gp = gates + row * H4 + u;
         gp[0] = ig;
         gp[H] = fg;
         gp[2 * H] = gg;
         gp[3 * H] = og;
-        cs[(row0 + b) * H + j] = *cp;
+        cs[row * H + u] = c;
       }
     }
-    __syncthreads();
   }
-  if (updates) h_final[((size_t)g * B + b) * H + j] = h_s[j * kTile + s];
+  if (stores) h_final[((size_t)g * B + b) * H + u] = h;
+}
+
+size_t smem_bytes(int H) {
+  const int Hc = (H + kCluster - 1) / kCluster;
+  // the slice of R; per half two h buffers and the warps' partial tiles
+  return ((size_t)4 * H * Hc + 2 * (2 * (size_t)H * kTile
+                                    + (size_t)4 * kSplit * kTile * Hc))
+         * sizeof(float);
 }
 
 }  // namespace
+
+#ifdef ICL_LSTM_CLOCKS
+// out[0..5]: cycles summed by thread 0 of block (0, 0) since the last reset,
+// in the phases wait, A, barrier, B, second barrier, push; the loads and
+// stores after the push count into the next step's wait.
+extern "C" int icl_lstm_recurrence_clocks(long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * 8);
+  if (err == cudaSuccess && reset) {
+    const long long zero[8] = {0};
+    err = cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif
 
 // x_proj [G, L, B, 4H], mask [G, L, B] (bytes, 0 or 1), R [G, H, 4H] in;
 // hs [G, L, B, H] and h_final [G, B, H] out, and, when `gates` is non-null,
@@ -171,29 +409,37 @@ lstm_recurrence_kernel(const float* __restrict__ xp,
 // except the mask.  Launches on `stream` (a cudaStream_t from the caller)
 // on `device` and returns the cudaError_t of the launch: 0 on success.  G,
 // L and B must be positive (the caller handles empty inputs without a
-// launch), and 1 <= H <= 256 (a block holds kSplit * H threads, rounded up
-// to warps).
+// launch), and 1 <= H <= 256 (a lane per unit of a block's eighth of H, and
+// at H=256 the block's slice of R takes 128 KB of shared memory).
 extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
                                        const uint8_t* mask, const float* R,
                                        float* hs, float* h_final,
                                        float* gates, float* cs, int G, int L,
                                        int B, int H, int device,
                                        void* stream) {
-  const int threads = kSplit * ((H + 31) / 32 * 32);
   if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
-  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || threads > 1024 || G > 65535)
+  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || H > 256 || G > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(2 + 4 * kSplit) * H * kTile * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lstm_recurrence_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((B + kTile - 1) / kTile, G);
-  lstm_recurrence_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x_proj, mask, R, hs, h_final, gates, cs, L, B, H);
-  return (int)cudaGetLastError();
+  const size_t smem = smem_bytes(H);
+  err = cudaFuncSetAttribute(lstm_cluster_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (B + kTile - 1) / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * ((tiles + 1) / 2), G);
+  cfg.blockDim = dim3(2 * kHalf);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, lstm_cluster_kernel, x_proj, mask, R,
+                                 hs, h_final, gates, cs, L, B, H);
 }

@@ -1,0 +1,312 @@
+"""Image-centric padded batching for the relation and affinity tasks.
+
+Reference parity: replaces the reference's per-image / per-pair Python loops
+(SURVEY §4.1–4.3) with fixed-shape batches over *images*.  Each batch dim is
+quantized to a bucket inventory (SURVEY §9.3 item 2) so the number of XLA
+compilations is bounded by |L-buckets| × |M-buckets| (× |B-buckets|):
+
+relation batch arrays (I images per batch)::
+
+    tokens     int32[I, C, L]    caption token ids (PAD=0)
+    tok_len    int32[I, C]       true caption lengths (0 ⇒ caption absent)
+    m_cap      int32[I, M]       caption row of each mention
+    m_first    int32[I, M]       mention span start (token idx)
+    m_last     int32[I, M]       mention span end (inclusive)
+    m_valid    bool [I, M]
+    pair_ij    int32[I, P, 2]    mention-row index pairs
+    pair_label int32[I, P]
+    pair_valid bool [I, P]
+    grid_label int32[I, M, M]    pair labels in grid form (train grid-loss)
+    grid_valid bool [I, M, M]
+    img_valid  bool [I]
+
+affinity batch arrays::
+
+    phrase_tokens int32[I, M, L]   phrase_len int32[I, M]
+    box_feats     f32  [I, B, D]   grid_label int32[I, M, B]
+    grid_valid    bool [I, M, B]   img_valid  bool[I]
+
+Padded slots index row 0 and are masked everywhere downstream.
+
+The port's own copy of ``icl/data/imagebatch.py``: ``icl_torch`` imports
+nothing of the JAX package, and ``tests/test_torch_data.py`` holds the two
+copies to the same outputs.  Rationale below is the original's; where it
+names XLA or the TPU, read PyTorch and the GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+from icl_torch.data.buckets import BucketSpec
+from icl_torch.data.pipeline import AffinityDataset, AffinityImage, RelationDataset, RelationImage
+
+
+@dataclasses.dataclass
+class ImageBatch:
+    arrays: dict[str, np.ndarray]
+    # (image_slot, item_slot, example_id) for every real example in the batch
+    id_index: list[tuple[int, int, str]]
+    shape_key: tuple
+
+
+def _schedule(images, shape_of, ipb: int,
+              rng: np.random.Generator | None, skip: int) -> list:
+    """The one batch schedule both batchers share: group by bucket shape,
+    per-group shuffle, chunk by images-per-batch, shuffle the chunk order,
+    drop the first ``skip`` (resume).  rng-deterministic, so every host of
+    a multi-process run agrees on it — keeping this logic in ONE place is
+    what the resume/skip and host_rows correctness arguments rely on."""
+    by_shape: dict[tuple, list] = {}
+    for im in images:
+        by_shape.setdefault(shape_of(im), []).append(im)
+    schedule: list[tuple[tuple, list]] = []
+    for key in sorted(by_shape):
+        group = by_shape[key]
+        if rng is not None:
+            rng.shuffle(group)
+        for s in range(0, len(group), ipb):
+            schedule.append((key, group[s:s + ipb]))
+    if rng is not None:
+        rng.shuffle(schedule)
+    return schedule[skip:]
+
+
+class RelationBatcher:
+    """Buckets relation images by (L, M) and pads to fixed shapes."""
+
+    def __init__(self, images_per_batch: int = 8,
+                 len_spec: BucketSpec = BucketSpec((16, 32, 48)),
+                 mention_spec: BucketSpec = BucketSpec((8, 16, 32)),
+                 captions_per_image: int = 5,
+                 build_grid: bool = True,
+                 with_ids: bool = True):
+        self.ipb = images_per_batch
+        self.len_spec = len_spec
+        self.mention_spec = mention_spec
+        self.C = captions_per_image
+        # grid_label/grid_valid feed only the grid-loss TRAIN step; the
+        # relation CLI turns this off for predict (dead [I,M,M] arrays)
+        self.build_grid = build_grid
+        # id_index (per-pair id tuples) feeds only .scores writing at
+        # predict; building it is pure-Python and measured ~2.5 ms of a
+        # 7 ms batch at I=128 — train turns it off
+        self.with_ids = with_ids
+
+    def shape_of(self, im: RelationImage) -> tuple[int, int, int, int]:
+        L = self.len_spec.bucket_of(im.tokens.shape[1])
+        M = self.mention_spec.bucket_of(len(im.m_cap))
+        # pair capacity: M(M-1)/2 fits the canonical unordered export
+        # (direction lives in the subset_ij/subset_ji labels, §6.4), but an
+        # ordered/both-direction .feats export carries up to M(M-1) rows —
+        # double the capacity into the bucket key rather than silently
+        # truncating labels and `.scores` ids (r3 review finding; compile
+        # count stays bounded: capacity tiers double, they don't enumerate)
+        P = max(M * (M - 1) // 2, 1)
+        while P < len(im.pair_label):
+            P *= 2
+        # caption count joins the key so >C-caption images (MSCOCO has 5–7)
+        # are padded up, never silently truncated/mis-gathered
+        C = max(self.C, im.tokens.shape[0])
+        return L, M, P, C
+
+    def batches(self, ds: RelationDataset,
+                rng: np.random.Generator | None = None,
+                skip: int = 0,
+                host_rows: tuple[int, int] | None = None) -> Iterator[ImageBatch]:
+        """Yield padded batches; ``skip`` drops the first N batches of the
+        (rng-deterministic) schedule WITHOUT building them — resume never
+        redoes the host-side padding work for already-trained batches.
+
+        ``host_rows=(lo, hi)``: multi-host input sharding — build only the
+        batch rows this process's devices hold (icl.dist.mesh.local_data_rows)
+        and feed them via shard_batch_local; the schedule itself stays
+        global and rng-deterministic, so every host agrees on it."""
+        for key, group in _schedule(ds.images, self.shape_of, self.ipb,
+                                    rng, skip):
+            yield self._pad(key, group, host_rows)
+
+    # per-image padded field inventory: shapes from the bucket key, dtypes
+    _FIELD_SPECS = (("tokens", "CL", np.int32), ("tok_len", "C", np.int32),
+                    ("m_cap", "M", np.int32), ("m_first", "M", np.int32),
+                    ("m_last", "M", np.int32), ("m_valid", "M", bool),
+                    ("pair_ij", "P2", np.int32),
+                    ("pair_label", "P", np.int32), ("pair_valid", "P", bool),
+                    ("grid_label", "MM", np.int32),
+                    ("grid_valid", "MM", bool))
+
+    def _field_shape(self, code: str, key: tuple) -> tuple:
+        L, M, P, C = key
+        return {"CL": (C, L), "C": (C,), "M": (M,), "P2": (P, 2),
+                "P": (P,), "MM": (M, M)}[code]
+
+    def _image_fields(self, im: RelationImage, key: tuple) -> dict:
+        """One image's padded field arrays, cached on the image object.
+
+        The padded form is a pure function of (image, bucket key) and the
+        key is stable per batcher config, so every epoch after the first
+        assembles batches by ``np.stack`` over cached rows instead of ~10
+        python-level slice assignments per image (measured 2.9 → <1 ms per
+        128-image batch).  Cache cost ≈ 4 KB/image/key at Flickr30k buckets,
+        capped at 2 keys per image (FIFO) so two batcher configs over one
+        dataset — e.g. train + a differently-bucketed eval — never thrash
+        (VERDICT r2 weak#7)."""
+        cache = getattr(im, "_pad_cache", None)
+        if cache is None:
+            cache = {}
+            im._pad_cache = cache
+        cached = cache.get(key)
+        if cached is not None:
+            return cached
+        L, M, P, C = key
+        f: dict = {}
+        c, l = im.tokens.shape
+        c, l = min(c, C), min(l, L)
+        tokens = np.zeros((C, L), np.int32)
+        tokens[:c, :l] = im.tokens[:c, :l]
+        tok_len = np.zeros((C,), np.int32)
+        tok_len[:c] = np.minimum(im.tok_len[:c], l)
+        f["tokens"], f["tok_len"] = tokens, tok_len
+        m = min(len(im.m_cap), M)
+        for name, src in (("m_cap", im.m_cap),
+                          ("m_first", np.minimum(im.m_first, l - 1)),
+                          ("m_last", np.minimum(im.m_last, l - 1))):
+            arr = np.zeros((M,), np.int32)
+            arr[:m] = src[:m]
+            f[name] = arr
+        mv = np.zeros((M,), bool)
+        mv[:m] = True
+        f["m_valid"] = mv
+        p = len(im.pair_label)
+        assert p <= P, (p, key)   # shape_of sizes the capacity; never drop
+        pij = np.zeros((P, 2), np.int32)
+        pij[:p] = im.pair_ij[:p]
+        plab = np.zeros((P,), np.int32)
+        plab[:p] = im.pair_label[:p]
+        pv = np.zeros((P,), bool)
+        pv[:p] = True
+        f["pair_ij"], f["pair_label"], f["pair_valid"] = pij, plab, pv
+        # pair labels in M×M grid form (grid-loss train step needs no
+        # device scatter); bucket_of never truncates, so indices are in
+        # range.  Built even when build_grid is off — the cache is shared
+        # and the per-image cost is one-time.
+        gl = np.zeros((M, M), np.int32)
+        gv = np.zeros((M, M), bool)
+        ij = np.asarray(im.pair_ij[:p], np.int32)
+        gl[ij[:, 0], ij[:, 1]] = im.pair_label[:p]
+        gv[ij[:, 0], ij[:, 1]] = True
+        f["grid_label"], f["grid_valid"] = gl, gv
+        f["num_pairs"] = p
+        if len(cache) >= 2:
+            cache.pop(next(iter(cache)))   # FIFO: dicts preserve insertion
+        cache[key] = f
+        return f
+
+    def _pad(self, key: tuple, group: list[RelationImage],
+             host_rows: tuple[int, int] | None = None) -> ImageBatch:
+        lo, hi = host_rows if host_rows is not None else (0, self.ipb)
+        group = group[lo:hi]
+        I = hi - lo
+        fields = [self._image_fields(im, key) for im in group]
+        names = [n for n, _, _ in self._FIELD_SPECS
+                 if self.build_grid or not n.startswith("grid_")]
+        a = {}
+        for name, code, dt in self._FIELD_SPECS:
+            if name not in names:
+                continue
+            buf = np.zeros((I,) + self._field_shape(code, key), dt)
+            if fields:
+                buf[:len(fields)] = np.stack([f[name] for f in fields])
+            a[name] = buf
+        iv = np.zeros((I,), bool)
+        iv[:len(fields)] = True
+        a["img_valid"] = iv
+        id_index: list[tuple[int, int, str]] = []
+        if self.with_ids:
+            for s, im in enumerate(group):
+                id_index.extend(
+                    (s, k, pid) for k, pid in
+                    enumerate(im.pair_ids[:fields[s]["num_pairs"]]))
+        return ImageBatch(arrays=a, id_index=id_index, shape_key=key)
+
+
+class AffinityBatcher:
+    """Buckets affinity images by (M, B) and pads to fixed grid shapes."""
+
+    def __init__(self, images_per_batch: int = 8,
+                 mention_spec: BucketSpec = BucketSpec((8, 16, 32)),
+                 box_spec: BucketSpec = BucketSpec((8, 16, 32)),
+                 phrase_len: int = 16,
+                 box_dtype=np.float32,
+                 with_ids: bool = True):
+        self.ipb = images_per_batch
+        self.mention_spec = mention_spec
+        self.box_spec = box_spec
+        self.L = phrase_len
+        # per-cell id strings feed only .scores writing at predict; the
+        # nested parse/format loops dominate batch assembly — train
+        # turns this off (see RelationBatcher.with_ids)
+        self.with_ids = with_ids
+        # bf16 training ships fc7 features to the device half-width: the
+        # [I,B,4096] box block is the largest host->device stream of the
+        # whole framework (ml_dtypes.bfloat16 here; numpy converts on
+        # assignment, torch.from_numpy transfers the 2-byte rows unchanged)
+        self.box_dtype = box_dtype
+
+    def shape_of(self, im: AffinityImage) -> tuple[int, int]:
+        M = self.mention_spec.bucket_of(im.phrase_tokens.shape[0])
+        B = self.box_spec.bucket_of(im.box_feats.shape[0])
+        return M, B
+
+    def batches(self, ds: AffinityDataset,
+                rng: np.random.Generator | None = None,
+                skip: int = 0,
+                host_rows: tuple[int, int] | None = None) -> Iterator[ImageBatch]:
+        """Like RelationBatcher.batches: ``skip`` drops already-trained
+        batches without building them (and, with lazy mmap box views,
+        without touching their feature bytes at all); ``host_rows`` builds
+        only this process's slice (see RelationBatcher)."""
+        D = ds.box_dim
+        for key, group in _schedule(ds.images, self.shape_of, self.ipb,
+                                    rng, skip):
+            yield self._pad(key, group, D, host_rows)
+
+    def _pad(self, key: tuple, group: list[AffinityImage], D: int,
+             host_rows: tuple[int, int] | None = None) -> ImageBatch:
+        M, B = key
+        lo, hi = host_rows if host_rows is not None else (0, self.ipb)
+        group = group[lo:hi]
+        I, L = hi - lo, self.L
+        a = {
+            "phrase_tokens": np.zeros((I, M, L), np.int32),
+            "phrase_len": np.zeros((I, M), np.int32),
+            "box_feats": np.zeros((I, B, D), self.box_dtype),
+            "box_valid": np.zeros((I, B), bool),
+            "grid_label": np.zeros((I, M, B), np.int32),
+            "grid_valid": np.zeros((I, M, B), bool),
+            "img_valid": np.zeros((I,), bool),
+        }
+        id_index: list[tuple[int, int, str]] = []
+        from icl_torch.io.captions import parse_mention_id
+        for s, im in enumerate(group):
+            m = min(im.phrase_tokens.shape[0], M)
+            b = min(im.box_feats.shape[0], B)
+            a["phrase_tokens"][s, :m] = im.phrase_tokens[:m, :L]
+            a["phrase_len"][s, :m] = np.minimum(im.phrase_len[:m], L)
+            a["box_feats"][s, :b] = im.box_feats[:b]
+            a["box_valid"][s, :b] = True
+            a["grid_label"][s, :m, :b] = im.grid_label[:m, :b]
+            a["grid_valid"][s, :m, :b] = im.grid_valid[:m, :b]
+            a["img_valid"][s] = True
+            if self.with_ids:
+                for r in range(m):
+                    img, ci, mi = parse_mention_id(im.mention_ids[r])
+                    for c in range(b):
+                        if im.grid_valid[r, c]:
+                            id_index.append(
+                                (s, r * B + c,
+                                 im.cell_id(ci, mi, im.box_idx[c])))
+        return ImageBatch(arrays=a, id_index=id_index, shape_key=key)

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from icl.data.pairs import RELATION_CLASSES
+from icl_torch.data.pairs import RELATION_CLASSES
 from icl_torch.models._layers import Dense, FlatParams
 from icl_torch.models.rnn import BiLSTM
 from icl_torch.ops.grid_head import grid_head

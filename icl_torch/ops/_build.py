@@ -44,27 +44,32 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra: tuple[str, ...] = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to (a hash of source and flags)."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src.read_bytes()
+        + "\0".join(NVCC_FLAGS + tuple(extra)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, float]:
+def build(name: str, extra: tuple[str, ...] = ()) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless already built; returns (path, s).
+
+    ``extra``: more nvcc flags (``-D...`` of a measuring build); they enter
+    the library's name, so such a build never replaces the plain one.
 
     The seconds are 0.0 when the library was already there.  The output is
     written under a temporary name and renamed, so a concurrent or
     interrupted build never leaves a half-written library behind.
     """
-    out = library_path(name)
+    out = library_path(name, extra)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+           str(SRC_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

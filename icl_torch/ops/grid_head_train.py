@@ -43,6 +43,7 @@ from icl_torch.ops import _build
 from icl_torch.ops.ce import onehot_ce
 
 MAX_O = 8            # kMaxO in csrc/grid_head_train.cu
+_BWD_SMEM = 227 * 1024   # a block's shared memory: the backward kernels' limit
 _M32 = 0xFFFFFFFF
 _MIX = 0x45D9F3B     # hash32's multiplier; < 2**27, so int64 never overflows
 _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
@@ -198,9 +199,14 @@ def grid_head_train_bwd(X, Y, b1, W2, seeds, g, rate: float):
     grid = (X.shape[0], X.shape[1], Y.shape[1], W2.shape[1])
     G, A, B, K, O = _check("grid_head_train_bwd", X, Y, b1, W2, None, seeds,
                            cells={"g": (g, torch.float32, grid)})
+    _check_bwd_grid("grid_head_train_bwd", A, B, O)
     dev = X.device
-    dX, dY = torch.zeros_like(X), torch.zeros_like(Y)
-    sums = torch.zeros(K * O + K, dtype=torch.float32, device=dev)
+    # the kernels write every element of dX, dY and sums; an empty grid
+    # launches nothing and its gradients are zeros
+    new = torch.empty if G and A and B else torch.zeros
+    dX = new(X.shape, dtype=torch.float32, device=dev)
+    dY = new(Y.shape, dtype=torch.float32, device=dev)
+    sums = new(K * O + K, dtype=torch.float32, device=dev)
     if G and A and B:
         part = torch.empty((G, K * O + K), dtype=torch.float32, device=dev)
         _launch("icl_ght_bwd_f32", "grid_head_train_bwd", X,
@@ -236,10 +242,13 @@ def grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights, gl,
                                               weights, gl, rate)
     G, A, B, K, O = _check("grid_head_train_loss_bwd", X, Y, b1, W2, b2,
                            seeds, cells=_label_cells(X, Y, labels, weights))
+    _check_bwd_grid("grid_head_train_loss_bwd", A, B, O)
     dev = X.device
     gl = gl.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
-    dX, dY = torch.zeros_like(X), torch.zeros_like(Y)
-    sums = torch.zeros(K * O + K + O, dtype=torch.float32, device=dev)
+    new = torch.empty if G and A and B else torch.zeros   # as in K6
+    dX = new(X.shape, dtype=torch.float32, device=dev)
+    dY = new(Y.shape, dtype=torch.float32, device=dev)
+    sums = new(K * O + K + O, dtype=torch.float32, device=dev)
     if G and A and B:
         g3 = torch.empty((G, A, B, O), dtype=torch.float32, device=dev)
         part = torch.empty((G, K * O + K + O), dtype=torch.float32, device=dev)
@@ -263,6 +272,17 @@ def _launch(symbol, what, like, *tensors, dims, rate):
         *(t.data_ptr() for t in tensors), *dims, _keep_threshold(rate),
         dropout_scale(rate), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
+
+
+def _check_bwd_grid(what, A, B, O):
+    """The backward kernel keeps one image's cotangents [A, B, O] and hash
+    keys [A, B], and 128 threads' partials over B + O + 1 columns, in a
+    block's shared memory."""
+    need = 4 * (A * B * (O + 1) + 128 * (B + O + 1))
+    if need > _BWD_SMEM:
+        raise ValueError(f"{what}: a grid of A={A} by B={B} cells, O={O}, "
+                         f"needs {need} bytes of shared memory a block; the "
+                         f"kernel has {_BWD_SMEM}")
 
 
 def _label_cells(X, Y, labels, weights):

@@ -19,7 +19,8 @@ Layout, direction-major as the Pallas kernels had it::
   autograd).
 * :func:`lstm_recurrence` is a ``torch.autograd.Function``.  Its forward
   launches the hand-written kernel ``icl_torch/csrc/lstm_recurrence.cu``
-  (all L steps in one launch) for CUDA tensors and runs the plain version
+  (all L steps in one launch, R resident in the shared memory of a
+  thread-block cluster) for CUDA tensors and runs the plain version
   for CPU tensors.  When a gradient is needed, the forward also keeps the
   reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
   post-activation gates (not masked), c after the mask, and hs.  The
@@ -38,7 +39,7 @@ import torch
 from icl_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-MAX_H = 256   # a block holds 4 threads per hidden unit (csrc/lstm_recurrence.cu)
+MAX_H = 256   # a block's eighth of R must fit its shared memory (csrc/lstm_recurrence.cu)
 
 
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,

@@ -6,9 +6,11 @@ Loads the word vectors once and each task's weights from
 gives the widths; write one with ``icl-export``) where that file exists,
 then scores JSON requests with the same padding buckets, class orders and
 response formats as ``icl-serve``.  It refuses to start when no task's
-archive exists.  On a CUDA device the models run their fused forms, through
-the hand-written grid-head and LSTM-recurrence kernels; on the CPU they run
-their plain forms.
+archive exists.  It scores on the GPU (``cuda``), where the models run their
+fused forms through the hand-written grid-head and LSTM-recurrence kernels,
+and refuses to start when there is none; ``--device cpu`` (``device="cpu"``
+in :class:`Scorer` and :func:`serve`) asks for the CPU, where they run their
+plain forms.
 
 Endpoints (JSON in/out):
 
@@ -24,7 +26,7 @@ Endpoints (JSON in/out):
 Usage::
 
     python -m icl_torch.serve --data_dir D [--port 8414]
-        [--tasks relation,affinity]
+        [--tasks relation,affinity] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from icl.data.buckets import BucketSpec
-from icl.data.embeddings import EmbeddingStore
-from icl.util.log import LOG
+from icl_torch.data.buckets import BucketSpec
+from icl_torch.data.embeddings import EmbeddingStore
+from icl_torch.util.log import LOG
 from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
 from icl_torch.models.relation import RELATION_CLASSES, RelationModel
 from icl_torch.params import load_npz
@@ -162,7 +164,10 @@ class _Coalescer:
 class Scorer:
     """Loads the word vectors and the task weights; scores payloads.
 
-    ``tasks``: the tasks to load (default all of :data:`TASKS`); a task
+    ``device``: where to score, ``cuda`` unless the caller names another; it
+    never falls to the CPU by itself, so with no GPU and no ``device="cpu"``
+    the constructor raises.  ``tasks``: the tasks to load (default all of
+    :data:`TASKS`); a task
     whose ``<data_dir>/<task>.npz`` does not exist is skipped, and none
     found raises.  ``batch_window_ms``: cross-request micro-batching window
     (see _Coalescer); negative disables coalescing (inline per-request
@@ -170,11 +175,15 @@ class Scorer:
     """
 
     def __init__(self, data_dir: str, embeddings_file: str | None = None,
-                 device: torch.device | None = None,
+                 device: torch.device | str | None = None,
                  batch_window_ms: float = 2.0, max_pending: int = 256,
                  tasks: list[str] | None = None):
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "icl_torch.serve: no CUDA device is available; scoring runs "
+                "on the GPU unless the CPU is asked for (--device cpu, or "
+                "device=\"cpu\")")
         emb_path = embeddings_file or os.path.join(data_dir, "embeddings.txt")
         self.emb = EmbeddingStore.load(emb_path)
         self.table = torch.from_numpy(self.emb.table).to(self.device)
@@ -550,7 +559,7 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
           warmup: str = "basic", batch_window_ms: float = 2.0,
           max_body_mb: float = 8.0, max_items: int = 64,
           max_pending: int = 256,
-          device: torch.device | None = None,
+          device: torch.device | str | None = None,
           tasks: list[str] | None = None) -> ThreadingHTTPServer:
     """Build the server (caller decides serve_forever vs background)."""
     # parity-grade scoring: full f32 matmuls, no TF32 in cuBLAS or cuDNN
@@ -591,6 +600,9 @@ def main(argv=None) -> None:
     p.add_argument("--tasks", default=None,
                    help="comma-separated subset of relation,affinity "
                         "(default: every task with an archive)")
+    p.add_argument("--device", default="cuda",
+                   help="where to score: cuda (the default; the server "
+                        "refuses to start without a GPU), cuda:N, or cpu")
     p.add_argument("--warmup", default="basic",
                    choices=["off", "basic", "full"],
                    help="run predict at startup over the common bucket "
@@ -612,7 +624,7 @@ def main(argv=None) -> None:
     httpd = serve(args.data_dir, args.port, args.embeddings_file,
                   warmup=args.warmup, batch_window_ms=args.batch_window_ms,
                   max_body_mb=args.max_body_mb, max_items=args.max_items,
-                  max_pending=args.max_pending,
+                  max_pending=args.max_pending, device=args.device,
                   tasks=args.tasks.split(",") if args.tasks else None)
     if threading.current_thread() is threading.main_thread():
         def _graceful(signum, frame):

@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from icl.util.log import LOG
+from icl_torch.util.log import LOG
 from icl_torch.models.affinity import AffinityModel, rank_boxes
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops.affinity_rank import affinity_rank

@@ -151,3 +151,15 @@ def test_tasks_subset_and_missing_archives(served, tmp_path):
     shutil.copy(os.path.join(served["data_dir"], "embeddings.txt"), empty)
     with pytest.raises(FileNotFoundError, match="no <task>.npz"):
         Scorer(str(empty), device=torch.device("cpu"), batch_window_ms=-1)
+
+
+def test_affinity_scorer_needs_a_card_or_device_cpu(served, monkeypatch):
+    from icl_torch.serve import Scorer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scorer(served["data_dir"], batch_window_ms=-1, tasks=["affinity"])
+    scorer = Scorer(served["data_dir"], device="cpu", batch_window_ms=-1,
+                    tasks=["affinity"])
+    assert scorer.device.type == "cpu" and sorted(scorer.tasks) == ["affinity"]
+    assert scorer.warmup("basic") == 2

@@ -89,7 +89,11 @@ def _rec_inputs(G, L, B, H, dev, seed=0):
 
 @pytest.mark.parametrize("G,L,B,H", [
     (2, 16, 8, 200), (2, 32, 64, 200), (2, 48, 37, 200), (1, 1, 3, 8),
-    (2, 9, 13, 40), (2, 5, 6, 3), (1, 7, 5, 256)])
+    (2, 9, 13, 40), (2, 5, 6, 3), (1, 7, 5, 256),
+    # no multiple of the kernel's 8-row tile; a lone second tile; the widest
+    # and a narrow H; the affinity batch; two steps (one hand-over of h)
+    (2, 32, 61, 200), (2, 32, 9, 200), (2, 16, 61, 256), (2, 16, 61, 64),
+    (1, 16, 1024, 200), (2, 2, 17, 200), (2, 3, 9, 1)])
 def test_recurrence_kernel_matches_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     n0 = lstm_recurrence.launches
@@ -156,7 +160,10 @@ def _train_inputs(G, A, B, K, O, dev, seed=0):
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 @pytest.mark.parametrize("G,A,B,K,O", [
     (1, 8, 8, 800, 4), (64, 16, 16, 800, 4), (64, 32, 32, 800, 4),
-    (2, 24, 40, 32, 4), (3, 9, 70, 16, 2), (2, 5, 7, 33, 3)])
+    (2, 24, 40, 32, 4), (3, 9, 70, 16, 2), (2, 5, 7, 33, 3),
+    # the affinity table shapes (A != B), and a head wider than the
+    # backward kernel's O = 2 and O = 4 forms, over more than 16 rows
+    (64, 16, 32, 1024, 2), (64, 16, 20, 1024, 2), (2, 33, 5, 70, 8)])
 def test_grid_head_train_kernels_match_plain(dev, G, A, B, K, O, rate):
     (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
         G, A, B, K, O, dev)
@@ -208,6 +215,16 @@ def test_grid_head_train_empty_grid_launches_nothing(dev):
     assert [f.launches for f in fns] == n0
 
 
+def test_grid_head_train_backward_rejects_a_grid_beyond_shared_memory(dev):
+    (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
+        1, 130, 130, 8, 8, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ght.grid_head_train_bwd(X, Y, b1, W2, seeds, cot, 0.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        ght.grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights,
+                                     torch.ones((), device=dev), 0.0)
+
+
 def test_grid_head_train_zero_weight_cells_are_inert(dev):
     (X, Y, b1, W2, b2), seeds, labels, weights, _ = _train_inputs(
         4, 16, 16, 800, 4, dev)
@@ -222,13 +239,17 @@ def test_grid_head_train_zero_weight_cells_are_inert(dev):
 
 
 @pytest.mark.parametrize("G,L,B,H", [
-    (2, 32, 512, 200), (2, 16, 8, 200), (2, 9, 13, 40), (1, 7, 5, 256)])
+    (2, 32, 512, 200), (2, 16, 8, 200), (2, 9, 13, 40), (1, 7, 5, 256),
+    (2, 32, 61, 200), (1, 16, 1024, 200), (2, 16, 61, 64)])
 def test_recurrence_residuals_match_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     hs0, fin0 = lstm_recurrence(*args)
     hs, fin, gates, c = lstm_recurrence_fwd(*args, residuals=True)
     torch.cuda.synchronize()
     assert torch.equal(hs, hs0) and torch.equal(fin, fin0)
+    for a, b in zip((hs, fin, gates, c),                # bitwise repeatable
+                    lstm_recurrence_fwd(*args, residuals=True)):
+        assert torch.equal(a, b)
     want = lstm_recurrence_reference(*args, residuals=True)
     for got, ref in zip((hs, fin, gates, c), want, strict=True):
         _assert_close(got, ref)

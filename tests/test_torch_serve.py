@@ -161,7 +161,8 @@ def test_sigterm_drains_and_exits_clean(served):
     env = dict(os.environ, PYTHONPATH=REPO)
     p = subprocess.Popen(
         [sys.executable, "-u", "-m", "icl_torch.serve", "--data_dir",
-         served["data_dir"], "--warmup", "off", "--port", "0"],
+         served["data_dir"], "--warmup", "off", "--port", "0", "--device",
+         "cpu"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = []
     t = threading.Thread(target=lambda: lines.extend(
@@ -189,3 +190,30 @@ def test_sigterm_drains_and_exits_clean(served):
     out = "".join(lines)
     assert "shutting down" in out and "drained, exiting" in out, out
     assert "Traceback" not in out, out
+
+
+def test_scorer_runs_on_the_card_unless_asked_for_the_cpu(served, monkeypatch):
+    from icl_torch.serve import Scorer, serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scorer(served["data_dir"], batch_window_ms=-1)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve(served["data_dir"], port=0, warmup="off")
+    scorer = Scorer(served["data_dir"], device="cpu", batch_window_ms=-1)
+    assert scorer.device.type == "cpu"
+    body = scorer.score_relation({"images": [IMAGE]})
+    status, want = _post(served["url"], "/score/relation", {"images": [IMAGE]})
+    assert status == 200 and body == want
+
+
+def test_cli_without_a_card_refuses_to_start(served):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "icl_torch.serve", "--data_dir",
+         served["data_dir"], "--warmup", "off", "--port", "0"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
