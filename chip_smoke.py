@@ -9,8 +9,9 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
 4096-d VGG fc7 box features, head 1024, O = 2):
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
-2. builds the four hand-written CUDA sources from icl_torch/csrc, one nvcc
-   each, side by side, and prints ptxas's registers and spills;
+2. builds the hand-written CUDA sources from icl_torch/csrc (the four
+   kernel sources and the two measuring kernels of head_probes.cu), one
+   nvcc each, side by side, and prints ptxas's registers and spills;
 3. checks each kernel against its plain PyTorch version on the card (gate:
    max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
    and the recurrence at the served relation shapes, the recurrence's
@@ -24,15 +25,21 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
    in {16, 1024} (hs, final and the residuals); the recurrence also with a
    batch that is no multiple of its row tile (B=61) and at H in {64, 200,
-   256}, twice with equal bits; then times each kernel beside its plain
+   256}, twice with equal bits; the forward grid-head kernels (K1, K5, K7,
+   K8) also at ragged register tiles (A, B in {5, 7, 9, 17, 20, 33, 130}),
+   K in {30, 50} (no multiple of 4), O in {1, 2, 3, 4, 8}, with an operand
+   that is only 4-byte aligned, at weight densities 0, 0.19 and 1, each
+   twice with equal bits; then times each kernel beside its plain
    version, per call with CUDA events over back-to-back calls, and device
    time alone with the profiler, and prints each kernel's time beside its
    bound: the least time the card could take for the same work, the larger
    of its bytes (every input read once, every output written once) over
-   3.35 TB/s and its operations over 67 T/s (f32 outside the tensor cores;
-   the dropout hash's 32-bit integer operations are counted at that rate
-   too), where the work is what this run's data needs (valid steps of the
-   recurrence, cells of weight > 0 for K7/K8, valid boxes for K9);
+   3.35 TB/s, its float operations over 67 T/s (f32 outside the tensor
+   cores) and the dropout hash's 32-bit integer operations (each keep
+   bit once, in K8 too) over the integer pipe's 16.7 T/s (the hash alone
+   and an empty kernel are timed beside them), where the work is what
+   this run's data needs (valid steps of the recurrence, cells of weight
+   > 0 for K7/K8, valid boxes for K9);
 4. relation serving: writes a data dir (synthetic 300-d word vectors,
    seeded relation and affinity weights as icl-export archives), serves it
    with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
@@ -51,7 +58,8 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    kernel path's loss, metrics and every parameter gradient are held
    against the plain model's from the same params and seeds; every loss is
    finite; all six relation kernels launch in this phase; per-step times of
-   the kernel path and the plain path;
+   the kernel path and the plain path; relation batch predict over the 128
+   images in mention pairs per second, both paths;
 7. affinity batch predict with ranking: a planted synthetic split of 128
    images (20 boxes each, rewritten at 4096-d, up to 15 phrases) through
    AffinityBatcher (64 images, buckets (8, 16, 32), phrase_len 16);
@@ -110,6 +118,8 @@ from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
                                            lstm_recurrence_reference)
 from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
+from icl_torch.tools.head_probes import (HASH_INT_OPS, empty_launch,
+                                         hash_kept)
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import (affinity_loss, affinity_predict,
                                    make_affinity_train_step,
@@ -125,7 +135,7 @@ VOCAB = 2000
 SEED = 0
 RATE = 0.5             # dropout (the relation and affinity CLIs' default)
 SOURCES = ("grid_head", "lstm_recurrence", "grid_head_train",
-           "affinity_rank")
+           "affinity_rank", "head_probes")
 TRAIN_KERNELS = {      # name -> wrapper carrying the launch count
     "grid_head_train_fwd": ght.grid_head_train_fwd,
     "grid_head_train_bwd": ght.grid_head_train_bwd,
@@ -148,6 +158,7 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
                       "icl/ops/affinity_rank.py:90"),
 }
 F32_RATE = 67e12       # H100 SXM, f32 outside the tensor cores, operations/s
+INT32_RATE = 16.7e12   # H100 SXM, 32-bit integer: 64 lanes x 132 SMs x 1.98 GHz
 HBM_RATE = 3.35e12     # H100 SXM, bytes/s
 NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
     "grid_head": "fuses broadcast add, ReLU and a narrow dot; the [A,B,K] "
@@ -185,6 +196,7 @@ def main() -> int:
     # 2. build, one nvcc per source, all at once
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = list(pool.map(_build.build, SOURCES))
+    spilled = []
     for name, (path, secs) in zip(SOURCES, built):
         print(f"build {name}: {secs:.1f} s -> {path.name}")
         log = path.with_suffix(".log")
@@ -192,6 +204,10 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {line.strip()}")
+                if re.search(r"[1-9]\d* bytes spill", line):
+                    spilled.append(name)
+    if spilled:
+        raise RuntimeError(f"ptxas reports register spills in {spilled}")
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -217,15 +233,17 @@ def main() -> int:
                 torch.randn(K, O, generator=gen, device=dev) / K ** 0.5,
                 torch.randn(O, generator=gen, device=dev))
 
-    def train_inputs(G, A, B=None, K=DIMS["head_hidden"], O=4):
-        """The arguments of K5-K8, rate aside, over one random problem."""
+    def train_inputs(G, A, B=None, K=DIMS["head_hidden"], O=4, density=None):
+        """The arguments of K5-K8, rate aside, over one random problem;
+        `density`: the share of cells of weight > 0 (0.75 if not given)."""
         B = A if B is None else B
         X, Y, b1, W2, b2 = head_inputs(G, A, B, K, O)
         seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
                               device=dev, dtype=torch.int32)
         labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
                                dtype=torch.int32)
-        weights = ((torch.rand(G, A, B, generator=gen, device=dev) > 0.25)
+        draw = torch.rand(G, A, B, generator=gen, device=dev)
+        weights = ((draw > 0.25 if density is None else draw < density)
                    * torch.where(torch.rand(G, A, B, generator=gen,
                                             device=dev) > 0.5, 1.0, 0.3))
         cot = torch.randn(G, A, B, O, generator=gen, device=dev)
@@ -374,6 +392,77 @@ def main() -> int:
         check(f"lstm_recurrence G={G} L={L} B={B} H={H} (hs, final, gates, "
               f"c), repeated bits equal", got,
               lstm_recurrence_reference(*args, True))
+    # the forward family's tiling (K1, K5, K7, K8; K6 beside them): ragged
+    # register tiles, K no multiple of 4 (the scalar form) or of a 128-wide
+    # pass, every head width, K splits; each call twice for equal bits
+    def twice(what, fn, plain, args):
+        got = fn(*args)
+        err = check(what, got, plain(*args), quiet=True)
+        if not all(torch.equal(a, b)
+                   for a, b in zip(_tuple(got), _tuple(fn(*args)))):
+            failures.append(f"{what} not repeatable")
+        return err
+
+    def with_rate(fn, rate=RATE):
+        return lambda *a: fn(*a, rate)
+
+    for G, A, B, K, O in ((1, 5, 7, 30, 1), (2, 7, 9, 50, 2),
+                          (2, 9, 17, 800, 3), (1, 17, 20, 1024, 4),
+                          (2, 20, 33, 50, 8), (3, 33, 5, 800, 8),
+                          (2, 9, 130, 16, 2), (1, 16, 16, 800, 4)):
+        shape = f"G={G} A={A} B={B} K={K} O={O}"
+        errs = {"K1": twice(f"grid_head {shape}", grid_head,
+                            grid_head_reference, head_inputs(G, A, B, K, O))}
+        for name, a in train_inputs(G, A, B, K, O).items():
+            errs[name[16:]] = twice(f"{name} {shape} rate={RATE}",
+                                    with_rate(TRAIN_KERNELS[name]),
+                                    with_rate(plain_of[name]), a)
+        print(f"check grid head K1, K5-K8 {shape} rate={RATE}, repeated "
+              f"bits equal: max|d| (gate) " + ", ".join(
+                  f"{n} {e:.2e} ({t:.1e})" for n, (e, t) in errs.items()))
+    # an operand that is only 4-byte aligned (a view one float into its
+    # allocation): the scalar form
+    for G, A, B, K, O in ((8, 16, 16, 800, 4), (4, 16, 20, K_AFF, 2)):
+        shape = f"G={G} A={A} B={B} K={K} O={O}"
+        for which in (0, 1, 3):
+            args = list(head_inputs(G, A, B, K, O))
+            want = grid_head_reference(*args)
+            args[which] = _offset_view(args[which])
+            check(f"grid_head {shape}, operand {which} unaligned",
+                  grid_head(*args), want, quiet=True)
+        cases = train_inputs(G, A, B, K, O)
+        errs = {}
+        for name in ("grid_head_train_fwd", "grid_head_train_loss_fwd",
+                     "grid_head_train_loss_bwd"):
+            a = list(cases[name])
+            want = plain_of[name](*a, RATE)
+            a[1] = _offset_view(a[1])
+            errs[name[16:]] = twice(f"{name} {shape}, Y unaligned",
+                                    with_rate(TRAIN_KERNELS[name]),
+                                    lambda *_, w=want: w, a)
+        print(f"check grid head K1, K5, K7, K8 {shape} with an unaligned "
+              f"operand: max|d| (gate) " + ", ".join(
+                  f"{n} {e:.2e} ({t:.1e})" for n, (e, t) in errs.items()))
+    # K7 and K8 skip cells of weight 0: every density, and all-zero sums and
+    # gradients at density 0
+    for G, A, B, K, O in ((64, 16, 16, 800, 4), (8, 16, 32, K_AFF, 2)):
+        for density in (0.0, 0.19, 1.0):
+            cases = train_inputs(G, A, B, K, O, density)
+            errs = {}
+            for name in ("grid_head_train_loss_fwd",
+                         "grid_head_train_loss_bwd"):
+                what = f"{name} G={G} A={A} B={B} K={K} O={O} weight " \
+                       f"density {density}"
+                errs[name[16:]] = twice(what, with_rate(TRAIN_KERNELS[name]),
+                                        with_rate(plain_of[name]),
+                                        cases[name])
+                if density == 0.0 and any(
+                        t.any() for t in _tuple(TRAIN_KERNELS[name](
+                            *cases[name], RATE))):
+                    failures.append(f"{what}: not all zero")
+            print(f"check grid head K7, K8 G={G} A={A} B={B} K={K} O={O} "
+                  f"weight density {density}: max|d| (gate) " + ", ".join(
+                      f"{n} {e:.2e} ({t:.1e})" for n, (e, t) in errs.items()))
     if failures:
         raise RuntimeError(f"kernel checks failed: {failures}")
 
@@ -383,25 +472,32 @@ def main() -> int:
     # line, operations this run's data needs).
     def head_ops(kind, G, A, B, K, O, cells=None, rate=0.0):
         """Operations of a grid-head kernel over `cells` cells (all, unless
-        the data needs fewer).  Per element of [cells, K]: add and ReLU (2)
-        and the O-wide dot (2 O) forward; the mask of z > 0, dh and dW2 (4
-        O), dz, dX, dY and the two scalings (6) backward; with dropout the
-        hash (10 integer operations) and the scaling."""
+        the data needs fewer), as (float operations, integer operations).
+        Per element of [cells, K]: add and ReLU (2) and the O-wide dot (2
+        O) forward; the mask of z > 0, dh and dW2 (4 O), dz, dX, dY and
+        the two scalings (6) backward; with dropout the hash (10 32-bit
+        integer operations, HASH_INT_OPS) and the scaling (1 or 2 float
+        ones).  The two kinds are rated apart: float at F32_RATE, integer
+        at INT32_RATE, the rate the hash-only probe confirms on the card.
+        K8 recomputes the forward and runs the backward over one mask: the
+        function needs each keep bit once, so its hash counts once (the
+        kernels hash it twice, once a launch)."""
         cells = G * A * B if cells is None else cells
         drop = ght.dropout_applies(rate)
-        fwd = cells * K * (2 + 2 * O + (11 if drop else 0))
-        bwd = cells * K * (6 + 4 * O + (12 if drop else 0))
+        fwd = cells * K * (2 + 2 * O + (1 if drop else 0))
+        bwd = cells * K * (6 + 4 * O + (2 if drop else 0))
+        hashed = cells * K * HASH_INT_OPS if drop else 0
         pre = G * A * K                                     # X + b1
-        return {"fwd": pre + fwd, "bwd": pre + bwd,
-                "loss_fwd": pre + fwd + cells * 6 * O,
-                "loss_bwd": 2 * pre + fwd + bwd + cells * 8 * O,
-                "rank": pre + cells * K * 4 + cells * 6}[kind]
+        return {"fwd": (pre + fwd, hashed), "bwd": (pre + bwd, hashed),
+                "loss_fwd": (pre + fwd + cells * 6 * O, hashed),
+                "loss_bwd": (2 * pre + fwd + bwd + cells * 8 * O, hashed),
+                "rank": (pre + cells * K * 4 + cells * 6, 0)}[kind]
 
     def rec_ops(args):
         """2 H 4H per valid (row, step) for h . R, and about 10 per unit
         for the gates."""
         H = args[2].shape[1]
-        return int(args[1].sum()) * (8 * H * H + 10 * H)
+        return int(args[1].sum()) * (8 * H * H + 10 * H), 0
 
     cases = {}
 
@@ -410,23 +506,35 @@ def main() -> int:
                        "inputs": inputs, "shape": shape, "ops": ops,
                        "replaces": replaces or REPLACES[kernel][1]}
 
-    def add_train_cases(suffix, G, A, B, K, O):
+    def add_train_cases(suffix, G, A, B, K, O, density=None):
+        """K5-K8 at one shape; with `density`, only the weighted kernels
+        (K7, K8) at that share of cells of weight > 0."""
         kinds = {"grid_head_train_fwd": "fwd", "grid_head_train_bwd": "bwd",
                  "grid_head_train_loss_fwd": "loss_fwd",
                  "grid_head_train_loss_bwd": "loss_bwd"}
-        for name, a in train_inputs(G, A, B, K, O).items():
+        for name, a in train_inputs(G, A, B, K, O, density).items():
             weighted = "loss" in name     # weight-0 cells need no work
+            if density is not None and not weighted:
+                continue
             cells = int((a[7] > 0).sum()) if weighted else None
             add_case(name + suffix, name,
                      (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
                      (lambda f=plain_of[name], a=a: f(*a, RATE)), a,
-                     f"G={G} A={A} B={B} K={K} O={O} rate={RATE}",
+                     f"G={G} A={A} B={B} K={K} O={O} rate={RATE}"
+                     + (f", {cells} of {G * A * B} cells of weight > 0"
+                        if weighted else ""),
                      head_ops(kinds[name], G, A, B, K, O, cells, RATE))
 
     head_args = head_inputs(8, 16)
     add_case("grid_head", "grid_head", lambda: grid_head(*head_args),
              lambda: grid_head_reference(*head_args), head_args,
              "G=8 A=B=16 K=800 O=4", head_ops("fwd", 8, 16, 16, 800, 4))
+    for G in (1, 64):    # one served image; the relation batch predict
+        a = head_inputs(G, 16)
+        add_case(f"grid_head G={G}", "grid_head", (lambda a=a: grid_head(*a)),
+                 (lambda a=a: grid_head_reference(*a)), a,
+                 f"G={G} A=B=16 K=800 O=4",
+                 head_ops("fwd", G, 16, 16, 800, 4))
     rec_args = rec_inputs(32, 64)
     add_case("lstm_recurrence", "lstm_recurrence",
              lambda: lstm_recurrence(*rec_args),
@@ -439,6 +547,9 @@ def main() -> int:
              lambda: lstm_recurrence_reference(*big_rec, residuals=True),
              big_rec, "G=2 L=32 B=512 H=200", rec_ops(big_rec))
     add_train_cases("", 64, 16, 16, DIMS["head_hidden"], 4)
+    # K7 and K8 at the share of weighted cells the trained batches have
+    add_train_cases(" at the trained density", 64, 16, 16,
+                    DIMS["head_hidden"], 4, density=0.19)
     # the affinity shapes: batch predict and training (64 images, 16
     # phrases, 32 boxes), the served 4-image request, the phrase LSTM over
     # 64 x 16 phrases
@@ -458,6 +569,8 @@ def main() -> int:
              head_ops("fwd", 64, 16, 32, K_AFF, 2),
              "icl/ops/grid_head.py:173")        # the tiled kernel's size
     add_train_cases(" affinity", 64, 16, 32, K_AFF, 2)
+    add_train_cases(" affinity at the trained density", 64, 16, 32, K_AFF, 2,
+                    density=0.42)
     phrase_rec = rec_inputs(16, 1024, G=1)
     add_case("lstm_recurrence G=1", "lstm_recurrence",
              lambda: lstm_recurrence(*phrase_rec),
@@ -471,7 +584,9 @@ def main() -> int:
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
         nbytes = _nbytes(c["inputs"]) + _nbytes(_tuple(got))
-        t_ops, t_bytes = c["ops"] / F32_RATE * 1e3, nbytes / HBM_RATE * 1e3
+        f_ops, i_ops = c["ops"]
+        t_ops = max(f_ops / F32_RATE, i_ops / INT32_RATE) * 1e3
+        t_bytes = nbytes / HBM_RATE * 1e3
         timing[name] = {"shape": c["shape"], "kernel": c["kernel"],
                         "replaces": c["replaces"],
                         "max_abs_err": _max_err(got, want),
@@ -479,11 +594,24 @@ def main() -> int:
                         "plain_ms": _time_ms(c["plain"]),
                         "device_ms": _device_ms(c["fn"]),
                         "plain_device_ms": _device_ms(c["plain"]),
-                        "ops": c["ops"], "bytes": nbytes,
+                        "ops": f_ops, "int_ops": i_ops, "bytes": nbytes,
                         "bound_ms": max(t_ops, t_bytes),
                         "bound_by": ("operations" if t_ops >= t_bytes
                                      else "bytes")}
     del cases
+    # the two yardsticks of the bounds: an empty kernel (the floor under a
+    # launch) and the dropout hash alone (the integer pipe's rate)
+    probes = {"empty_ms": _device_ms(lambda: empty_launch(dev))}
+    for name, (G, A, B, K) in (("R", (64, 16, 16, 800)),
+                               ("A", (64, 16, 32, K_AFF))):
+        seeds = torch.arange(1, G + 1, dtype=torch.int32, device=dev)
+        kept = hash_kept(seeds, A, B, K, RATE)
+        if not torch.equal(kept[:2].long(), ght.dropout_keep_mask(
+                seeds[:2], A, B, K, RATE).sum(-1)):
+            raise RuntimeError("the hash probe disagrees with the mask")
+        ms = _device_ms(lambda: hash_kept(seeds, A, B, K, RATE))
+        probes[name] = (f"G={G} A={A} B={B} K={K}", ms,
+                        G * A * B * K * HASH_INT_OPS / ms / 1e9)
 
     # 4. serving
     with tempfile.TemporaryDirectory(prefix="icl_chip_smoke_") as d:
@@ -568,12 +696,20 @@ def main() -> int:
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
               f"{t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms "
               f"({card})")
-        print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G "
-              f"operations, {t['bytes'] / 1e6:.3f} MB -> {t['bound_ms']:.4f} "
+        print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G float "
+              f"and {t['int_ops'] / 1e9:.4f} G integer operations, "
+              f"{t['bytes'] / 1e6:.3f} MB -> {t['bound_ms']:.4f} "
               f"ms by {t['bound_by']}; device {t['device_ms']:.4f} ms = "
               f"{t['device_ms'] / t['bound_ms']:.1f} x the bound, share "
               f"{t['bound_ms'] / t['device_ms']:.3f}; one PyTorch call: none "
               f"({NO_LIBRARY_CALL[t['kernel']]}) ({card})")
+    print(f"probe empty kernel: device {probes['empty_ms']:.4f} ms a launch, "
+          f"the floor under the served shapes' bounds ({card})")
+    for name in ("R", "A"):
+        shape, ms, rate = probes[name]
+        print(f"probe hash only [{shape}]: device {ms:.4f} ms, {rate:.2f} T "
+              f"integer operations/s at {HASH_INT_OPS} an element; the "
+              f"bounds rate them at {INT32_RATE / 1e12:.1f} T/s ({card})")
     lat = result["latency_ms"]
     print(f"time request p50: client {lat['client_p50']:.2f} ms over "
           f"{lat['n']} single-image requests, server predict p50 "
@@ -582,6 +718,11 @@ def main() -> int:
     print(f"time train step [{train['shape']}], grid loss, dropout {RATE}: "
           f"kernel path {train['step_ms']:.2f} ms, plain path "
           f"{train['plain_step_ms']:.2f} ms per step ({card})")
+    print(f"time relation batch predict [{train['predict_shape']}]: kernel "
+          f"path {train['pairs_per_s']:.0f} mention pairs/s "
+          f"({train['predict_ms']:.2f} ms per batch), plain path "
+          f"{train['plain_pairs_per_s']:.0f} pairs/s "
+          f"({train['plain_predict_ms']:.2f} ms per batch) ({card})")
     lat = aff_result["latency_ms"]
     print(f"time affinity request p50: client {lat['client_p50']:.2f} ms "
           f"over {lat['n']} single-image requests (12 phrases, 20 boxes of "
@@ -638,6 +779,17 @@ def _max_err(got, want) -> float:
         return float("inf")
     return max(((a - b).abs().max().item() for a, b in zip(got, want)
                 if b.numel()), default=0.0)
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts one float into its allocation:
+    4-byte aligned only."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        raise RuntimeError("the offset view is still 16-byte aligned")
+    return view
 
 
 def _nbytes(tensors) -> int:
@@ -812,9 +964,36 @@ def _train(dev, check) -> dict:
             step(st, table, batch)
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    # batch predict over the whole planted set, both paths in turns
+    pairs = sum(int(b["pair_valid"].sum()) for b in batches)
+    plain.load_flat(model.flat_params())
+    for b in batches:
+        check("relation batch predict probs: kernel path vs plain",
+              relation_predict(model, table, b),
+              relation_predict(plain, table, b), gate=PROBS_GATE, quiet=True)
+    _reset(PREDICT_KERNELS)
+    relation_predict(model, table, batch)
+    per_predict = _read(PREDICT_KERNELS, "one relation batch predict call")
+    predict_s = {}
+    for name, m in (("kernel", model), ("plain", plain), ("kernel2", model),
+                    ("plain2", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            relation_predict(m, table, b)
+        torch.cuda.synchronize()
+        predict_s[name] = time.perf_counter() - t0
+    t_k = min(predict_s["kernel"], predict_s["kernel2"])
+    t_p = min(predict_s["plain"], predict_s["plain2"])
     I, C, L = batch["tokens"].shape
     return {"launches": launches, "step_ms": times["kernel"],
-            "per_unit": {"relation train step": per_step},
+            "pairs_per_s": pairs / t_k, "plain_pairs_per_s": pairs / t_p,
+            "predict_ms": t_k / len(batches) * 1e3,
+            "plain_predict_ms": t_p / len(batches) * 1e3,
+            "predict_shape": f"{len(batches)} batches of {I} images, "
+                             f"{pairs} valid pairs",
+            "per_unit": {"relation train step": per_step,
+                         "relation batch predict": per_predict},
             "profiles": profiles,
             "plain_step_ms": times["plain"],
             "shape": f"I={I} C={C} L={L} M={batch['m_cap'].shape[1]}"}

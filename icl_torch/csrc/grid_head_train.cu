@@ -25,16 +25,19 @@
 // pair-form gather see the same mask.  thr == 0 means no dropout.
 //
 // Design.
-//  * Forward family (K5, K7, and the first half of K8): one block per
-//    (g, a), as in grid_head.cu.  X[g, a] + b1 and W2 (transposed to
-//    [O, K]) sit in shared memory; each warp takes columns b in turn, its
-//    lanes stride over K, and a fixed xor butterfly of shuffles leaves the
-//    cell's O logits in every lane.  K5 writes them; K7 turns them into the
-//    cell's CE terms (max shift, first-max argmax) and sums them per block
-//    in a fixed order into [G*A, 3] partials; K8's first kernel writes the
+//  * Forward family (K5, K7, and the first half of K8): the tile routine
+//    of grid_head_tile.cuh, shared with grid_head.cu, with the dropout hash
+//    on: a warp owns a 4 x 4 register tile of cells, its lanes split K in
+//    16-byte chunks, a transpose-reduce leaves every lane with one cell's O
+//    logits, and the epilogue runs one cell a lane.  K5 stores them; K7
+//    turns them into the cell's CE terms (max shift, first-max argmax),
+//    sums them over the warp by a fixed butterfly and over the block's
+//    warps in order into [blocks, 3] partials; K8's first kernel writes the
 //    logit gradient g3 = (softmax - onehot) * w * gl, [G, A, B, O] (16 KB
-//    per image at A = B = 32).  The [A, B, K] activation never leaves the
-//    SM, and K7's logits never reach device memory.
+//    per image at A = B = 32).  K7 and K8 skip cells of weight 0 under a
+//    warp-uniform mask (their g3 is written as 0).  The [A, B, K]
+//    activation never leaves the registers, and K7's logits never reach
+//    device memory.
 //  * Backward (K6, and the second half of K8): one block per (g, tile of
 //    kBwdCols = 32 columns k), of kBwdSlices = 4 warps.  The image's cell
 //    cotangents g3 [A, B, O] and the per-cell hash keys
@@ -55,15 +58,15 @@
 // What bounds it on the H100: at the relation shapes (G = 64, A = B <= 32,
 // K = 800, O = 4) each call is a few microseconds of arithmetic spread
 // over 448 to 2048 blocks; the hash (a dozen integer operations per
-// element) costs about as much as the O-wide dot.  At these sizes the
-// launches and the reduction pass are a large share of the time.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// element, on a pipe of half the f32 rate) costs more than the O-wide dot.
+// At these sizes the launches and the reduction pass are a large share of
+// the time.
+#include "grid_head_tile.cuh"
 
 namespace {
 
-constexpr int kMaxO = 8;         // head widths in this repo: 4 (relation), 2
-constexpr int kWarps = 8;        // forward family: warps per block
+using namespace icl_head;
+
 constexpr int kBwdCols = 32;     // backward: k columns per block (a warp)
 constexpr int kBwdSlices = 4;    // backward: warps per block, slicing rows a
 constexpr int kBwdRows = 4;      // backward: rows a per thread at a time
@@ -71,83 +74,39 @@ constexpr int kSumThreads = 128; // row-sum pass
 
 enum Mode { kLogits = 0, kLoss = 1, kDLogits = 2 };
 
-__device__ __forceinline__ uint32_t hash32(uint32_t x) {
-  x = ((x >> 16) ^ x) * 0x45d9f3bu;
-  x = ((x >> 16) ^ x) * 0x45d9f3bu;
-  return (x >> 16) ^ x;
-}
-
 // kLogits: out = logits [G, A, B, O]
-// kLoss:   out = per-block partials [G * A, 3] (sum ce*w, hits, valid)
+// kLoss:   out = per-block partials [blocks, 3] (sum ce*w, hits, valid)
 // kDLogits: out = g3 [G, A, B, O] = (softmax - onehot) * w * gl[0]
-template <int kMode>
-__global__ void __launch_bounds__(kWarps * 32)
-head_fwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                const float* __restrict__ b1, const float* __restrict__ W2,
-                const float* __restrict__ b2, const int* __restrict__ seeds,
-                const int* __restrict__ labels,
-                const float* __restrict__ weights,
-                const float* __restrict__ gl, float* __restrict__ out, int A,
-                int B, int K, int O, uint32_t thr, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* xa = smem;        // [K]     X[g, a] + b1
-  float* w2t = smem + K;   // [O, K]  W2 transposed
-  __shared__ float red[kWarps][3];
-  const int ga = blockIdx.x;  // g * A + a
-  const int g = ga / A;
-  const int a = ga - g * A;
-  const float* x = X + (size_t)ga * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) xa[k] = x[k] + b1[k];
-  for (int i = threadIdx.x; i < K * O; i += blockDim.x) {
-    const int k = i / O, o = i - k * O;
-    w2t[o * K + k] = W2[i];
+template <int kMode, int kO, bool kExactO, int kV>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+head_fwd_kernel(const HeadArgs p) {
+  __shared__ float red[kRedFloats];
+  __shared__ float red3[kMaxWarps][3];
+  float logit[kO];
+  const TileCoords t = tile_coords<kO>(p);
+  const int O = p.O;
+  int lbl = 0;                          // asked for before the k loop
+  float w = 1.f;
+  if (kMode != kLogits && t.inside) {
+    lbl = __ldg(p.labels + t.cell);
+    w = __ldg(p.weights + t.cell);
   }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const uint32_t row_key = hash32(hash32((uint32_t)seeds[g]) ^ (uint32_t)a);
-  const float gscale = kMode == kDLogits ? gl[0] : 0.f;
+  const float gscale = kMode == kDLogits ? __ldg(p.gl) : 0.f;
+  head_tile_logits<kO, kExactO, kV, true, kMode != kLogits>(p, t, red, logit);
+  if (kMode == kLogits) {
+    if (t.owner) store_cell<kO, kExactO>(p.out + t.cell * O, logit, O);
+    return;
+  }
   float part[3] = {0.f, 0.f, 0.f};
-  for (int b = warp; b < B; b += kWarps) {
-    const float* y = Y + ((size_t)g * B + b) * K;
-    const uint32_t cell = hash32(row_key ^ (uint32_t)b);
-    float acc[kMaxO];
-#pragma unroll
-    for (int o = 0; o < kMaxO; ++o) acc[o] = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      float h = fmaxf(xa[k] + y[k], 0.f);
-      if (thr != 0u) h = hash32(cell ^ (uint32_t)k) >= thr ? h * scale : 0.f;
-#pragma unroll
-      for (int o = 0; o < kMaxO; ++o)
-        if (o < O) acc[o] = fmaf(h, w2t[o * K + k], acc[o]);
-    }
-    float logit[kMaxO];
-#pragma unroll
-    for (int o = 0; o < kMaxO; ++o) {
-      float v = acc[o];
-#pragma unroll
-      for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-      logit[o] = o < O ? v + b2[o] : 0.f;
-    }
-    if (lane != 0) continue;
-    const size_t c = (size_t)ga * B + b;
-    if (kMode == kLogits) {
-#pragma unroll
-      for (int o = 0; o < kMaxO; ++o)
-        if (o < O) out[c * O + o] = logit[o];
-      continue;
-    }
-    const int lbl = labels[c];
-    const float w = weights[c];
+  if (t.inside) {
     float m = logit[0];
 #pragma unroll
-    for (int o = 1; o < kMaxO; ++o)
+    for (int o = 1; o < kO; ++o)
       if (o < O) m = fmaxf(m, logit[o]);
     float se = 0.f, picked = 0.f;
     int best = O;                       // first-max argmax
 #pragma unroll
-    for (int o = 0; o < kMaxO; ++o) {
+    for (int o = 0; o < kO; ++o) {
       if (o < O) {
         const float sh = logit[o] - m;
         se += expf(sh);
@@ -156,30 +115,37 @@ head_fwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
       }
     }
     if (kMode == kLoss) {
-      const bool valid = w > 0.f;
-      part[0] += (logf(se) - picked) * w;
-      part[1] += (valid && best == lbl) ? 1.f : 0.f;
-      part[2] += valid ? 1.f : 0.f;
+      if (t.owner) {
+        const bool valid = w > 0.f;
+        part[0] = (logf(se) - picked) * w;
+        part[1] = (valid && best == lbl) ? 1.f : 0.f;
+        part[2] = valid ? 1.f : 0.f;
+      }
     } else {
       const float wg = w * gscale;
+      float g3[kO];
 #pragma unroll
-      for (int o = 0; o < kMaxO; ++o)
-        if (o < O)
-          out[c * O + o] =
-              (expf(logit[o] - m) / se - (o == lbl ? 1.f : 0.f)) * wg;
+      for (int o = 0; o < kO; ++o)
+        g3[o] = o < O ? (expf(logit[o] - m) / se - (o == lbl ? 1.f : 0.f)) * wg
+                      : 0.f;
+      if (t.owner) store_cell<kO, kExactO>(p.out + t.cell * O, g3, O);
     }
   }
   if (kMode == kLoss) {
-    if (lane == 0) {
-      red[warp][0] = part[0];
-      red[warp][1] = part[1];
-      red[warp][2] = part[2];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        part[i] += __shfl_xor_sync(kFull, part[i], s);
+      if (lane == 0) red3[warp][i] = part[i];
     }
     __syncthreads();
-    if (threadIdx.x < 3) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-      out[(size_t)ga * 3 + threadIdx.x] = s;
+    if (threadIdx.x < 3) {              // the block's warps, in order
+      float sum = 0.f;
+      for (int q = 0; q < (int)(blockDim.x >> 5); ++q)
+        sum += red3[q][threadIdx.x];
+      p.out[(size_t)blockIdx.x * 3 + threadIdx.x] = sum;
     }
   }
 }
@@ -333,24 +299,35 @@ sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (threadIdx.x == 0) out[c] = red[0];
 }
 
+// The forward family: ksplit warps of a block split K (icl_torch/ops/
+// grid_head.py launch_plan picks it); plan_launch settles the rest.  The
+// loss kernel writes a row of partials a block: part_rows must be its grid.
 template <int kMode>
-cudaError_t launch_fwd(const float* X, const float* Y, const float* b1,
-                       const float* W2, const float* b2, const int* seeds,
-                       const int* labels, const float* weights,
-                       const float* gl, float* out, int G, int A, int B,
-                       int K, int O, uint32_t thr, float scale,
+cudaError_t launch_fwd(HeadArgs p, int G, int ksplit, int part_rows,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)K * (1 + O) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        head_fwd_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  head_fwd_kernel<kMode><<<G * A, kWarps * 32, smem, stream>>>(
-      X, Y, b1, W2, b2, seeds, labels, weights, gl, out, A, B, K, O, thr,
-      scale);
+  int vec;
+  unsigned blocks, threads;
+  if (!plan_launch(p, G, ksplit, &vec, &blocks, &threads))
+    return cudaErrorInvalidValue;
+  if (kMode == kLoss && (long long)blocks != part_rows)
+    return cudaErrorInvalidValue;
+#define ICL_CALL(kO, kExactO, kV) \
+  head_fwd_kernel<kMode, kO, kExactO, kV><<<blocks, threads, 0, stream>>>(p)
+  ICL_HEAD_DISPATCH(p.O, vec, ICL_CALL);
+#undef ICL_CALL
   return cudaGetLastError();
+}
+
+HeadArgs head_args(const float* X, const float* Y, const float* b1,
+                   const float* W2, const float* b2, const int* seeds,
+                   const int* labels, const float* weights, const float* gl,
+                   float* out, int A, int B, int K, int O, uint32_t thr,
+                   float scale) {
+  HeadArgs p = {};
+  p.X = X, p.Y = Y, p.b1 = b1, p.W2 = W2, p.b2 = b2, p.seeds = seeds;
+  p.labels = labels, p.weights = weights, p.gl = gl, p.out = out;
+  p.A = A, p.B = B, p.K = K, p.O = O, p.thr = thr, p.scale = scale;
+  return p;
 }
 
 template <int kO>
@@ -411,21 +388,24 @@ cudaError_t prologue(int G, int A, int B, int K, int O, int device) {
 // 1 <= O <= 8, G <= 65535; the backward kernels also need the image's
 // cotangents and keys, 4 * A * B * (O + 1) bytes, and 512 * (B + O + 1) bytes
 // of partials within a block's 227 KB of shared memory.  `thr` and `scale`
-// as in the header; thr = 0 turns dropout off.  Outputs and scratch are
-// allocated by the caller.
+// as in the header; thr = 0 keeps every element.  The forward family takes
+// ksplit, the number of warps that split K (1..8), from the caller, and
+// the 16-byte form when X, Y, b1 and W2 are 16-byte aligned and K % 4 == 0.
+// Outputs and scratch are allocated by the caller.
 
 // K5: out [G, A, B, O] logits.
 extern "C" int icl_ght_fwd_f32(const float* X, const float* Y,
                                const float* b1, const float* W2,
                                const float* b2, const int* seeds, float* out,
                                int G, int A, int B, int K, int O,
-                               uint32_t thr, float scale, int device,
-                               void* stream) {
+                               uint32_t thr, float scale, int ksplit,
+                               int device, void* stream) {
   cudaError_t err = prologue(G, A, B, K, O, device);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fwd<kLogits>(X, Y, b1, W2, b2, seeds, nullptr, nullptr,
-                                  nullptr, out, G, A, B, K, O, thr, scale,
-                                  (cudaStream_t)stream);
+  return (int)launch_fwd<kLogits>(
+      head_args(X, Y, b1, W2, b2, seeds, nullptr, nullptr, nullptr, out, A, B,
+                K, O, thr, scale),
+      G, ksplit, 0, (cudaStream_t)stream);
 }
 
 // K6: cotangent g [G, A, B, O] -> dX [G, A, K], dY [G, B, K] and
@@ -443,22 +423,25 @@ extern "C" int icl_ght_bwd_f32(const float* X, const float* Y,
 }
 
 // K7: labels [G, A, B] int32, weights [G, A, B] -> sums = [sum ce*w,
-// sum hits, sum valid]; part is scratch [G*A, 3].
+// sum hits, sum valid]; part is scratch [part_rows, 3], one row a block of
+// the plan.
 extern "C" int icl_ght_loss_fwd_f32(const float* X, const float* Y,
                                     const float* b1, const float* W2,
                                     const float* b2, const int* seeds,
                                     const int* labels, const float* weights,
-                                    float* part, float* sums, int G, int A,
-                                    int B, int K, int O, uint32_t thr,
-                                    float scale, int device, void* stream) {
+                                    float* part, float* sums, int part_rows,
+                                    int G, int A, int B, int K, int O,
+                                    uint32_t thr, float scale, int ksplit,
+                                    int device, void* stream) {
   cudaError_t err = prologue(G, A, B, K, O, device);
   if (err != cudaSuccess) return (int)err;
-  err = launch_fwd<kLoss>(X, Y, b1, W2, b2, seeds, labels, weights, nullptr,
-                          part, G, A, B, K, O, thr, scale,
-                          (cudaStream_t)stream);
+  err = launch_fwd<kLoss>(
+      head_args(X, Y, b1, W2, b2, seeds, labels, weights, nullptr, part, A, B,
+                K, O, thr, scale),
+      G, ksplit, part_rows, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   sum_rows_kernel<<<3, kSumThreads, 0, (cudaStream_t)stream>>>(part, sums,
-                                                               G * A, 3);
+                                                               part_rows, 3);
   return (int)cudaGetLastError();
 }
 
@@ -471,13 +454,14 @@ extern "C" int icl_ght_loss_bwd_f32(const float* X, const float* Y,
                                     const float* gl, float* g3, float* dX,
                                     float* dY, float* part, float* sums,
                                     int G, int A, int B, int K, int O,
-                                    uint32_t thr, float scale, int device,
-                                    void* stream) {
+                                    uint32_t thr, float scale, int ksplit,
+                                    int device, void* stream) {
   cudaError_t err = prologue(G, A, B, K, O, device);
   if (err != cudaSuccess) return (int)err;
-  err = launch_fwd<kDLogits>(X, Y, b1, W2, b2, seeds, labels, weights, gl,
-                             g3, G, A, B, K, O, thr, scale,
-                             (cudaStream_t)stream);
+  err = launch_fwd<kDLogits>(
+      head_args(X, Y, b1, W2, b2, seeds, labels, weights, gl, g3, A, B, K, O,
+                thr, scale),
+      G, ksplit, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_bwd(X, Y, b1, W2, seeds, g3, dX, dY, part, sums, G, A,
                          B, K, O, 1, thr, scale, (cudaStream_t)stream);

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` holds kernels plus plain C entry points.  At first
 use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``icl_torch/_build/`` (git-ignored), named by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads at once.
+under ``icl_torch/_build/`` (git-ignored), named by a hash of the source,
+of every header ``csrc/*.cuh`` and of the flags, so an edited source or
+header rebuilds and an unchanged one loads at once.
 The library is loaded with :mod:`ctypes` and each entry point given explicit
 ``argtypes``.  A failed build raises with the compiler's output; nothing
 falls back to another implementation.
@@ -45,11 +46,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str, extra: tuple[str, ...] = ()) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (a hash of source and flags)."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes()
-        + "\0".join(NVCC_FLAGS + tuple(extra)).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` builds to: a hash of the source, of the
+    headers ``csrc/*.cuh`` (any source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256()
+    for src in (SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    digest.update("\0".join(NVCC_FLAGS + tuple(extra)).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -10,20 +10,68 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
   the [G, A, B, K] activation.
 * :func:`grid_head` is the wrapper: for CUDA tensors it launches the
   hand-written kernel ``icl_torch/csrc/grid_head.cu`` (the [A, B, K]
-  activation never leaves the SM); for CPU tensors it runs the plain
+  activation never leaves the registers); for CPU tensors it runs the plain
   version.  A CUDA call that the kernel cannot take raises.
+* :func:`launch_plan` picks how many warps of a block split K for a call,
+  the launch's one free choice, and tells the form (16-byte or scalar
+  loads) and the grid that follow from the operands.  The training forward
+  kernels (``grid_head_train``) share the tile routine
+  (``icl_torch/csrc/grid_head_tile.cuh``) and this plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from icl_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-MAX_O = 8   # kMaxO in csrc/grid_head.cu
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MAX_O = 8           # kMaxO in csrc/grid_head_tile.cuh
+MAX_WARPS = 8       # kMaxWarps there: column tiles x k slices of a block
+COL_TILES = 4       # kColTiles there: column tiles a block without a K split
+_FILL_WARPS = 1056  # 8 warps on each of the H100's 132 SMs
+
+
+class HeadPlan(NamedTuple):
+    """How a forward grid-head kernel is launched (see :func:`launch_plan`).
+    ``ksplit`` goes to the kernel's entry point; ``vec`` and ``blocks`` are
+    what ``plan_launch`` in the header derives from it and the operands."""
+    vec: int         # 1: 16-byte loads, 4 k a lane; 0: scalar loads
+    ksplit: int      # warps of a block that split K between them
+    blocks: int      # the launch grid; the loss kernel writes a row a block
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary (a view with a storage
+    offset may not)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def launch_plan(G: int, A: int, B: int, K: int, O: int,
+                aligned: bool) -> HeadPlan:
+    """The form of the tile routine for a [G, A, B] grid of depth K.
+
+    A warp owns a tile of cells, 4 x 4 when the loads are 16 bytes wide and
+    O is 2 or 4, else 2 x 2, and its lanes split K in chunks of 4 (or 1)
+    consecutive k, 32 chunks a pass.  The 16-byte form needs ``aligned``
+    operands (X, Y, b1, W2) and K % 4 == 0.  A grid with fewer tiles than
+    fill the card splits K over up to 8 warps of a block (at most one pass
+    each), one column tile a block; a large one has no split and up to 4
+    column tiles a block.
+    """
+    vec = int(aligned and K % 4 == 0)
+    tile = 4 if vec and O in (2, 4) else 2
+    row_tiles, col_tiles = -(-A // tile), -(-B // tile)
+    tiles = G * row_tiles * col_tiles
+    passes = -(-K // (32 * (4 if vec else 1)))
+    ksplit = 1      # from half the fill on, a split only adds reductions
+    if 2 * tiles < _FILL_WARPS:
+        ksplit = min(passes, MAX_WARPS, -(-_FILL_WARPS // tiles))
+    col_warps = 1 if ksplit > 1 else min(col_tiles, COL_TILES)
+    return HeadPlan(vec, ksplit, G * row_tiles * -(-col_tiles // col_warps))
 
 
 def grid_head_reference(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
@@ -50,11 +98,13 @@ def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((G, A, B, O), dtype=torch.float32, device=X.device)
     if G == 0 or A == 0 or B == 0:
         return out.zero_()
+    plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
     lib = _build.load("grid_head", "icl_grid_head_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     err = lib.icl_grid_head_f32(
         X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), G, A, B, K, O, X.device.index, stream)
+        b2.data_ptr(), out.data_ptr(), G, A, B, K, O, plan.ksplit,
+        X.device.index, stream)
     _build.check(err, "grid_head")
     grid_head.launches += 1
     return out
@@ -80,5 +130,12 @@ def _check(X, Y, b1, W2, b2, G, A, B, K, O) -> None:
                              f"{tuple(tensors[name].shape)}, needs {shape}")
     if not 1 <= O <= MAX_O:
         raise ValueError(f"grid_head: O={O} outside 1..{MAX_O}")
-    if G * A >= 2**31:
-        raise ValueError(f"grid_head: G*A={G * A} exceeds the launch grid")
+    check_grid_size("grid_head", G, A, B, K)
+
+
+def check_grid_size(what: str, G: int, A: int, B: int, K: int) -> None:
+    """The tile routine indexes one image's X and Y with 32-bit offsets and
+    launches at most G * A * B blocks."""
+    if max(A, B) * K >= 2 ** 31 or G * A * B >= 2 ** 31:
+        raise ValueError(f"{what}: G={G}, A={A}, B={B}, K={K} exceed the "
+                         f"kernel's 32-bit offsets")

@@ -41,19 +41,22 @@ import torch
 
 from icl_torch.ops import _build
 from icl_torch.ops.ce import onehot_ce
+from icl_torch.ops.grid_head import aligned16, check_grid_size, launch_plan
 
-MAX_O = 8            # kMaxO in csrc/grid_head_train.cu
+MAX_O = 8            # kMaxO in csrc/grid_head_tile.cuh
 _BWD_SMEM = 227 * 1024   # a block's shared memory: the backward kernels' limit
 _M32 = 0xFFFFFFFF
 _MIX = 0x45D9F3B     # hash32's multiplier; < 2**27, so int64 never overflows
 _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
-_TAIL = [_I] * 5 + [_U, _F, _I, _P]      # G, A, B, K, O, thr, scale, dev, stream
+_DIMS = [_I] * 5 + [_U, _F]               # G, A, B, K, O, thr, scale
+_PLAN = [_I]                              # ksplit
+_TAIL = [_I, _P]                          # device, stream
 _ARGTYPES = {
-    "icl_ght_fwd_f32": [_P] * 7 + _TAIL,
-    "icl_ght_bwd_f32": [_P] * 10 + _TAIL,
-    "icl_ght_loss_fwd_f32": [_P] * 10 + _TAIL,
-    "icl_ght_loss_bwd_f32": [_P] * 14 + _TAIL,
+    "icl_ght_fwd_f32": [_P] * 7 + _DIMS + _PLAN + _TAIL,
+    "icl_ght_bwd_f32": [_P] * 10 + _DIMS + _TAIL,
+    "icl_ght_loss_fwd_f32": [_P] * 10 + [_I] + _DIMS + _PLAN + _TAIL,
+    "icl_ght_loss_bwd_f32": [_P] * 14 + _DIMS + _PLAN + _TAIL,
 }
 
 
@@ -186,8 +189,10 @@ def grid_head_train_fwd(X, Y, b1, W2, b2, seeds, rate: float):
     out = torch.empty((G, A, B, O), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
+    plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
     _launch("icl_ght_fwd_f32", "grid_head_train_fwd", X,
-            X, Y, b1, W2, b2, seeds, out, dims=(G, A, B, K, O), rate=rate)
+            X, Y, b1, W2, b2, seeds, out, dims=(G, A, B, K, O), rate=rate,
+            plan=plan)
     grid_head_train_fwd.launches += 1
     return out
 
@@ -226,10 +231,12 @@ def grid_head_train_loss_fwd(X, Y, b1, W2, b2, seeds, labels, weights,
                            cells=_label_cells(X, Y, labels, weights))
     sums = torch.zeros(3, dtype=torch.float32, device=X.device)
     if G and A and B:
-        part = torch.empty((G * A, 3), dtype=torch.float32, device=X.device)
+        plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
+        part = torch.empty((plan.blocks, 3), dtype=torch.float32,
+                           device=X.device)     # a row of sums a block
         _launch("icl_ght_loss_fwd_f32", "grid_head_train_loss_fwd", X,
                 X, Y, b1, W2, b2, seeds, labels, weights, part, sums,
-                dims=(G, A, B, K, O), rate=rate)
+                plan.blocks, dims=(G, A, B, K, O), rate=rate, plan=plan)
         grid_head_train_loss_fwd.launches += 1
     return sums[0], sums[1], sums[2]
 
@@ -254,7 +261,8 @@ def grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights, gl,
         part = torch.empty((G, K * O + K + O), dtype=torch.float32, device=dev)
         _launch("icl_ght_loss_bwd_f32", "grid_head_train_loss_bwd", X,
                 X, Y, b1, W2, b2, seeds, labels, weights, gl, g3, dX, dY,
-                part, sums, dims=(G, A, B, K, O), rate=rate)
+                part, sums, dims=(G, A, B, K, O), rate=rate,
+                plan=launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2)))
         grid_head_train_loss_bwd.launches += 1
     return (dX, dY, sums[:K * O].view(K, O), sums[K * O:K * O + K],
             sums[K * O + K:])
@@ -265,12 +273,17 @@ for _fn in (grid_head_train_fwd, grid_head_train_bwd, grid_head_train_loss_fwd,
     _fn.launches = 0   # kernel launches since the last reset
 
 
-def _launch(symbol, what, like, *tensors, dims, rate):
+def _launch(symbol, what, like, *args, dims, rate, plan=None):
+    """Calls an entry point: tensors (as pointers) and ints in ``args``,
+    then the dims, the dropout threshold and scale, the forward family's
+    K split (``plan.ksplit``), the device and the stream."""
     lib = _build.load("grid_head_train", symbol, _ARGTYPES[symbol])
     dev = like.device
     err = getattr(lib, symbol)(
-        *(t.data_ptr() for t in tensors), *dims, _keep_threshold(rate),
-        dropout_scale(rate), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+        *dims, _keep_threshold(rate), dropout_scale(rate),
+        *((plan.ksplit,) if plan is not None else ()), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, what)
 
 
@@ -317,8 +330,9 @@ def _check(what, X, Y, b1, W2, b2, seeds, cells=None):
             raise ValueError(f"{what}: {name} is not contiguous")
     if not 1 <= O <= MAX_O:
         raise ValueError(f"{what}: O={O} outside 1..{MAX_O}")
-    if G * A >= 2 ** 31 or G > 65535:
-        raise ValueError(f"{what}: G={G}, A={A} exceed the launch grid")
+    if G > 65535:
+        raise ValueError(f"{what}: G={G} exceeds the launch grid")
+    check_grid_size(what, G, A, B, K)
     return G, A, B, K, O
 
 

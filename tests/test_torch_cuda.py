@@ -57,7 +57,14 @@ def _head_inputs(G, A, B, K, O, dev, seed=0):
 
 @pytest.mark.parametrize("G,A,B,K,O", [
     (1, 8, 8, 800, 4), (8, 16, 16, 800, 4), (64, 32, 32, 800, 4),
-    (3, 9, 130, 16, 2), (2, 5, 7, 33, 3), (2, 4, 4, 1024, 2)])
+    (3, 9, 130, 16, 2), (2, 5, 7, 33, 3), (2, 4, 4, 1024, 2),
+    # ragged register tiles (A, B no multiple of 4), K no multiple of 4 or
+    # of a 128-wide pass, every head width, the relation and affinity
+    # batch shapes, a K split over one and several passes
+    (1, 5, 7, 30, 1), (2, 7, 9, 50, 2), (2, 9, 17, 800, 3), (1, 17, 20, 1024, 4),
+    (2, 20, 33, 50, 8), (3, 33, 5, 800, 8), (1, 16, 16, 800, 4),
+    (4, 16, 32, 1024, 2), (64, 16, 16, 800, 4), (64, 16, 32, 1024, 2),
+    (1, 1, 1, 4, 2), (5, 4, 4, 132, 4)])
 def test_grid_head_kernel_matches_plain(dev, G, A, B, K, O):
     args = _head_inputs(G, A, B, K, O, dev)
     n0 = grid_head.launches
@@ -66,6 +73,30 @@ def test_grid_head_kernel_matches_plain(dev, G, A, B, K, O):
     assert grid_head.launches == n0 + 1
     _assert_close(out, grid_head_reference(*args))
     assert torch.equal(out, grid_head(*args))       # bitwise repeatable
+
+
+def _offset_view(t, floats=1):
+    """A contiguous copy of t whose storage starts `floats` floats into an
+    allocation: 4-byte aligned only."""
+    flat = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = flat[floats:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("G,A,B,K,O", [(8, 16, 16, 800, 4),
+                                       (4, 16, 20, 1024, 2)])
+def test_grid_head_kernel_takes_an_unaligned_view(dev, G, A, B, K, O, which):
+    """One of X, Y, b1, W2 only 4-byte aligned: the scalar form, same
+    values."""
+    args = list(_head_inputs(G, A, B, K, O, dev))
+    want = grid_head_reference(*args)
+    args[which] = _offset_view(args[which])
+    out = grid_head(*args)
+    _assert_close(out, want)
+    assert torch.equal(out, grid_head(*args))
 
 
 def test_grid_head_empty_grid_launches_nothing(dev):
@@ -163,7 +194,10 @@ def _train_inputs(G, A, B, K, O, dev, seed=0):
     (2, 24, 40, 32, 4), (3, 9, 70, 16, 2), (2, 5, 7, 33, 3),
     # the affinity table shapes (A != B), and a head wider than the
     # backward kernel's O = 2 and O = 4 forms, over more than 16 rows
-    (64, 16, 32, 1024, 2), (64, 16, 20, 1024, 2), (2, 33, 5, 70, 8)])
+    (64, 16, 32, 1024, 2), (64, 16, 20, 1024, 2), (2, 33, 5, 70, 8),
+    # ragged register tiles, K no multiple of 4, every head width, K splits
+    (1, 5, 7, 30, 1), (2, 7, 9, 50, 2), (2, 9, 17, 800, 3), (1, 17, 20, 1024, 4),
+    (2, 20, 33, 50, 8), (1, 16, 16, 800, 4), (4, 16, 32, 1024, 2)])
 def test_grid_head_train_kernels_match_plain(dev, G, A, B, K, O, rate):
     (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
         G, A, B, K, O, dev)
@@ -194,6 +228,74 @@ def test_grid_head_train_kernels_match_plain(dev, G, A, B, K, O, rate):
         again = again if isinstance(again, tuple) else (again,)
         for a, b in zip(got, again):
             assert torch.equal(a, b)                 # bitwise repeatable
+
+
+@pytest.mark.parametrize("density", [0.0, 0.19, 0.42, 1.0])
+@pytest.mark.parametrize("G,A,B,K,O", [(64, 16, 16, 800, 4),
+                                       (8, 16, 32, 1024, 2), (2, 9, 7, 50, 3)])
+def test_grid_head_train_loss_kernels_at_weight_densities(dev, G, A, B, K, O,
+                                                          density):
+    """K7 and K8 skip cells of weight 0: sums and gradients still match the
+    plain versions, and at density 0 they are all zero."""
+    (X, Y, b1, W2, b2), seeds, labels, _, _ = _train_inputs(G, A, B, K, O,
+                                                            dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    weights = ((torch.rand(G, A, B, generator=g, device=dev) < density)
+               * torch.where(torch.rand(G, A, B, generator=g, device=dev)
+                             > 0.5, 1.0, 0.3))
+    gl = torch.tensor(0.37, device=dev)
+    args = (X, Y, b1, W2, b2, seeds, labels, weights)
+    got = (*ght.grid_head_train_loss_fwd(*args, 0.5),
+           *ght.grid_head_train_loss_bwd(*args, gl, 0.5))
+    want = (*ght.grid_head_train_loss_reference(*args, 0.5),
+            *ght.grid_head_train_loss_bwd_plain(*args, gl, 0.5))
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape
+        _assert_close(a, b)
+        if density == 0.0:
+            assert not a.any()
+    again = (*ght.grid_head_train_loss_fwd(*args, 0.5),
+             *ght.grid_head_train_loss_bwd(*args, gl, 0.5))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_grid_head_train_loss_kernels_compute_cells_of_negative_weight(dev):
+    """Only cells of weight exactly 0 are skipped: a negative weight enters
+    the loss sum and the gradients as in the plain versions."""
+    (X, Y, b1, W2, b2), seeds, labels, weights, _ = _train_inputs(
+        4, 9, 17, 800, 4, dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    weights = weights * torch.where(
+        torch.rand(weights.shape, generator=g, device=dev) > 0.5, 1.0, -0.7)
+    assert (weights < 0).any() and (weights == 0).any()
+    gl = torch.tensor(0.37, device=dev)
+    args = (X, Y, b1, W2, b2, seeds, labels, weights)
+    got = (*ght.grid_head_train_loss_fwd(*args, 0.5),
+           *ght.grid_head_train_loss_bwd(*args, gl, 0.5))
+    want = (*ght.grid_head_train_loss_reference(*args, 0.5),
+            *ght.grid_head_train_loss_bwd_plain(*args, gl, 0.5))
+    for a, b in zip(got, want, strict=True):
+        _assert_close(a, b)
+
+
+def test_grid_head_train_kernels_take_an_unaligned_view(dev):
+    (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
+        8, 16, 16, 800, 4, dev)
+    gl = torch.tensor(0.37, device=dev)
+    want = (ght.grid_head_train_reference(X, Y, b1, W2, b2, seeds, 0.5),
+            *ght.grid_head_train_loss_reference(X, Y, b1, W2, b2, seeds,
+                                                labels, weights, 0.5),
+            *ght.grid_head_train_loss_bwd_plain(X, Y, b1, W2, b2, seeds,
+                                                labels, weights, gl, 0.5))
+    Yv = _offset_view(Y)
+    got = (ght.grid_head_train_fwd(X, Yv, b1, W2, b2, seeds, 0.5),
+           *ght.grid_head_train_loss_fwd(X, Yv, b1, W2, b2, seeds, labels,
+                                         weights, 0.5),
+           *ght.grid_head_train_loss_bwd(X, Yv, b1, W2, b2, seeds, labels,
+                                         weights, gl, 0.5))
+    for a, b in zip(got, want, strict=True):
+        _assert_close(a, b)
 
 
 def test_grid_head_train_empty_grid_launches_nothing(dev):

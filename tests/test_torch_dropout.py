@@ -160,6 +160,54 @@ def test_custom_backward_matches_autograd(rate):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("G,A,B,K,O", [(1, 5, 7, 30, 1), (2, 7, 9, 50, 2),
+                                       (2, 9, 17, 30, 3), (1, 17, 20, 50, 4),
+                                       (2, 20, 33, 30, 8)])
+def test_custom_backward_matches_autograd_at_tile_edges(G, A, B, K, O):
+    """Dropout 0.5 at shapes that stress the forward kernels' tiling: ragged
+    A and B, K no multiple of 4, every head width (float64)."""
+    params, seeds, labels, weights = _head(G, A, B, K, O, seed=5)
+    params = [p.requires_grad_() for p in params]
+    sums = ght.grid_head_train_loss(*params, seeds, labels, weights, 0.5)
+    want = ght.grid_head_train_loss_reference(*params, seeds, labels,
+                                              weights, 0.5)
+    for a, b in zip(sums, want):
+        assert torch.equal(a.detach(), b.detach())
+    for a, b in zip(torch.autograd.grad(sums[0] * 0.7, params),
+                    torch.autograd.grad(want[0] * 0.7, params)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+    R = torch.randn(G, A, B, O, dtype=torch.float64)
+    out = ght.grid_head_train(*params, seeds, 0.5)
+    ref = ght.grid_head_train_reference(*params, seeds, 0.5)
+    assert torch.equal(out.detach(), ref.detach())
+    for a, b in zip(torch.autograd.grad((out * R).sum(), params),
+                    torch.autograd.grad((ref * R).sum(), params)):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.19, 1.0])
+def test_loss_backward_at_weight_densities(density):
+    """Dropout 0.5; the share of cells of weight > 0 from none to all: the
+    explicit backward equals autograd, and with no weighted cell every sum
+    and gradient is exactly zero."""
+    params, seeds, labels, _ = _head(4, 16, 16, 24, 4, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    weights = ((torch.rand(4, 16, 16, generator=gen) < density)
+               * (0.3 + torch.rand(4, 16, 16, generator=gen))).double()
+    assert abs((weights > 0).double().mean().item() - density) < 0.05
+    params = [p.requires_grad_() for p in params]
+    sums = ght.grid_head_train_loss(*params, seeds, labels, weights, 0.5)
+    want = ght.grid_head_train_loss_reference(*params, seeds, labels,
+                                              weights, 0.5)
+    got_g = torch.autograd.grad(sums[0] * 1.3, params)
+    want_g = torch.autograd.grad(want[0] * 1.3, params)
+    for a, b in zip((*sums, *got_g), (*want, *want_g)):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-12,
+                                   atol=1e-12)
+        if density == 0.0:
+            assert not a.any()
+
+
 def test_zero_weight_cells_are_inert():
     params, seeds, labels, weights = _head(seed=3)
     params = [p.requires_grad_() for p in params]

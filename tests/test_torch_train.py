@@ -147,6 +147,90 @@ def test_grid_head_train_matches_jax(G, A, B, K):
         _close(_np(t.grad), jg, name)
 
 
+# shapes that stress the CUDA forward kernels' tiling (4 x 4 and 2 x 2
+# register tiles of cells, 16-byte chunks of K): ragged A and B, K no
+# multiple of 4, every head width
+TILE_EDGE_SHAPES = [(1, 5, 7, 30, 1), (2, 7, 9, 50, 2), (2, 9, 17, 30, 3),
+                    (1, 17, 20, 50, 4), (2, 20, 33, 30, 8)]
+
+
+def _jax_loss_and_grads(params, seeds, labels, weights, div):
+    def jax_loss(*p):
+        out = jax_ght.grid_head_train_loss(
+            *p, jnp.asarray(seeds), jnp.asarray(labels), jnp.asarray(weights),
+            0.0, True)
+        return out[0] / div, out
+
+    (_, sums), grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+            *map(jnp.asarray, params))
+    return sums, grads
+
+
+def _torch_loss_and_grads(params, seeds, labels, weights, div):
+    tp = [torch.from_numpy(p).requires_grad_() for p in params]
+    sums = ght.grid_head_train_loss(
+        *tp, torch.from_numpy(seeds), torch.from_numpy(labels),
+        torch.from_numpy(weights), 0.0)
+    (sums[0] / div).backward()
+    return sums, [t.grad for t in tp]
+
+
+@pytest.mark.parametrize("G,A,B,K,O", TILE_EDGE_SHAPES)
+def test_grid_head_train_loss_matches_jax_at_tile_edges(G, A, B, K, O):
+    params, seeds, labels, weights, _ = _head_problem(G, A, B, K, O, seed=11)
+    div = max(float(weights.sum()), 1.0)
+    want, jgrads = _jax_loss_and_grads(params, seeds, labels, weights, div)
+    got, grads = _torch_loss_and_grads(params, seeds, labels, weights, div)
+    for name, g, w in zip(("loss_sum", "hits", "nvalid"), got, want):
+        _close(_np(g), w, name)
+    for name, g, jg in zip(("dX", "dY", "db1", "dW2", "db2"), grads, jgrads):
+        _close(_np(g), jg, name)
+
+
+@pytest.mark.parametrize("G,A,B,K,O", TILE_EDGE_SHAPES)
+def test_grid_head_train_matches_jax_at_tile_edges(G, A, B, K, O):
+    params, seeds, _, _, R = _head_problem(G, A, B, K, O, seed=13)
+
+    def jax_obj(*p):
+        out = jax_ght.grid_head_train(*p, jnp.asarray(seeds), 0.0, True)
+        return jnp.sum(out * jnp.asarray(R)), out
+
+    (_, want), jgrads = jax.value_and_grad(
+        jax_obj, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+            *map(jnp.asarray, params))
+    tp = [torch.from_numpy(p).requires_grad_() for p in params]
+    out = ght.grid_head_train(*tp, torch.from_numpy(seeds), 0.0)
+    (out * torch.from_numpy(R)).sum().backward()
+    _close(_np(out), want, "logits")
+    for name, t, jg in zip(("dX", "dY", "db1", "dW2", "db2"), tp, jgrads):
+        _close(_np(t.grad), jg, name)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.19, 1.0])
+@pytest.mark.parametrize("G,A,B,K,O", [(3, 16, 16, 48, 4), (2, 9, 20, 30, 2)])
+def test_grid_head_train_loss_matches_jax_at_weight_density(G, A, B, K, O,
+                                                            density):
+    """The CUDA kernels K7 and K8 skip cells of weight 0; the contract they
+    keep: sums and gradients as the JAX kernels give them at every density,
+    and all zero when no cell has weight."""
+    params, seeds, labels, _, _ = _head_problem(G, A, B, K, O, seed=17)
+    rng = np.random.default_rng(19)
+    weights = ((rng.random((G, A, B)) < density)
+               * rng.choice([0.3, 1.0], size=(G, A, B))).astype(np.float32)
+    assert abs((weights > 0).mean() - density) < 0.06
+    div = max(float(weights.sum()), 1.0)
+    want, jgrads = _jax_loss_and_grads(params, seeds, labels, weights, div)
+    got, grads = _torch_loss_and_grads(params, seeds, labels, weights, div)
+    for name, g, w in zip(("loss_sum", "hits", "nvalid"), got, want):
+        _close(_np(g), w, name)
+    for name, g, jg in zip(("dX", "dY", "db1", "dW2", "db2"), grads, jgrads):
+        _close(_np(g), jg, name)
+    if density == 0.0:
+        assert not any(_np(g).any() for g in got)
+        assert not any(_np(g).any() for g in grads)
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize("L", [16, 32, 48])
 def test_bilstm_grads_match_jax(L, use_kernel):
