@@ -20,8 +20,10 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    backward) at G in {1, 64}, A = B in {8, 16, 32}, K=800, O=4, dropout
    rate 0 and 0.5 (kernels and plain versions share one hash mask); then
    at the affinity shapes: the box ranking (K9) at G in {1, 4, 64}, A in
-   {8, 16}, B in {8, 20, 32}, K=1024 with ragged box validity and an image
-   with no valid box, K1 and K5-K8 (rate 0 and 0.5) at A=16, B in {20, 32},
+   {1, 12, 16, 17}, B in {1, 20, 32, 33, 100}, K=1024 with ragged box
+   validity and an image with no valid box, at K in {30, 1022} (no multiple
+   of 4), with an operand that is only 4-byte aligned and on another
+   column of a wider W2, each twice with equal bits, K1 and K5-K8 (rate 0 and 0.5) at A=16, B in {20, 32},
    K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
    in {16, 1024} (hs, final and the residuals); the recurrence also with a
    batch that is no multiple of its row tile (B=61) and at H in {64, 200,
@@ -70,12 +72,25 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    then 2 steps with class weights [0, 1] (the guard takes the cell form);
    the first step of each form held against the plain path; the recurrence
    and K5-K8 launch; per-step times;
-9. prints the times beside the card, each kernel's bound and share, the
+9. the command lines: a planted split on disk (train 128 images, dev 32,
+   boxes at 4096-d) through ``icl_torch.cli.relation.main`` and
+   ``icl_torch.cli.affinity.main`` on the card at full width: ``--train``
+   with ``--ckpt_every``, ``--eval_every`` and ``--metrics_file``; a
+   shorter run whose end marker is deleted, continued with ``--resume
+   auto`` from a periodic checkpoint, must end with the uninterrupted
+   run's weights and Adam state bit for bit; ``--predict --eval`` twice
+   (byte-identical ``.scores``, ids in dataset order), affinity with
+   ``--rank_file`` (each mention's row sums to 1 over its valid boxes);
+   the grid head, the recurrence, the fused-CE kernels and the box ranking
+   all launch from the command lines; steps and examples per second of
+   each ``--train``, pairs and cells per second of each ``--predict``, ms
+   the loop stalled per checkpoint save;
+10. prints the times beside the card, each kernel's bound and share, the
    launches of each kernel per request, predict call and train step, and
    per path (served relation predict, relation train step and predict,
    affinity train step and ranked predict) a profile line: host-clock time
    per call, device busy time, launches, the five longest kernels;
-10. prints one JSON line with every kernel at every timed shape (all nine
+11. prints one JSON line with every kernel at every timed shape (all nine
     TPU kernels among them): launches over the driven paths, error, times,
     bound, and the time of one PyTorch call for the same function (null:
     there is none for any of them, NO_LIBRARY_CALL says why), then, last,
@@ -89,6 +104,8 @@ imports fail.  Usage, from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import logging
+import os
 import re
 import subprocess
 import sys
@@ -101,11 +118,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from icl_torch.cli import affinity as affinity_cli
+from icl_torch.cli import relation as relation_cli
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
 from icl_torch.data.pipeline import load_affinity_dataset, load_relation_dataset
 from icl_torch.io.boxes import read_box_feats, write_box_feats
+from icl_torch.io.captions import parse_mention_id
+from icl_torch.io.scores import read_scores
 from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.relation import RelationModel
@@ -327,25 +348,44 @@ def main() -> int:
     # one-direction recurrence
     K_AFF = AFF_DIMS["head_hidden"]
     errs = []
+
+    def check_rank(what, args, col=1, want=None):
+        got = affinity_rank(*args, col)
+        want = affinity_rank_reference(*args, col) if want is None else want
+        errs.append(check(f"affinity_rank {what}", got, want, quiet=True))
+        if got[~args[-1][:, None, :].expand_as(got)].any():
+            failures.append(f"affinity_rank {what} invalid box not 0")
+        if args[0].shape[0] > 1 and got[-1].any():
+            failures.append(f"affinity_rank {what} no valid box: not zeros")
+        if not torch.equal(got, affinity_rank(*args, col)):
+            failures.append(f"affinity_rank {what} not repeatable")
+
     for G in (1, 4, 64):
-        for A in (8, 16):
-            for B in (8, 20, 32):
-                args = rank_inputs(G, A, B)
-                got = affinity_rank(*args)
-                errs.append(check(f"affinity_rank G={G} A={A} B={B} "
-                                  f"K={K_AFF}", got,
-                                  affinity_rank_reference(*args), quiet=True))
-                if got[~args[-1][:, None, :].expand_as(got)].any():
-                    failures.append(f"affinity_rank G={G} A={A} B={B} "
-                                    f"invalid box not 0")
-                if not torch.equal(got, affinity_rank(*args)):
-                    failures.append(f"affinity_rank G={G} A={A} B={B} "
-                                    f"not repeatable")
+        for A in (1, 12, 16, 17):
+            for B in (1, 20, 32, 33, 100):
+                check_rank(f"G={G} A={A} B={B} K={K_AFF}",
+                           rank_inputs(G, A, B))
+    for G, A, B, K, O, col in ((5, 16, 32, 1022, 2, 1), (2, 9, 20, 30, 2, 0),
+                               (3, 16, 32, K_AFF, 3, 2),
+                               (2, 7, 300, 800, 4, 3)):
+        valid = rank_inputs(G, A, B)[-1]
+        check_rank(f"G={G} A={A} B={B} K={K} O={O} column {col}",
+                   (*head_inputs(G, A, B, K, O), valid), col)
+    for G in (4, 64):
+        args = rank_inputs(G, 16, 32)
+        want = affinity_rank_reference(*args)
+        for which in (0, 1, 2, 3):
+            moved = list(args)
+            moved[which] = _offset_view(moved[which])
+            check_rank(f"G={G} A=16 B=32 K={K_AFF}, operand {which} "
+                       f"unaligned", moved, want=want)
     bad = [f for f in failures if f.startswith("affinity_rank")]
-    print(f"check affinity_rank K9 at G in (1, 4, 64), A in (8, 16), B in "
-          f"(8, 20, 32), K={K_AFF}: max|d| {max(e for e, _ in errs):.3e} "
-          f"(gate {min(t for _, t in errs):.1e}), invalid boxes 0, repeated "
-          f"bits equal; {len(bad)} failures")
+    print(f"check affinity_rank K9 at G in (1, 4, 64), A in (1, 12, 16, 17), "
+          f"B in (1, 20, 32, 33, 100), K={K_AFF}; K in (30, 1022), O in (3, "
+          f"4) and another column; unaligned operands: {len(errs)} cases, "
+          f"max|d| {max(e for e, _ in errs):.3e} (gate "
+          f"{min(t for _, t in errs):.1e}), invalid boxes 0, an image with "
+          f"no valid box zeros, repeated bits equal; {len(bad)} failures")
     n0 = affinity_rank.launches
     empty = affinity_rank(*rank_inputs(4, 0, 20))
     if empty.shape != (4, 0, 20) or affinity_rank.launches != n0:
@@ -690,7 +730,10 @@ def main() -> int:
     if failures:
         raise RuntimeError(f"affinity checks failed: {failures}")
 
-    # 9. times, each beside the card
+    # 9. the command lines
+    cli = _cli()
+
+    # 10. times, each beside the card
     for name, t in timing.items():
         print(f"time {name} [{t['shape']}]: per call kernel {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
@@ -737,12 +780,14 @@ def main() -> int:
           f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
+    for line in cli["times"]:
+        print(f"time {line} ({card})")
     for line in served_profiles + train["profiles"] + aff["profiles"]:
         print(f"{line} ({card})")
 
-    # 10. result lines: launches summed over the phases that drove the paths
+    # 11. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
-    for phase in (result, aff_result, train, aff):
+    for phase in (result, aff_result, train, aff, cli):
         for k, n in phase["launches"].items():
             launches[k] += n
         for unit, counts in phase["per_unit"].items():
@@ -1336,6 +1381,218 @@ def _affinity(dev, check) -> dict:
             "plain_predict_ms": t_p / len(batches) * 1e3,
             "step_ms": step_ms["kernel"],
             "plain_step_ms": step_ms["plain"]}
+
+
+class _Said(logging.Handler):
+    """Keeps what the package logs while a command line runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def numbers(self, pattern: str) -> list:
+        """The first group of ``pattern`` in every line it matches."""
+        return [float(m.group(1)) for m in
+                (re.search(pattern, line) for line in self.lines) if m]
+
+
+def _same_checkpoint(a: dict, b: dict) -> list:
+    """The entries in which two checkpoint payloads differ."""
+    diff = [k for k in ("step", "seed", "epoch", "batch_in_epoch")
+            if a[k] != b[k]]
+    for part in ("model", "optimizer"):
+        flat = [{}, {}]
+        for out, tree in zip(flat, (a[part], b[part])):
+            stack = [(part, tree)]
+            while stack:
+                name, t = stack.pop()
+                if isinstance(t, dict):
+                    stack += [(f"{name}/{k}", v) for k, v in t.items()]
+                elif isinstance(t, (list, tuple)):
+                    stack += [(f"{name}/{i}", v) for i, v in enumerate(t)]
+                else:
+                    out[name] = t
+        diff += [k for k in sorted(set(flat[0]) | set(flat[1]))
+                 if k not in flat[0] or k not in flat[1] or not (
+                     torch.equal(flat[0][k], flat[1][k])
+                     if isinstance(flat[0][k], torch.Tensor)
+                     else flat[0][k] == flat[1][k])]
+    return diff
+
+
+def _cli() -> dict:
+    """The two command lines on the card at full width, over a planted
+    split on disk: train, resume from a periodic checkpoint, predict twice;
+    counts the launches of the whole phase."""
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
+               "affinity_rank": affinity_rank}
+    needed = ("grid_head", "lstm_recurrence", "grid_head_train_loss_fwd",
+              "grid_head_train_loss_bwd", "affinity_rank")
+    said = _Said()
+    logger = logging.getLogger("icl")
+    logger.addHandler(said)
+    times, per_unit = [], {}
+    _reset(kernels)
+    try:
+        with tempfile.TemporaryDirectory(prefix="icl_chip_cli_") as d:
+            kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
+                      max_caption_len=32, max_mentions_per_caption=3,
+                      max_boxes_per_image=20)
+            for split, n in (("train", 128), ("dev", 32)):
+                generate_dataset(d, split, SynthConfig(
+                    num_images=n, seed=SEED + (split == "dev"), **kw))
+                _widen_boxes(f"{d}/{split}.boxes.npz", AFF_DIMS["box_dim"],
+                             SEED)
+            emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+            for task, main_fn, unit in (("relation", relation_cli.main,
+                                         "pairs"),
+                                        ("affinity", affinity_cli.main,
+                                         "cells")):
+                common = ["--data_dir", d, "--device", "cuda",
+                          "--images_per_batch", "64", "--seed", str(SEED)]
+                train = ["--train", "--ckpt_every", "4", "--eval_every", "5",
+                         *common]
+
+                def run(what, argv):
+                    """One command line: its log lines and wall clock."""
+                    said.lines.clear()
+                    before = {k: fn.launches for k, fn in kernels.items()}
+                    t0 = time.perf_counter()
+                    main_fn(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    per_unit[f"icl-torch-{task} {what}"] = {
+                        k: fn.launches - before[k]
+                        for k, fn in kernels.items()}
+                    return wall
+
+                # an uninterrupted run, and one stopped half way whose end
+                # marker is deleted: it resumes from a periodic checkpoint.
+                # (The dev loss need not fall: the planted relation rule is
+                # learnt word by word, and 128 images show few of the 2000.)
+                whole, cut = f"{d}/{task}.whole", f"{d}/{task}.cut"
+                wall = run("--train", [*train, "--epochs", "10",
+                                       "--model_file", whole, "--metrics_file",
+                                       f"{d}/{task}.jsonl"])
+                steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+                n_steps = said.numbers(r"training loop: (\d+) steps")
+                stalls = said.numbers(r"loop stalled (\d+) ms")
+                rows = [json.loads(line) for line in open(f"{d}/{task}.jsonl")]
+                ex_s = [r["examples_per_sec"] for r in rows
+                        if "examples_per_sec" in r]
+                evals = [r for r in rows if "eval_loss" in r]
+                if not (steps_s and ex_s and evals and stalls
+                        and all(np.isfinite(r["eval_loss"]) for r in evals)
+                        and all(np.isfinite(r["loss"]) for r in rows
+                                if "loss" in r)):
+                    raise RuntimeError(f"icl-torch-{task} --train: bad "
+                                       f"metrics {rows}")
+                times.append(
+                    f"icl-torch-{task} --train [10 epochs of 128 images, "
+                    f"64 a batch, eval every 5 and checkpoint every 4 "
+                    f"steps]: {int(n_steps[0])} steps at {steps_s[0]:.2f} "
+                    f"steps/s in the loop, {ex_s[-1]:.0f} {unit}/s at its "
+                    f"last log, {np.mean(stalls):.1f} ms the loop stalled "
+                    f"per checkpoint save (max {max(stalls):.0f}, "
+                    f"{len(stalls)} saves), eval loss {evals[0]['eval_loss']:.4f}"
+                    f" -> {evals[-1]['eval_loss']:.4f}; the command "
+                    f"{wall:.2f} s")
+                run("--train, first half", [*train, "--epochs", "5",
+                                            "--model_file", cut])
+                steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
+                               if n.startswith("step_"))
+                os.unlink(f"{cut}/step_{steps[-1]}.pt")       # the marker
+                start = torch.load(f"{cut}/step_{steps[-2]}.pt",
+                                   weights_only=True)
+                if steps[-2] % 4 or start["epoch"] >= 5:
+                    raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
+                                       f"is no periodic checkpoint")
+                wall = run("--train --resume auto",
+                           [*train, "--epochs", "10", "--resume", "auto",
+                            "--model_file", cut])
+                steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+                ends = [torch.load(f"{m}/step_{int(n_steps[0])}.pt",
+                                   weights_only=True) for m in (whole, cut)]
+                diff = _same_checkpoint(*ends)
+                print(f"check icl-torch-{task} --resume auto from step "
+                      f"{steps[-2]} (epoch {start['epoch']}, batch "
+                      f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
+                      f"weights and Adam state against the uninterrupted "
+                      f"run's, bit for bit: "
+                      f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
+                if diff:
+                    raise RuntimeError(f"icl-torch-{task}: the resumed run "
+                                       f"differs in {diff[:5]}")
+                times.append(f"icl-torch-{task} --train --resume auto [from "
+                             f"step {steps[-2]}]: {steps_s[0]:.2f} steps/s "
+                             f"in the loop; the command {wall:.2f} s")
+
+                # predict twice: same bytes, dataset order, ranking rows
+                outs = []
+                for k in (1, 2):
+                    argv = ["--predict", "--eval", "--data_split", "dev",
+                            *common, "--model_file", whole, "--scores_file",
+                            f"{d}/{task}.{k}.scores"]
+                    if task == "affinity":
+                        argv += ["--rank_file", f"{d}/{task}.{k}.rank"]
+                    wall = run("--predict", argv)
+                    rate = said.numbers(rf"predict sweep: .*\((\d+) {unit}/s\)")
+                    count = said.numbers(rf"predict sweep: (\d+) {unit}")
+                    times.append(
+                        f"icl-torch-{task} --predict --eval"
+                        f"{' --rank_file' if task == 'affinity' else ''} "
+                        f"[dev, 32 images, run {k}]: {int(count[0])} {unit} "
+                        f"at {rate[0]:.0f} {unit}/s in the sweep; the "
+                        f"command {wall:.2f} s")
+                    outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
+                ids, probs = read_scores(f"{d}/{task}.1.scores")
+                if task == "relation":
+                    ds = load_relation_dataset(d, "dev", emb)
+                    order = [pid for im in ds.images for pid in im.pair_ids]
+                else:
+                    ds = load_affinity_dataset(d, "dev", emb)
+                    order = [im.cell_id(*parse_mention_id(mid)[1:], bi)
+                             for im in ds.images
+                             for r, mid in enumerate(im.mention_ids)
+                             for c, bi in enumerate(im.box_idx)
+                             if im.grid_valid[r, c]]
+                ok = (outs[0] == outs[1] and ids == order and len(ids) > 1000
+                      and bool(np.isfinite(probs).all())
+                      and float(np.abs(probs.sum(1) - 1).max()) <= 2e-6)
+                print(f"check icl-torch-{task} --predict: two runs "
+                      f"byte-identical, {len(ids)} ids in dataset order, "
+                      f"probs finite and summing to 1: "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"icl-torch-{task} --predict: bad "
+                                       f".scores")
+                if task == "affinity":
+                    if open(f"{d}/{task}.1.rank", "rb").read() != open(
+                            f"{d}/{task}.2.rank", "rb").read():
+                        raise RuntimeError("the two rank files differ")
+                    rids, rank = read_scores(f"{d}/{task}.1.rank")
+                    rows = {}
+                    for cid, p in zip(rids, rank[:, 0]):
+                        rows.setdefault(cid.rsplit(";box:", 1)[0],
+                                        []).append(p)
+                    off = max(abs(sum(v) - 1) for v in rows.values())
+                    print(f"check icl-torch-affinity --rank_file: "
+                          f"{len(rows)} mentions, each row sums to 1 over "
+                          f"its valid boxes within {off:.1e} (gate 2e-5: 6 "
+                          f"decimals a box, up to 20 boxes): "
+                          f"{'ok' if off <= 2e-5 and rids == ids else 'FAIL'}")
+                    if off > 2e-5 or rids != ids:
+                        raise RuntimeError("bad rank file")
+    finally:
+        logger.removeHandler(said)
+    launches = _count(kernels, "the command lines")
+    missing = [k for k in needed if launches[k] < 1]
+    if missing:
+        raise RuntimeError(f"not launched from the command lines: {missing}")
+    return {"launches": launches, "per_unit": per_unit, "times": times}
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
 """icl_torch — the PyTorch and CUDA port of ``icl`` for NVIDIA Hopper (H100).
 
-Module names mirror ``icl/``.  The port imports ``torch`` and never JAX; it
-shares the numpy data layer (``icl.data``, ``icl.io``, ``icl.testing``,
-``icl.util``) with the JAX package, so file formats and batch layouts are
-the same.  Weights cross from the JAX package through the ``icl-export``
-flat ``.npz`` + manifest (:mod:`icl_torch.params`).
+Module names mirror ``icl/``.  The port imports ``torch`` and never JAX,
+and nothing of ``icl``: it keeps its own copies of the numpy data layer
+(``data``, ``io``, ``eval``, ``testing``, ``util``), held to the originals by
+the tests, so file formats and batch layouts are the same.  Weights cross
+from the JAX package through the ``icl-export`` flat ``.npz`` + manifest
+(:mod:`icl_torch.params`).
 
 Layers:
   icl_torch.ops     hand-written CUDA kernels (csrc/*.cu) + plain versions
   icl_torch.models  nn.Modules: masked LSTM/BiLSTM, the relation and
                     affinity models
   icl_torch.train   train state (Adam, dropout seeds), train and predict
-                    steps
+                    steps, the train loop, checkpoints, the dev eval hook
+  icl_torch.cli     icl-torch-relation, icl-torch-affinity
   icl_torch.serve   HTTP scoring service (relation, affinity)
 """
 

@@ -1,0 +1,421 @@
+"""Shared CLI surface of the port (counterpart of ``icl/cli/_common.py``).
+
+One argparse entry per task with the reference's flag names and defaults
+kept verbatim, plus ``--device`` (``cuda`` unless the CPU is asked for, as
+``icl-torch-serve``).  Every flag of the reference parses here.  A flag
+whose machinery the port does not have yet is accepted by name and refused
+by value with :class:`RefusedFlagError`, never ignored:
+
+* ``--mesh``, ``--coordinator``, ``--num_processes`` > 1, ``--process_id``:
+  the port runs one process on one device (``torch.distributed`` is not
+  ported);
+* ``--compute_dtype bf16``: the port's models and kernels are f32;
+* ``--oracle-parity``, ``--oracle-parity-full``: the Keras oracle is not
+  ported;
+* ``--matmul_precision default`` / ``high``: the port computes f32 matrix
+  products in full f32 (TF32 off), which is ``highest``; it has no lower
+  mode to honour.
+
+``--compilation_cache_dir`` is accepted and logged: PyTorch runs eagerly,
+there is no compiled program to cache (the kernels' libraries are kept
+under ``icl_torch/_build``).  ``--hidden_width`` and ``--batch_size`` belong
+to the mention tasks; relation and affinity take ``--head_hidden`` and
+``--images_per_batch``, and a value given here is logged as unused (the
+reference leaves both unused in silence).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+from icl_torch.data.buckets import BucketSpec
+from icl_torch.data.embeddings import EmbeddingStore
+from icl_torch.io.captions import read_captions
+from icl_torch.util.log import LOG
+
+MAX_KERNEL_LSTM_WIDTH = 256   # the recurrence kernel's widest H on CUDA
+PARITY_GATE = 1e-5            # f32, TF32 off: on the CPU and on the card
+
+
+class RefusedFlagError(ValueError):
+    """A flag the port knows by name asked for something it cannot do."""
+
+    def __init__(self, flag: str, why: str):
+        super().__init__(f"{flag}: {why}")
+        self.flag = flag
+
+
+def base_parser(task: str, description: str) -> argparse.ArgumentParser:
+    # allow_abbrev=False: flags are a frozen contract, and the pre-parse
+    # --config scan (_scan_flag) matches literal tokens
+    p = argparse.ArgumentParser(prog=f"icl-torch-{task}",
+                                description=description, allow_abbrev=False)
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--train", action="store_true",
+                      help="train a model on --data_split")
+    mode.add_argument("--predict", action="store_true",
+                      help="write .scores for --data_split")
+    p.add_argument("--data_dir", required=True,
+                   help="directory with <split>.captions.txt / .feats / ...")
+    p.add_argument("--data_split", default="train",
+                   choices=["train", "dev", "test"])
+    p.add_argument("--model_file", default=None,
+                   help="model directory: checkpoints saved on train; read "
+                        "on predict (the newest checkpoint, else a "
+                        "<task>.npz weights archive)")
+    p.add_argument("--scores_file", default=None,
+                   help="output .scores path (predict mode)")
+    p.add_argument("--embeddings_file", default=None,
+                   help="word2vec file (text or .bin); default "
+                        "<data_dir>/embeddings.txt")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--lstm_hidden_width", type=int, default=200)
+    p.add_argument("--hidden_width", type=int, default=None,
+                   help="FFNN hidden width (the mention tasks' flag; "
+                        "relation and affinity take --head_hidden)")
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--learn_rate", type=float, default=1e-3)
+    p.add_argument("--mesh", default=None,
+                   help="device topology; refused: the port runs on one "
+                        "device")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the training loop "
+                        "(chrome trace JSON) into this directory")
+    p.add_argument("--resume", default="none", choices=["none", "auto"])
+    p.add_argument("--ckpt_every", type=int, default=200,
+                   help="checkpoint every N steps (0: only at end)")
+    p.add_argument("--matmul_precision", default=None,
+                   choices=["default", "high", "highest"],
+                   help="the port computes f32 matrix products in full f32 "
+                        "(TF32 off), which is 'highest' and the default "
+                        "here; 'default' and 'high' are refused")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="train: every N steps, compute the deterministic "
+                        "loss/acc over (a capped sample of) --eval_split "
+                        "and log it (JSONL eval_* keys). 0: off")
+    p.add_argument("--eval_split", default="dev")
+    p.add_argument("--eval_batches", type=int, default=16,
+                   help="max eval batches per --eval_every hook (held on "
+                        "the device for the whole run; the hook logs the "
+                        "MB). 0: evaluate the WHOLE eval split, copied to "
+                        "the device per eval instead")
+    p.add_argument("--early_stop", type=int, default=0,
+                   help="stop training once the --eval_every dev loss has "
+                        "not improved for N consecutive evals, and restore "
+                        "the best state. 0: off; requires --eval_every")
+    p.add_argument("--compute_dtype", default="f32",
+                   choices=["f32", "bf16"],
+                   help="model activation dtype; bf16 is refused: the "
+                        "port's models and kernels are f32")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="accepted for the reference's command lines; "
+                        "PyTorch runs eagerly, nothing is cached")
+    p.add_argument("--metrics_file", default=None)
+    p.add_argument("--config", default=None,
+                   help="JSON run config. Keys map to flag dests and become "
+                        "defaults (explicit CLI flags still win); 'hosts' "
+                        "maps to --coordinator/--num_processes; 'buckets' "
+                        "sets the batcher bucket inventory; 'task' must "
+                        "match this entry point. Parse via "
+                        "parse_task_args()")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator; refused: one process")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total process count; more than 1 is refused")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this host's process index; refused: one process")
+    p.add_argument("--no_prune_embeddings", dest="prune_embeddings",
+                   action="store_false",
+                   help="load the full embedding table instead of pruning "
+                        "to the split's caption vocabulary")
+    p.add_argument("--eval", action="store_true",
+                   help="with --predict: print a ScoreDict table vs gold")
+    p.add_argument("--oracle-parity", dest="oracle_parity",
+                   action="store_true",
+                   help="refused: the Keras oracle is not ported")
+    p.add_argument("--oracle-parity-full", dest="oracle_parity_full",
+                   action="store_true",
+                   help="refused: the Keras oracle is not ported")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the default is the GPU, and the run "
+                        "fails without one unless 'cpu' is given")
+    return p
+
+
+# config keys handled structurally rather than as flag defaults
+_CONFIG_SPECIAL = ("task", "hosts", "buckets")
+_HOSTS_KEYS = ("coordinator", "num_processes")
+
+
+def _scan_flag(argv, name: str) -> str | None:
+    """Pre-parse scan for one ``--flag value`` / ``--flag=value`` in argv."""
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    for i, a in enumerate(argv):
+        if a == name and i + 1 < len(argv):
+            return argv[i + 1]
+        if a.startswith(name + "="):
+            return a.split("=", 1)[1]
+    return None
+
+
+def parse_task_args(p: argparse.ArgumentParser, argv, task: str):
+    """``p.parse_args`` with ``--config <json>`` support.
+
+    The config file's keys become parser *defaults* before the real parse,
+    so explicit CLI flags always override config values.  Unknown keys are
+    a hard error.  Returns the namespace with an extra ``buckets`` attr
+    (dict or None).  Flags the port cannot honour raise
+    :class:`RefusedFlagError` (:func:`refuse_unported`).
+    """
+    cfg_path = _scan_flag(argv, "--config")
+    buckets = None
+    if cfg_path:
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        if cfg.get("task") not in (None, task):
+            p.error(f"--config {cfg_path} is for task {cfg['task']!r}, "
+                    f"not {task!r}")
+        defaults = {}
+        for k, v in cfg.get("hosts", {}).items():
+            if k == "note" or k.startswith("_"):
+                continue   # documentation keys
+            if k not in _HOSTS_KEYS:
+                p.error(f"unknown key {k!r} in 'hosts' block of --config "
+                        f"{cfg_path} (known: {', '.join(_HOSTS_KEYS)})")
+            defaults[k] = v
+        buckets = cfg.get("buckets")
+        dests = {a.dest for a in p._actions}
+        for k, v in cfg.items():
+            if k.startswith("_") or k in _CONFIG_SPECIAL:
+                continue
+            if k not in dests:
+                p.error(f"unknown key {k!r} in --config {cfg_path} "
+                        f"(no matching flag on icl-torch-{task})")
+            defaults[k] = v
+        p.set_defaults(**defaults)
+    args = p.parse_args(argv)
+    args.buckets = buckets
+    if getattr(args, "early_stop", 0) and not getattr(args, "eval_every", 0):
+        p.error("--early_stop monitors the dev eval — set --eval_every too")
+    refuse_unported(args)
+    return args
+
+
+def refuse_unported(args) -> None:
+    """Raise :class:`RefusedFlagError` for a value the port cannot honour;
+    log the flags that have no effect here."""
+    one = "the port runs one process on one device (torch.distributed is " \
+          "not ported)"
+    if args.mesh is not None:
+        raise RefusedFlagError("--mesh", one)
+    if args.coordinator is not None:
+        raise RefusedFlagError("--coordinator", one)
+    if args.num_processes is not None and args.num_processes > 1:
+        raise RefusedFlagError("--num_processes", one)
+    if args.process_id is not None:
+        raise RefusedFlagError("--process_id", one)
+    if args.compute_dtype != "f32":
+        raise RefusedFlagError(
+            "--compute_dtype", f"{args.compute_dtype} is not ported: the "
+            f"port's models and kernels are f32")
+    for flag, on in (("--oracle-parity", args.oracle_parity),
+                     ("--oracle-parity-full", args.oracle_parity_full)):
+        if on:
+            raise RefusedFlagError(flag, "the Keras oracle is not ported; "
+                                   "parity with the reference is held by "
+                                   "the tests")
+    if args.matmul_precision not in (None, "highest"):
+        raise RefusedFlagError(
+            "--matmul_precision", f"{args.matmul_precision!r} cannot be "
+            f"honoured: the port computes f32 matrix products in full f32 "
+            f"with TF32 off, which is 'highest'")
+    if args.compilation_cache_dir:
+        LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
+                 "runs eagerly (the kernels' libraries are kept under "
+                 "icl_torch/_build)", args.compilation_cache_dir)
+    if args.hidden_width is not None:
+        LOG.warning("--hidden_width %d is the FFNN tasks' flag and is unused "
+                    "here; this task's head takes --head_hidden",
+                    args.hidden_width)
+    if args.batch_size != 512:
+        LOG.warning("--batch_size %d is the mention tasks' flag and is unused "
+                    "here; this task batches by --images_per_batch",
+                    args.batch_size)
+
+
+def resolve_device(args) -> torch.device:
+    """``--device`` as a torch device; raises when the GPU is asked for
+    (the default) and there is none.  Nothing falls back to the CPU."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: no CUDA device; the CLIs run on the "
+            f"GPU unless the CPU is asked for (--device cpu)")
+    return device
+
+
+def apply_precision(args) -> None:
+    """The port's one precision: f32 matrix products in full f32 (what
+    ``--matmul_precision highest`` names); TF32 off for cuBLAS and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def use_fused(args, device: torch.device) -> bool:
+    """``--fused``: ``auto`` means "on when the device is CUDA" (the
+    kernels); on the CPU ``on`` runs the kernels' plain versions."""
+    return args.fused == "on" or (args.fused == "auto"
+                                  and device.type == "cuda")
+
+
+def check_lstm_width(lstm_hidden: int, fused: bool,
+                     device: torch.device) -> None:
+    """The recurrence kernel holds H <= 256; say so at start-up instead of
+    failing at the first batch (there is no silent plain-loop fallback)."""
+    if fused and device.type == "cuda" and \
+            lstm_hidden > MAX_KERNEL_LSTM_WIDTH:
+        raise ValueError(
+            f"--lstm_hidden_width {lstm_hidden}: the recurrence kernel "
+            f"takes at most {MAX_KERNEL_LSTM_WIDTH} units on CUDA; use a "
+            f"narrower LSTM, or --fused off for the plain PyTorch path")
+
+
+def bucket_spec(args, key: str, default):
+    """BucketSpec from the config's ``buckets`` block, or the default."""
+    if getattr(args, "buckets", None) and key in args.buckets:
+        return BucketSpec(tuple(int(x) for x in args.buckets[key]))
+    return BucketSpec(default) if isinstance(default, tuple) else default
+
+
+def parity_gate() -> float:
+    """The port's parity gate against the reference, f32 with TF32 off:
+    1e-5 on the CPU and on the card."""
+    return PARITY_GATE
+
+
+def report_parity(max_diff: float, gate: float | None = None) -> None:
+    gate = gate if gate is not None else parity_gate()
+    verdict = "PASS" if max_diff <= gate else "FAIL"
+    LOG.info("parity: max|p - p_reference| = %.3e (gate %.0e): %s",
+             max_diff, gate, verdict)
+    print(f"parity {verdict}: max_abs_diff={max_diff:.3e} gate={gate:.0e}")
+
+
+def split_vocab(data_dir: str, split: str) -> set[str]:
+    """All words of a split's captions (for embedding-table pruning)."""
+    path = os.path.join(data_dir, f"{split}.captions.txt")
+    words = set()
+    for cap in read_captions(path).values():
+        words.update(cap.tokens)
+    return words
+
+
+def load_embeddings(args) -> EmbeddingStore:
+    path = args.embeddings_file or os.path.join(args.data_dir, "embeddings.txt")
+    restrict = None
+    if getattr(args, "prune_embeddings", True):
+        try:
+            restrict = split_vocab(args.data_dir, args.data_split)
+            if getattr(args, "eval_every", 0):
+                # in-training dev eval reads a second split — prune to the
+                # UNION so its words are not spuriously OOV
+                try:
+                    restrict |= split_vocab(args.data_dir, args.eval_split)
+                except FileNotFoundError:
+                    pass
+        except FileNotFoundError:
+            restrict = None
+    LOG.info("loading embeddings from %s%s", path,
+             f" (pruned to {len(restrict)} split words)" if restrict else "")
+    emb = EmbeddingStore.load(path, restrict_to=restrict)
+    LOG.info("embeddings: %d words, dim %d", len(emb.vocab), emb.dim)
+    return emb
+
+
+def default_model_dir(args, task: str) -> str:
+    return args.model_file or os.path.join(args.data_dir,
+                                           f"{task}.model")
+
+
+def weights_archive(model_dir: str, task: str) -> str | None:
+    """``<model_dir>/<task>.npz`` (an ``icl-export`` archive with its
+    manifest) when the model dir holds one."""
+    path = os.path.join(model_dir, f"{task}.npz")
+    return path if os.path.exists(path) else None
+
+
+def read_model_config(model_dir: str, task: str) -> dict:
+    """The widths a model dir's weights were trained at:
+    ``model_config.json`` (written after training), else the
+    ``model_config`` of the archive's manifest, else nothing."""
+    path = os.path.join(model_dir, "model_config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    archive = weights_archive(model_dir, task)
+    if archive and os.path.exists(archive + ".manifest.json"):
+        with open(archive + ".manifest.json") as f:
+            return json.load(f).get("model_config", {})
+    return {}
+
+
+def restore_for_predict(state, model_dir: str, task: str) -> None:
+    """The weights ``--predict`` scores with, into ``state`` in place: the
+    model dir's newest checkpoint; else its ``<task>.npz`` archive (already
+    loaded when the state was made; its manifest's step is taken); else
+    the initial weights, with a warning."""
+    from icl_torch.train.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(model_dir)
+    if ckpt.latest_step is not None:
+        ckpt.restore(state)
+        LOG.info("restored checkpoint step %d from %s", state.step, model_dir)
+        return
+    archive = weights_archive(model_dir, task)
+    if archive is None:
+        LOG.warning("no checkpoint in %s — predicting from init", model_dir)
+        return
+    with open(archive + ".manifest.json") as f:
+        state.step = int(json.load(f).get("step", 0))
+
+
+def dump_run_config(args, model_dir: str, device: torch.device) -> None:
+    """Write the fully-resolved flag set next to the checkpoints."""
+    os.makedirs(model_dir, exist_ok=True)
+    info = {k: v for k, v in vars(args).items()}
+    info["_platform"] = "gpu" if device.type == "cuda" else device.type
+    info["_num_devices"] = 1
+    if device.type == "cuda":
+        info["_device_kind"] = torch.cuda.get_device_name(device)
+    try:
+        sha = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True,
+                             text=True, timeout=5).stdout.strip()
+        if sha:
+            info["_git_sha"] = sha
+    except Exception:
+        pass
+    with open(os.path.join(model_dir, "train_config.json"), "w") as f:
+        json.dump(info, f, indent=2, sort_keys=True, default=str)
+
+
+def default_scores_path(args, task: str) -> str:
+    return args.scores_file or os.path.join(
+        args.data_dir, f"{args.data_split}.{task}.scores")
+
+
+def to_device(arrays: dict, device: torch.device) -> dict:
+    """A batcher's numpy arrays as tensors on ``device``: on CUDA through
+    pinned memory with ``non_blocking`` copies, so the copy overlaps the
+    work already queued."""
+    if device.type != "cuda":
+        return {k: torch.from_numpy(v) for k, v in arrays.items()}
+    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+            for k, v in arrays.items()}

@@ -1,0 +1,226 @@
+"""icl-torch-affinity — phrase-box affinity scorer CLI (counterpart of
+``icl/cli/affinity.py``).
+
+`.scores` per (mention, box) cell with class order [no_affinity, affinity];
+``--rank_file`` also writes each cell's share of the per-image softmax over
+the candidate boxes of its mention.  Runs on the GPU unless ``--device cpu``
+is given.  With ``--fused`` on (``auto`` on CUDA) the model runs the
+hand-written kernels: the grid head at predict, the fused-CE training grid
+head in ``--train`` (always the grid loss) and in the dev eval, the LSTM
+recurrence throughout, and for ``--rank_file`` the box-ranking kernel
+(:func:`icl_torch.ops.affinity_rank.affinity_rank`, through
+:func:`icl_torch.train.steps.affinity_predict`); the reference CLI ranks
+with plain array code (``rank_boxes``), which is what an unfused model runs
+here.
+
+The model dir holds what ``icl-torch-relation``'s does, with
+``affinity.npz`` as the archive's name.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
+                                   check_lstm_width, default_model_dir,
+                                   default_scores_path, dump_run_config,
+                                   load_embeddings, parse_task_args,
+                                   read_model_config, resolve_device,
+                                   restore_for_predict, to_device, use_fused,
+                                   weights_archive)
+from icl_torch.data.imagebatch import AffinityBatcher
+from icl_torch.data.pipeline import load_affinity_dataset
+from icl_torch.eval.scoredict import ScoreDict, merge_sharded
+from icl_torch.io.captions import parse_mention_id
+from icl_torch.io.scores import write_scores_sharded
+from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
+from icl_torch.train.evalhook import build_eval_hook
+from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.state import create_train_state
+from icl_torch.train.steps import affinity_predict, make_affinity_train_step
+from icl_torch.util.log import LOG
+
+
+def main(argv=None) -> None:
+    p = base_parser(
+        "affinity",
+        "Phrase-box affinity scorer: LSTM phrase embeddings x VGG fc7 box "
+        "features, batched GEMM + per-image softmax.")
+    p.add_argument("--images_per_batch", type=int, default=64,
+                   help="images per device batch (small datasets round "
+                        "down fine via padding)")
+    p.add_argument("--head_hidden", type=int, default=1024)
+    p.add_argument("--fused", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="the hand-written kernels (auto: on when the "
+                        "device is CUDA)")
+    p.add_argument("--rank_file", default=None,
+                   help="with --predict: also write per-image box-ranking "
+                        "distributions (softmax over candidate boxes per "
+                        "mention) to this path")
+    p.add_argument("--phrase_enc", default="lstm",
+                   choices=["lstm", "mean_w2v"])
+    args = parse_task_args(p, argv, "affinity")
+    device = resolve_device(args)
+    apply_precision(args)
+    emb = load_embeddings(args)
+    table = torch.from_numpy(emb.table).to(device)
+    ds = load_affinity_dataset(args.data_dir, args.data_split, emb)
+    LOG.info("affinity %s: %d images, %d cells", args.data_split,
+             len(ds.images), ds.num_cells)
+
+    batcher = AffinityBatcher(
+        images_per_batch=args.images_per_batch,
+        mention_spec=bucket_spec(args, "mentions_per_image", (8, 16, 32)),
+        box_spec=bucket_spec(args, "boxes_per_image", (8, 16, 32)),
+        box_dtype=np.float32, with_ids=not args.train)
+    model_dir = default_model_dir(args, "affinity")
+    lstm_hidden, head_hidden = args.lstm_hidden_width, args.head_hidden
+    phrase_enc = args.phrase_enc
+    if args.predict:
+        mc = read_model_config(model_dir, "affinity")
+        lstm_hidden = mc.get("lstm_hidden", lstm_hidden)
+        head_hidden = mc.get("head_hidden", head_hidden)
+        phrase_enc = mc.get("phrase_enc", phrase_enc)
+    fused = use_fused(args, device)
+    if phrase_enc == "lstm":
+        check_lstm_width(lstm_hidden, fused, device)
+    model = AffinityModel(emb_dim=emb.dim, box_dim=ds.box_dim,
+                          lstm_hidden=lstm_hidden, head_hidden=head_hidden,
+                          num_classes=len(AFFINITY_CLASSES),
+                          phrase_enc=phrase_enc, fused=fused,
+                          dropout=args.dropout, device=device)
+    archive = weights_archive(model_dir, "affinity")
+    state = create_train_state(model, seed=args.seed,
+                               learn_rate=args.learn_rate, params=archive)
+    if archive:
+        LOG.info("weights from %s", archive)
+
+    if args.train:
+        step = make_affinity_train_step(grid_loss=model.fused)
+
+        def make_batches(epoch_rng, skip=0):
+            for b in batcher.batches(ds, rng=epoch_rng, skip=skip):
+                yield (to_device(b.arrays, device),)
+
+        eval_fn = build_eval_hook(
+            args, model, table,
+            lambda d, sp: load_affinity_dataset(d, sp, emb),
+            batcher)
+        dump_run_config(args, model_dir, device)
+        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
+                         ckpt_every=args.ckpt_every,
+                         profile_dir=args.profile_dir, resume=args.resume,
+                         metrics_path=args.metrics_file, seed=args.seed,
+                         eval_every=args.eval_every,
+                         early_stop=args.early_stop)
+        state = run_training(state, lambda s, b: step(s, table, b),
+                             make_batches, cfg, eval_fn=eval_fn)
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump({"task": "affinity",
+                       "lstm_hidden": args.lstm_hidden_width,
+                       "head_hidden": args.head_hidden,
+                       "dropout": args.dropout,
+                       "phrase_enc": args.phrase_enc,
+                       "compute_dtype": args.compute_dtype,
+                       "box_dim": ds.box_dim}, f)
+        LOG.info("trained to step %d; checkpoints in %s", state.step,
+                 model_dir)
+        return
+
+    restore_for_predict(state, model_dir, "affinity")
+    model.eval()
+    total_cells = ds.num_cells
+    probs_by_id: dict[str, np.ndarray] = {}
+    sd = ScoreDict(labels=list(AFFINITY_CLASSES))
+    rank_by_id: dict[str, float] = {}
+    want_rank = bool(args.rank_file)
+
+    def packed_fn(jb):
+        """ONE host fetch per batch: softmax probs and (when ranking) the
+        per-image box-ranking distribution ride in a single
+        [I,M,B,2(+1)] tensor."""
+        if not want_rank:
+            return affinity_predict(model, table, jb)
+        probs, rank = affinity_predict(model, table, jb, rank=True)
+        return torch.cat([probs, rank[..., None]], dim=-1)
+
+    def _consume(b, dev_packed):
+        packed = dev_packed.cpu().numpy()             # [I,M,B,2(+rank)]
+        B = packed.shape[2]
+        # one fancy-index copy per batch (per-cell views would pin every
+        # batch's packed array for the whole sweep)
+        idx = np.asarray([(s, *divmod(cell, B))
+                          for s, cell, _ in b.id_index], np.int64
+                         ).reshape(-1, 3)
+        sel = packed[idx[:, 0], idx[:, 1], idx[:, 2]]
+        preds = sel[:, :2].argmax(axis=1) if args.eval else None
+        labels = b.arrays["grid_label"]
+        for k, (s, cell, cid) in enumerate(b.id_index):
+            probs_by_id[cid] = sel[k, :2]
+            if want_rank:
+                rank_by_id[cid] = float(sel[k, 2])
+            if preds is not None:   # ScoreDict only feeds the --eval table
+                r, c = idx[k, 1], idx[k, 2]
+                sd.increment(AFFINITY_CLASSES[int(labels[s, r, c])],
+                             AFFINITY_CLASSES[int(preds[k])])
+
+    # dispatch-ahead pipeline (see icl_torch/cli/relation.py): batch
+    # assembly in a prefetch thread + several predicts queued before the
+    # oldest result is pulled to the host
+    pending: collections.deque = collections.deque()
+    t_sweep = time.perf_counter()
+    for b in prefetch(batcher.batches(ds), depth=4):
+        jb = to_device(b.arrays, device)
+        pending.append((b, packed_fn(jb)))
+        if len(pending) > 3:
+            _consume(*pending.popleft())
+    while pending:
+        _consume(*pending.popleft())
+    dt = max(time.perf_counter() - t_sweep, 1e-9)
+    LOG.info("predict sweep: %d cells in %.2f s (%.0f cells/s), batch "
+             "assembly and host bookkeeping included", total_cells, dt,
+             total_cells / dt)
+    # write in dataset order: per image, mention-major over valid cells
+    order = []
+    for im in ds.images:
+        for r, mid in enumerate(im.mention_ids):
+            img, ci, mi = parse_mention_id(mid)
+            for c, bi in enumerate(im.box_idx):
+                if im.grid_valid[r, c]:
+                    order.append(im.cell_id(ci, mi, bi))
+    out = (np.stack([probs_by_id[cid] for cid in order]) if order
+           else np.zeros((0, len(AFFINITY_CLASSES))))
+    scores_path = default_scores_path(args, "affinity")
+    write_scores_sharded(scores_path, order, out,
+                         num_classes=len(AFFINITY_CLASSES),
+                         total_examples=total_cells,
+                         class_order=AFFINITY_CLASSES,
+                         meta={"task": "affinity", "split": args.data_split,
+                               "checkpoint_step": int(state.step)})
+    LOG.info("wrote %d scores (%d total) to %s", len(order), total_cells,
+             scores_path)
+    if args.rank_file:
+        ranks_out = np.array([[rank_by_id[cid]] for cid in order]
+                             ).reshape(len(order), 1)
+        write_scores_sharded(
+            args.rank_file, order, ranks_out, num_classes=1,
+            total_examples=total_cells, class_order=["rank_prob"],
+            meta={"task": "affinity_rank", "split": args.data_split,
+                  "ranked_by": ("box-ranking kernel" if model.fused else
+                                "rank_boxes"),
+                  "note": "per-image softmax over candidate boxes "
+                          "per mention"})
+        LOG.info("wrote %d rank probs to %s", len(order), args.rank_file)
+    if args.eval:
+        print(merge_sharded(sd, scores_path).table())
+
+
+if __name__ == "__main__":
+    main()

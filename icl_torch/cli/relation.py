@@ -1,0 +1,185 @@
+"""icl-torch-relation — pairwise mention-relation classifier CLI
+(counterpart of ``icl/cli/relation.py``).
+
+Same train/predict surface and `.scores` byte format as the reference,
+class order [null, coref, subset_ij, subset_ji].  Runs on the GPU unless
+``--device cpu`` is given.  With ``--fused`` on (``auto`` on CUDA) the
+model runs the hand-written kernels: the grid head at predict, the
+fused-CE training grid head in ``--train`` (the pair form when a class
+weight is <= 0) and in the dev eval, and the LSTM recurrence throughout.
+
+The model dir (``--model_file``) holds the port's checkpoints
+(``step_<n>.pt``), ``model_config.json`` and ``train_config.json``, and may
+hold ``relation.npz`` (+ manifest) from ``icl-export``: ``--predict`` takes
+the newest checkpoint, else the archive, else predicts from the initial
+weights with a warning; ``--train`` starts from the archive when there is
+one (and ``--resume auto`` from the newest checkpoint).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
+                                   check_lstm_width, default_model_dir,
+                                   default_scores_path, dump_run_config,
+                                   load_embeddings, parse_task_args,
+                                   read_model_config, resolve_device,
+                                   restore_for_predict,
+                                   to_device, use_fused, weights_archive)
+from icl_torch.data.imagebatch import RelationBatcher
+from icl_torch.data.pairs import RELATION_CLASSES
+from icl_torch.data.pipeline import load_relation_dataset
+from icl_torch.eval.scoredict import ScoreDict, merge_sharded
+from icl_torch.io.scores import write_scores_sharded
+from icl_torch.models.relation import RelationModel
+from icl_torch.train.evalhook import build_eval_hook
+from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.state import create_train_state
+from icl_torch.train.steps import make_relation_train_step, relation_predict
+from icl_torch.util.log import LOG
+
+
+def main(argv=None) -> None:
+    p = base_parser(
+        "relation",
+        "4-way mention-pair relation classifier (null/coref/subset_ij/"
+        "subset_ji) with a shared BiLSTM caption encoder.")
+    p.add_argument("--images_per_batch", type=int, default=64,
+                   help="images per device batch (small datasets round "
+                        "down fine via padding)")
+    p.add_argument("--null_weight", type=float, default=0.3,
+                   help="CE weight of the dominant null class")
+    p.add_argument("--head_hidden", type=int, default=800)
+    p.add_argument("--fused", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="the hand-written kernels (auto: on when the "
+                        "device is CUDA)")
+    args = parse_task_args(p, argv, "relation")
+    device = resolve_device(args)
+    apply_precision(args)
+    emb = load_embeddings(args)
+    table = torch.from_numpy(emb.table).to(device)
+    ds = load_relation_dataset(args.data_dir, args.data_split, emb)
+    LOG.info("relation %s: %d images, %d pairs", args.data_split,
+             len(ds.images), ds.num_pairs)
+
+    batcher = RelationBatcher(
+        images_per_batch=args.images_per_batch,
+        len_spec=bucket_spec(args, "caption_len", (16, 32, 48)),
+        mention_spec=bucket_spec(args, "mentions_per_image", (8, 16, 32)),
+        build_grid=bool(args.train), with_ids=not args.train)
+    model_dir = default_model_dir(args, "relation")
+    lstm_hidden, head_hidden = args.lstm_hidden_width, args.head_hidden
+    if args.predict:
+        mc = read_model_config(model_dir, "relation")
+        lstm_hidden = mc.get("lstm_hidden", lstm_hidden)
+        head_hidden = mc.get("head_hidden", head_hidden)
+    fused = use_fused(args, device)
+    check_lstm_width(lstm_hidden, fused, device)
+    model = RelationModel(emb_dim=emb.dim, lstm_hidden=lstm_hidden,
+                          head_hidden=head_hidden,
+                          num_classes=len(RELATION_CLASSES), fused=fused,
+                          dropout=args.dropout, device=device)
+    archive = weights_archive(model_dir, "relation")
+    state = create_train_state(model, seed=args.seed,
+                               learn_rate=args.learn_rate, params=archive)
+    if archive:
+        LOG.info("weights from %s", archive)
+
+    if args.train:
+        class_weights = [args.null_weight, 1.0, 1.0, 1.0]
+        step = make_relation_train_step(class_weights=class_weights,
+                                        grid_loss=model.fused)
+
+        def make_batches(epoch_rng, skip=0):
+            for b in batcher.batches(ds, rng=epoch_rng, skip=skip):
+                yield (to_device(b.arrays, device),)
+
+        # the train batcher already has build_grid=True/with_ids=False and
+        # is stateless aside from the per-image pad cache — share it
+        eval_fn = build_eval_hook(
+            args, model, table,
+            lambda d, sp: load_relation_dataset(d, sp, emb),
+            batcher, class_weights=class_weights)
+        dump_run_config(args, model_dir, device)
+        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
+                         ckpt_every=args.ckpt_every,
+                         profile_dir=args.profile_dir, resume=args.resume,
+                         metrics_path=args.metrics_file, seed=args.seed,
+                         eval_every=args.eval_every,
+                         early_stop=args.early_stop)
+        state = run_training(state, lambda s, b: step(s, table, b),
+                             make_batches, cfg, eval_fn=eval_fn)
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump({"task": "relation",
+                       "lstm_hidden": args.lstm_hidden_width,
+                       "head_hidden": args.head_hidden,
+                       "dropout": args.dropout,
+                       "compute_dtype": args.compute_dtype}, f)
+        LOG.info("trained to step %d; checkpoints in %s", state.step,
+                 model_dir)
+        return
+
+    restore_for_predict(state, model_dir, "relation")
+    model.eval()
+    total_pairs = sum(len(im.pair_ids) for im in ds.images)
+    probs_by_id: dict[str, np.ndarray] = {}
+    sd = ScoreDict(labels=list(RELATION_CLASSES))
+
+    def _consume(b, dev_probs):
+        probs = dev_probs.cpu().numpy()
+        # one fancy-index copy per batch: per-row views (probs[s, pi])
+        # would pin every batch's full probs array for the whole sweep
+        idx = np.asarray([(s, pi) for s, pi, _ in b.id_index], np.int64
+                         ).reshape(-1, 2)
+        sel = probs[idx[:, 0], idx[:, 1]]
+        preds = sel.argmax(axis=1) if args.eval else None
+        labels = b.arrays["pair_label"]
+        for k, (s, pi, pid) in enumerate(b.id_index):
+            probs_by_id[pid] = sel[k]
+            if preds is not None:   # ScoreDict only feeds the --eval table
+                sd.increment(RELATION_CLASSES[int(labels[s, pi])],
+                             RELATION_CLASSES[int(preds[k])])
+
+    # dispatch-ahead pipeline: batch assembly runs in a prefetch thread and
+    # several predicts stay queued on the device before the oldest result
+    # is pulled to the host, so the device-to-host read overlaps the
+    # device's work AND the host's padding instead of serialising with them
+    pending: collections.deque = collections.deque()
+    t_sweep = time.perf_counter()
+    for b in prefetch(batcher.batches(ds), depth=4):
+        jb = to_device(b.arrays, device)
+        pending.append((b, relation_predict(model, table, jb)))
+        if len(pending) > 3:
+            _consume(*pending.popleft())
+    while pending:
+        _consume(*pending.popleft())
+    dt = max(time.perf_counter() - t_sweep, 1e-9)
+    LOG.info("predict sweep: %d pairs in %.2f s (%.0f pairs/s), batch "
+             "assembly and host bookkeeping included", total_pairs, dt,
+             total_pairs / dt)
+    order = [pid for im in ds.images for pid in im.pair_ids]
+    out = (np.stack([probs_by_id[pid] for pid in order]) if order
+           else np.zeros((0, len(RELATION_CLASSES))))
+    scores_path = default_scores_path(args, "relation")
+    write_scores_sharded(scores_path, order, out,
+                         num_classes=len(RELATION_CLASSES),
+                         total_examples=total_pairs,
+                         class_order=RELATION_CLASSES,
+                         meta={"task": "relation", "split": args.data_split,
+                               "checkpoint_step": int(state.step)})
+    LOG.info("wrote %d scores (%d total) to %s", len(order), total_pairs,
+             scores_path)
+    if args.eval:
+        print(merge_sharded(sd, scores_path).table())
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,10 @@
 // Pallas kernels K1 _flat_kernel and K2 _kernel of icl/ops/grid_head.py)
 // and the forward family of grid_head_train.cu (K5 _fwd_kernel, K7
 // _fwd_loss_*kernel and the recomputing first half of K8 _bwd_loss_*kernel
-// of icl/ops/grid_head_train.py) include it and add only their epilogue.
+// of icl/ops/grid_head_train.py) include it and add only their epilogue;
+// so does affinity_rank.cu (K9 _rank_kernel of icl/ops/affinity_rank.py),
+// which takes one column of W2 (the column form below) and puts a masked
+// softmax over each row of the grid behind it.
 //
 // What bounds the function on the H100.  Per element of [cells, K] there
 // are 2 + O float instructions (add, max, O FMAs) and, with dropout, 10
@@ -58,6 +61,10 @@
 //  * Alignment: the 16-byte form needs X, Y, b1 and W2 16-byte aligned and
 //    K % 4 == 0.  Otherwise kV = 1: the same routine with scalar loads (the
 //    generic 2 x 2 form), picked by plan_launch from the pointers.
+//  * The column form (kColumn, kO = 1): the head is the single column
+//    p.col of W2 [K, p.O], a 4 x 4 tile of one sum a cell.  At p.O = 2 a
+//    lane reads its 4 rows of W2 whole (8 floats, two 16-byte loads) and
+//    keeps the column's half; at other widths it reads 4 floats one by one.
 //
 // Shared memory a block, every shape: 2 KB of K-split partials (8 warps x
 // 64 floats) plus, in the loss kernel, 96 bytes.  Registers a thread
@@ -108,6 +115,7 @@ struct HeadArgs {
   const float* gl;       // [1], the loss cotangent (device)
   float* out;
   int A, B, K, O;
+  int col;               // the column form: the column of W2 and b2 taken
   int ksplit;            // warps splitting K (the caller's choice)
   int col_warps;         // column tiles a block      } set by plan_launch
   int row_tiles, col_groups;   //                     }
@@ -175,8 +183,11 @@ struct TileState {
 
 // Adds the lane's kW consecutive k, from k on, to every live cell of the
 // tile.  kAligned: the operands take 16-byte loads (the kW == 4 passes of
-// the 16-byte form, and W2's rows in its scalar last pass).
-template <int kO, bool kExactO, int kW, bool kAligned, bool kDrop>
+// the 16-byte form, and W2's rows in its scalar last pass).  kColumn: kO
+// is 1 and the head is column p.col of W2 [K, p.O]; kExactO then says that
+// p.O is 2.
+template <int kO, bool kExactO, int kW, bool kAligned, bool kDrop,
+          bool kColumn = false>
 __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
                                                 TileState<kO>& st, int k) {
   using T = Tile<kO>;
@@ -192,7 +203,16 @@ __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
 #pragma unroll
   for (int c = 0; c < TB; ++c)
     load_vec<kW, kAligned>(st.yg + st.yo[c] + k, yv[c]);
-  if constexpr (kExactO) {        // rows k .. k + kW - 1 of W2, contiguous
+  if constexpr (kColumn && kExactO) {   // both columns of the kW rows
+    float both[kW * 2];
+    load_vec<kW * 2, kAligned>(p.W2 + (size_t)k * 2, both);
+#pragma unroll
+    for (int v = 0; v < kW; ++v) w[v] = p.col ? both[2 * v + 1] : both[2 * v];
+  } else if constexpr (kColumn) {
+#pragma unroll
+    for (int v = 0; v < kW; ++v)
+      w[v] = __ldg(p.W2 + (size_t)(k + v) * p.O + p.col);
+  } else if constexpr (kExactO) {   // rows k .. k + kW - 1 of W2, contiguous
     load_vec<kW * kO, kAligned>(p.W2 + (size_t)k * kO, w);
   } else {
 #pragma unroll
@@ -265,8 +285,10 @@ __device__ __forceinline__ TileCoords tile_coords(const HeadArgs& p) {
 // memory.  In the weighted kernels (kWeighted) cells of weight 0 are not
 // computed: they come out as b2.  On return, in the warps of slice 0,
 // logit[0 .. O) are the logits of the lane's cell (b2 added; zero beyond
-// O), equal bits in the lanes that share a cell.
-template <int kO, bool kExactO, int kV, bool kDrop, bool kWeighted>
+// O), equal bits in the lanes that share a cell.  In the column form
+// (kColumn, kO = 1) logit[0] is the logit of column p.col.
+template <int kO, bool kExactO, int kV, bool kDrop, bool kWeighted,
+          bool kColumn = false>
 __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,
                                                  const TileCoords& t,
                                                  float* red,
@@ -312,11 +334,11 @@ __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,
     constexpr int kPass = 32 * kV;
     const int full = K / kPass;
     for (int it = t.s; it < full; it += p.ksplit)
-      tile_accumulate<kO, kExactO, kV, kV == 4, kDrop>(
+      tile_accumulate<kO, kExactO, kV, kV == 4, kDrop, kColumn>(
           p, st, (it * 32 + lane) * kV);
     if (full % p.ksplit == t.s) {
       for (int k = full * kPass + lane; k < K; k += 32)
-        tile_accumulate<kO, kExactO, 1, kV == 4, kDrop>(p, st, k);
+        tile_accumulate<kO, kExactO, 1, kV == 4, kDrop, kColumn>(p, st, k);
     }
     __syncwarp();
     reduce_step<kN, kO, 16, kN>(acc, lane);
@@ -340,9 +362,13 @@ __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,
       }
     }
   }
+  if constexpr (kColumn) {
+    logit[0] = acc[0] + __ldg(p.b2 + p.col);
+  } else {
 #pragma unroll
-  for (int o = 0; o < kO; ++o)
-    logit[o] = o < O ? acc[o] + __ldg(p.b2 + o) : 0.f;
+    for (int o = 0; o < kO; ++o)
+      logit[o] = o < O ? acc[o] + __ldg(p.b2 + o) : 0.f;
+  }
 }
 
 // Stores a cell's O logits (or their gradient) at dst.

@@ -112,8 +112,13 @@ class AffinityModel(FlatParams):
         if loss_grid is not None:
             labels, weights = loss_grid
             weights = weights.detach()
-            if self.fused and train:
-                # the CE inside the kernel: only three sums leave it
+            if self.fused:
+                # the CE inside the kernel: only three sums leave it; a
+                # deterministic pass (a dev eval) is the same kernel at
+                # rate 0, where the seeds are not read
+                if not train:
+                    seeds = torch.zeros(X.shape[0], dtype=torch.int32,
+                                        device=X.device)
                 return grid_head_train_loss(X, Y, b1, W2, b2, seeds, labels,
                                             weights, rate)
             return grid_ce_sums(self.head(X, Y, seeds), labels, weights)

@@ -113,16 +113,18 @@ class RelationModel(FlatParams):
         if loss_grid is not None:
             labels, weights = loss_grid
             weights = weights.detach()
-            if self.fused and train:
-                # the CE inside the kernel: only three sums leave it
+            if self.fused:
+                # the CE inside the kernel: only three sums leave it; a
+                # deterministic pass (a dev eval) is the same kernel at
+                # rate 0, where the seeds are not read
+                if not train:
+                    seeds = torch.zeros(I, dtype=torch.int32,
+                                        device=tokens.device)
                 return grid_head_train_loss(proj_i, proj_j, b1, W2, b2,
                                             seeds, labels, weights, rate)
-            if self.fused:
-                grid = grid_head(proj_i, proj_j, b1, W2, b2)
-            else:
-                # plain oracle: materialises the [I, M, M, K] activation
-                grid = grid_head_train_reference(proj_i, proj_j, b1, W2, b2,
-                                                 seeds, rate)
+            # plain oracle: materialises the [I, M, M, K] activation
+            grid = grid_head_train_reference(proj_i, proj_j, b1, W2, b2,
+                                             seeds, rate)
             return grid_ce_sums(grid, labels, weights)
 
         pi, pj = batch["pair_ij"][..., 0].long(), batch["pair_ij"][..., 1].long()

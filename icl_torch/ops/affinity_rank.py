@@ -13,10 +13,12 @@ Invalid boxes get exactly 0; an image with no valid box gets zeros.
   rank_boxes`, so the masking convention has one source.  It materialises
   the [G, A, B, K] activation.
 * :func:`affinity_rank` is the wrapper: for CUDA tensors it launches the
-  hand-written kernel ``icl_torch/csrc/affinity_rank.cu`` (only the
-  [G, A, B] ranking reaches device memory) and counts the launch in
-  ``affinity_rank.launches``; for CPU tensors it runs the plain version.  A
-  CUDA call that the kernel cannot take raises.
+  hand-written kernel ``icl_torch/csrc/affinity_rank.cu`` (the grid head's
+  tile routine at one output column, a block owning whole rows of the
+  ranking; only the [G, A, B] ranking reaches device memory) and counts the
+  launch in ``affinity_rank.launches``; for CPU tensors it runs the plain
+  version.  A CUDA call that the kernel cannot take raises, as does one
+  that autograd would record (the kernel has no backward).
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ import ctypes
 import torch
 
 from icl_torch.ops import _build
-from icl_torch.ops.grid_head import grid_head_reference
+from icl_torch.ops.grid_head import (aligned16, check_grid_size,
+                                     check_no_grad, grid_head_reference,
+                                     launch_plan)
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SMEM = 227 * 1024   # a block's shared memory
 
 
 def affinity_rank_reference(X: torch.Tensor, Y: torch.Tensor,
@@ -53,15 +58,19 @@ def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
         return affinity_rank_reference(X, Y, b1, W2, b2, box_valid,
                                        affinity_col)
     G, A, B, K, O = _check(X, Y, b1, W2, b2, box_valid, affinity_col)
+    check_no_grad("affinity_rank", X, Y, b1, W2, b2)
     out = torch.empty((G, A, B), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
+    plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2),
+                       whole_rows=True)
     lib = _build.load("affinity_rank", "icl_affinity_rank_f32", _ARGTYPES)
     dev = X.device
     err = lib.icl_affinity_rank_f32(
         X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
         b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K, O,
-        affinity_col, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        affinity_col, plan.ksplit, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "affinity_rank")
     affinity_rank.launches += 1
     return out
@@ -97,10 +106,8 @@ def _check(X, Y, b1, W2, b2, box_valid, col):
     if not 0 <= col < O:
         raise ValueError(f"affinity_rank: affinity_col={col} outside "
                          f"0..{O - 1}")
-    if G * A >= 2 ** 31:
-        raise ValueError(f"affinity_rank: G*A={G * A} exceeds the launch "
-                         f"grid")
-    if (2 * K + B) * 4 > 227 * 1024:
-        raise ValueError(f"affinity_rank: K={K}, B={B} exceed a block's "
-                         f"shared memory")
+    check_grid_size("affinity_rank", G, A, B, K)
+    if 4 * B * 4 + 2048 > _SMEM:    # 4 rows of scores and the K-split partials
+        raise ValueError(f"affinity_rank: B={B} boxes exceed a block's "
+                         f"shared memory ({_SMEM} bytes)")
     return G, A, B, K, O

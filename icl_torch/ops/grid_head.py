@@ -15,8 +15,11 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
 * :func:`launch_plan` picks how many warps of a block split K for a call,
   the launch's one free choice, and tells the form (16-byte or scalar
   loads) and the grid that follow from the operands.  The training forward
-  kernels (``grid_head_train``) share the tile routine
-  (``icl_torch/csrc/grid_head_tile.cuh``) and this plan.
+  kernels (``grid_head_train``) and the box ranking (``affinity_rank``)
+  share the tile routine (``icl_torch/csrc/grid_head_tile.cuh``) and this
+  plan.
+* :func:`check_no_grad`: the predict kernels have no backward, so a CUDA
+  call that autograd would record raises :class:`KernelNoGradError`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 MAX_O = 8           # kMaxO in csrc/grid_head_tile.cuh
 MAX_WARPS = 8       # kMaxWarps there: column tiles x k slices of a block
 COL_TILES = 4       # kColTiles there: column tiles a block without a K split
+RANK_COL_WARPS = 8  # kRankColWarps in csrc/affinity_rank.cu
+RANK_WARPS = 16     # kRankWarps there: column tiles x k slices of a block
 _FILL_WARPS = 1056  # 8 warps on each of the H100's 132 SMs
 
 
@@ -50,8 +55,31 @@ def aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def launch_plan(G: int, A: int, B: int, K: int, O: int,
-                aligned: bool) -> HeadPlan:
+class KernelNoGradError(RuntimeError):
+    """A forward-only CUDA kernel was called where autograd would record
+    it: its result would carry no graph."""
+
+
+def wants_grad(grad_enabled: bool, requires_grad) -> bool:
+    """Autograd would record a call: grad mode is on and an input requires
+    grad."""
+    return bool(grad_enabled) and any(requires_grad)
+
+
+def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise :class:`KernelNoGradError` where a kernel without a backward
+    would be recorded by autograd (its plain version on the CPU is
+    differentiable; the kernel's result is not)."""
+    if wants_grad(torch.is_grad_enabled(),
+                  (t.requires_grad for t in tensors)):
+        raise KernelNoGradError(
+            f"{what}: the CUDA kernel has no backward, and an input requires "
+            f"grad; call it under torch.inference_mode() or torch.no_grad() "
+            f"(training goes through grid_head_train / grid_head_train_loss)")
+
+
+def launch_plan(G: int, A: int, B: int, K: int, O: int, aligned: bool,
+                whole_rows: bool = False) -> HeadPlan:
     """The form of the tile routine for a [G, A, B] grid of depth K.
 
     A warp owns a tile of cells, 4 x 4 when the loads are 16 bytes wide and
@@ -61,15 +89,24 @@ def launch_plan(G: int, A: int, B: int, K: int, O: int,
     fill the card splits K over up to 8 warps of a block (at most one pass
     each), one column tile a block; a large one has no split and up to 4
     column tiles a block.
+
+    ``whole_rows`` (the box ranking: one output column, a softmax over each
+    row of the grid): tiles are 4 x 4 in both forms, and a block owns the
+    whole rows of its row tile: up to 8 column tiles side by side, taking
+    the rest in turns, times the K split, at most 16 warps.
     """
     vec = int(aligned and K % 4 == 0)
-    tile = 4 if vec and O in (2, 4) else 2
+    tile = 4 if whole_rows or (vec and O in (2, 4)) else 2
     row_tiles, col_tiles = -(-A // tile), -(-B // tile)
     tiles = G * row_tiles * col_tiles
     passes = -(-K // (32 * (4 if vec else 1)))
+    side = min(col_tiles, RANK_COL_WARPS)
+    most = RANK_WARPS // side if whole_rows else MAX_WARPS
     ksplit = 1      # from half the fill on, a split only adds reductions
     if 2 * tiles < _FILL_WARPS:
-        ksplit = min(passes, MAX_WARPS, -(-_FILL_WARPS // tiles))
+        ksplit = min(passes, most, -(-_FILL_WARPS // tiles))
+    if whole_rows:
+        return HeadPlan(vec, ksplit, G * row_tiles)
     col_warps = 1 if ksplit > 1 else min(col_tiles, COL_TILES)
     return HeadPlan(vec, ksplit, G * row_tiles * -(-col_tiles // col_warps))
 
@@ -95,6 +132,7 @@ def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     B = Y.shape[1]
     O = W2.shape[1]
     _check(X, Y, b1, W2, b2, G, A, B, K, O)
+    check_no_grad("grid_head", X, Y, b1, W2, b2)
     out = torch.empty((G, A, B, O), dtype=torch.float32, device=X.device)
     if G == 0 or A == 0 or B == 0:
         return out.zero_()

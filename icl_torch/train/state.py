@@ -3,15 +3,16 @@
 Counterpart of ``icl/train/state.py``.  ``optax.adam(lr)`` and
 ``torch.optim.Adam(lr)`` share their defaults (b1 0.9, b2 0.999, eps 1e-8)
 and their formula (bias-corrected moments, eps outside the square root).
-The per-step dropout seeds come from a ``torch.Generator`` seeded from
-(seed, step), the counterpart of ``TrainState.step_rng``'s ``fold_in``: a
-step's seeds depend on nothing but the run's seed and the step number.
+The per-step dropout seeds come from a numpy generator seeded from (seed,
+step), the counterpart of ``TrainState.step_rng``'s ``fold_in``: a step's
+seeds depend on nothing but the run's seed and the step number.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -27,11 +28,13 @@ class TrainState:
 
     def dropout_seeds(self, n: int) -> torch.Tensor:
         """This step's per-image dropout seeds: int32 [n] in [0, 2**31-1),
-        on the model's device."""
-        gen = torch.Generator().manual_seed(
-            ((self.seed & 0xFFFFFFFF) << 32) | (self.step & 0xFFFFFFFF))
-        seeds = torch.randint(0, 2 ** 31 - 1, (n,), generator=gen,
-                              dtype=torch.int32)
+        on the model's device.  A pure function of (seed, step): both enter
+        a ``SeedSequence`` (torch's CPU generator would keep only the low
+        32 bits of one packed 64-bit seed, which dropped the run's seed)."""
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [self.seed & 0xFFFFFFFF, self.step & 0xFFFFFFFF]))
+        seeds = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, n,
+                                              dtype=np.int32))
         return seeds.to(self.model.head_out.bias.device)
 
     def apply_gradients(self) -> None:

@@ -135,11 +135,20 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
                     other_form)
         grid_loss = False
 
+    cw_on: dict[torch.device, torch.Tensor] = {}   # built once a device
+
+    def class_weight_tensor(device: torch.device) -> torch.Tensor | None:
+        if class_weights is None:
+            return None
+        if device not in cw_on:
+            cw_on[device] = torch.as_tensor(class_weights,
+                                            dtype=torch.float32,
+                                            device=device)
+        return cw_on[device]
+
     def train_step(state: TrainState, table: torch.Tensor,
                    batch: dict) -> dict:
-        cw = (None if class_weights is None else
-              torch.as_tensor(class_weights, dtype=torch.float32,
-                              device=table.device))
+        cw = class_weight_tensor(table.device)
         seeds = state.dropout_seeds(batch[images_key].shape[0])
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
@@ -149,6 +158,7 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
         return {k: v.detach() for k, v in metrics.items()}
 
     train_step.grid_loss = grid_loss
+    train_step.class_weight_tensor = class_weight_tensor
     return train_step
 
 

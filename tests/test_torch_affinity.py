@@ -234,7 +234,12 @@ def _rank_problem(G, A, B, K, seed=0, empty_image=False):
 
 
 RANK_SHAPES = [(2, 8, 16, 32, False), (1, 5, 7, 24, False),
-               (2, 33, 12, 16, False), (3, 6, 9, 16, True)]
+               (2, 33, 12, 16, False), (3, 6, 9, 16, True),
+               # the tile routine's edges: one box, a ragged 4 x 4 tile, more
+               # boxes than 8 column tiles, K % 4 != 0
+               (2, 12, 1, 16, False), (2, 1, 20, 16, True),
+               (2, 17, 33, 24, True), (1, 12, 100, 16, False),
+               (2, 16, 32, 30, True)]
 
 
 @pytest.mark.parametrize("G,A,B,K,empty_image", RANK_SHAPES)

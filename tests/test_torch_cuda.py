@@ -407,7 +407,11 @@ def _rank_inputs(G, A, B, K, dev, seed=0):
 
 @pytest.mark.parametrize("G,A,B,K", [
     (1, 8, 8, 1024), (4, 16, 32, 1024), (64, 16, 32, 1024),
-    (64, 16, 20, 1024), (3, 5, 70, 33), (2, 7, 3, 16)])
+    (64, 16, 20, 1024), (3, 5, 70, 33), (2, 7, 3, 16),
+    # the tile routine: B in {1, 20, 32, 33, 100}, A in {1, 12, 16, 17},
+    # K % 4 != 0, more boxes than a block's 8 column tiles
+    (2, 12, 1, 1024), (3, 1, 20, 1024), (2, 17, 33, 1024),
+    (2, 12, 100, 1024), (5, 16, 32, 1022), (2, 9, 20, 30), (2, 7, 300, 800)])
 def test_affinity_rank_kernel_matches_plain(dev, G, A, B, K):
     args = _rank_inputs(G, A, B, K, dev)
     n0 = affinity_rank.launches
@@ -420,6 +424,40 @@ def test_affinity_rank_kernel_matches_plain(dev, G, A, B, K):
     if G > 1:
         assert not out[-1].any()                    # no valid box: zeros
     assert torch.equal(out, affinity_rank(*args))   # bitwise repeatable
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("G", [4, 64])
+def test_affinity_rank_kernel_takes_an_unaligned_view(dev, G, which):
+    """One of X, Y, b1, W2 only 4-byte aligned: 4-byte loads, same values."""
+    args = list(_rank_inputs(G, 16, 32, 1024, dev))
+    want = affinity_rank_reference(*args)
+    args[which] = _offset_view(args[which])
+    out = affinity_rank(*args)
+    _assert_close(out, want)
+    assert torch.equal(out, affinity_rank(*args))
+
+
+@pytest.mark.parametrize("O,col", [(2, 0), (3, 2), (4, 1)])
+def test_affinity_rank_kernel_takes_any_column(dev, O, col):
+    X, Y, b1, _, _, valid = _rank_inputs(3, 9, 20, 1024, dev)
+    _, _, _, W2, b2 = _head_inputs(3, 9, 20, 1024, O, dev, seed=5)
+    out = affinity_rank(X, Y, b1, W2, b2, valid, affinity_col=col)
+    _assert_close(out, affinity_rank_reference(X, Y, b1, W2, b2, valid, col))
+
+
+def test_predict_kernels_refuse_a_call_under_grad(dev):
+    from icl_torch.ops.grid_head import KernelNoGradError
+
+    X, Y, b1, W2, b2, valid = _rank_inputs(2, 4, 8, 64, dev)
+    W2.requires_grad_()
+    with pytest.raises(KernelNoGradError, match="grid_head"):
+        grid_head(X, Y, b1, W2, b2)
+    with pytest.raises(KernelNoGradError, match="affinity_rank"):
+        affinity_rank(X, Y, b1, W2, b2, valid)
+    with torch.inference_mode():
+        grid_head(X, Y, b1, W2, b2)
+        affinity_rank(X, Y, b1, W2, b2, valid)
 
 
 def test_affinity_rank_empty_grid_and_rejects(dev):

@@ -2,8 +2,9 @@
 
 ``icl_torch`` imports nothing of ``icl``; it keeps copies of the modules it
 needs (``icl_torch/util/log.py``, ``data/{buckets,embeddings,pairs,pipeline,
-imagebatch}.py``, ``io/{boxes,captions,feats}.py``, ``testing/synth.py``),
-without the optional C++ fast paths.  File formats and batch layouts must
+imagebatch}.py``, ``io/{boxes,captions,feats,scores}.py``,
+``eval/scoredict.py``, ``testing/synth.py``), without the optional C++ fast
+paths and the multi-process branches.  File formats and batch layouts must
 not drift, so each copy is held to its original on the same seeded input:
 the same bytes written, the same arrays (dtype, shape, values) read and
 batched.  The originals may take their C++ paths here where the library is
@@ -11,6 +12,7 @@ built; the results must agree all the same.
 """
 
 import filecmp
+import json
 import logging
 import os
 
@@ -24,7 +26,9 @@ import icl.data.pairs as jpairs
 import icl.data.pipeline as jpipe
 import icl.io.boxes as jboxes
 import icl.io.captions as jcaps
+import icl.eval.scoredict as jscoredict
 import icl.io.feats as jfeats
+import icl.io.scores as jscores
 import icl.testing.synth as jsynth
 import icl.util.log as jlog
 import icl_torch.data.buckets as tbuckets
@@ -34,7 +38,9 @@ import icl_torch.data.pairs as tpairs
 import icl_torch.data.pipeline as tpipe
 import icl_torch.io.boxes as tboxes
 import icl_torch.io.captions as tcaps
+import icl_torch.eval.scoredict as tscoredict
 import icl_torch.io.feats as tfeats
+import icl_torch.io.scores as tscores
 import icl_torch.testing.synth as tsynth
 import icl_torch.util.log as tlog
 
@@ -332,3 +338,107 @@ def test_log_util_has_the_same_surface(capsys):
     assert "50.0% complete (2/4 rows)" in err and "shown 7" in err
     assert "hidden" not in err
     assert logging.getLogger("icl_torch_test").level == logging.INFO
+
+
+def _score_rows(n, c, seed):
+    rng = np.random.default_rng(seed)
+    probs = rng.random((n, c))
+    probs /= probs.sum(axis=1, keepdims=True)
+    if n:
+        probs[0] = [1.0] + [0.0] * (c - 1)             # exact 0 and 1
+    if n > 1:
+        probs[1, 0] = 0.1234565                        # a rounding tie
+    ids = [f"doc:im{i}.jpg;caption:{i % 5};mention:{i % 3}" for i in range(n)]
+    return ids, probs
+
+
+@pytest.mark.parametrize("writer", ["write_scores", "write_scores_sharded"])
+@pytest.mark.parametrize("n,c", [(7, 4), (5, 2), (3, 1), (0, 2)])
+def test_scores_writers_write_the_same_bytes(writer, n, c, tmp_path):
+    ids, probs = _score_rows(n, c, seed=n + c)
+    paths = {}
+    for name, mod in (("j", jscores), ("t", tscores)):
+        path = paths[name] = str(tmp_path / f"{name}.scores")
+        order = [f"c{k}" for k in range(c)]
+        if writer == "write_scores":
+            mod.write_scores(path, ids, probs.astype(np.float32),
+                             class_order=order, meta={"task": "x"})
+        else:
+            mod.write_scores_sharded(path, ids, probs, num_classes=c,
+                                     total_examples=n + 3, class_order=order,
+                                     meta={"task": "x", "split": "dev"})
+    assert filecmp.cmp(paths["j"], paths["t"], shallow=False)
+    assert filecmp.cmp(paths["j"] + ".meta.json", paths["t"] + ".meta.json",
+                       shallow=False)
+    text = open(paths["t"], encoding="utf-8").read()
+    assert text.count("\n") == n and "\r" not in text
+    if n:
+        assert text.splitlines()[0] == ids[0] + ",1.000000" + ",0.000000" * (
+            c - 1)
+    # each package reads the other's file to the same arrays
+    (ia, pa), (ib, pb) = (jscores.read_scores(paths["t"]),
+                          tscores.read_scores(paths["j"]))
+    assert ia == ib == ids
+    _same(pa, pb)
+    if n:
+        assert np.abs(pb - probs).max() <= 1e-6   # half a unit, and f32
+
+
+def test_scores_writers_refuse_the_same_shapes(tmp_path):
+    path = str(tmp_path / "x.scores")
+    for mod in (jscores, tscores):
+        with pytest.raises(ValueError, match="does not match"):
+            mod.write_scores(path, ["a", "b"], np.zeros((3, 2)))
+        with pytest.raises(ValueError, match="does not match"):
+            mod.write_scores_sharded(path, ["a"], np.zeros((1, 3)),
+                                     num_classes=2, total_examples=1)
+
+
+def test_read_scores_parses_alike(tmp_path):
+    path = str(tmp_path / "odd.scores")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("a,0.5,0.5\n\nb,1e-3,0.999\n")
+    (ia, pa), (ib, pb) = jscores.read_scores(path), tscores.read_scores(path)
+    assert ia == ib == ["a", "b"]
+    _same(pa, pb)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("a,\n")
+    for mod in (jscores, tscores):
+        with pytest.raises(ValueError):
+            mod.read_scores(path)
+
+
+@pytest.mark.parametrize("labels", [None, ["null", "coref", "subset_ij",
+                                           "subset_ji"], [0, 1]])
+def test_scoredict_is_equal(labels):
+    rng = np.random.default_rng(8)
+    names = labels or ["x", "y", "z"]
+    golds = [names[i] for i in rng.integers(0, len(names), 60)]
+    preds = [names[i] for i in rng.integers(0, len(names) - 1, 60)]
+    a, b = jscoredict.ScoreDict(labels), tscoredict.ScoreDict(labels)
+    a.increment_all(golds, preds)
+    b.increment_all(golds, preds)
+    b.increment(names[0], names[0], count=0)
+    assert a.table() == b.table() and a.labels == b.labels
+    assert (a.accuracy, a.macro_f1()) == (b.accuracy, b.macro_f1())
+    for name in names:
+        assert (a.precision(name), a.recall(name), a.f1(name),
+                a.gold_count(name)) == (b.precision(name), b.recall(name),
+                                        b.f1(name), b.gold_count(name))
+    assert a.state_dict() == b.state_dict()
+    merged = tscoredict.ScoreDict(labels)
+    merged.update_state(json.loads(json.dumps(b.state_dict())))
+    merged.update_state(a.state_dict())
+    twice = jscoredict.ScoreDict(labels)
+    twice.increment_all(golds + golds, preds + preds)
+    assert merged.table() == twice.table()
+    with pytest.raises(ValueError):
+        b.increment_all(golds, preds[:-1])
+    # one process: the sweep's own table, as the reference returns it
+    assert tscoredict.merge_sharded(b, "unused") is b
+    assert jscoredict.merge_sharded(a, "unused") is a
+    empty = tscoredict.ScoreDict(labels)
+    assert empty.table() == jscoredict.ScoreDict(labels).table()
+    names_a = [n for n in dir(jscoredict.ScoreDict) if not n.startswith("_")]
+    assert names_a == [n for n in dir(tscoredict.ScoreDict)
+                       if not n.startswith("_")]

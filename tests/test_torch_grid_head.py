@@ -14,8 +14,11 @@ from jax.experimental.pallas import tpu as pltpu
 
 from icl.ops.grid_head import grid_head_pallas, grid_head_reference
 from icl_torch.ops import _build
-from icl_torch.ops.grid_head import (COL_TILES, MAX_WARPS, aligned16,
-                                     grid_head, launch_plan)
+from icl_torch.ops import grid_head as gh
+from icl_torch.ops.grid_head import (COL_TILES, MAX_WARPS, RANK_COL_WARPS,
+                                     RANK_WARPS, KernelNoGradError, aligned16,
+                                     check_no_grad, grid_head, launch_plan,
+                                     wants_grad)
 
 # (G, A, B, K, O): the Pallas flat path (one tile per image), odd sizes,
 # the tiled path (B=130 > 128), and the relation head width K=800, O=4
@@ -120,6 +123,76 @@ def test_launch_plan_table(call, want):
     assert 1 <= plan.ksplit * col_warps <= MAX_WARPS
     assert plan.blocks == G * -(-A // tile) * -(-col_tiles // col_warps)
     assert plan.ksplit <= -(-K // (32 * (4 if plan.vec else 1)))
+
+
+# the box ranking's plan (whole_rows): (G, A, B, K, O, aligned) -> (vec,
+# ksplit, blocks); a block owns the whole rows of a 4-mention tile
+RANK_PLANS = [
+    # the affinity batch: enough tiles, no split, 8 column tiles side by side
+    ((64, 16, 32, 1024, 2, True), (1, 1, 256)),
+    ((64, 16, 20, 1024, 2, True), (1, 1, 256)),
+    # a served request: 16 blocks; 8 column warps leave room for 2 k slices
+    ((4, 16, 32, 1024, 2, True), (1, 2, 16)),
+    ((1, 16, 32, 1024, 2, True), (1, 2, 4)),
+    # few boxes: fewer column warps, more slices (at most one pass each)
+    ((4, 16, 8, 1024, 2, True), (1, 8, 16)),
+    ((8, 16, 20, 1024, 2, True), (1, 3, 32)),
+    ((2, 12, 1, 1024, 2, True), (1, 8, 6)),
+    # more boxes than 8 column tiles: the block takes them in turns
+    ((2, 12, 100, 1024, 2, True), (1, 2, 6)),
+    ((2, 17, 33, 1024, 2, True), (1, 2, 10)),
+    # K % 4 != 0 or an unaligned operand: 4-byte loads, still 4 x 4 tiles
+    ((5, 16, 32, 1022, 2, True), (0, 2, 20)),
+    ((4, 16, 32, 1024, 2, False), (0, 2, 16)),
+    ((64, 17, 33, 1024, 3, True), (1, 1, 320)),
+    ((1, 1, 1, 30, 2, True), (0, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("call,want", RANK_PLANS)
+def test_rank_launch_plan_table(call, want):
+    plan = launch_plan(*call, whole_rows=True)
+    assert tuple(plan) == want
+    G, A, B, K, O, _ = call
+    col_warps = min(-(-B // 4), RANK_COL_WARPS)
+    assert 1 <= plan.ksplit * col_warps <= RANK_WARPS
+    assert plan.blocks == G * -(-A // 4)
+    assert plan.ksplit <= -(-K // (32 * (4 if plan.vec else 1)))
+    # the grid head's own plan is untouched by the new argument
+    assert launch_plan(*call) == launch_plan(*call, whole_rows=False)
+
+
+@pytest.mark.parametrize("grad_on,requires,wants", [
+    (True, (False, True, False), True), (True, (False, False), False),
+    (False, (True, True), False), (True, (), False)])
+def test_wants_grad_is_grad_mode_and_an_input_that_requires_it(
+        grad_on, requires, wants):
+    assert wants_grad(grad_on, requires) is wants
+
+
+def test_a_forward_only_kernel_refuses_a_call_autograd_would_record():
+    """The guard the CUDA wrappers run before their launch, reached here
+    with CPU tensors: a named error under grad mode, none under
+    ``inference_mode`` or ``no_grad`` or without a grad-requiring input."""
+    X = torch.zeros(2, 3, 4)
+    W = torch.zeros(4, 2, requires_grad=True)
+    check_no_grad("grid_head", X, X)
+    with pytest.raises(KernelNoGradError, match="grid_head.*inference_mode"):
+        check_no_grad("grid_head", X, W)
+    with torch.inference_mode():
+        check_no_grad("grid_head", X, W)
+    with torch.no_grad():
+        check_no_grad("affinity_rank", X, W)
+    # both wrappers run it on their CUDA path, after the argument checks
+    import inspect
+    from icl_torch.ops import affinity_rank as ar
+    assert 'check_no_grad("grid_head"' in inspect.getsource(gh.grid_head)
+    assert 'check_no_grad("affinity_rank"' in inspect.getsource(
+        ar.affinity_rank)
+    # and the CPU path stays differentiable
+    out = grid_head(X, X, torch.zeros(4), W, torch.zeros(2))
+    out.sum().backward()
+    assert W.grad is not None
 
 
 def test_an_offset_view_is_not_aligned_and_takes_the_scalar_form():

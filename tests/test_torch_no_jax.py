@@ -9,6 +9,11 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "icl")
+# the modules of the CLI slice: the walk below must reach each of them
+CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
+             "icl_torch.cli.affinity", "icl_torch.io.scores",
+             "icl_torch.eval.scoredict", "icl_torch.train.loop",
+             "icl_torch.train.checkpoint", "icl_torch.train.evalhook")
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -21,8 +26,9 @@ def test_importing_every_module_leaves_jax_out():
         "    importlib.import_module(n)\n"
         f"bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {BANNED!r})\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        f"missing = sorted(set({CLI_SLICE!r}) - set(names))\n"
+        "print(len(names), bad + missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -43,3 +49,5 @@ def test_no_source_line_imports_jax():
             for i, line in enumerate(open(f, encoding="utf-8"), 1)
             if pat.match(line)]
     assert len(files) >= 10 and not hits, hits
+    rel = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
+    assert set(CLI_SLICE) <= rel

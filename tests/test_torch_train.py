@@ -343,3 +343,26 @@ def test_train_step_matches_jax(emb, synth_dir, form):
         _close(_np(grads[k]), want_grads[k], f"grad {k}")
     for k, v in model.flat_params().items():
         _close(_np(v), want_params[k], f"new param {k}")
+
+
+def test_class_weight_tensor_is_built_once_a_device(monkeypatch):
+    """The train step keeps its class weights as one tensor per device
+    instead of copying them from the host every step."""
+    step = steps.make_relation_train_step(class_weights=[0.3, 1.0, 1.0, 1.0],
+                                          grid_loss=True)
+    made = []
+    real = torch.as_tensor
+
+    def counting(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(steps.torch, "as_tensor", counting)
+    cpu = torch.device("cpu")
+    first = step.class_weight_tensor(cpu)
+    assert step.class_weight_tensor(cpu) is first and len(made) == 1
+    assert first.dtype == torch.float32
+    assert first.tolist() == pytest.approx([0.3, 1.0, 1.0, 1.0])
+    assert step.class_weight_tensor(torch.device("meta")) is not first
+    assert len(made) == 2
+    assert steps.make_affinity_train_step().class_weight_tensor(cpu) is None
