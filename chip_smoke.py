@@ -4,9 +4,11 @@
 Drives the port's paths at full width with random weights made from a
 seed, f32 with TF32 off: relation scoring served over HTTP and relation
 training (BiLSTM 200 per direction over 300-d word vectors, head 800,
-O = 4), and affinity scoring served over HTTP, affinity batch predict with
+O = 4), affinity scoring served over HTTP, affinity batch predict with
 the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
-4096-d VGG fc7 box features, head 1024, O = 2):
+4096-d VGG fc7 box features, head 1024, O = 2), the two mention tasks
+(nonvisual and cardinality: an FFNN of hidden 300 over the mean word
+vector) trained, predicted and served, and the joint inference run:
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written CUDA sources from icl_torch/csrc (the four
@@ -85,12 +87,37 @@ the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
    all launch from the command lines; steps and examples per second of
    each ``--train``, pairs and cells per second of each ``--predict``, ms
    the loop stalled per checkpoint save;
-10. prints the times beside the card, each kernel's bound and share, the
+10. the mention tasks and the joint run: a planted split on disk with over
+   10,000 train mentions (300-d word vectors of 400 words; dev a quarter
+   of train, its boxes at 4096-d) through ``icl_torch.cli.nonvisual.main``
+   and ``cardinality.main`` on the card at full width (hidden 300, batch
+   512, dropout 0.5): ``--train`` with ``--eval_every``, ``--ckpt_every``
+   and ``--metrics_file`` (every loss finite), a run cut short and resumed
+   bit-equal to the whole one; ``--predict --eval`` twice (byte-identical
+   ``.scores``, dev accuracy >= 0.98, the planted gate) and once with
+   ``--device cpu`` from the same checkpoint (every probability within
+   1e-5: no kernel lies on this path, so the CPU run is what the card is
+   held to); ``icl-torch-export`` -> ``icl-torch-import`` into a fresh dir
+   -> ``--predict`` with equal bytes; relation and affinity trained an
+   epoch into their model dirs, then the server over the four model dirs
+   (no ``.npz`` beside them): ``/score/nonvisual`` and
+   ``/score/cardinality`` with 64 mentions a request (8 requests, 4
+   concurrent ones, a byte-identical repeat) within 1e-5 of the CPU model,
+   ``/score/relation`` and ``/score/affinity`` from the same server,
+   ``mention_calls`` and ``mention_items`` on ``/healthz``;
+   ``icl_torch.cli.joint.main --with_cardinality --with_rank`` on dev, each
+   file byte-equal to the one the task's own CLI wrote, the grid head, the
+   recurrence and the box ranking launched from it and no kernel from the
+   mention runs; ``icl_torch.cli.evaluate.main`` and ``check.main`` over
+   what was written (the accuracy ``--eval`` printed, no finding);
+11. prints the times beside the card, each kernel's bound and share, the
    launches of each kernel per request, predict call and train step, and
    per path (served relation predict, relation train step and predict,
-   affinity train step and ranked predict) a profile line: host-clock time
-   per call, device busy time, launches, the five longest kernels;
-11. prints one JSON line with every kernel at every timed shape (all nine
+   affinity train step and ranked predict, a mention train step and
+   predict call) a profile line: host-clock time per call, device busy
+   time, launches, the five longest kernels; the wall clock of the whole
+   script;
+12. prints one JSON line with every kernel at every timed shape (all nine
     TPU kernels among them): launches over the driven paths, error, times,
     bound, and the time of one PyTorch call for the same function (null:
     there is none for any of them, NO_LIBRARY_CALL says why), then, last,
@@ -103,6 +130,8 @@ imports fail.  Usage, from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import os
@@ -119,16 +148,28 @@ import numpy as np
 import torch
 
 from icl_torch.cli import affinity as affinity_cli
+from icl_torch.cli import cardinality as cardinality_cli
+from icl_torch.cli import check as check_cli
+from icl_torch.cli import evaluate as evaluate_cli
+from icl_torch.cli import export as export_cli
+from icl_torch.cli import import_ as import_cli
+from icl_torch.cli import joint as joint_cli
+from icl_torch.cli import nonvisual as nonvisual_cli
 from icl_torch.cli import relation as relation_cli
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
-from icl_torch.data.pipeline import load_affinity_dataset, load_relation_dataset
+from icl_torch.data.pipeline import (load_affinity_dataset,
+                                     load_mention_dataset,
+                                     load_relation_dataset)
 from icl_torch.io.boxes import read_box_feats, write_box_feats
 from icl_torch.io.captions import parse_mention_id
+from icl_torch.io.feats import read_feats_labels
 from icl_torch.io.scores import read_scores
 from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.models.affinity import AffinityModel
+from icl_torch.models.cardinality import CardinalityModel
+from icl_torch.models.nonvisual import NonvisualModel
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops import _build
 from icl_torch.ops import grid_head_train as ght
@@ -141,11 +182,13 @@ from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
 from icl_torch.tools.head_probes import (HASH_INT_OPS, empty_launch,
                                          hash_kept)
+from icl_torch.train.checkpoint import Checkpointer
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import (affinity_loss, affinity_predict,
                                    make_affinity_train_step,
-                                   make_relation_train_step, relation_loss,
-                                   relation_predict)
+                                   make_mention_train_step,
+                                   make_relation_train_step, mention_predict,
+                                   relation_loss, relation_predict)
 
 KERNEL_GATE = 1e-5     # relative to max(1, max |plain|), f32, TF32 off
 PROBS_GATE = 1e-5      # served probs (6 decimals) vs the plain model
@@ -153,6 +196,10 @@ DIMS = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
 AFF_DIMS = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 1024,
             "box_dim": 4096}   # VGG fc7 boxes, phrase LSTM 200, O = 2
 VOCAB = 2000
+MENTION_DIMS = {"emb_dim": 300, "hidden": 300}   # the mention FFNN
+MENTION_BATCH = 512
+MENTION_VOCAB = 400    # words of the planted mention split (300-d vectors)
+MENTION_GATE = 0.98    # planted dev accuracy of a trained mention task
 SEED = 0
 RATE = 0.5             # dropout (the relation and affinity CLIs' default)
 SOURCES = ("grid_head", "lstm_recurrence", "grid_head_train",
@@ -197,6 +244,7 @@ PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -733,7 +781,10 @@ def main() -> int:
     # 9. the command lines
     cli = _cli()
 
-    # 10. times, each beside the card
+    # 10. the mention tasks, their server endpoints, the joint run
+    mention = _mention()
+
+    # 11. times, each beside the card
     for name, t in timing.items():
         print(f"time {name} [{t['shape']}]: per call kernel {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
@@ -780,14 +831,17 @@ def main() -> int:
           f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
-    for line in cli["times"]:
+    for line in cli["times"] + mention["times"]:
         print(f"time {line} ({card})")
-    for line in served_profiles + train["profiles"] + aff["profiles"]:
+    for line in (served_profiles + train["profiles"] + aff["profiles"]
+                 + mention["profiles"]):
         print(f"{line} ({card})")
+    print(f"time whole script: {time.perf_counter() - t_script:.1f} s, the "
+          f"kernels' build included ({card})")
 
-    # 11. result lines: launches summed over the phases that drove the paths
+    # 12. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
-    for phase in (result, aff_result, train, aff, cli):
+    for phase in (result, aff_result, train, aff, cli, mention):
         for k, n in phase["launches"].items():
             launches[k] += n
         for unit, counts in phase["per_unit"].items():
@@ -1593,6 +1647,409 @@ def _cli() -> dict:
     if missing:
         raise RuntimeError(f"not launched from the command lines: {missing}")
     return {"launches": launches, "per_unit": per_unit, "times": times}
+
+
+def _captured(main_fn, argv) -> str:
+    """What one command line prints on its standard output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    return buf.getvalue()
+
+
+def _accuracy_line(table: str) -> str:
+    """The ``Accuracy: ...`` line of a ScoreDict table."""
+    lines = [ln for ln in table.splitlines() if ln.startswith("Accuracy:")]
+    if len(lines) != 1:
+        raise RuntimeError(f"no accuracy line in {table!r}")
+    return lines[0]
+
+
+def _mention_request(rng, k: int) -> dict:
+    """64 mentions of 1..3 tokens; every tenth has an unknown word."""
+    mentions = []
+    for r in range(64):
+        toks = [f"w{int(t):03d}" for t in
+                rng.integers(0, MENTION_VOCAB, int(rng.integers(1, 4)))]
+        if r % 10 == 9:
+            toks.append("nosuchword")
+        mentions.append({"id": f"q{k}m{r}", "tokens": toks})
+    return {"mentions": mentions}
+
+
+def _mention() -> dict:
+    """The two mention tasks on the card at full width (train, resume,
+    predict, export and import, their endpoints), then the joint run over
+    all four tasks; counts what the joint run launches."""
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
+               "affinity_rank": affinity_rank}
+    joint_kernels = {**PREDICT_KERNELS, "affinity_rank": affinity_rank}
+    tasks = {"nonvisual": (nonvisual_cli.main, NonvisualModel),
+             "cardinality": (cardinality_cli.main, CardinalityModel)}
+    said = _Said()
+    logger = logging.getLogger("icl")
+    logger.addHandler(said)
+    times, per_unit = [], {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="icl_chip_mention_") as d:
+            # the mention tasks read captions, mentions and their .feats:
+            # the train split keeps its boxes few and narrow (nothing here
+            # trains on them); dev, which the image tasks and the joint
+            # run score, has 20 boxes an image at 4096-d
+            kw = dict(planted=True, emb_dim=MENTION_DIMS["emb_dim"],
+                      vocab_size=MENTION_VOCAB, max_caption_len=32,
+                      max_mentions_per_caption=3)
+            t0 = time.perf_counter()
+            n_train = generate_dataset(d, "train", SynthConfig(
+                num_images=1100, seed=SEED, max_boxes_per_image=4,
+                **kw))["mentions"]
+            n_dev = generate_dataset(d, "dev", SynthConfig(
+                num_images=275, seed=SEED + 1, max_boxes_per_image=20,
+                **kw))["mentions"]
+            _widen_boxes(f"{d}/dev.boxes.npz", AFF_DIMS["box_dim"], SEED)
+            print(f"mention split: {n_train} train and {n_dev} dev mentions "
+                  f"written in {time.perf_counter() - t0:.1f} s")
+            if n_train < 10000 or n_dev < n_train // 5:
+                raise RuntimeError("the planted mention split is too small")
+
+            def run(main_fn, argv):
+                """One command line: wall clock; its log lines in said."""
+                said.lines.clear()
+                t0 = time.perf_counter()
+                main_fn(argv)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            _reset(kernels)
+            own = {}            # task -> the .scores its own CLI wrote
+            printed = {}        # task -> the accuracy line --eval printed
+            for task, (main_fn, _) in tasks.items():
+                common = ["--data_dir", d, "--device", "cuda", "--batch_size",
+                          str(MENTION_BATCH), "--seed", str(SEED)]
+                train = ["--train", "--ckpt_every", "40", "--eval_every", "20",
+                         *common]
+                whole, cut = f"{d}/{task}.model", f"{d}/{task}.cut"
+                # train: the model dir is the task's default, which the
+                # server and the joint run read
+                wall = run(main_fn, [*train, "--epochs", "10",
+                                     "--metrics_file", f"{d}/{task}.jsonl"])
+                loop = [re.search(r"training loop: (\d+) steps in (\S+) s "
+                                  r"\((\S+) steps/s\)", ln)
+                        for ln in said.lines]
+                n_steps, loop_s, steps_s = next(
+                    (int(m.group(1)), float(m.group(2)), float(m.group(3)))
+                    for m in loop if m)
+                stalls = said.numbers(r"loop stalled (\d+) ms")
+                rows = [json.loads(ln) for ln in open(f"{d}/{task}.jsonl")]
+                evals = [r for r in rows if "eval_loss" in r]
+                losses = [r["loss"] for r in rows if "loss" in r]
+                if not (losses and evals and stalls
+                        and all(np.isfinite(x) for x in losses)
+                        and all(np.isfinite(r["eval_loss"]) for r in evals)):
+                    raise RuntimeError(f"icl-torch-{task} --train: bad "
+                                       f"metrics {rows}")
+                times.append(
+                    f"icl-torch-{task} --train [10 epochs of {n_train} "
+                    f"mentions, {MENTION_BATCH} a batch, hidden "
+                    f"{MENTION_DIMS['hidden']}, dropout {RATE}, eval every "
+                    f"20 and checkpoint every 40 steps]: {n_steps} steps at "
+                    f"{steps_s:.2f} steps/s, {10 * n_train / loop_s:.0f} "
+                    f"mentions/s in the loop, {np.mean(stalls):.1f} ms the "
+                    f"loop stalled per checkpoint save ({len(stalls)} "
+                    f"saves), loss {losses[0]:.4f} -> {losses[-1]:.4f}, dev "
+                    f"loss {evals[0]['eval_loss']:.4f} -> "
+                    f"{evals[-1]['eval_loss']:.4f}, dev accuracy "
+                    f"{evals[-1]['eval_acc']:.4f}; the command {wall:.2f} s")
+                # a run stopped half way whose end marker is deleted
+                run(main_fn, [*train, "--epochs", "5", "--model_file", cut])
+                steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
+                               if n.startswith("step_"))
+                os.unlink(f"{cut}/step_{steps[-1]}.pt")
+                start = torch.load(f"{cut}/step_{steps[-2]}.pt",
+                                   weights_only=True)
+                if steps[-2] % 40 or start["epoch"] >= 5 \
+                        or not start["batch_in_epoch"]:
+                    raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
+                                       f"is no periodic mid-epoch checkpoint")
+                run(main_fn, [*train, "--epochs", "10", "--resume", "auto",
+                              "--model_file", cut])
+                ends = [torch.load(f"{m}/step_{n_steps}.pt", weights_only=True)
+                        for m in (whole, cut)]
+                diff = _same_checkpoint(*ends)
+                print(f"check icl-torch-{task} --resume auto from step "
+                      f"{steps[-2]} (epoch {start['epoch']}, batch "
+                      f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
+                      f"weights and Adam state against the uninterrupted "
+                      f"run's, bit for bit: "
+                      f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
+                if diff:
+                    raise RuntimeError(f"icl-torch-{task}: the resumed run "
+                                       f"differs in {diff[:5]}")
+
+                # predict twice on the card, once on the CPU
+                predict = ["--predict", "--eval", "--data_split", "dev",
+                           *common]
+                outs, tables = [], []
+                for k in (1, 2):
+                    said.lines.clear()
+                    t0 = time.perf_counter()
+                    tables.append(_captured(main_fn, [
+                        *predict, "--scores_file",
+                        f"{d}/{task}.{k}.scores"]))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    rate = said.numbers(r"predict sweep: .*\((\d+) "
+                                        r"mentions/s\)")
+                    times.append(
+                        f"icl-torch-{task} --predict --eval [dev, {n_dev} "
+                        f"mentions, run {k}]: {rate[0]:.0f} mentions/s in "
+                        f"the sweep; the command {wall:.2f} s")
+                    outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
+                own[task] = f"{d}/{task}.1.scores"
+                printed[task] = _accuracy_line(tables[0])
+                ids, probs = read_scores(own[task])
+                gold_ids, gold = read_feats_labels(f"{d}/dev.{task}.feats")
+                acc = float((probs.argmax(1) == gold.astype(int)).mean())
+                argv = [a if a != "cuda" else "cpu" for a in predict]
+                _captured(main_fn, [*argv, "--scores_file",
+                                    f"{d}/{task}.cpu.scores"])
+                cpu_ids, cpu_probs = read_scores(f"{d}/{task}.cpu.scores")
+                perr = float(np.abs(probs - cpu_probs).max())
+                ok = (outs[0] == outs[1] and tables[0] == tables[1]
+                      and ids == list(gold_ids) == cpu_ids
+                      and len(ids) == n_dev and acc >= MENTION_GATE
+                      and perr <= PROBS_GATE
+                      and f"({int(round(acc * n_dev))}/{n_dev})"
+                      in printed[task])
+                print(f"check icl-torch-{task} --predict: two runs "
+                      f"byte-identical, {len(ids)} ids in dataset order, dev "
+                      f"accuracy {acc:.4f} (gate {MENTION_GATE}), --device "
+                      f"cpu from the same checkpoint max|d| {perr:.3e} (gate "
+                      f"{PROBS_GATE:.0e}): {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"icl-torch-{task} --predict failed")
+
+                # export -> import into a fresh dir -> predict
+                export_cli.main(["--model_file", whole, "--out",
+                                 f"{d}/{task}.export.npz"])
+                import_cli.main(["--npz", f"{d}/{task}.export.npz",
+                                 "--model_file", f"{d}/{task}.imported"])
+                _captured(main_fn, [
+                    *predict, "--model_file", f"{d}/{task}.imported",
+                    "--scores_file", f"{d}/{task}.imported.scores"])
+                same = open(f"{d}/{task}.imported.scores", "rb").read() \
+                    == outs[0]
+                print(f"check icl-torch-export -> icl-torch-import -> "
+                      f"icl-torch-{task} --predict: .scores byte-identical "
+                      f"to the trained model dir's: "
+                      f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise RuntimeError(f"{task}: the imported model scores "
+                                       f"differently")
+            quiet = _count(kernels, "the mention command lines")
+            if any(quiet.values()):
+                raise RuntimeError(f"a mention run launched a kernel: "
+                                   f"{quiet}")
+
+            # relation and affinity: an epoch on dev at full width into
+            # their default model dirs, then their own predicts
+            image = ["--data_dir", d, "--device", "cuda",
+                     "--images_per_batch", "64", "--seed", str(SEED)]
+            for task, main_fn in (("relation", relation_cli.main),
+                                  ("affinity", affinity_cli.main)):
+                run(main_fn, ["--train", "--data_split", "dev", "--epochs",
+                              "1", *image])
+                own[task] = f"{d}/{task}.own.scores"
+                argv = ["--predict", "--eval", "--data_split", "dev", *image,
+                        "--scores_file", own[task]]
+                if task == "affinity":
+                    own["rank"] = f"{d}/{task}.own.rank"
+                    argv += ["--rank_file", own["rank"]]
+                printed[task] = _accuracy_line(_captured(main_fn, argv))
+            for task in ("nonvisual", "cardinality", "relation", "affinity"):
+                held = os.listdir(f"{d}/{task}.model")
+                if any(n.endswith(".npz") for n in held) \
+                        or os.path.exists(f"{d}/{task}.npz"):
+                    raise RuntimeError(f"{task}: an archive beside the "
+                                       f"model dir")
+
+            # the server over the four model dirs
+            httpd = serve(d, port=0, warmup="basic")
+            server = threading.Thread(target=httpd.serve_forever, daemon=True)
+            server.start()
+            try:
+                lat = _drive_mentions(httpd, d, tasks)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.join(timeout=10)
+            for task, ms in lat.items():
+                times.append(f"{task} request p50: client {ms['client_p50']:.2f}"
+                             f" ms over {ms['n']} requests of 64 mentions, "
+                             f"server predict p50 {ms['server_p50']} ms")
+
+            # the joint run: every file against the task's own CLI's
+            _reset(joint_kernels)
+            t0 = time.perf_counter()
+            tables = _captured(joint_cli.main, [
+                "--predict", "--eval", "--data_split", "dev", *image,
+                "--batch_size", str(MENTION_BATCH), "--with_cardinality",
+                "--with_rank"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read(joint_kernels, "icl-torch-joint")
+            per_unit["icl-torch-joint --with_cardinality --with_rank"] = \
+                launches
+            wrote = {t: f"{d}/dev.{t}.scores" for t in tasks}
+            wrote.update(relation=f"{d}/dev.relation.scores",
+                         affinity=f"{d}/dev.affinity.scores",
+                         rank=f"{d}/dev.affinity.rank")
+            differ = [t for t, path in wrote.items()
+                      if open(path, "rb").read() != open(own[t], "rb").read()]
+            lines = [ln for ln in tables.splitlines()
+                     if ln.startswith("Accuracy:")]
+            want = [printed[t] for t in ("nonvisual", "relation", "affinity",
+                                         "cardinality")]
+            print(f"check icl-torch-joint --with_cardinality --with_rank: "
+                  f"{len(wrote)} files byte-equal to the tasks' own CLIs', "
+                  f"the four tables' accuracies theirs: "
+                  f"{'ok' if not differ and lines == want else 'FAIL'} "
+                  f"{differ}")
+            if differ or lines != want:
+                raise RuntimeError(f"icl-torch-joint: {differ}, {lines} "
+                                   f"against {want}")
+            sizes = {t: len(read_scores(p)[0]) for t, p in wrote.items()}
+            times.append(f"icl-torch-joint --with_cardinality --with_rank "
+                         f"--eval [dev, 275 images: {sizes}]: the command "
+                         f"{wall:.2f} s")
+
+            # icl-torch-eval and icl-torch-check over what was written
+            for task in ("nonvisual", "cardinality", "relation", "affinity"):
+                table = _captured(evaluate_cli.main, [
+                    "--task", task, "--scores", wrote[task], "--feats",
+                    f"{d}/dev.{task}.feats", "--strict"])
+                if _accuracy_line(table) != printed[task]:
+                    raise RuntimeError(f"icl-torch-eval {task}: "
+                                       f"{_accuracy_line(table)} against "
+                                       f"{printed[task]}")
+                found = _captured(check_cli.main, [
+                    "--scores", wrote[task], "--task", task, "--strict"])
+                if "0 error(s), 0 warning(s)" not in found:
+                    raise RuntimeError(f"icl-torch-check {task}: {found}")
+            ground = _captured(evaluate_cli.main, [
+                "--task", "grounding", "--scores", wrote["rank"], "--feats",
+                f"{d}/dev.affinity.feats", "--strict"])
+            found = _captured(check_cli.main, ["--data_dir", d,
+                                               "--data_split", "dev"])
+            if "0 error(s)" not in found:
+                raise RuntimeError(f"icl-torch-check: {found}")
+            print(f"check icl-torch-eval: the four accuracies --eval "
+                  f"printed ({'; '.join(printed[t] for t in printed)}); "
+                  f"{ground.strip()}; icl-torch-check of dev and the four "
+                  f".scores: {found.strip().splitlines()[-1]}")
+
+            profiles = _mention_profiles(d)
+    finally:
+        logger.removeHandler(said)
+    return {"launches": launches, "per_unit": per_unit, "times": times,
+            "profiles": profiles}
+
+
+def _mention_profiles(d: str) -> list:
+    """Where the time of one mention train step and of one predict call
+    goes, in process at full width on the split's first 512 mentions."""
+    dev = torch.device("cuda")
+    emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+    ds = load_mention_dataset(d, "train", "nonvisual", emb)
+    table = torch.from_numpy(emb.table).to(dev)
+    rows = slice(0, MENTION_BATCH)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (ds.token_ids[rows], ds.lengths[rows],
+                            ds.labels[rows], np.ones(MENTION_BATCH, bool)))
+    model = NonvisualModel(**MENTION_DIMS, dropout=RATE, device=dev)
+    state = create_train_state(model, seed=SEED)
+    step = make_mention_train_step()
+    shape = f"[{MENTION_BATCH} mentions x {ds.max_len} tokens, hidden " \
+            f"{MENTION_DIMS['hidden']}]"
+    return [_profile(f"mention train step, dropout {RATE} {shape}",
+                     lambda: step(state, table, *batch)),
+            _profile(f"mention predict call {shape}",
+                     lambda: mention_predict(model, table, *batch[:2]))]
+
+
+def _drive_mentions(httpd, d: str, tasks: dict) -> dict:
+    """The mention endpoints (8 requests of 64 mentions, 4 concurrent, a
+    repeat) against the trained model on the CPU; the image endpoints of
+    the same server; /healthz."""
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    scorer = httpd.RequestHandlerClass.scorer
+    if sorted(scorer.tasks) != ["affinity", "cardinality", "nonvisual",
+                                "relation"]:
+        raise RuntimeError(f"the server loaded {sorted(scorer.tasks)}")
+    rng = np.random.default_rng(SEED + 2)
+    requests = [_mention_request(rng, k) for k in range(8)]
+    cpu_table = scorer.table.cpu()
+    lat = {}
+    for task, (_, model_cls) in tasks.items():
+        path = f"/score/{task}"
+        plain = model_cls(**MENTION_DIMS)
+        plain.load_flat(Checkpointer(f"{d}/{task}.model").load_weights()[0])
+        ms, first, worst = [], None, 0.0
+        for req in requests:
+            status, raw, t = _post(url, req, path)
+            if status != 200:
+                raise RuntimeError(f"{task} request: HTTP {status}")
+            ms.append(t)
+            first = first or raw
+            body = json.loads(raw)
+            tok = np.zeros((64, 8), np.int32)
+            ln = np.zeros(64, np.int32)
+            for r, m in enumerate(req["mentions"]):
+                tok[r], ln[r] = scorer.emb.encode_tokens(m["tokens"], 8)
+            want = mention_predict(plain, cpu_table, torch.from_numpy(tok),
+                                   torch.from_numpy(ln)).numpy()
+            got = np.array([s["probs"] for s in body["scores"]])
+            if [s["id"] for s in body["scores"]] != [
+                    m["id"] for m in req["mentions"]] \
+                    or got.shape != want.shape:
+                raise RuntimeError(f"{task} request: bad response")
+            worst = max(worst, float(np.abs(got - want).max()))
+        with ThreadPoolExecutor(4) as pool:
+            again = list(pool.map(lambda q: _post(url, q, path),
+                                  requests[:4]))
+        status, repeat, _ = _post(url, requests[0], path)
+        ok = (worst <= PROBS_GATE and repeat == first
+              and all(r[0] == 200 for r in again)
+              and again[0][1] == first)
+        print(f"check /score/{task}: 8 requests of 64 mentions, 4 "
+              f"concurrent, a repeat byte-identical; probs against the "
+              f"trained model on the CPU max|d| {worst:.3e} (gate "
+              f"{PROBS_GATE:.0e}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"/score/{task} failed")
+        ms.sort()
+        lat[task] = {"client_p50": ms[len(ms) // 2], "n": len(ms)}
+    rng = np.random.default_rng(SEED + 3)
+    status, raw, _ = _post(url, {"images": [_image(rng, 0)]})
+    if status != 200:
+        raise RuntimeError(f"relation request: HTTP {status}")
+    _check_body(json.loads(raw), 1)
+    status, raw, _ = _post(url, {"images": [_affinity_image(rng, 0)]},
+                           "/score/affinity")
+    if status != 200:
+        raise RuntimeError(f"affinity request: HTTP {status}")
+    _check_affinity_body(json.loads(raw), 1)
+    with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    co = health["coalescer"]
+    if co["mention_calls"] != 26 or co["mention_items"] != 26 * 64 \
+            or co["items"] < 2:
+        raise RuntimeError(f"bad /healthz: {health}")
+    print(f"check the four endpoints from one server over the model dirs; "
+          f"/healthz: {json.dumps(health)}")
+    for task in lat:
+        lat[task]["server_p50"] = health["latency_ms"][task]["p50_ms"]
+    return lat
 
 
 if __name__ == "__main__":

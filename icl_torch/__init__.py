@@ -10,11 +10,13 @@ from the JAX package through the ``icl-export`` flat ``.npz`` + manifest
 Layers:
   icl_torch.ops     hand-written CUDA kernels (csrc/*.cu) + plain versions
   icl_torch.models  nn.Modules: masked LSTM/BiLSTM, the relation and
-                    affinity models
+                    affinity models, the two mention FFNNs (nonvisual,
+                    cardinality)
   icl_torch.train   train state (Adam, dropout seeds), train and predict
-                    steps, the train loop, checkpoints, the dev eval hook
-  icl_torch.cli     icl-torch-relation, icl-torch-affinity
-  icl_torch.serve   HTTP scoring service (relation, affinity)
+                    steps, the train loop, checkpoints, the dev eval hooks
+  icl_torch.cli     icl-torch-relation, -affinity, -nonvisual, -cardinality,
+                    -joint, -export, -import, -eval, -check, -baseline
+  icl_torch.serve   HTTP scoring service (the four tasks)
 """
 
 __version__ = "0.1.0"

@@ -19,9 +19,10 @@ by value with :class:`RefusedFlagError`, never ignored:
 ``--compilation_cache_dir`` is accepted and logged: PyTorch runs eagerly,
 there is no compiled program to cache (the kernels' libraries are kept
 under ``icl_torch/_build``).  ``--hidden_width`` and ``--batch_size`` belong
-to the mention tasks; relation and affinity take ``--head_hidden`` and
-``--images_per_batch``, and a value given here is logged as unused (the
-reference leaves both unused in silence).
+to the mention tasks (nonvisual, cardinality), which read them; relation and
+affinity take ``--head_hidden`` and ``--images_per_batch``, and a value
+given to them is logged as unused (the reference leaves both unused in
+silence).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from icl_torch.data.buckets import BucketSpec
@@ -39,6 +41,7 @@ from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.io.captions import read_captions
 from icl_torch.util.log import LOG
 
+IMAGE_TASKS = ("relation", "affinity")    # batch by --images_per_batch
 MAX_KERNEL_LSTM_WIDTH = 256   # the recurrence kernel's widest H on CUDA
 PARITY_GATE = 1e-5            # f32, TF32 off: on the CPU and on the card
 
@@ -205,13 +208,15 @@ def parse_task_args(p: argparse.ArgumentParser, argv, task: str):
     args.buckets = buckets
     if getattr(args, "early_stop", 0) and not getattr(args, "eval_every", 0):
         p.error("--early_stop monitors the dev eval — set --eval_every too")
-    refuse_unported(args)
+    refuse_unported(args, task)
     return args
 
 
-def refuse_unported(args) -> None:
+def refuse_unported(args, task: str | None = None) -> None:
     """Raise :class:`RefusedFlagError` for a value the port cannot honour;
-    log the flags that have no effect here."""
+    log the flags that have no effect in ``task``'s entry point (the
+    mention tasks read ``--hidden_width`` and ``--batch_size``; the image
+    tasks do not)."""
     one = "the port runs one process on one device (torch.distributed is " \
           "not ported)"
     if args.mesh is not None:
@@ -241,6 +246,8 @@ def refuse_unported(args) -> None:
         LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
                  "runs eagerly (the kernels' libraries are kept under "
                  "icl_torch/_build)", args.compilation_cache_dir)
+    if task not in IMAGE_TASKS:
+        return
     if args.hidden_width is not None:
         LOG.warning("--hidden_width %d is the FFNN tasks' flag and is unused "
                     "here; this task's head takes --head_hidden",
@@ -411,11 +418,16 @@ def default_scores_path(args, task: str) -> str:
         args.data_dir, f"{args.data_split}.{task}.scores")
 
 
-def to_device(arrays: dict, device: torch.device) -> dict:
-    """A batcher's numpy arrays as tensors on ``device``: on CUDA through
-    pinned memory with ``non_blocking`` copies, so the copy overlaps the
-    work already queued."""
-    if device.type != "cuda":
-        return {k: torch.from_numpy(v) for k, v in arrays.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in arrays.items()}
+def to_device(arrays, device: torch.device):
+    """A batcher's numpy arrays (a dict, or a tuple of them) as tensors on
+    ``device``: on CUDA through pinned memory with ``non_blocking`` copies,
+    so the copy overlaps the work already queued."""
+    def put(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type != "cuda":
+            return t
+        return t.pin_memory().to(device, non_blocking=True)
+
+    if isinstance(arrays, dict):
+        return {k: put(v) for k, v in arrays.items()}
+    return tuple(put(v) for v in arrays)

@@ -1,0 +1,137 @@
+"""Shared body of the mention-level FFNN task CLIs (nonvisual, cardinality);
+counterpart of ``icl/cli/_mention_task.py``.
+
+``.feats`` labels and mention token spans -> mean-pool -> FFNN train step
+-> ``.scores`` -> ScoreDict.  One bucket (the dataset's padded mention
+length), ``--batch_size`` rows a batch.  Runs on the GPU unless ``--device
+cpu`` is given.  No hand-written kernel lies on this path.
+
+The model dir (``--model_file``) is laid out as the image tasks' is:
+``step_<n>.pt`` checkpoints, ``model_config.json`` (``task``, ``hidden``,
+``num_classes``, ``dropout``), ``train_config.json``, and optionally
+``<task>.npz`` (+ manifest) from ``icl-export``.  ``--predict`` takes the
+newest checkpoint, else the archive, else the initial weights with a
+warning; the hidden width comes from ``model_config.json`` (or the
+archive's manifest) when there is one.  Single process: the reference's
+multi-process branches are not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from icl_torch.cli._common import (apply_precision, default_model_dir,
+                                   default_scores_path, dump_run_config,
+                                   load_embeddings, read_model_config,
+                                   resolve_device, restore_for_predict,
+                                   to_device, weights_archive)
+from icl_torch.data.buckets import Bucketizer, BucketSpec
+from icl_torch.data.pipeline import load_mention_dataset
+from icl_torch.eval.scoredict import ScoreDict, merge_sharded
+from icl_torch.io.scores import write_scores_sharded
+from icl_torch.train.evalhook import build_mention_eval_hook
+from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.state import create_train_state
+from icl_torch.train.steps import make_mention_train_step, mention_predict
+from icl_torch.util.log import LOG
+
+
+def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
+    device = resolve_device(args)
+    apply_precision(args)
+    emb = load_embeddings(args)
+    table = torch.from_numpy(emb.table).to(device)
+    ds = load_mention_dataset(args.data_dir, args.data_split, task, emb)
+    LOG.info("%s %s: %d mentions", task, args.data_split, len(ds.ids))
+
+    model_dir = default_model_dir(args, task)
+    hidden = args.hidden_width or 300
+    if args.predict:
+        hidden = read_model_config(model_dir, task).get("hidden", hidden)
+    model = model_cls(emb_dim=emb.dim, hidden=hidden, dropout=args.dropout,
+                      num_classes=len(classes), device=device)
+    archive = weights_archive(model_dir, task)
+    state = create_train_state(model, seed=args.seed,
+                               learn_rate=args.learn_rate, params=archive)
+    if archive:
+        LOG.info("weights from %s", archive)
+
+    bz = Bucketizer(BucketSpec((ds.max_len,)), batch_size=args.batch_size)
+    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
+              "labels": ds.labels}
+
+    if args.train:
+        step = make_mention_train_step()
+
+        def make_batches(epoch_rng, skip=0):
+            for _, b in bz.batches(ds.lengths, arrays, ds.ids,
+                                   shuffle_rng=epoch_rng, skip=skip):
+                yield to_device((b.arrays["token_ids"], b.arrays["lengths"],
+                                 b.arrays["labels"], b.valid), device)
+
+        eval_fn = build_mention_eval_hook(args, model, table, task, emb, bz)
+        dump_run_config(args, model_dir, device)
+        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
+                         ckpt_every=args.ckpt_every,
+                         profile_dir=args.profile_dir, resume=args.resume,
+                         metrics_path=args.metrics_file, seed=args.seed,
+                         eval_every=args.eval_every,
+                         early_stop=args.early_stop)
+        state = run_training(state, lambda s, *a: step(s, table, *a),
+                             make_batches, cfg, eval_fn=eval_fn)
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump({"task": task, "hidden": hidden,
+                       "num_classes": len(classes),
+                       "dropout": args.dropout}, f)
+        LOG.info("trained to step %d; checkpoints in %s", state.step,
+                 model_dir)
+        return
+
+    # --predict
+    restore_for_predict(state, model_dir, task)
+    model.eval()
+    probs_by_id: dict[str, np.ndarray] = {}
+
+    def _consume(b, dev_p):
+        p = dev_p.cpu().numpy()
+        for row, eid in enumerate(b.ids):
+            probs_by_id[eid] = p[row]
+
+    # dispatch-ahead pipeline (see icl_torch/cli/relation.py)
+    pending: collections.deque = collections.deque()
+    t_sweep = time.perf_counter()
+    for _, b in prefetch(bz.batches(ds.lengths, arrays, ds.ids), depth=4):
+        tok, ln = to_device((b.arrays["token_ids"], b.arrays["lengths"]),
+                            device)
+        pending.append((b, mention_predict(model, table, tok, ln)))
+        if len(pending) > 3:
+            _consume(*pending.popleft())
+    while pending:
+        _consume(*pending.popleft())
+    dt = max(time.perf_counter() - t_sweep, 1e-9)
+    LOG.info("predict sweep: %d mentions in %.2f s (%.0f mentions/s), batch "
+             "assembly and host bookkeeping included", len(ds.ids), dt,
+             len(ds.ids) / dt)
+    # ids in dataset order, not batch order
+    probs = (np.stack([probs_by_id[eid] for eid in ds.ids]) if ds.ids
+             else np.zeros((0, len(classes))))
+    scores_path = default_scores_path(args, task)
+    write_scores_sharded(scores_path, ds.ids, probs,
+                         num_classes=len(classes),
+                         total_examples=len(ds.ids), class_order=classes,
+                         meta={"task": task, "split": args.data_split,
+                               "checkpoint_step": int(state.step)})
+    LOG.info("wrote %d scores (%d total) to %s", len(ds.ids), len(ds.ids),
+             scores_path)
+    if args.eval:
+        sd = ScoreDict(labels=list(classes))
+        preds = probs.argmax(-1)
+        for g, p in zip(ds.labels, preds):
+            sd.increment(classes[int(g)], classes[int(p)])
+        print(merge_sharded(sd, scores_path).table())

@@ -12,11 +12,15 @@ with the step, each leaf's shape and dtype, the parameter total and the
 * ``head_out/kernel [K, O]``, ``head_out/bias [O]``;
 * affinity: ``phrase_lstm/{kernel,recurrent_kernel,bias}`` (absent with
   the ``mean_w2v`` phrase encoder), ``head_dense_phrase/{kernel,bias}``,
-  ``head_dense_box/kernel [box_dim, K]`` (no bias) and ``head_out``.
+  ``head_dense_box/kernel [box_dim, K]`` (no bias) and ``head_out``;
+* nonvisual and cardinality: ``dense_1/kernel [D, hidden]``,
+  ``dense_1/bias [hidden]``, ``dense_out/kernel [hidden, C]``,
+  ``dense_out/bias [C]`` (flax ``nn.Dense`` defaults).
 
 The manifest's ``model_config`` names the task and the widths (``task``,
 ``emb_dim``, ``lstm_hidden``, ``head_hidden``, and for affinity
-``phrase_enc`` and ``box_dim``).
+``phrase_enc`` and ``box_dim``; for the mention tasks ``hidden`` and
+``num_classes``).
 
 Loading and saving copy bytes and never convert, so an archive that goes
 numpy -> torch -> numpy comes back byte-identical.
@@ -74,8 +78,24 @@ def affinity_param_shapes(dims: dict) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+MENTION_NUM_CLASSES = {"nonvisual": 2, "cardinality": 12}
+
+
+def mention_param_shapes(task: str):
+    """Pinned keys -> shapes of a mention-task FFNN (``dims``: ``emb_dim``,
+    ``hidden`` and optionally ``num_classes``, by default the task's)."""
+    def shapes(dims: dict) -> dict[str, tuple[int, ...]]:
+        D, Hd = dims["emb_dim"], dims["hidden"]
+        C = dims.get("num_classes", MENTION_NUM_CLASSES[task])
+        return {"dense_1/kernel": (D, Hd), "dense_1/bias": (Hd,),
+                "dense_out/kernel": (Hd, C), "dense_out/bias": (C,)}
+    return shapes
+
+
 PARAM_SHAPES = {"relation": relation_param_shapes,
-                "affinity": affinity_param_shapes}
+                "affinity": affinity_param_shapes,
+                "nonvisual": mention_param_shapes("nonvisual"),
+                "cardinality": mention_param_shapes("cardinality")}
 
 
 def _lstm_shapes(prefix: str, D: int, H: int) -> dict[str, tuple[int, ...]]:
@@ -164,7 +184,8 @@ def to_numpy(flat: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 def save_npz(path: str, flat: dict[str, torch.Tensor],
-             model_config: dict | None = None, step: int = 0) -> dict:
+             model_config: dict | None = None, step: int = 0,
+             train_config: dict | None = None) -> dict:
     """Write ``path`` (.npz) + ``path``.manifest.json as ``icl-export``
     does; returns the manifest."""
     arrays = dict(sorted(to_numpy(flat).items()))
@@ -177,6 +198,8 @@ def save_npz(path: str, flat: dict[str, torch.Tensor],
     }
     if model_config is not None:
         manifest["model_config"] = model_config
+    if train_config is not None:
+        manifest["train_config"] = train_config
     with open(path + ".manifest.json", "w", encoding="utf-8") as f:
         json.dump(manifest, f, indent=2, sort_keys=True)
         f.write("\n")

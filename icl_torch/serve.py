@@ -1,20 +1,27 @@
-"""icl-torch-serve — HTTP relation and affinity scoring on PyTorch
+"""icl-torch-serve — HTTP scoring of the four tasks on PyTorch
 (counterpart of icl/serve.py).
 
-Loads the word vectors once and each task's weights from
-``<data_dir>/<task>.npz`` (+ ``.manifest.json``, whose ``model_config``
-gives the widths; write one with ``icl-export``) where that file exists,
-then scores JSON requests with the same padding buckets, class orders and
-response formats as ``icl-serve``.  It refuses to start when no task's
-archive exists.  It scores on the GPU (``cuda``), where the models run their
-fused forms through the hand-written grid-head and LSTM-recurrence kernels,
-and refuses to start when there is none; ``--device cpu`` (``device="cpu"``
-in :class:`Scorer` and :func:`serve`) asks for the CPU, where they run their
-plain forms.
+Loads the word vectors once and each task's weights, then scores JSON
+requests with the same padding buckets, class orders and response formats
+as ``icl-serve``.  A task's weights come from its model dir
+``<data_dir>/<task>.model/`` as the port's ``--train`` (or
+``icl-torch-import``) writes it, the newest ``step_<n>.pt`` with its
+``model_config.json``; else from ``<data_dir>/<task>.npz`` (+
+``.manifest.json``, whose ``model_config`` gives the widths; write one with
+``icl-torch-export`` or ``icl-export``).  A task with neither is skipped;
+the server refuses to start when no task has weights.  It scores on the GPU
+(``cuda``), where the image models run their fused forms through the
+hand-written grid-head and LSTM-recurrence kernels, and refuses to start
+when there is none; ``--device cpu`` (``device="cpu"`` in :class:`Scorer`
+and :func:`serve`) asks for the CPU, where they run their plain forms.  The
+mention tasks run no hand-written kernel on either.
 
 Endpoints (JSON in/out):
 
     GET  /healthz          -> {"status", "tasks", "coalescer", "latency_ms"}
+    POST /score/nonvisual  {"mentions": [{"id", "tokens": [...]}]}
+                           -> {"class_order", "scores": [{"id", "probs"}]}
+    POST /score/cardinality  same shape as nonvisual
     POST /score/relation   {"images": [{"id", "captions": [[tok]],
                              "mentions": [{"caption", "first", "last"}],
                              "pairs": [[i, j], ...]}]}
@@ -26,7 +33,8 @@ Endpoints (JSON in/out):
 Usage::
 
     python -m icl_torch.serve --data_dir D [--port 8414]
-        [--tasks relation,affinity] [--device cuda|cpu]
+        [--tasks nonvisual,cardinality,relation,affinity]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -47,22 +55,29 @@ from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.util.log import LOG
 from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
+from icl_torch.models.cardinality import CARDINALITY_CLASSES, CardinalityModel
+from icl_torch.models.nonvisual import NONVIS_CLASSES, NonvisualModel
 from icl_torch.models.relation import RELATION_CLASSES, RelationModel
 from icl_torch.params import load_npz
-from icl_torch.train.steps import affinity_predict, relation_predict
+from icl_torch.train.checkpoint import Checkpointer
+from icl_torch.train.steps import (affinity_predict, mention_predict,
+                                   relation_predict)
 
 _LEN_SPEC = BucketSpec((8, 16, 32, 48))
 _CNT_SPEC = BucketSpec((4, 8, 16, 32))
 _IMG_SPEC = BucketSpec((1, 2, 4, 8))   # images per predict call (batched)
 
-TASKS = ("relation", "affinity")
+TASKS = ("nonvisual", "cardinality", "relation", "affinity")
+MENTION_TASKS = {"nonvisual": (NonvisualModel, NONVIS_CLASSES),
+                 "cardinality": (CardinalityModel, CARDINALITY_CLASSES)}
 
 # startup warm-up inventory: the shapes a typical Flickr30k-style client
-# hits first, relation (I, C, L, M) and affinity (I, M, B, L).  C follows
-# the _CNT_SPEC bucketing _prep_relation_image applies (5 captions ->
-# bucket 8).  On CUDA the first call also builds the kernels and lets
-# cuBLAS pick its algorithms.
-_WARMUP_BASIC = {"relation": [(1, 8, 16, 8), (4, 8, 16, 8)],
+# hits first, mentions (count, L), relation (I, C, L, M) and affinity
+# (I, M, B, L).  C follows the _CNT_SPEC bucketing _prep_relation_image
+# applies (5 captions -> bucket 8).  On CUDA the first call also builds the
+# kernels and lets cuBLAS pick its algorithms.
+_WARMUP_BASIC = {"mentions": [(8, 16)],
+                 "relation": [(1, 8, 16, 8), (4, 8, 16, 8)],
                  "affinity": [(1, 8, 8, 16), (4, 8, 8, 16)]}
 
 
@@ -167,9 +182,9 @@ class Scorer:
     ``device``: where to score, ``cuda`` unless the caller names another; it
     never falls to the CPU by itself, so with no GPU and no ``device="cpu"``
     the constructor raises.  ``tasks``: the tasks to load (default all of
-    :data:`TASKS`); a task
-    whose ``<data_dir>/<task>.npz`` does not exist is skipped, and none
-    found raises.  ``batch_window_ms``: cross-request micro-batching window
+    :data:`TASKS`); a task with neither a checkpoint under
+    ``<data_dir>/<task>.model/`` nor ``<data_dir>/<task>.npz`` is skipped,
+    and none found raises.  ``batch_window_ms``: cross-request micro-batching window
     (see _Coalescer); negative disables coalescing (inline per-request
     scoring).
     """
@@ -188,9 +203,13 @@ class Scorer:
         self.emb = EmbeddingStore.load(emb_path)
         self.table = torch.from_numpy(self.emb.table).to(self.device)
         # lifetime counters for /healthz: items/device_calls is the
-        # effective batching ratio.  Lock-guarded: with coalescing off,
-        # every request thread calls _run_group.
-        self.stats = {"device_calls": 0, "items": 0}
+        # effective batching ratio of the grouped image tasks.  Mention
+        # requests dispatch directly (one call per request, batched within
+        # it), so they get their own pair of counters.  Lock-guarded: with
+        # coalescing off every request thread calls _run_group, and mention
+        # requests always score on their own thread.
+        self.stats = {"device_calls": 0, "items": 0,
+                      "mention_calls": 0, "mention_items": 0}
         self._lat: dict[str, deque] = {}   # task -> last 2048 call ms
         self._lat_maxlen = 2048
         self._stats_lock = threading.Lock()
@@ -202,22 +221,28 @@ class Scorer:
         for task in tasks or TASKS:
             if task not in TASKS:
                 raise ValueError(f"unknown task {task!r}; known: {TASKS}")
-            path = os.path.join(data_dir, f"{task}.npz")
-            if not os.path.exists(path):
+            found = _find_weights(data_dir, task)
+            if found is None:
                 continue
-            self.tasks[task] = self._load_task(task, path)
-            LOG.info("serve: loaded %s from %s on %s", task, path,
+            flat, cfg, source = found
+            self.tasks[task] = self._load_task(task, flat, cfg)
+            LOG.info("serve: loaded %s from %s on %s", task, source,
                      self.device)
         if not self.tasks:
             raise FileNotFoundError(
-                f"no <task>.npz weights archive under {data_dir} "
-                f"(tasks: {', '.join(tasks or TASKS)})")
+                f"no <task>.model checkpoint and no <task>.npz weights "
+                f"archive under {data_dir} (tasks: "
+                f"{', '.join(tasks or TASKS)})")
 
-    def _load_task(self, task: str, path: str) -> dict:
-        flat, manifest = load_npz(path)
-        cfg = manifest.get("model_config", {})
+    def _load_task(self, task: str, flat: dict, cfg: dict) -> dict:
         fused = self.device.type == "cuda"
-        if task == "relation":
+        if task in MENTION_TASKS:
+            cls, classes = MENTION_TASKS[task]
+            # the hidden width is a property of the weights
+            model = cls(emb_dim=self.emb.dim,
+                        hidden=flat["dense_1/kernel"].shape[1],
+                        num_classes=len(classes), device=self.device)
+        elif task == "relation":
             model = RelationModel(emb_dim=self.emb.dim,
                                   lstm_hidden=cfg.get("lstm_hidden", 200),
                                   head_hidden=cfg.get("head_hidden", 800),
@@ -248,7 +273,9 @@ class Scorer:
             return 0
         inv = _WARMUP_BASIC
         if level == "full":
-            inv = {"relation": [(I, _CNT_SPEC.bucket_of(5), L, M)
+            inv = {"mentions": [(n, L) for n in _CNT_SPEC.boundaries
+                                for L in _LEN_SPEC.boundaries],
+                   "relation": [(I, _CNT_SPEC.bucket_of(5), L, M)
                                 for I in (1, 4)
                                 for L in _LEN_SPEC.boundaries
                                 for M in _CNT_SPEC.boundaries],
@@ -257,8 +284,16 @@ class Scorer:
                                 for B in _CNT_SPEC.boundaries]}
         n = 0
         for task, t in self.tasks.items():
-            for shape in inv[task]:
-                if task == "relation":
+            for shape in inv["mentions" if task in MENTION_TASKS else task]:
+                if task in MENTION_TASKS:
+                    cnt, L = shape
+                    mention_predict(
+                        t["model"], self.table,
+                        torch.zeros((cnt, L), dtype=torch.int32,
+                                    device=self.device),
+                        torch.ones(cnt, dtype=torch.int32,
+                                   device=self.device))
+                elif task == "relation":
                     relation_predict(t["model"], self.table,
                                      _empty_relation_batch(*shape,
                                                            self.device))
@@ -271,6 +306,35 @@ class Scorer:
                                          self.device))
                 n += 1
         return n
+
+    def score_mentions(self, task: str, payload: dict) -> dict:
+        """One mention request, scored in one call on the request's own
+        thread (already batched within itself, so it does not go through
+        the coalescer)."""
+        t = self.tasks[task]
+        mentions = payload["mentions"]
+        L = _LEN_SPEC.bucket_of(max((len(m["tokens"]) for m in mentions),
+                                    default=1))
+        n = len(mentions)
+        rows = _CNT_SPEC.bucket_of(max(n, 1))
+        tok = np.zeros((rows, L), np.int32)
+        ln = np.zeros(rows, np.int32)
+        for r, m in enumerate(mentions):
+            tok[r], ln[r] = self.emb.encode_tokens(m["tokens"], L)
+        with self._stats_lock:
+            self.stats["mention_calls"] += 1
+            self.stats["mention_items"] += n
+        t0 = time.perf_counter()
+        probs = mention_predict(
+            t["model"], self.table, torch.from_numpy(tok).to(self.device),
+            torch.from_numpy(ln).to(self.device)).cpu().numpy()
+        self._record_latency(task, (time.perf_counter() - t0) * 1e3)
+        return {
+            "class_order": list(t["classes"]),
+            "scores": [{"id": m.get("id", str(r)),
+                        "probs": [round(float(p), 6) for p in probs[r]]}
+                       for r, m in enumerate(mentions)],
+        }
 
     def _prep_relation_image(self, img: dict):
         """One image -> (shape_key, host arrays without batch dim, pairs)."""
@@ -456,6 +520,29 @@ class Scorer:
         return {"class_order": list(t["classes"]), "images": out}
 
 
+def _find_weights(data_dir: str, task: str):
+    """A task's weights under ``data_dir`` -> (key -> CPU tensor,
+    model_config, where they came from), or None.  The order is the CLIs'
+    (:func:`icl_torch.cli._common.restore_for_predict`): the newest
+    checkpoint of ``<task>.model/``, else ``<task>.npz``."""
+    model_dir = os.path.join(data_dir, f"{task}.model")
+    if os.path.isdir(model_dir):
+        ckpt = Checkpointer(model_dir)
+        if ckpt.latest_step is not None:
+            flat, step = ckpt.load_weights()
+            cfg_path = os.path.join(model_dir, "model_config.json")
+            cfg = {}
+            if os.path.exists(cfg_path):
+                with open(cfg_path) as f:
+                    cfg = json.load(f)
+            return flat, cfg, os.path.join(model_dir, f"step_{step}.pt")
+    path = os.path.join(data_dir, f"{task}.npz")
+    if os.path.exists(path):
+        flat, manifest = load_npz(path)
+        return flat, manifest.get("model_config", {}), path
+    return None
+
+
 def _empty_relation_batch(I, C, L, M, device) -> dict:
     P = max(M * (M - 1) // 2, 1)
 
@@ -487,7 +574,7 @@ def _empty_affinity_batch(I, L, M, B, D, device) -> dict:
 class _Handler(BaseHTTPRequestHandler):
     scorer: Scorer = None          # set by serve()
     max_body_bytes: int = 8 << 20  # 413 above this (set by serve())
-    max_items: int = 64            # images per request (413 above)
+    max_items: int = 64            # images/mentions per request (413 above)
 
     def log_message(self, fmt, *args):  # route through LogUtil
         LOG.debug("serve: " + fmt, *args)
@@ -539,16 +626,21 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(404, {"error": f"unknown or unloaded task {task!r}",
                               "tasks": sorted(self.scorer.tasks)})
             return
-        items = payload.get("images")
+        items = payload.get("mentions" if task in MENTION_TASKS
+                            else "images")
         if isinstance(items, list) and len(items) > self.max_items:
             self._reply(413, {"error": f"{len(items)} items exceeds the "
                                        f"{self.max_items}-item request "
                                        f"limit — split the request"})
             return
-        score = (self.scorer.score_relation if task == "relation"
-                 else self.scorer.score_affinity)
         try:
-            self._reply(200, score(payload))
+            if task in MENTION_TASKS:
+                out = self.scorer.score_mentions(task, payload)
+            elif task == "relation":
+                out = self.scorer.score_relation(payload)
+            else:
+                out = self.scorer.score_affinity(payload)
+            self._reply(200, out)
         except ServerOverloaded as e:
             self._reply(503, {"error": str(e)}, headers={"Retry-After": "1"})
         except (KeyError, IndexError, ValueError, TypeError) as e:
@@ -590,16 +682,19 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="icl-torch-serve",
-        description="HTTP relation and affinity scoring on PyTorch (CUDA "
-                    "kernels on a GPU) over icl-export weights archives")
+        description="HTTP scoring of the four tasks on PyTorch (CUDA "
+                    "kernels on a GPU) over the port's model dirs or "
+                    "icl-export weights archives")
     p.add_argument("--data_dir", required=True,
-                   help="directory with <task>.npz (+ .manifest.json) per "
-                        "task and embeddings.txt")
+                   help="directory with <task>.model/ (the port's "
+                        "checkpoints) or <task>.npz (+ .manifest.json) per "
+                        "task, and embeddings.txt")
     p.add_argument("--embeddings_file", default=None)
     p.add_argument("--port", type=int, default=8414)
     p.add_argument("--tasks", default=None,
-                   help="comma-separated subset of relation,affinity "
-                        "(default: every task with an archive)")
+                   help="comma-separated subset of nonvisual,cardinality,"
+                        "relation,affinity (default: every task with "
+                        "weights)")
     p.add_argument("--device", default="cuda",
                    help="where to score: cuda (the default; the server "
                         "refuses to start without a GPU), cuda:N, or cpu")
@@ -615,8 +710,8 @@ def main(argv=None) -> None:
                    help="reject request bodies above this size with 413 "
                         "(without reading them)")
     p.add_argument("--max_items", type=int, default=64,
-                   help="reject requests with more images than this "
-                        "with 413")
+                   help="reject requests with more images or mentions than "
+                        "this with 413")
     p.add_argument("--max_pending", type=int, default=256,
                    help="coalescer queue bound (image items); submits past "
                         "it get 503 + Retry-After")

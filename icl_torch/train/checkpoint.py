@@ -177,6 +177,33 @@ class Checkpointer:
         t.start()
         self._inflight = t
 
+    def load_weights(self, step: int | None = None) -> tuple[dict, int]:
+        """The model's weights in one checkpoint, the newest unless ``step``
+        names another -> (``icl-export`` key -> CPU tensor, step).  What
+        the export and the server read of a model dir; a missing step names
+        the steps there are."""
+        steps = self.all_steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint steps under "
+                                    f"{self.directory}")
+        if step is None:
+            step = steps[-1]
+        elif step not in steps:
+            raise ValueError(f"step {step} not in checkpoints {steps} under "
+                             f"{self.directory}")
+        payload = torch.load(self._path(step), map_location="cpu",
+                             weights_only=True)
+        return ({k.replace(".", "/"): v
+                 for k, v in payload["model"].items()}, step)
+
+    def save_payload(self, step: int, payload: dict) -> None:
+        """Write a ready payload (``model``, ``optimizer``, ``step``,
+        ``seed``, ``epoch``, ``batch_in_epoch``; CPU tensors) as
+        ``step_<step>.pt``, atomically: how ``icl-torch-import`` writes a
+        checkpoint without a live state."""
+        self._join()
+        self._write(int(step), payload)
+
     @property
     def latest_step(self) -> int | None:
         self._join()

@@ -1,15 +1,18 @@
 """In-training dev evaluation hooks (counterpart of
-``icl/train/evalhook.py``; the mention-task halves are not ported).
+``icl/train/evalhook.py``).
 
 A deterministic ``eval_fn`` handed to :func:`icl_torch.train.loop.
-run_training`.  Evaluation uses the grid-loss form without dropout: the
+run_training`.  The image tasks evaluate in the grid-loss form without
+dropout: the
 model returns ``(sum ce*w, sum hits, sum valid)`` per batch (the plain
 ``grid_ce_sums`` on an unfused model, the fused-CE kernel at rate 0 on a
 fused one) and the hook normalises across the whole eval set, so the
 reported loss is exactly ``masked_weighted_ce`` over every sampled dev
 cell, not a mean of per-batch means.  It runs under
 ``torch.inference_mode()``: no graph is built and the forward-only kernels
-are allowed.
+are allowed.  The mention tasks (:func:`make_mention_eval_fn`) sum ``ce*w``,
+hits and ``w`` over the whole eval set the same way.  Each eval reads the
+device once.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from icl_torch.ops.ce import onehot_ce
 from icl_torch.util.log import LOG
 
 
@@ -158,3 +162,94 @@ def build_eval_hook(args, model, table: torch.Tensor, load_dataset, batcher,
              args.eval_split, args.eval_every)
     return make_grid_eval_fn(model, table, batches, class_weights,
                              pin=not full)
+
+
+def make_mention_eval_fn(model, table: torch.Tensor, eval_batches: list,
+                         pin: bool = True) -> Callable:
+    """Mention-task (nonvisual, cardinality) counterpart of
+    :func:`make_grid_eval_fn`.
+
+    ``eval_batches``: list of HOST-side ``(token_ids, lengths, labels,
+    valid)`` numpy tuples.  Forward without dropout, the shared CE,
+    normalised across the whole eval set.  ``pin`` as in
+    :func:`make_grid_eval_fn`: batches held on the table's device, or copied
+    per eval call (the ``--eval_batches 0`` whole-split mode); both give
+    bitwise equal results.
+    """
+    from icl_torch.models.nonvisual import mean_pool_tokens
+
+    device = table.device
+
+    def place(hb):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in hb)
+
+    prepared = [place(hb) if pin else hb for hb in eval_batches]
+
+    def one(state, tok, ln, lab, valid):
+        logits = state.model(mean_pool_tokens(table, tok, ln))
+        ce, _ = onehot_ce(logits, lab)
+        w = valid.to(ce.dtype)
+        hits = (logits.argmax(dim=-1) == lab) & valid
+        return torch.stack([(ce * w).sum(), hits.to(torch.float32).sum(),
+                            w.sum()])
+
+    def eval_fn(state):
+        loss_sum = hits = nval = 0.0
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            with torch.inference_mode():
+                sums = [one(state, *(hb if pin else place(hb)))
+                        for hb in prepared]
+                # one device-to-host read for the whole eval
+                for ls, h, nv in torch.stack(sums).cpu().tolist():
+                    loss_sum += ls
+                    hits += h
+                    nval += nv
+        finally:
+            state.model.train(was_training)
+        return {"loss": loss_sum / max(nval, 1.0),
+                "acc": hits / max(nval, 1.0)}
+
+    return eval_fn
+
+
+def build_mention_eval_hook(args, model, table: torch.Tensor, task: str, emb,
+                            bucketizer) -> Callable | None:
+    """CLI glue for the mention tasks (mirrors :func:`build_eval_hook`)."""
+    if not getattr(args, "eval_every", 0):
+        return None
+    from icl_torch.data.pipeline import load_mention_dataset
+    try:
+        ds = load_mention_dataset(args.data_dir, args.eval_split, task, emb)
+    except FileNotFoundError as e:
+        LOG.warning("--eval_every ignored: eval split %r not loadable (%s)",
+                    args.eval_split, e)
+        return None
+    cap_arg = getattr(args, "eval_batches", 16)
+    full = cap_arg == 0          # 0 = the WHOLE split, copied per eval
+    cap = None if full else max(cap_arg, 1)
+    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
+              "labels": ds.labels}
+    rng = np.random.default_rng(getattr(args, "seed", 0))
+    batches = []
+    for _, b in bucketizer.batches(ds.lengths, arrays, ds.ids,
+                                   shuffle_rng=rng):
+        batches.append((np.asarray(b.arrays["token_ids"]),
+                        np.asarray(b.arrays["lengths"]),
+                        np.asarray(b.arrays["labels"]),
+                        np.asarray(b.valid)))
+        if cap is not None and len(batches) >= cap:
+            break
+    if not batches:
+        LOG.warning("--eval_every ignored: eval split %r is empty",
+                    args.eval_split)
+        return None
+    n = int(sum(v.sum() for *_, v in batches))
+    LOG.info("eval hook: %d batches (%d mentions, %s) from %s every "
+             "%d steps", len(batches), n,
+             "copied to the device per eval" if full else
+             "held on the device",
+             args.eval_split, args.eval_every)
+    return make_mention_eval_fn(model, table, batches, pin=not full)

@@ -21,21 +21,22 @@ from icl_torch.params import init_params, load_npz
 
 @dataclasses.dataclass
 class TrainState:
-    model: nn.Module      # a RelationModel or an AffinityModel
+    model: nn.Module      # one of the four task models
     optimizer: torch.optim.Optimizer
     seed: int
     step: int = 0
 
     def dropout_seeds(self, n: int) -> torch.Tensor:
-        """This step's per-image dropout seeds: int32 [n] in [0, 2**31-1),
-        on the model's device.  A pure function of (seed, step): both enter
+        """This step's dropout seeds, one per image (relation, affinity) or
+        per row (the mention tasks): int32 [n] in [0, 2**31-1), on the
+        model's device.  A pure function of (seed, step): both enter
         a ``SeedSequence`` (torch's CPU generator would keep only the low
         32 bits of one packed 64-bit seed, which dropped the run's seed)."""
         rng = np.random.default_rng(np.random.SeedSequence(
             [self.seed & 0xFFFFFFFF, self.step & 0xFFFFFFFF]))
         seeds = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, n,
                                               dtype=np.int32))
-        return seeds.to(self.model.head_out.bias.device)
+        return seeds.to(next(self.model.parameters()).device)
 
     def apply_gradients(self) -> None:
         """One Adam update from the parameters' ``.grad``; step += 1."""
@@ -48,8 +49,12 @@ def create_train_state(model: nn.Module, seed: int = 0,
                        params: str | dict | None = None) -> TrainState:
     """Load the model's weights and start Adam.
 
-    ``model``: a :class:`~icl_torch.models.relation.RelationModel` or an
-    :class:`~icl_torch.models.affinity.AffinityModel`.  ``params``: None
+    ``model``: one of the task models
+    (:class:`~icl_torch.models.relation.RelationModel`,
+    :class:`~icl_torch.models.affinity.AffinityModel`,
+    :class:`~icl_torch.models.nonvisual.NonvisualModel`,
+    :class:`~icl_torch.models.cardinality.CardinalityModel`): anything with
+    ``task``, ``dims`` and ``load_flat``.  ``params``: None
     draws fresh weights (:func:`~icl_torch.params.init_params` of the
     model's task, from ``seed``); a path loads an ``icl-export`` archive; a
     dict of key -> tensor or numpy array is loaded as it is.

@@ -1,7 +1,9 @@
-"""Relation and affinity train and predict steps (counterpart of
+"""Train and predict steps of the four tasks (counterpart of
 icl/train/steps.py).
 
-All losses are masked cross-entropies: padded pairs and cells contribute
+The mention tasks (nonvisual, cardinality) take flat ``[N, L]`` token
+batches: mean-pool, FFNN, :func:`masked_weighted_ce` without class weights.
+Relation and affinity take image batches.  All losses are masked cross-entropies: padded pairs and cells contribute
 zero loss and zero gradient, and the normaliser is the (class-weighted)
 count of valid examples.  Two train forms per task, as in the reference:
 
@@ -26,6 +28,7 @@ import torch
 
 from icl_torch.util.log import LOG
 from icl_torch.models.affinity import AffinityModel, rank_boxes
+from icl_torch.models.nonvisual import MentionFFNN, mean_pool_tokens
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops.affinity_rank import affinity_rank
 from icl_torch.ops.ce import onehot_ce
@@ -48,6 +51,52 @@ def _accuracy(logits, labels, valid):
     hit = (logits.argmax(dim=-1) == labels) & valid
     return hit.sum() / torch.clamp_min(valid.sum(), 1)
 
+
+# ---------------------------------------------------------------------------
+# Mention-level tasks (nonvisual, cardinality): flat [N, L] token batches
+# ---------------------------------------------------------------------------
+
+def mention_loss(model: MentionFFNN, table: torch.Tensor,
+                 token_ids: torch.Tensor, lengths: torch.Tensor,
+                 labels: torch.Tensor, valid: torch.Tensor,
+                 seeds: torch.Tensor | None) -> tuple[torch.Tensor, dict]:
+    """The mention train loss and its metrics, before any update:
+    ``(loss, {"loss", "acc"})``.  ``seeds``: per-row dropout seeds (None: no
+    dropout).  The table is an input: it gets no gradient."""
+    pooled = mean_pool_tokens(table.detach(), token_ids, lengths)
+    return _logit_loss(model(pooled, seeds=seeds), labels, valid, None)
+
+
+def make_mention_train_step() -> Callable:
+    """``step(state, table, token_ids, lengths, labels, valid) -> metrics``
+    for the FFNN-over-mean-word-vector tasks: one Adam update in place.
+    After the step, the parameters' ``.grad`` hold the step's gradients."""
+
+    def train_step(state: TrainState, table: torch.Tensor,
+                   token_ids: torch.Tensor, lengths: torch.Tensor,
+                   labels: torch.Tensor, valid: torch.Tensor) -> dict:
+        seeds = state.dropout_seeds(token_ids.shape[0])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = mention_loss(state.model, table, token_ids, lengths,
+                                     labels, valid, seeds)
+        loss.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def mention_predict(model: MentionFFNN, table: torch.Tensor,
+                    token_ids: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Class probabilities [N, C] of padded mention token rows."""
+    with torch.inference_mode():
+        return model.probs_from_tokens(table, token_ids, lengths)
+
+
+# ---------------------------------------------------------------------------
+# Relation and affinity: image batches
+# ---------------------------------------------------------------------------
 
 def _cell_weights(labels, valid, cw):
     """``valid * class_weight[label]``; 0 for labels outside the table."""

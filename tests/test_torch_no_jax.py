@@ -1,6 +1,9 @@
 """The port runs where JAX is not installed and stands without the JAX
 package: icl_torch and chip_smoke.py import no JAX, flax, optax or orbax,
-and nothing of ``icl``, directly or through another module."""
+and nothing of ``icl``, directly or through another module.  Nor do they
+need ``keras`` or ``sklearn`` at import: the machine with the GPU has
+neither (``sklearn`` is imported inside ``icl-torch-baseline``'s ``main``
+and nowhere else)."""
 
 import os
 import re
@@ -8,12 +11,20 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "icl")
+NO_SOURCE_LINE = ("jax", "jaxlib", "flax", "optax", "orbax", "icl", "keras")
+BANNED = NO_SOURCE_LINE + ("sklearn",)      # not in sys.modules after import
 # the modules of the CLI slice: the walk below must reach each of them
 CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
              "icl_torch.cli.affinity", "icl_torch.io.scores",
              "icl_torch.eval.scoredict", "icl_torch.train.loop",
-             "icl_torch.train.checkpoint", "icl_torch.train.evalhook")
+             "icl_torch.train.checkpoint", "icl_torch.train.evalhook",
+             # the mention tasks, the remaining CLIs
+             "icl_torch.models.nonvisual", "icl_torch.models.cardinality",
+             "icl_torch.cli._mention_task", "icl_torch.cli.nonvisual",
+             "icl_torch.cli.cardinality", "icl_torch.cli.joint",
+             "icl_torch.cli.export", "icl_torch.cli.import_",
+             "icl_torch.cli.evaluate", "icl_torch.cli.check",
+             "icl_torch.cli.baseline", "icl_torch.serve")
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -39,7 +50,7 @@ def test_importing_every_module_leaves_jax_out():
 
 
 def test_no_source_line_imports_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(" + "|".join(BANNED)
+    pat = re.compile(r"^\s*(import|from)\s+(" + "|".join(NO_SOURCE_LINE)
                      + r")(\.|\s|$)")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "icl_torch")):
@@ -51,3 +62,24 @@ def test_no_source_line_imports_jax():
     assert len(files) >= 10 and not hits, hits
     rel = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
     assert set(CLI_SLICE) <= rel
+
+
+def test_sklearn_is_imported_only_inside_the_baseline_main():
+    """One lazy import, inside ``icl_torch/cli/baseline.py``'s function;
+    ``keras`` nowhere, lazily or not."""
+    pat = re.compile(r"^(\s*)(import|from)\s+(sklearn|keras)(\.|\s|$)")
+    hits = []
+    for root, dirs, names in os.walk(os.path.join(REPO, "icl_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(root, n)
+                for line in open(path, encoding="utf-8"):
+                    m = pat.match(line)
+                    if m:
+                        hits.append((os.path.relpath(path, REPO),
+                                     m.group(3), len(m.group(1)) > 0))
+    for line in open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8"):
+        assert not pat.match(line), line
+    assert hits == [(os.path.join("icl_torch", "cli", "baseline.py"),
+                     "sklearn", True)], hits

@@ -135,3 +135,62 @@ def test_init_relation_params_full_width():
     # the seed decides the draw
     again = init_relation_params(0, dims)
     assert all(torch.equal(flat[k], again[k]) for k in flat)
+
+
+# --- the mention tasks' weights ---------------------------------------------
+
+MENTION_TASKS = {"nonvisual": 2, "cardinality": 12}
+
+
+@pytest.mark.parametrize("task", sorted(MENTION_TASKS))
+def test_mention_params_full_width_and_round_trip(task, tmp_path):
+    """The pinned keys and shapes are those of the JAX model's tree; Dense
+    kernels lecun-normal, biases zero; a JAX tree goes through the archive
+    into the port's model and comes back byte-identical."""
+    from icl.models import CardinalityModel as JaxCardinalityModel
+    from icl.models import NonvisualModel as JaxNonvisualModel
+    from icl_torch.models import CardinalityModel, NonvisualModel
+    from icl_torch.params import PARAM_SHAPES, init_params
+
+    jcls, tcls = {"nonvisual": (JaxNonvisualModel, NonvisualModel),
+                  "cardinality": (JaxCardinalityModel, CardinalityModel)}[task]
+    C = MENTION_TASKS[task]
+    dims = {"emb_dim": 300, "hidden": 300}
+    params = jcls().init(jax.random.PRNGKey(2), jnp.zeros((1, 300)))["params"]
+    want = dict(sorted(flatten_params(params).items()))
+    shapes = {k: v.shape for k, v in want.items()}
+    assert shapes == {"dense_1/kernel": (300, 300), "dense_1/bias": (300,),
+                      "dense_out/kernel": (300, C), "dense_out/bias": (C,)}
+    assert PARAM_SHAPES[task](dims) == shapes
+    assert PARAM_SHAPES[task]({**dims, "num_classes": 5})[
+        "dense_out/bias"] == (5,)
+
+    flat = init_params(task, 0, dims)
+    assert {k: tuple(v.shape) for k, v in flat.items()} == shapes
+    assert all(v.dtype == torch.float32 for v in flat.values())
+    W1 = flat["dense_1/kernel"]
+    assert W1.abs().max() <= 2 * np.sqrt(1 / 300) / 0.8796256610342398
+    assert abs(W1.std().item() - np.sqrt(1 / 300)) < 2e-3         # lecun
+    assert not flat["dense_1/bias"].any() and not flat["dense_out/bias"].any()
+    again = init_params(task, 0, dims)
+    assert all(torch.equal(flat[k], again[k]) for k in flat)
+    other = init_params(task, 1, dims)
+    assert not torch.equal(flat["dense_1/kernel"], other["dense_1/kernel"])
+
+    out = str(tmp_path / f"{task}.npz")
+    manifest = save_npz(out, {k: torch.from_numpy(v.copy())
+                              for k, v in want.items()},
+                        {"task": task, "hidden": 300}, step=3,
+                        train_config={"learn_rate": 0.001})
+    assert manifest["train_config"] == {"learn_rate": 0.001}
+    assert manifest["step"] == 3 and manifest["total_parameters"] == sum(
+        v.size for v in want.values())
+    loaded, _ = load_npz(out)
+    port = tcls(emb_dim=300)
+    port.load_flat(loaded)
+    back = to_numpy(port.flat_params())
+    assert sorted(back) == sorted(want)
+    for k, v in want.items():
+        assert back[k].dtype == v.dtype and back[k].tobytes() == v.tobytes()
+    with pytest.raises(RuntimeError):                 # another task's head
+        tcls(emb_dim=300, num_classes=C + 1).load_flat(loaded)
