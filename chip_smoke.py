@@ -8,7 +8,8 @@ O = 4), affinity scoring served over HTTP, affinity batch predict with
 the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
 4096-d VGG fc7 box features, head 1024, O = 2), the two mention tasks
 (nonvisual and cardinality: an FFNN of hidden 300 over the mean word
-vector) trained, predicted and served, and the joint inference run:
+vector) trained, predicted and served, the joint inference run, and the
+command lines as two data-parallel ranks on the one card:
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written CUDA sources from icl_torch/csrc (the four
@@ -110,14 +111,52 @@ vector) trained, predicted and served, and the joint inference run:
    recurrence and the box ranking launched from it and no kernel from the
    mention runs; ``icl_torch.cli.evaluate.main`` and ``check.main`` over
    what was written (the accuracy ``--eval`` printed, no finding);
-11. prints the times beside the card, each kernel's bound and share, the
+11. data parallelism (``icl_torch.dist``, ``icl_torch.runtime``).  A world
+   of one: ``runtime.init(num_processes=1, process_id=0)`` on the card must
+   choose NCCL, and one relation train step at full width through the
+   data-parallel step must leave the plain step's weights and loss bit for
+   bit (all the NCCL evidence one card can give).  Then two ranks that
+   share the card (both ``cuda:0``, so the sums go over gloo through a
+   pinned host buffer, and each rank's log must say so), each writing its
+   launch counts to a file.  First one train step of relation (the fullest
+   batch, and one whose second half is part padding) and of affinity at
+   full width through ``icl_torch.testing.dist_worker``: the ranks'
+   gradients and weights equal bit for bit, the gradients and the loss
+   within 1e-5 x max(1, max|.|) of one process that runs the same two half
+   batches one after the other, and all but 1e-4 of the weights within
+   1e-5 of its (Adam's first step turns the last bit of a gradient near
+   1e-8 into 1e-5 of a weight); one process over the whole batch in one call is printed
+   beside it and held to nothing (cuBLAS rounds 64 rows otherwise than 32,
+   a ReLU unit within 1e-7 of zero then switches, and a few gradient rows
+   move by a hundredth).  Then ``python -m icl_torch.cli.<task>
+   --coordinator localhost:<port> --num_processes 2 --process_id k``:
+   relation ``--train`` on phase 9's split (64 images a batch, 32 a rank)
+   for an epoch with a checkpoint a step, then resumed to 5 epochs;
+   affinity for an epoch (3 steps); nonvisual for an epoch at batch 512;
+   each against the same command line as one process from the same seed,
+   which feeds 64 rows a call and so rounds otherwise: at the earliest
+   step both model dirs still hold (they keep three checkpoints: step 1
+   for affinity, 2 for relation) all but 1e-4 of the weights within 1e-5;
+   at the end no weight farther than a quarter of learning rate x steps,
+   the dev probabilities of the two trained relation models within 5e-3,
+   every rank's log saying the ranks ended with one state bit for bit, the
+   model dir holding rank 0's files alone; ``--predict --eval`` on dev
+   from phase 9's and 10's model dirs (affinity with ``--rank_file``):
+   ids in the one-process file's order, probabilities within one unit of
+   the sixth decimal, the table printed once and equal, no part file left;
+   the recurrence and the fused-CE kernels must launch on BOTH ranks of
+   every image-task training run, the grid head (and the box ranking for
+   affinity) on both ranks of every predict; then 20 epochs of relation
+   training as two ranks and as one process started the same way: steps
+   per second of both, ms and bytes a step in the all-reduces;
+12. prints the times beside the card, each kernel's bound and share, the
    launches of each kernel per request, predict call and train step, and
    per path (served relation predict, relation train step and predict,
    affinity train step and ranked predict, a mention train step and
    predict call) a profile line: host-clock time per call, device busy
    time, launches, the five longest kernels; the wall clock of the whole
    script;
-12. prints one JSON line with every kernel at every timed shape (all nine
+13. prints one JSON line with every kernel at every timed shape (all nine
     TPU kernels among them): launches over the driven paths, error, times,
     bound, and the time of one PyTorch call for the same function (null:
     there is none for any of them, NO_LIBRARY_CALL says why), then, last,
@@ -136,6 +175,7 @@ import json
 import logging
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -156,9 +196,11 @@ from icl_torch.cli import import_ as import_cli
 from icl_torch.cli import joint as joint_cli
 from icl_torch.cli import nonvisual as nonvisual_cli
 from icl_torch.cli import relation as relation_cli
+from icl_torch import runtime
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
+from icl_torch.dist import mesh as dist_mesh
 from icl_torch.data.pipeline import (load_affinity_dataset,
                                      load_mention_dataset,
                                      load_relation_dataset)
@@ -166,6 +208,7 @@ from icl_torch.io.boxes import read_box_feats, write_box_feats
 from icl_torch.io.captions import parse_mention_id
 from icl_torch.io.feats import read_feats_labels
 from icl_torch.io.scores import read_scores
+from icl_torch.testing import dist_worker
 from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.cardinality import CardinalityModel
@@ -778,13 +821,18 @@ def main() -> int:
     if failures:
         raise RuntimeError(f"affinity checks failed: {failures}")
 
-    # 9. the command lines
-    cli = _cli()
+    with tempfile.TemporaryDirectory(prefix="icl_chip_cli_") as cli_dir, \
+            tempfile.TemporaryDirectory(prefix="icl_chip_mention_") as men_dir:
+        # 9. the command lines
+        cli = _cli(cli_dir)
 
-    # 10. the mention tasks, their server endpoints, the joint run
-    mention = _mention()
+        # 10. the mention tasks, their server endpoints, the joint run
+        mention = _mention(men_dir)
 
-    # 11. times, each beside the card
+        # 11. a world of one over NCCL; two ranks on the one card
+        ranks = _dist(cli_dir, men_dir, card)
+
+    # 12. times, each beside the card
     for name, t in timing.items():
         print(f"time {name} [{t['shape']}]: per call kernel {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
@@ -831,7 +879,7 @@ def main() -> int:
           f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
-    for line in cli["times"] + mention["times"]:
+    for line in cli["times"] + mention["times"] + ranks["times"]:
         print(f"time {line} ({card})")
     for line in (served_profiles + train["profiles"] + aff["profiles"]
                  + mention["profiles"]):
@@ -839,9 +887,9 @@ def main() -> int:
     print(f"time whole script: {time.perf_counter() - t_script:.1f} s, the "
           f"kernels' build included ({card})")
 
-    # 12. result lines: launches summed over the phases that drove the paths
+    # 13. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
-    for phase in (result, aff_result, train, aff, cli, mention):
+    for phase in (result, aff_result, train, aff, cli, mention, ranks):
         for k, n in phase["launches"].items():
             launches[k] += n
         for unit, counts in phase["per_unit"].items():
@@ -1477,10 +1525,11 @@ def _same_checkpoint(a: dict, b: dict) -> list:
     return diff
 
 
-def _cli() -> dict:
+def _cli(d: str) -> dict:
     """The two command lines on the card at full width, over a planted
-    split on disk: train, resume from a periodic checkpoint, predict twice;
-    counts the launches of the whole phase."""
+    split on disk (written into ``d``, which the two-rank phase reads
+    again): train, resume from a periodic checkpoint, predict twice; counts
+    the launches of the whole phase."""
     kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
                "affinity_rank": affinity_rank}
     needed = ("grid_head", "lstm_recurrence", "grid_head_train_loss_fwd",
@@ -1491,155 +1540,154 @@ def _cli() -> dict:
     times, per_unit = [], {}
     _reset(kernels)
     try:
-        with tempfile.TemporaryDirectory(prefix="icl_chip_cli_") as d:
-            kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
-                      max_caption_len=32, max_mentions_per_caption=3,
-                      max_boxes_per_image=20)
-            for split, n in (("train", 128), ("dev", 32)):
-                generate_dataset(d, split, SynthConfig(
-                    num_images=n, seed=SEED + (split == "dev"), **kw))
-                _widen_boxes(f"{d}/{split}.boxes.npz", AFF_DIMS["box_dim"],
-                             SEED)
-            emb = EmbeddingStore.load(f"{d}/embeddings.txt")
-            for task, main_fn, unit in (("relation", relation_cli.main,
-                                         "pairs"),
-                                        ("affinity", affinity_cli.main,
-                                         "cells")):
-                common = ["--data_dir", d, "--device", "cuda",
-                          "--images_per_batch", "64", "--seed", str(SEED)]
-                train = ["--train", "--ckpt_every", "4", "--eval_every", "5",
-                         *common]
+        kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
+                  max_caption_len=32, max_mentions_per_caption=3,
+                  max_boxes_per_image=20)
+        for split, n in (("train", 128), ("dev", 32)):
+            generate_dataset(d, split, SynthConfig(
+                num_images=n, seed=SEED + (split == "dev"), **kw))
+            _widen_boxes(f"{d}/{split}.boxes.npz", AFF_DIMS["box_dim"],
+                         SEED)
+        emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+        for task, main_fn, unit in (("relation", relation_cli.main,
+                                     "pairs"),
+                                    ("affinity", affinity_cli.main,
+                                     "cells")):
+            common = ["--data_dir", d, "--device", "cuda",
+                      "--images_per_batch", "64", "--seed", str(SEED)]
+            train = ["--train", "--ckpt_every", "4", "--eval_every", "5",
+                     *common]
 
-                def run(what, argv):
-                    """One command line: its log lines and wall clock."""
-                    said.lines.clear()
-                    before = {k: fn.launches for k, fn in kernels.items()}
-                    t0 = time.perf_counter()
-                    main_fn(argv)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    per_unit[f"icl-torch-{task} {what}"] = {
-                        k: fn.launches - before[k]
-                        for k, fn in kernels.items()}
-                    return wall
+            def run(what, argv):
+                """One command line: its log lines and wall clock."""
+                said.lines.clear()
+                before = {k: fn.launches for k, fn in kernels.items()}
+                t0 = time.perf_counter()
+                main_fn(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                per_unit[f"icl-torch-{task} {what}"] = {
+                    k: fn.launches - before[k]
+                    for k, fn in kernels.items()}
+                return wall
 
-                # an uninterrupted run, and one stopped half way whose end
-                # marker is deleted: it resumes from a periodic checkpoint.
-                # (The dev loss need not fall: the planted relation rule is
-                # learnt word by word, and 128 images show few of the 2000.)
-                whole, cut = f"{d}/{task}.whole", f"{d}/{task}.cut"
-                wall = run("--train", [*train, "--epochs", "10",
-                                       "--model_file", whole, "--metrics_file",
-                                       f"{d}/{task}.jsonl"])
-                steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
-                n_steps = said.numbers(r"training loop: (\d+) steps")
-                stalls = said.numbers(r"loop stalled (\d+) ms")
-                rows = [json.loads(line) for line in open(f"{d}/{task}.jsonl")]
-                ex_s = [r["examples_per_sec"] for r in rows
-                        if "examples_per_sec" in r]
-                evals = [r for r in rows if "eval_loss" in r]
-                if not (steps_s and ex_s and evals and stalls
-                        and all(np.isfinite(r["eval_loss"]) for r in evals)
-                        and all(np.isfinite(r["loss"]) for r in rows
-                                if "loss" in r)):
-                    raise RuntimeError(f"icl-torch-{task} --train: bad "
-                                       f"metrics {rows}")
-                times.append(
-                    f"icl-torch-{task} --train [10 epochs of 128 images, "
-                    f"64 a batch, eval every 5 and checkpoint every 4 "
-                    f"steps]: {int(n_steps[0])} steps at {steps_s[0]:.2f} "
-                    f"steps/s in the loop, {ex_s[-1]:.0f} {unit}/s at its "
-                    f"last log, {np.mean(stalls):.1f} ms the loop stalled "
-                    f"per checkpoint save (max {max(stalls):.0f}, "
-                    f"{len(stalls)} saves), eval loss {evals[0]['eval_loss']:.4f}"
-                    f" -> {evals[-1]['eval_loss']:.4f}; the command "
-                    f"{wall:.2f} s")
-                run("--train, first half", [*train, "--epochs", "5",
-                                            "--model_file", cut])
-                steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
-                               if n.startswith("step_"))
-                os.unlink(f"{cut}/step_{steps[-1]}.pt")       # the marker
-                start = torch.load(f"{cut}/step_{steps[-2]}.pt",
-                                   weights_only=True)
-                if steps[-2] % 4 or start["epoch"] >= 5:
-                    raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
-                                       f"is no periodic checkpoint")
-                wall = run("--train --resume auto",
-                           [*train, "--epochs", "10", "--resume", "auto",
-                            "--model_file", cut])
-                steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
-                ends = [torch.load(f"{m}/step_{int(n_steps[0])}.pt",
-                                   weights_only=True) for m in (whole, cut)]
-                diff = _same_checkpoint(*ends)
-                print(f"check icl-torch-{task} --resume auto from step "
-                      f"{steps[-2]} (epoch {start['epoch']}, batch "
-                      f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
-                      f"weights and Adam state against the uninterrupted "
-                      f"run's, bit for bit: "
-                      f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
-                if diff:
-                    raise RuntimeError(f"icl-torch-{task}: the resumed run "
-                                       f"differs in {diff[:5]}")
-                times.append(f"icl-torch-{task} --train --resume auto [from "
-                             f"step {steps[-2]}]: {steps_s[0]:.2f} steps/s "
-                             f"in the loop; the command {wall:.2f} s")
+            # an uninterrupted run, and one stopped half way whose end
+            # marker is deleted: it resumes from a periodic checkpoint.
+            # (The dev loss need not fall: the planted relation rule is
+            # learnt word by word, and 128 images show few of the 2000.)
+            whole, cut = f"{d}/{task}.whole", f"{d}/{task}.cut"
+            wall = run("--train", [*train, "--epochs", "10",
+                                   "--model_file", whole, "--metrics_file",
+                                   f"{d}/{task}.jsonl"])
+            steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+            n_steps = said.numbers(r"training loop: (\d+) steps")
+            stalls = said.numbers(r"loop stalled (\d+) ms")
+            rows = [json.loads(line) for line in open(f"{d}/{task}.jsonl")]
+            ex_s = [r["examples_per_sec"] for r in rows
+                    if "examples_per_sec" in r]
+            evals = [r for r in rows if "eval_loss" in r]
+            if not (steps_s and ex_s and evals and stalls
+                    and all(np.isfinite(r["eval_loss"]) for r in evals)
+                    and all(np.isfinite(r["loss"]) for r in rows
+                            if "loss" in r)):
+                raise RuntimeError(f"icl-torch-{task} --train: bad "
+                                   f"metrics {rows}")
+            times.append(
+                f"icl-torch-{task} --train [10 epochs of 128 images, "
+                f"64 a batch, eval every 5 and checkpoint every 4 "
+                f"steps]: {int(n_steps[0])} steps at {steps_s[0]:.2f} "
+                f"steps/s in the loop, {ex_s[-1]:.0f} {unit}/s at its "
+                f"last log, {np.mean(stalls):.1f} ms the loop stalled "
+                f"per checkpoint save (max {max(stalls):.0f}, "
+                f"{len(stalls)} saves), eval loss {evals[0]['eval_loss']:.4f}"
+                f" -> {evals[-1]['eval_loss']:.4f}; the command "
+                f"{wall:.2f} s")
+            run("--train, first half", [*train, "--epochs", "5",
+                                        "--model_file", cut])
+            steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
+                           if n.startswith("step_"))
+            os.unlink(f"{cut}/step_{steps[-1]}.pt")       # the marker
+            start = torch.load(f"{cut}/step_{steps[-2]}.pt",
+                               weights_only=True)
+            if steps[-2] % 4 or start["epoch"] >= 5:
+                raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
+                                   f"is no periodic checkpoint")
+            wall = run("--train --resume auto",
+                       [*train, "--epochs", "10", "--resume", "auto",
+                        "--model_file", cut])
+            steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+            ends = [torch.load(f"{m}/step_{int(n_steps[0])}.pt",
+                               weights_only=True) for m in (whole, cut)]
+            diff = _same_checkpoint(*ends)
+            print(f"check icl-torch-{task} --resume auto from step "
+                  f"{steps[-2]} (epoch {start['epoch']}, batch "
+                  f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
+                  f"weights and Adam state against the uninterrupted "
+                  f"run's, bit for bit: "
+                  f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
+            if diff:
+                raise RuntimeError(f"icl-torch-{task}: the resumed run "
+                                   f"differs in {diff[:5]}")
+            times.append(f"icl-torch-{task} --train --resume auto [from "
+                         f"step {steps[-2]}]: {steps_s[0]:.2f} steps/s "
+                         f"in the loop; the command {wall:.2f} s")
 
-                # predict twice: same bytes, dataset order, ranking rows
-                outs = []
-                for k in (1, 2):
-                    argv = ["--predict", "--eval", "--data_split", "dev",
-                            *common, "--model_file", whole, "--scores_file",
-                            f"{d}/{task}.{k}.scores"]
-                    if task == "affinity":
-                        argv += ["--rank_file", f"{d}/{task}.{k}.rank"]
-                    wall = run("--predict", argv)
-                    rate = said.numbers(rf"predict sweep: .*\((\d+) {unit}/s\)")
-                    count = said.numbers(rf"predict sweep: (\d+) {unit}")
-                    times.append(
-                        f"icl-torch-{task} --predict --eval"
-                        f"{' --rank_file' if task == 'affinity' else ''} "
-                        f"[dev, 32 images, run {k}]: {int(count[0])} {unit} "
-                        f"at {rate[0]:.0f} {unit}/s in the sweep; the "
-                        f"command {wall:.2f} s")
-                    outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
-                ids, probs = read_scores(f"{d}/{task}.1.scores")
-                if task == "relation":
-                    ds = load_relation_dataset(d, "dev", emb)
-                    order = [pid for im in ds.images for pid in im.pair_ids]
-                else:
-                    ds = load_affinity_dataset(d, "dev", emb)
-                    order = [im.cell_id(*parse_mention_id(mid)[1:], bi)
-                             for im in ds.images
-                             for r, mid in enumerate(im.mention_ids)
-                             for c, bi in enumerate(im.box_idx)
-                             if im.grid_valid[r, c]]
-                ok = (outs[0] == outs[1] and ids == order and len(ids) > 1000
-                      and bool(np.isfinite(probs).all())
-                      and float(np.abs(probs.sum(1) - 1).max()) <= 2e-6)
-                print(f"check icl-torch-{task} --predict: two runs "
-                      f"byte-identical, {len(ids)} ids in dataset order, "
-                      f"probs finite and summing to 1: "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise RuntimeError(f"icl-torch-{task} --predict: bad "
-                                       f".scores")
+            # predict twice: same bytes, dataset order, ranking rows
+            outs = []
+            for k in (1, 2):
+                argv = ["--predict", "--eval", "--data_split", "dev",
+                        *common, "--model_file", whole, "--scores_file",
+                        f"{d}/{task}.{k}.scores"]
                 if task == "affinity":
-                    if open(f"{d}/{task}.1.rank", "rb").read() != open(
-                            f"{d}/{task}.2.rank", "rb").read():
-                        raise RuntimeError("the two rank files differ")
-                    rids, rank = read_scores(f"{d}/{task}.1.rank")
-                    rows = {}
-                    for cid, p in zip(rids, rank[:, 0]):
-                        rows.setdefault(cid.rsplit(";box:", 1)[0],
-                                        []).append(p)
-                    off = max(abs(sum(v) - 1) for v in rows.values())
-                    print(f"check icl-torch-affinity --rank_file: "
-                          f"{len(rows)} mentions, each row sums to 1 over "
-                          f"its valid boxes within {off:.1e} (gate 2e-5: 6 "
-                          f"decimals a box, up to 20 boxes): "
-                          f"{'ok' if off <= 2e-5 and rids == ids else 'FAIL'}")
-                    if off > 2e-5 or rids != ids:
-                        raise RuntimeError("bad rank file")
+                    argv += ["--rank_file", f"{d}/{task}.{k}.rank"]
+                wall = run("--predict", argv)
+                rate = said.numbers(rf"predict sweep: .*\((\d+) {unit}/s\)")
+                count = said.numbers(rf"predict sweep: (\d+) {unit}")
+                times.append(
+                    f"icl-torch-{task} --predict --eval"
+                    f"{' --rank_file' if task == 'affinity' else ''} "
+                    f"[dev, 32 images, run {k}]: {int(count[0])} {unit} "
+                    f"at {rate[0]:.0f} {unit}/s in the sweep; the "
+                    f"command {wall:.2f} s")
+                outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
+            ids, probs = read_scores(f"{d}/{task}.1.scores")
+            if task == "relation":
+                ds = load_relation_dataset(d, "dev", emb)
+                order = [pid for im in ds.images for pid in im.pair_ids]
+            else:
+                ds = load_affinity_dataset(d, "dev", emb)
+                order = [im.cell_id(*parse_mention_id(mid)[1:], bi)
+                         for im in ds.images
+                         for r, mid in enumerate(im.mention_ids)
+                         for c, bi in enumerate(im.box_idx)
+                         if im.grid_valid[r, c]]
+            ok = (outs[0] == outs[1] and ids == order and len(ids) > 1000
+                  and bool(np.isfinite(probs).all())
+                  and float(np.abs(probs.sum(1) - 1).max()) <= 2e-6)
+            print(f"check icl-torch-{task} --predict: two runs "
+                  f"byte-identical, {len(ids)} ids in dataset order, "
+                  f"probs finite and summing to 1: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"icl-torch-{task} --predict: bad "
+                                   f".scores")
+            if task == "affinity":
+                if open(f"{d}/{task}.1.rank", "rb").read() != open(
+                        f"{d}/{task}.2.rank", "rb").read():
+                    raise RuntimeError("the two rank files differ")
+                rids, rank = read_scores(f"{d}/{task}.1.rank")
+                rows = {}
+                for cid, p in zip(rids, rank[:, 0]):
+                    rows.setdefault(cid.rsplit(";box:", 1)[0],
+                                    []).append(p)
+                off = max(abs(sum(v) - 1) for v in rows.values())
+                print(f"check icl-torch-affinity --rank_file: "
+                      f"{len(rows)} mentions, each row sums to 1 over "
+                      f"its valid boxes within {off:.1e} (gate 2e-5: 6 "
+                      f"decimals a box, up to 20 boxes): "
+                      f"{'ok' if off <= 2e-5 and rids == ids else 'FAIL'}")
+                if off > 2e-5 or rids != ids:
+                    raise RuntimeError("bad rank file")
     finally:
         logger.removeHandler(said)
     launches = _count(kernels, "the command lines")
@@ -1677,10 +1725,10 @@ def _mention_request(rng, k: int) -> dict:
     return {"mentions": mentions}
 
 
-def _mention() -> dict:
+def _mention(d: str) -> dict:
     """The two mention tasks on the card at full width (train, resume,
     predict, export and import, their endpoints), then the joint run over
-    all four tasks; counts what the joint run launches."""
+    all four tasks, in ``d``; counts what the joint run launches."""
     kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
                "affinity_rank": affinity_rank}
     joint_kernels = {**PREDICT_KERNELS, "affinity_rank": affinity_rank}
@@ -1691,264 +1739,263 @@ def _mention() -> dict:
     logger.addHandler(said)
     times, per_unit = [], {}
     try:
-        with tempfile.TemporaryDirectory(prefix="icl_chip_mention_") as d:
-            # the mention tasks read captions, mentions and their .feats:
-            # the train split keeps its boxes few and narrow (nothing here
-            # trains on them); dev, which the image tasks and the joint
-            # run score, has 20 boxes an image at 4096-d
-            kw = dict(planted=True, emb_dim=MENTION_DIMS["emb_dim"],
-                      vocab_size=MENTION_VOCAB, max_caption_len=32,
-                      max_mentions_per_caption=3)
-            t0 = time.perf_counter()
-            n_train = generate_dataset(d, "train", SynthConfig(
-                num_images=1100, seed=SEED, max_boxes_per_image=4,
-                **kw))["mentions"]
-            n_dev = generate_dataset(d, "dev", SynthConfig(
-                num_images=275, seed=SEED + 1, max_boxes_per_image=20,
-                **kw))["mentions"]
-            _widen_boxes(f"{d}/dev.boxes.npz", AFF_DIMS["box_dim"], SEED)
-            print(f"mention split: {n_train} train and {n_dev} dev mentions "
-                  f"written in {time.perf_counter() - t0:.1f} s")
-            if n_train < 10000 or n_dev < n_train // 5:
-                raise RuntimeError("the planted mention split is too small")
+        # the mention tasks read captions, mentions and their .feats:
+        # the train split keeps its boxes few and narrow (nothing here
+        # trains on them); dev, which the image tasks and the joint
+        # run score, has 20 boxes an image at 4096-d
+        kw = dict(planted=True, emb_dim=MENTION_DIMS["emb_dim"],
+                  vocab_size=MENTION_VOCAB, max_caption_len=32,
+                  max_mentions_per_caption=3)
+        t0 = time.perf_counter()
+        n_train = generate_dataset(d, "train", SynthConfig(
+            num_images=1100, seed=SEED, max_boxes_per_image=4,
+            **kw))["mentions"]
+        n_dev = generate_dataset(d, "dev", SynthConfig(
+            num_images=275, seed=SEED + 1, max_boxes_per_image=20,
+            **kw))["mentions"]
+        _widen_boxes(f"{d}/dev.boxes.npz", AFF_DIMS["box_dim"], SEED)
+        print(f"mention split: {n_train} train and {n_dev} dev mentions "
+              f"written in {time.perf_counter() - t0:.1f} s")
+        if n_train < 10000 or n_dev < n_train // 5:
+            raise RuntimeError("the planted mention split is too small")
 
-            def run(main_fn, argv):
-                """One command line: wall clock; its log lines in said."""
+        def run(main_fn, argv):
+            """One command line: wall clock; its log lines in said."""
+            said.lines.clear()
+            t0 = time.perf_counter()
+            main_fn(argv)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        _reset(kernels)
+        own = {}            # task -> the .scores its own CLI wrote
+        printed = {}        # task -> the accuracy line --eval printed
+        for task, (main_fn, _) in tasks.items():
+            common = ["--data_dir", d, "--device", "cuda", "--batch_size",
+                      str(MENTION_BATCH), "--seed", str(SEED)]
+            train = ["--train", "--ckpt_every", "40", "--eval_every", "20",
+                     *common]
+            whole, cut = f"{d}/{task}.model", f"{d}/{task}.cut"
+            # train: the model dir is the task's default, which the
+            # server and the joint run read
+            wall = run(main_fn, [*train, "--epochs", "10",
+                                 "--metrics_file", f"{d}/{task}.jsonl"])
+            loop = [re.search(r"training loop: (\d+) steps in (\S+) s "
+                              r"\((\S+) steps/s\)", ln)
+                    for ln in said.lines]
+            n_steps, loop_s, steps_s = next(
+                (int(m.group(1)), float(m.group(2)), float(m.group(3)))
+                for m in loop if m)
+            stalls = said.numbers(r"loop stalled (\d+) ms")
+            rows = [json.loads(ln) for ln in open(f"{d}/{task}.jsonl")]
+            evals = [r for r in rows if "eval_loss" in r]
+            losses = [r["loss"] for r in rows if "loss" in r]
+            if not (losses and evals and stalls
+                    and all(np.isfinite(x) for x in losses)
+                    and all(np.isfinite(r["eval_loss"]) for r in evals)):
+                raise RuntimeError(f"icl-torch-{task} --train: bad "
+                                   f"metrics {rows}")
+            times.append(
+                f"icl-torch-{task} --train [10 epochs of {n_train} "
+                f"mentions, {MENTION_BATCH} a batch, hidden "
+                f"{MENTION_DIMS['hidden']}, dropout {RATE}, eval every "
+                f"20 and checkpoint every 40 steps]: {n_steps} steps at "
+                f"{steps_s:.2f} steps/s, {10 * n_train / loop_s:.0f} "
+                f"mentions/s in the loop, {np.mean(stalls):.1f} ms the "
+                f"loop stalled per checkpoint save ({len(stalls)} "
+                f"saves), loss {losses[0]:.4f} -> {losses[-1]:.4f}, dev "
+                f"loss {evals[0]['eval_loss']:.4f} -> "
+                f"{evals[-1]['eval_loss']:.4f}, dev accuracy "
+                f"{evals[-1]['eval_acc']:.4f}; the command {wall:.2f} s")
+            # a run stopped half way whose end marker is deleted
+            run(main_fn, [*train, "--epochs", "5", "--model_file", cut])
+            steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
+                           if n.startswith("step_"))
+            os.unlink(f"{cut}/step_{steps[-1]}.pt")
+            start = torch.load(f"{cut}/step_{steps[-2]}.pt",
+                               weights_only=True)
+            if steps[-2] % 40 or start["epoch"] >= 5 \
+                    or not start["batch_in_epoch"]:
+                raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
+                                   f"is no periodic mid-epoch checkpoint")
+            run(main_fn, [*train, "--epochs", "10", "--resume", "auto",
+                          "--model_file", cut])
+            ends = [torch.load(f"{m}/step_{n_steps}.pt", weights_only=True)
+                    for m in (whole, cut)]
+            diff = _same_checkpoint(*ends)
+            print(f"check icl-torch-{task} --resume auto from step "
+                  f"{steps[-2]} (epoch {start['epoch']}, batch "
+                  f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
+                  f"weights and Adam state against the uninterrupted "
+                  f"run's, bit for bit: "
+                  f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
+            if diff:
+                raise RuntimeError(f"icl-torch-{task}: the resumed run "
+                                   f"differs in {diff[:5]}")
+
+            # predict twice on the card, once on the CPU
+            predict = ["--predict", "--eval", "--data_split", "dev",
+                       *common]
+            outs, tables = [], []
+            for k in (1, 2):
                 said.lines.clear()
                 t0 = time.perf_counter()
-                main_fn(argv)
+                tables.append(_captured(main_fn, [
+                    *predict, "--scores_file",
+                    f"{d}/{task}.{k}.scores"]))
                 torch.cuda.synchronize()
-                return time.perf_counter() - t0
-
-            _reset(kernels)
-            own = {}            # task -> the .scores its own CLI wrote
-            printed = {}        # task -> the accuracy line --eval printed
-            for task, (main_fn, _) in tasks.items():
-                common = ["--data_dir", d, "--device", "cuda", "--batch_size",
-                          str(MENTION_BATCH), "--seed", str(SEED)]
-                train = ["--train", "--ckpt_every", "40", "--eval_every", "20",
-                         *common]
-                whole, cut = f"{d}/{task}.model", f"{d}/{task}.cut"
-                # train: the model dir is the task's default, which the
-                # server and the joint run read
-                wall = run(main_fn, [*train, "--epochs", "10",
-                                     "--metrics_file", f"{d}/{task}.jsonl"])
-                loop = [re.search(r"training loop: (\d+) steps in (\S+) s "
-                                  r"\((\S+) steps/s\)", ln)
-                        for ln in said.lines]
-                n_steps, loop_s, steps_s = next(
-                    (int(m.group(1)), float(m.group(2)), float(m.group(3)))
-                    for m in loop if m)
-                stalls = said.numbers(r"loop stalled (\d+) ms")
-                rows = [json.loads(ln) for ln in open(f"{d}/{task}.jsonl")]
-                evals = [r for r in rows if "eval_loss" in r]
-                losses = [r["loss"] for r in rows if "loss" in r]
-                if not (losses and evals and stalls
-                        and all(np.isfinite(x) for x in losses)
-                        and all(np.isfinite(r["eval_loss"]) for r in evals)):
-                    raise RuntimeError(f"icl-torch-{task} --train: bad "
-                                       f"metrics {rows}")
+                wall = time.perf_counter() - t0
+                rate = said.numbers(r"predict sweep: .*\((\d+) "
+                                    r"mentions/s\)")
                 times.append(
-                    f"icl-torch-{task} --train [10 epochs of {n_train} "
-                    f"mentions, {MENTION_BATCH} a batch, hidden "
-                    f"{MENTION_DIMS['hidden']}, dropout {RATE}, eval every "
-                    f"20 and checkpoint every 40 steps]: {n_steps} steps at "
-                    f"{steps_s:.2f} steps/s, {10 * n_train / loop_s:.0f} "
-                    f"mentions/s in the loop, {np.mean(stalls):.1f} ms the "
-                    f"loop stalled per checkpoint save ({len(stalls)} "
-                    f"saves), loss {losses[0]:.4f} -> {losses[-1]:.4f}, dev "
-                    f"loss {evals[0]['eval_loss']:.4f} -> "
-                    f"{evals[-1]['eval_loss']:.4f}, dev accuracy "
-                    f"{evals[-1]['eval_acc']:.4f}; the command {wall:.2f} s")
-                # a run stopped half way whose end marker is deleted
-                run(main_fn, [*train, "--epochs", "5", "--model_file", cut])
-                steps = sorted(int(n[5:-3]) for n in os.listdir(cut)
-                               if n.startswith("step_"))
-                os.unlink(f"{cut}/step_{steps[-1]}.pt")
-                start = torch.load(f"{cut}/step_{steps[-2]}.pt",
-                                   weights_only=True)
-                if steps[-2] % 40 or start["epoch"] >= 5 \
-                        or not start["batch_in_epoch"]:
-                    raise RuntimeError(f"icl-torch-{task}: step {steps[-2]} "
-                                       f"is no periodic mid-epoch checkpoint")
-                run(main_fn, [*train, "--epochs", "10", "--resume", "auto",
-                              "--model_file", cut])
-                ends = [torch.load(f"{m}/step_{n_steps}.pt", weights_only=True)
-                        for m in (whole, cut)]
-                diff = _same_checkpoint(*ends)
-                print(f"check icl-torch-{task} --resume auto from step "
-                      f"{steps[-2]} (epoch {start['epoch']}, batch "
-                      f"{start['batch_in_epoch']}) to step {ends[1]['step']}: "
-                      f"weights and Adam state against the uninterrupted "
-                      f"run's, bit for bit: "
-                      f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
-                if diff:
-                    raise RuntimeError(f"icl-torch-{task}: the resumed run "
-                                       f"differs in {diff[:5]}")
+                    f"icl-torch-{task} --predict --eval [dev, {n_dev} "
+                    f"mentions, run {k}]: {rate[0]:.0f} mentions/s in "
+                    f"the sweep; the command {wall:.2f} s")
+                outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
+            own[task] = f"{d}/{task}.1.scores"
+            printed[task] = _accuracy_line(tables[0])
+            ids, probs = read_scores(own[task])
+            gold_ids, gold = read_feats_labels(f"{d}/dev.{task}.feats")
+            acc = float((probs.argmax(1) == gold.astype(int)).mean())
+            argv = [a if a != "cuda" else "cpu" for a in predict]
+            _captured(main_fn, [*argv, "--scores_file",
+                                f"{d}/{task}.cpu.scores"])
+            cpu_ids, cpu_probs = read_scores(f"{d}/{task}.cpu.scores")
+            perr = float(np.abs(probs - cpu_probs).max())
+            ok = (outs[0] == outs[1] and tables[0] == tables[1]
+                  and ids == list(gold_ids) == cpu_ids
+                  and len(ids) == n_dev and acc >= MENTION_GATE
+                  and perr <= PROBS_GATE
+                  and f"({int(round(acc * n_dev))}/{n_dev})"
+                  in printed[task])
+            print(f"check icl-torch-{task} --predict: two runs "
+                  f"byte-identical, {len(ids)} ids in dataset order, dev "
+                  f"accuracy {acc:.4f} (gate {MENTION_GATE}), --device "
+                  f"cpu from the same checkpoint max|d| {perr:.3e} (gate "
+                  f"{PROBS_GATE:.0e}): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"icl-torch-{task} --predict failed")
 
-                # predict twice on the card, once on the CPU
-                predict = ["--predict", "--eval", "--data_split", "dev",
-                           *common]
-                outs, tables = [], []
-                for k in (1, 2):
-                    said.lines.clear()
-                    t0 = time.perf_counter()
-                    tables.append(_captured(main_fn, [
-                        *predict, "--scores_file",
-                        f"{d}/{task}.{k}.scores"]))
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    rate = said.numbers(r"predict sweep: .*\((\d+) "
-                                        r"mentions/s\)")
-                    times.append(
-                        f"icl-torch-{task} --predict --eval [dev, {n_dev} "
-                        f"mentions, run {k}]: {rate[0]:.0f} mentions/s in "
-                        f"the sweep; the command {wall:.2f} s")
-                    outs.append(open(f"{d}/{task}.{k}.scores", "rb").read())
-                own[task] = f"{d}/{task}.1.scores"
-                printed[task] = _accuracy_line(tables[0])
-                ids, probs = read_scores(own[task])
-                gold_ids, gold = read_feats_labels(f"{d}/dev.{task}.feats")
-                acc = float((probs.argmax(1) == gold.astype(int)).mean())
-                argv = [a if a != "cuda" else "cpu" for a in predict]
-                _captured(main_fn, [*argv, "--scores_file",
-                                    f"{d}/{task}.cpu.scores"])
-                cpu_ids, cpu_probs = read_scores(f"{d}/{task}.cpu.scores")
-                perr = float(np.abs(probs - cpu_probs).max())
-                ok = (outs[0] == outs[1] and tables[0] == tables[1]
-                      and ids == list(gold_ids) == cpu_ids
-                      and len(ids) == n_dev and acc >= MENTION_GATE
-                      and perr <= PROBS_GATE
-                      and f"({int(round(acc * n_dev))}/{n_dev})"
-                      in printed[task])
-                print(f"check icl-torch-{task} --predict: two runs "
-                      f"byte-identical, {len(ids)} ids in dataset order, dev "
-                      f"accuracy {acc:.4f} (gate {MENTION_GATE}), --device "
-                      f"cpu from the same checkpoint max|d| {perr:.3e} (gate "
-                      f"{PROBS_GATE:.0e}): {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise RuntimeError(f"icl-torch-{task} --predict failed")
+            # export -> import into a fresh dir -> predict
+            export_cli.main(["--model_file", whole, "--out",
+                             f"{d}/{task}.export.npz"])
+            import_cli.main(["--npz", f"{d}/{task}.export.npz",
+                             "--model_file", f"{d}/{task}.imported"])
+            _captured(main_fn, [
+                *predict, "--model_file", f"{d}/{task}.imported",
+                "--scores_file", f"{d}/{task}.imported.scores"])
+            same = open(f"{d}/{task}.imported.scores", "rb").read() \
+                == outs[0]
+            print(f"check icl-torch-export -> icl-torch-import -> "
+                  f"icl-torch-{task} --predict: .scores byte-identical "
+                  f"to the trained model dir's: "
+                  f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError(f"{task}: the imported model scores "
+                                   f"differently")
+        quiet = _count(kernels, "the mention command lines")
+        if any(quiet.values()):
+            raise RuntimeError(f"a mention run launched a kernel: "
+                               f"{quiet}")
 
-                # export -> import into a fresh dir -> predict
-                export_cli.main(["--model_file", whole, "--out",
-                                 f"{d}/{task}.export.npz"])
-                import_cli.main(["--npz", f"{d}/{task}.export.npz",
-                                 "--model_file", f"{d}/{task}.imported"])
-                _captured(main_fn, [
-                    *predict, "--model_file", f"{d}/{task}.imported",
-                    "--scores_file", f"{d}/{task}.imported.scores"])
-                same = open(f"{d}/{task}.imported.scores", "rb").read() \
-                    == outs[0]
-                print(f"check icl-torch-export -> icl-torch-import -> "
-                      f"icl-torch-{task} --predict: .scores byte-identical "
-                      f"to the trained model dir's: "
-                      f"{'ok' if same else 'FAIL'}")
-                if not same:
-                    raise RuntimeError(f"{task}: the imported model scores "
-                                       f"differently")
-            quiet = _count(kernels, "the mention command lines")
-            if any(quiet.values()):
-                raise RuntimeError(f"a mention run launched a kernel: "
-                                   f"{quiet}")
+        # relation and affinity: an epoch on dev at full width into
+        # their default model dirs, then their own predicts
+        image = ["--data_dir", d, "--device", "cuda",
+                 "--images_per_batch", "64", "--seed", str(SEED)]
+        for task, main_fn in (("relation", relation_cli.main),
+                              ("affinity", affinity_cli.main)):
+            run(main_fn, ["--train", "--data_split", "dev", "--epochs",
+                          "1", *image])
+            own[task] = f"{d}/{task}.own.scores"
+            argv = ["--predict", "--eval", "--data_split", "dev", *image,
+                    "--scores_file", own[task]]
+            if task == "affinity":
+                own["rank"] = f"{d}/{task}.own.rank"
+                argv += ["--rank_file", own["rank"]]
+            printed[task] = _accuracy_line(_captured(main_fn, argv))
+        for task in ("nonvisual", "cardinality", "relation", "affinity"):
+            held = os.listdir(f"{d}/{task}.model")
+            if any(n.endswith(".npz") for n in held) \
+                    or os.path.exists(f"{d}/{task}.npz"):
+                raise RuntimeError(f"{task}: an archive beside the "
+                                   f"model dir")
 
-            # relation and affinity: an epoch on dev at full width into
-            # their default model dirs, then their own predicts
-            image = ["--data_dir", d, "--device", "cuda",
-                     "--images_per_batch", "64", "--seed", str(SEED)]
-            for task, main_fn in (("relation", relation_cli.main),
-                                  ("affinity", affinity_cli.main)):
-                run(main_fn, ["--train", "--data_split", "dev", "--epochs",
-                              "1", *image])
-                own[task] = f"{d}/{task}.own.scores"
-                argv = ["--predict", "--eval", "--data_split", "dev", *image,
-                        "--scores_file", own[task]]
-                if task == "affinity":
-                    own["rank"] = f"{d}/{task}.own.rank"
-                    argv += ["--rank_file", own["rank"]]
-                printed[task] = _accuracy_line(_captured(main_fn, argv))
-            for task in ("nonvisual", "cardinality", "relation", "affinity"):
-                held = os.listdir(f"{d}/{task}.model")
-                if any(n.endswith(".npz") for n in held) \
-                        or os.path.exists(f"{d}/{task}.npz"):
-                    raise RuntimeError(f"{task}: an archive beside the "
-                                       f"model dir")
+        # the server over the four model dirs
+        httpd = serve(d, port=0, warmup="basic")
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        try:
+            lat = _drive_mentions(httpd, d, tasks)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=10)
+        for task, ms in lat.items():
+            times.append(f"{task} request p50: client {ms['client_p50']:.2f}"
+                         f" ms over {ms['n']} requests of 64 mentions, "
+                         f"server predict p50 {ms['server_p50']} ms")
 
-            # the server over the four model dirs
-            httpd = serve(d, port=0, warmup="basic")
-            server = threading.Thread(target=httpd.serve_forever, daemon=True)
-            server.start()
-            try:
-                lat = _drive_mentions(httpd, d, tasks)
-            finally:
-                httpd.shutdown()
-                httpd.server_close()
-                server.join(timeout=10)
-            for task, ms in lat.items():
-                times.append(f"{task} request p50: client {ms['client_p50']:.2f}"
-                             f" ms over {ms['n']} requests of 64 mentions, "
-                             f"server predict p50 {ms['server_p50']} ms")
+        # the joint run: every file against the task's own CLI's
+        _reset(joint_kernels)
+        t0 = time.perf_counter()
+        tables = _captured(joint_cli.main, [
+            "--predict", "--eval", "--data_split", "dev", *image,
+            "--batch_size", str(MENTION_BATCH), "--with_cardinality",
+            "--with_rank"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read(joint_kernels, "icl-torch-joint")
+        per_unit["icl-torch-joint --with_cardinality --with_rank"] = \
+            launches
+        wrote = {t: f"{d}/dev.{t}.scores" for t in tasks}
+        wrote.update(relation=f"{d}/dev.relation.scores",
+                     affinity=f"{d}/dev.affinity.scores",
+                     rank=f"{d}/dev.affinity.rank")
+        differ = [t for t, path in wrote.items()
+                  if open(path, "rb").read() != open(own[t], "rb").read()]
+        lines = [ln for ln in tables.splitlines()
+                 if ln.startswith("Accuracy:")]
+        want = [printed[t] for t in ("nonvisual", "relation", "affinity",
+                                     "cardinality")]
+        print(f"check icl-torch-joint --with_cardinality --with_rank: "
+              f"{len(wrote)} files byte-equal to the tasks' own CLIs', "
+              f"the four tables' accuracies theirs: "
+              f"{'ok' if not differ and lines == want else 'FAIL'} "
+              f"{differ}")
+        if differ or lines != want:
+            raise RuntimeError(f"icl-torch-joint: {differ}, {lines} "
+                               f"against {want}")
+        sizes = {t: len(read_scores(p)[0]) for t, p in wrote.items()}
+        times.append(f"icl-torch-joint --with_cardinality --with_rank "
+                     f"--eval [dev, 275 images: {sizes}]: the command "
+                     f"{wall:.2f} s")
 
-            # the joint run: every file against the task's own CLI's
-            _reset(joint_kernels)
-            t0 = time.perf_counter()
-            tables = _captured(joint_cli.main, [
-                "--predict", "--eval", "--data_split", "dev", *image,
-                "--batch_size", str(MENTION_BATCH), "--with_cardinality",
-                "--with_rank"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = _read(joint_kernels, "icl-torch-joint")
-            per_unit["icl-torch-joint --with_cardinality --with_rank"] = \
-                launches
-            wrote = {t: f"{d}/dev.{t}.scores" for t in tasks}
-            wrote.update(relation=f"{d}/dev.relation.scores",
-                         affinity=f"{d}/dev.affinity.scores",
-                         rank=f"{d}/dev.affinity.rank")
-            differ = [t for t, path in wrote.items()
-                      if open(path, "rb").read() != open(own[t], "rb").read()]
-            lines = [ln for ln in tables.splitlines()
-                     if ln.startswith("Accuracy:")]
-            want = [printed[t] for t in ("nonvisual", "relation", "affinity",
-                                         "cardinality")]
-            print(f"check icl-torch-joint --with_cardinality --with_rank: "
-                  f"{len(wrote)} files byte-equal to the tasks' own CLIs', "
-                  f"the four tables' accuracies theirs: "
-                  f"{'ok' if not differ and lines == want else 'FAIL'} "
-                  f"{differ}")
-            if differ or lines != want:
-                raise RuntimeError(f"icl-torch-joint: {differ}, {lines} "
-                                   f"against {want}")
-            sizes = {t: len(read_scores(p)[0]) for t, p in wrote.items()}
-            times.append(f"icl-torch-joint --with_cardinality --with_rank "
-                         f"--eval [dev, 275 images: {sizes}]: the command "
-                         f"{wall:.2f} s")
+        # icl-torch-eval and icl-torch-check over what was written
+        for task in ("nonvisual", "cardinality", "relation", "affinity"):
+            table = _captured(evaluate_cli.main, [
+                "--task", task, "--scores", wrote[task], "--feats",
+                f"{d}/dev.{task}.feats", "--strict"])
+            if _accuracy_line(table) != printed[task]:
+                raise RuntimeError(f"icl-torch-eval {task}: "
+                                   f"{_accuracy_line(table)} against "
+                                   f"{printed[task]}")
+            found = _captured(check_cli.main, [
+                "--scores", wrote[task], "--task", task, "--strict"])
+            if "0 error(s), 0 warning(s)" not in found:
+                raise RuntimeError(f"icl-torch-check {task}: {found}")
+        ground = _captured(evaluate_cli.main, [
+            "--task", "grounding", "--scores", wrote["rank"], "--feats",
+            f"{d}/dev.affinity.feats", "--strict"])
+        found = _captured(check_cli.main, ["--data_dir", d,
+                                           "--data_split", "dev"])
+        if "0 error(s)" not in found:
+            raise RuntimeError(f"icl-torch-check: {found}")
+        print(f"check icl-torch-eval: the four accuracies --eval "
+              f"printed ({'; '.join(printed[t] for t in printed)}); "
+              f"{ground.strip()}; icl-torch-check of dev and the four "
+              f".scores: {found.strip().splitlines()[-1]}")
 
-            # icl-torch-eval and icl-torch-check over what was written
-            for task in ("nonvisual", "cardinality", "relation", "affinity"):
-                table = _captured(evaluate_cli.main, [
-                    "--task", task, "--scores", wrote[task], "--feats",
-                    f"{d}/dev.{task}.feats", "--strict"])
-                if _accuracy_line(table) != printed[task]:
-                    raise RuntimeError(f"icl-torch-eval {task}: "
-                                       f"{_accuracy_line(table)} against "
-                                       f"{printed[task]}")
-                found = _captured(check_cli.main, [
-                    "--scores", wrote[task], "--task", task, "--strict"])
-                if "0 error(s), 0 warning(s)" not in found:
-                    raise RuntimeError(f"icl-torch-check {task}: {found}")
-            ground = _captured(evaluate_cli.main, [
-                "--task", "grounding", "--scores", wrote["rank"], "--feats",
-                f"{d}/dev.affinity.feats", "--strict"])
-            found = _captured(check_cli.main, ["--data_dir", d,
-                                               "--data_split", "dev"])
-            if "0 error(s)" not in found:
-                raise RuntimeError(f"icl-torch-check: {found}")
-            print(f"check icl-torch-eval: the four accuracies --eval "
-                  f"printed ({'; '.join(printed[t] for t in printed)}); "
-                  f"{ground.strip()}; icl-torch-check of dev and the four "
-                  f".scores: {found.strip().splitlines()[-1]}")
-
-            profiles = _mention_profiles(d)
+        profiles = _mention_profiles(d)
     finally:
         logger.removeHandler(said)
     return {"launches": launches, "per_unit": per_unit, "times": times,
@@ -2050,6 +2097,483 @@ def _drive_mentions(httpd, d: str, tasks: dict) -> dict:
     for task in lat:
         lat[task]["server_p50"] = health["latency_ms"][task]["p50_ms"]
     return lat
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class _Ranks:
+    """``world`` processes of one ``python -m`` command line, each with its
+    output in a file and its launch counts in a stats file
+    (``ICL_TORCH_RUN_STATS``).  ``command(k, port)``: rank k's module and
+    arguments."""
+
+    live: list = []       # every process started and not yet reaped
+
+    def __init__(self, what: str, command, world: int, scratch: str):
+        self.what, self.world = what, world
+        tag = re.sub(r"\W+", "_", what)
+        self.stats = f"{scratch}/{tag}.stats"
+        self.logs = [f"{scratch}/{tag}.rank{k}.log" for k in range(world)]
+        env = dict(os.environ, ICL_TORCH_RUN_STATS=self.stats,
+                   ICL_TORCH_DIST_TIMEOUT="300",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        port = _free_port()
+        self.procs = []
+        for k in range(world):
+            with open(self.logs[k], "w") as out:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", *command(k, port)], env=env,
+                    stdout=out, stderr=subprocess.STDOUT,
+                    cwd=env["PYTHONPATH"]))
+        _Ranks.live += self.procs
+
+    @classmethod
+    def cli(cls, what: str, task: str, argv: list, world: int, scratch: str,
+            per_rank=None) -> "_Ranks":
+        """``icl_torch.cli.<task>``; the bootstrap flags when world > 1."""
+        def command(k, port):
+            boot = [] if world == 1 else [
+                "--coordinator", f"localhost:{port}", "--num_processes",
+                str(world), "--process_id", str(k)]
+            return [f"icl_torch.cli.{task}", *argv, *boot,
+                    *(per_rank(k) if per_rank else [])]
+        return cls(what, command, world, scratch)
+
+    def wait(self, timeout: float = 300.0) -> "_Ranks":
+        """Every rank's exit; raises with the log's end if one failed."""
+        deadline = time.monotonic() + timeout
+        for k, p in enumerate(self.procs):
+            try:
+                p.wait(max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                _Ranks.stop()
+                raise RuntimeError(f"{self.what}: rank {k} did not end in "
+                                   f"{timeout:.0f} s:\n{self.said(k)[-3000:]}")
+        for k, p in enumerate(self.procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"{self.what}: rank {k} exited with "
+                                   f"{p.returncode}:\n{self.said(k)[-3000:]}")
+        self.counts = []
+        for k in range(self.world):
+            with open(f"{self.stats}.rank{k}.json") as f:
+                self.counts.append(json.load(f))
+            for line in self.said(k).splitlines():
+                if "[WARNING] replicate" in line:     # ranks held to rank 0
+                    print(f"{self.what}, rank {k}: {line}")
+        return self
+
+    def said(self, k: int) -> str:
+        with open(self.logs[k]) as f:
+            return f.read()
+
+    def number(self, pattern: str, k: int = 0) -> float:
+        m = re.search(pattern, self.said(k))
+        if not m:
+            raise RuntimeError(f"{self.what}: rank {k} logged nothing like "
+                               f"{pattern!r}:\n{self.said(k)[-3000:]}")
+        return float(m.group(1))
+
+    def need(self, names, per_unit: dict) -> None:
+        """Every rank launched each of ``names``; books the counts."""
+        for k, c in enumerate(self.counts):
+            per_unit[f"{self.what}, rank {k} of {self.world}"] = c["launches"]
+            missing = [n for n in names if c["launches"][n] < 1]
+            if missing:
+                raise RuntimeError(f"{self.what}: rank {k} did not launch "
+                                   f"{missing}: {c['launches']}")
+
+    @staticmethod
+    def stop() -> None:
+        for p in _Ranks.live:
+            if p.poll() is None:
+                p.kill()
+        for p in _Ranks.live:
+            p.wait()
+        _Ranks.live = []
+
+
+def _weights_gap(a: str, b: str) -> tuple:
+    """(max |a - b|, the share of weights with |a - b| > 1e-5) over the
+    weights of two checkpoint files."""
+    wa = torch.load(a, weights_only=True)["model"]
+    wb = torch.load(b, weights_only=True)["model"]
+    if sorted(wa) != sorted(wb):
+        raise RuntimeError(f"{a} and {b} hold other weights")
+    gaps = torch.cat([(wa[k] - wb[k]).abs().flatten() for k in wa])
+    return float(gaps.max()), float((gaps > 1e-5).float().mean())
+
+
+def _rank_steps(cli_dir: str, scratch: str, emb, trained, per_unit) -> None:
+    """One grid-loss train step of each image task at full width as two
+    ranks on the card (``icl_torch.testing.dist_worker``: real ranks, gloo),
+    held to one process that runs the ranks' two half batches one after the
+    other (:func:`icl_torch.testing.dist_worker.split_step`): gradients and
+    loss within the kernel gate, the weights through Adam.  One process
+    over the whole batch in ONE call is printed beside it and held to
+    nothing: cuBLAS picks its kernel by the row count, so 64 rows round the
+    head's projections otherwise than 32 (by under 1e-6), and a ReLU unit
+    that close to zero then switches, which moves a few gradient rows by a
+    hundredth."""
+    dev = "cuda"
+    rel = [b.arrays for b in RelationBatcher(
+        images_per_batch=64, build_grid=True).batches(
+            load_relation_dataset(cli_dir, "train", emb))]
+    aff = [b.arrays for b in AffinityBatcher(
+        images_per_batch=64, box_dtype=np.float32, with_ids=False).batches(
+            load_affinity_dataset(cli_dir, "train", emb))]
+    ragged = [a for a in rel if 32 < int(a["img_valid"].sum()) < 64]
+    picked = {
+        "relation": max(rel, key=lambda a: int(a["pair_valid"].sum())),
+        # rank 1 feeds real images and padding
+        "relation_ragged": (ragged or rel)[-1],
+        "affinity": max(aff, key=lambda a: int(a["grid_valid"].sum()))}
+    cases = []
+    for name, arrays in picked.items():
+        task = name.split("_")[0]
+        dims = DIMS if task == "relation" else AFF_DIMS
+        params = {k: v.numpy() for k, v in init_params(task, SEED,
+                                                       dims).items()}
+        np.savez(f"{scratch}/{name}.npz", table=emb.table,
+                 **{f"batch/{k}": v for k, v in arrays.items()},
+                 **{f"param/{k}": v for k, v in params.items()})
+        cases.append({"name": name, "task": task, "steps": 1, "seed": SEED,
+                      "model": {**dims, "fused": True, "dropout": RATE},
+                      "grid_loss": True, "class_weights":
+                          [0.3, 1.0, 1.0, 1.0] if task == "relation"
+                          else None})
+    with open(f"{scratch}/cases.json", "w") as f:
+        json.dump(cases, f)
+    ranks = _Ranks("two ranks: one train step a case",
+                   lambda k, port: ["icl_torch.testing.dist_worker", "steps",
+                                    str(k), "2", str(port), scratch, "2",
+                                    dev], 2, scratch)
+    own = {c["name"]: {n: dist_worker.run_case(scratch, c, None, dev, split=n)
+                       for n in (2, 1)} for c in cases}
+    ranks.wait().need(trained, per_unit)
+    for c in cases:
+        name, images = c["name"], int(picked[c["name"]]["img_valid"].sum())
+        r0, r1 = (dict(np.load(f"{scratch}/{name}.rank{k}.npz"))
+                  for k in range(2))
+        equal = all(np.array_equal(r0[k], r1[k]) for k in r0)
+        gaps = {}
+        for n, one in own[name].items():
+            for kind in ("grad", "param"):
+                keys = [k for k in one if k.startswith(kind + "/")]
+                gaps[n, kind] = max(
+                    float(np.abs(r0[k] - one[k]).max())
+                    / max(1.0, float(np.abs(one[k]).max())) for k in keys)
+            apart = np.concatenate([np.abs(r0[k] - one[k]).ravel()
+                                    for k in one if k.startswith("param/")])
+            gaps[n, "share"] = float((apart > 1e-5).mean())
+            gaps[n, "loss"] = abs(float(r0["loss"][0] - one["loss"][0]))
+        # the weights are held through Adam, whose first step moves a
+        # weight by (learning rate) x g / (|g| + 1e-8): where |g| is of the
+        # size of 1e-8 the last bit of a sum shows as 1e-5 in the weight
+        ok = (equal and gaps[2, "grad"] <= KERNEL_GATE
+              and gaps[2, "loss"] <= KERNEL_GATE and gaps[2, "share"] <= 1e-4)
+        print(f"check two ranks, one {c['task']} train step on the card "
+              f"[{name}: {images} images of 64, 32 rows a rank]: the ranks' "
+              f"weights and gradients equal bit for bit: {equal}; against "
+              f"one process over the same two half batches max|d| "
+              f"gradients {gaps[2, 'grad']:.3e}, loss {gaps[2, 'loss']:.3e} "
+              f"(gate {KERNEL_GATE:.0e} x max(1, max|that|)), weights "
+              f"{gaps[2, 'param']:.3e} with {gaps[2, 'share']:.2e} of them "
+              f"beyond 1e-5 (gate 1e-4 of them): {'ok' if ok else 'FAIL'}; "
+              f"against one process over the whole batch in one call (other "
+              f"row counts, other roundings; held to nothing): gradients "
+              f"{gaps[1, 'grad']:.3e}, loss {gaps[1, 'loss']:.3e}, weights "
+              f"{gaps[1, 'param']:.3e} with {gaps[1, 'share']:.2e} beyond "
+              f"1e-5")
+        if not ok:
+            raise RuntimeError(f"two ranks: the {name} step disagrees with "
+                               f"one process over the same half batches")
+
+
+def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
+    """Data parallelism on the one card: a world of one over NCCL in this
+    process, then the command lines as two ranks that share the card (gloo
+    through the host), against the same command lines as one process."""
+    dev = torch.device("cuda")
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
+               "affinity_rank": affinity_rank}
+    _reset(kernels)
+    per_unit, times = {}, []
+    emb = EmbeddingStore.load(f"{cli_dir}/embeddings.txt")
+    table = torch.from_numpy(emb.table).to(dev)
+
+    # a world of one, NCCL: the data-parallel step is the plain step
+    rt = runtime.init(None, seed=SEED, coordinator=f"localhost:{_free_port()}",
+                      num_processes=1, process_id=0, device="cuda")
+    if rt.backend != "nccl":
+        raise RuntimeError(f"a world of one on the card chose {rt.backend}")
+    ds = load_relation_dataset(cli_dir, "train", emb)
+    batch = max((b.arrays for b in RelationBatcher(
+        images_per_batch=64, build_grid=True).batches(ds)),
+        key=lambda a: int(a["pair_valid"].sum()))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    ends = []
+    for mesh in (rt.mesh, None):
+        model = RelationModel(**DIMS, fused=True, dropout=RATE, device=dev)
+        state = create_train_state(model, seed=SEED)
+        step = make_relation_train_step(class_weights=[0.3, 1.0, 1.0, 1.0],
+                                        grid_loss=True, mesh=mesh)
+        metrics = step(state, table, batch)
+        ends.append((model.flat_params(), float(metrics["loss"])))
+    floats = {"relation": sum(p.numel() for p in model.parameters())}
+    grads = [p.grad for p in model.parameters()]
+    calls = dist_mesh.REDUCE_STATS["calls"]
+    nccl_ms = _time_ms(lambda: dist_mesh.all_reduce_sum(grads, rt.mesh))
+    same = (ends[0][1] == ends[1][1] and all(
+        torch.equal(v, ends[1][0][k]) for k, v in ends[0][0].items()))
+    print(f"check a world of one over NCCL (runtime.init chose "
+          f"{rt.backend}; the only NCCL evidence one card can give): one "
+          f"relation train step at full width [I=64, "
+          f"{int(batch['pair_valid'].sum())} pairs] through the "
+          f"data-parallel step against the plain step, "
+          f"{len(ends[0][0])} tensors and the loss bit for bit: "
+          f"{'ok' if same and calls == 2 else 'FAIL'}; the flat gradient "
+          f"all-reduce of {floats['relation']} floats "
+          f"({4 * floats['relation']} bytes) over one rank: "
+          f"{nccl_ms:.4f} ms a call by CUDA events ({card})")
+    if not same or calls != 2:
+        raise RuntimeError("the data-parallel step over one rank differs "
+                           "from the plain step")
+    runtime.shutdown()
+    del batch, ends, grads, model, state
+    floats["affinity"] = sum(p.numel() for p in AffinityModel(
+        **AFF_DIMS, device=dev).parameters())
+    scratch = f"{cli_dir}/ranks"
+    os.makedirs(scratch)
+    trained = ("lstm_recurrence", "grid_head_train_loss_fwd",
+               "grid_head_train_loss_bwd")
+    try:
+        _rank_steps(cli_dir, scratch, emb, trained, per_unit)
+    finally:
+        _Ranks.stop()
+
+    image = ["--device", "cuda", "--images_per_batch", "64", "--seed",
+             str(SEED)]
+    men = ["--data_dir", men_dir, "--device", "cuda", "--batch_size",
+           str(MENTION_BATCH), "--seed", str(SEED)]
+    try:
+        # round 1: a first epoch with a checkpoint a step, two ranks and
+        # (here, meanwhile) one process; nonvisual a whole epoch
+        def first(task, d, extra):
+            return ["--train", "--data_dir", d, *extra, "--epochs", "1",
+                    "--ckpt_every", "1"]
+        runs = {
+            "relation": _Ranks.cli(
+                "two ranks: icl-torch-relation --train", "relation",
+                [*first("relation", cli_dir, image), "--model_file",
+                 f"{scratch}/relation.mp"], 2, scratch,
+                lambda k: ["--metrics_file", f"{scratch}/relation.{k}.jsonl",
+                           "--eval_every", "1"]),
+            "affinity": _Ranks.cli(
+                "two ranks: icl-torch-affinity --train", "affinity",
+                [*first("affinity", cli_dir, image), "--model_file",
+                 f"{scratch}/affinity.mp"], 2, scratch),
+            "nonvisual": _Ranks.cli(
+                "two ranks: icl-torch-nonvisual --train", "nonvisual",
+                ["--train", *men, "--epochs", "1", "--model_file",
+                 f"{scratch}/nonvisual.mp"], 2, scratch)}
+        relation_cli.main([*first("relation", cli_dir, image), "--model_file",
+                           f"{scratch}/relation.one", "--eval_every", "1"])
+        affinity_cli.main([*first("affinity", cli_dir, image), "--model_file",
+                           f"{scratch}/affinity.one"])
+        nonvisual_cli.main(["--train", *men, "--epochs", "1", "--model_file",
+                            f"{scratch}/nonvisual.one"])
+        for task, r in runs.items():
+            r.wait()
+            for k in range(2):
+                if "sums over gloo" not in r.said(k):
+                    raise RuntimeError(f"{r.what}: rank {k} did not log "
+                                       f"gloo:\n{r.said(k)[-2000:]}")
+            if task != "nonvisual":
+                r.need(trained, per_unit)
+        # the earliest step both runs still hold (a model dir keeps its
+        # three newest checkpoints: step 1 where the epoch has three steps)
+        early = {}
+        for task in ("relation", "affinity"):
+            n = min(int(f[5:-3]) for f in os.listdir(f"{scratch}/{task}.mp")
+                    if f.startswith("step_"))
+            early[task] = (n, _weights_gap(f"{scratch}/{task}.mp/step_{n}.pt",
+                                           f"{scratch}/{task}.one/step_{n}.pt"))
+        # round 2: the relation run resumed to 5 epochs, two ranks and one
+        # process; meanwhile the three sharded predicts
+        more = ["--train", "--data_dir", cli_dir, *image, "--epochs", "5",
+                "--resume", "auto"]
+        resumed = _Ranks.cli("two ranks: icl-torch-relation --train "
+                             "--resume auto", "relation",
+                         [*more, "--model_file", f"{scratch}/relation.mp"],
+                         2, scratch)
+        predicts = {}
+        for task, d, model_dir, extra in (
+                ("relation", cli_dir, f"{cli_dir}/relation.whole", image),
+                ("affinity", cli_dir, f"{cli_dir}/affinity.whole", image),
+                ("nonvisual", men_dir, f"{men_dir}/nonvisual.model",
+                 men[2:])):
+            argv = ["--predict", "--eval", "--data_split", "dev",
+                    "--data_dir", d, *extra, "--model_file", model_dir,
+                    "--scores_file", f"{scratch}/{task}.mp.scores"]
+            if task == "affinity":
+                argv += ["--rank_file", f"{scratch}/{task}.mp.rank"]
+            predicts[task] = (_Ranks.cli(
+                f"two ranks: icl-torch-{task} --predict --eval", task, argv,
+                2, scratch), argv)
+        relation_cli.main([*more, "--model_file", f"{scratch}/relation.one"])
+        resumed.wait().need(trained, per_unit)
+
+        # the weights against the one-process command line's.  That run
+        # feeds 64 rows a call where a rank feeds 32, so the two round
+        # otherwise (see _rank_steps), and Adam, whose first steps move
+        # every weight by the learning rate whatever its gradient's size,
+        # carries a switched unit into many weights.  Held to: early on,
+        # all but a ten-thousandth of the weights within 1e-5; at the end,
+        # no weight farther than a quarter of learning rate x steps (two
+        # runs that stepped apart every time would be 8 times that), and
+        # every rank's log saying the ranks ended with one state.
+        for task, ends in (("relation", [runs["relation"], resumed]),
+                           ("affinity", [runs["affinity"]]),
+                           ("nonvisual", [runs["nonvisual"]])):
+            mp, one = f"{scratch}/{task}.mp", f"{scratch}/{task}.one"
+            steps = [sorted(int(n[5:-3]) for n in os.listdir(m)
+                            if n.startswith("step_")) for m in (mp, one)]
+            last = steps[0][-1]
+            far, share = _weights_gap(f"{mp}/step_{last}.pt",
+                                      f"{one}/step_{last}.pt")
+            said = (f"after step {last} max|d| {far:.3e} (gate "
+                    f"{0.25e-3 * last:.2e}), {share:.2e} of them beyond 1e-5")
+            ok = far <= 0.25e-3 * last
+            if task in early:
+                n, (far1, share1) = early[task]
+                said = (f"after step {n} {share1:.2e} of the weights beyond "
+                        f"1e-5 (gate 1e-4; max|d| {far1:.3e}), " + said)
+                ok = ok and share1 <= 1e-4
+            one_state = all(
+                "replicate: the trained state equal on all 2 ranks"
+                in r.said(k) for r in ends for k in range(2))
+            listing = sorted(os.listdir(mp))
+            alone = (all(n.startswith("step_") or n in (
+                "model_config.json", "train_config.json") for n in listing)
+                and os.path.exists(f"{scratch}/relation.0.jsonl")
+                and not os.path.exists(f"{scratch}/relation.1.jsonl"))
+            with open(f"{mp}/train_config.json") as f:
+                cfg = json.load(f)
+            ok = (ok and alone and one_state and steps[0] == steps[1]
+                  and last >= 3 and cfg["_num_devices"] == 2
+                  and cfg["_reduce_backend"] == "gloo")
+            print(f"check two ranks: icl-torch-{task} --train against one "
+                  f"process from one seed: {said}; the ranks ended with one "
+                  f"state, bit for bit: {one_state}; the model dir holds "
+                  f"rank 0's files alone {listing} (rank 1 left no metrics "
+                  f"file of its own); train_config.json: "
+                  f"{cfg['_num_devices']} devices, "
+                  f"{cfg['_reduce_backend']}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"two ranks: icl-torch-{task} --train "
+                                   f"failed its check")
+        # what the two trained relation models say of dev
+        probs = []
+        for tag in ("mp", "one"):
+            _captured(relation_cli.main, [
+                "--predict", "--data_dir", cli_dir, "--data_split", "dev",
+                *image, "--model_file", f"{scratch}/relation.{tag}",
+                "--scores_file", f"{scratch}/trained.{tag}.scores"])
+            probs.append(read_scores(f"{scratch}/trained.{tag}.scores")[1])
+        apart = float(np.abs(probs[0] - probs[1]).max())
+        print(f"check two ranks: dev probabilities of the relation model "
+              f"two ranks trained against the one a single process trained "
+              f"({len(probs[0])} pairs): max|d| {apart:.3e} (gate 5e-3): "
+              f"{'ok' if apart <= 5e-3 else 'FAIL'}")
+        if apart > 5e-3:
+            raise RuntimeError("the two-rank model scores dev otherwise")
+
+        # the sharded predicts against the one-process files and tables
+        for task, (r, argv) in predicts.items():
+            r.wait()
+            names = ["lstm_recurrence", "grid_head"] + (
+                ["affinity_rank"] if task == "affinity" else [])
+            r.need(names if task != "nonvisual" else [], per_unit)
+            mains = {"relation": relation_cli.main,
+                     "affinity": affinity_cli.main,
+                     "nonvisual": nonvisual_cli.main}
+            one = [a.replace(".mp.", ".one.") for a in argv]
+            table_one = _captured(mains[task], one)
+            tables = [r.said(k) for k in range(2) if "Accuracy:" in r.said(k)]
+            files = [f"{scratch}/{task}.mp.scores"] + (
+                [f"{scratch}/{task}.mp.rank"] if task == "affinity" else [])
+            worst, same_ids = 0.0, True
+            for path in files:
+                ids, probs = read_scores(path)
+                ids1, probs1 = read_scores(path.replace(".mp.", ".one."))
+                same_ids = same_ids and ids == ids1 and len(ids) > 1000
+                worst = max(worst, float(np.abs(probs - probs1).max()))
+            first_file = (f"{cli_dir}/{task}.1.scores" if task != "nonvisual"
+                          else f"{men_dir}/{task}.1.scores")
+            with open(first_file, "rb") as f, open(files[0].replace(
+                    ".mp.", ".one."), "rb") as g:
+                as_before = f.read() == g.read()
+            left = [n for n in os.listdir(scratch) if "part-" in n]
+            ok = (same_ids and worst <= 1.0000001e-6 and as_before
+                  and len(tables) == 1 and not left
+                  and _accuracy_line(table_one) in tables[0]
+                  and table_one.strip() in tables[0])
+            print(f"check two ranks: icl-torch-{task} --predict --eval"
+                  f"{' --rank_file' if task == 'affinity' else ''} on dev: "
+                  f"{len(ids)} ids in the one-process file's order (that "
+                  f"file byte-equal to the earlier phase's), probabilities "
+                  f"max|d| {worst:.1e} (gate: one unit of the sixth "
+                  f"decimal), the table printed once and equal "
+                  f"({_accuracy_line(table_one)}), no part file left: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"two ranks: icl-torch-{task} --predict "
+                                   f"failed its check")
+
+        # round 3: the loop's speed, 20 epochs with no eval and no periodic
+        # save: two ranks, then one process started the same way
+        timing = ["--train", "--data_dir", cli_dir, *image, "--epochs", "20",
+                  "--ckpt_every", "0"]
+        speed = {}
+        for world in (2, 1):
+            r = _Ranks.cli(f"{world} rank(s): icl-torch-relation --train, "
+                           f"20 epochs", "relation",
+                       [*timing, "--model_file", f"{scratch}/speed.{world}"],
+                       world, scratch).wait()
+            speed[world] = r.number(r"training loop: .*\((\S+) steps/s\)")
+            n_steps = int(r.number(r"training loop: (\d+) steps"))
+            if world == 2:
+                r.need(trained, per_unit)
+                reduce_ms = [r.number(r"all-reduce \(gloo\): \d+ calls, "
+                                      r"(\S+) ms", k) for k in range(2)]
+                reduce_bytes = r.number(r"all-reduce \(gloo\): .* ms and "
+                                        r"(\d+) bytes a step")
+        times.append(
+            f"two ranks on one card, icl-torch-relation --train [{n_steps} "
+            f"steps of 64 images, 32 a rank, no eval, no periodic save]: "
+            f"{speed[2]:.2f} steps/s in the loop, one process started the "
+            f"same way {speed[1]:.2f} steps/s; the all-reduces (four loss "
+            f"sums, then the gradients) {reduce_ms[0]:.3f} / "
+            f"{reduce_ms[1]:.3f} ms a step on ranks 0 / 1 and "
+            f"{reduce_bytes:.0f} bytes a step, backend gloo through a "
+            f"pinned host buffer (both ranks on cuda:0, so NCCL is not "
+            f"chosen); trained floats: relation {floats['relation']} "
+            f"({4 * floats['relation']} bytes of gradients a step), "
+            f"affinity {floats['affinity']} ({4 * floats['affinity']} "
+            f"bytes)")
+    finally:
+        _Ranks.stop()
+    launches = _count(kernels, "this process over the two-rank phase")
+    for counts in per_unit.values():
+        for k, n in counts.items():
+            launches[k] += n
+    print(f"check launches over the two-rank phase, both ranks of every "
+          f"run and this process: {launches}")
+    return {"launches": launches, "per_unit": per_unit, "times": times}
 
 
 if __name__ == "__main__":

@@ -2,13 +2,22 @@
 
 One argparse entry per task with the reference's flag names and defaults
 kept verbatim, plus ``--device`` (``cuda`` unless the CPU is asked for, as
-``icl-torch-serve``).  Every flag of the reference parses here.  A flag
-whose machinery the port does not have yet is accepted by name and refused
-by value with :class:`RefusedFlagError`, never ignored:
+``icl-torch-serve``).  Every flag of the reference parses here.
 
-* ``--mesh``, ``--coordinator``, ``--num_processes`` > 1, ``--process_id``:
-  the port runs one process on one device (``torch.distributed`` is not
-  ported);
+``--coordinator host:port --num_processes N --process_id k`` start one rank
+of a data-parallel run over ``torch.distributed`` (:func:`init_runtime`,
+:mod:`icl_torch.runtime`): one process drives one device, ``--mesh D`` or
+``DxM`` lays the N ranks out (default: all on the data axis) and must cover
+every rank.  ``--train`` shards each batch's rows over the data axis and
+sums the gradients over the ranks; ``--predict`` gives each rank a
+contiguous slice of the split and merges the ranks' part files
+(:func:`begin_predict`).  A coordinator without ``--process_id`` runs one
+process, with a warning.  Only rank 0 writes the model dir, the metrics
+file and the merged outputs, so the ranks must share their storage.
+
+A flag whose machinery the port does not have yet is accepted by name and
+refused by value with :class:`RefusedFlagError`, never ignored:
+
 * ``--compute_dtype bf16``: the port's models and kernels are f32;
 * ``--oracle-parity``, ``--oracle-parity-full``: the Keras oracle is not
   ported;
@@ -33,7 +42,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 from icl_torch.data.buckets import BucketSpec
@@ -86,8 +94,10 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--learn_rate", type=float, default=1e-3)
     p.add_argument("--mesh", default=None,
-                   help="device topology; refused: the port runs on one "
-                        "device")
+                   help="process topology 'D' or 'DxM' (data x model) over "
+                        "the --num_processes ranks, one device each; it must "
+                        "cover every rank. Default: all ranks on the data "
+                        "axis")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of the training loop "
                         "(chrome trace JSON) into this directory")
@@ -130,11 +140,15 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
                         "match this entry point. Parse via "
                         "parse_task_args()")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator; refused: one process")
+                   help="host:port where rank 0 listens for the "
+                        "torch.distributed rendezvous (tcp://host:port); "
+                        "without --process_id the run stays one process")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="total process count; more than 1 is refused")
+                   help="total process count of the data-parallel run")
     p.add_argument("--process_id", type=int, default=None,
-                   help="this host's process index; refused: one process")
+                   help="this process's rank in [0, --num_processes); "
+                        "giving it starts the multi-process run and needs "
+                        "--coordinator and --num_processes")
     p.add_argument("--no_prune_embeddings", dest="prune_embeddings",
                    action="store_false",
                    help="load the full embedding table instead of pruning "
@@ -217,16 +231,6 @@ def refuse_unported(args, task: str | None = None) -> None:
     log the flags that have no effect in ``task``'s entry point (the
     mention tasks read ``--hidden_width`` and ``--batch_size``; the image
     tasks do not)."""
-    one = "the port runs one process on one device (torch.distributed is " \
-          "not ported)"
-    if args.mesh is not None:
-        raise RefusedFlagError("--mesh", one)
-    if args.coordinator is not None:
-        raise RefusedFlagError("--coordinator", one)
-    if args.num_processes is not None and args.num_processes > 1:
-        raise RefusedFlagError("--num_processes", one)
-    if args.process_id is not None:
-        raise RefusedFlagError("--process_id", one)
     if args.compute_dtype != "f32":
         raise RefusedFlagError(
             "--compute_dtype", f"{args.compute_dtype} is not ported: the "
@@ -258,15 +262,58 @@ def refuse_unported(args, task: str | None = None) -> None:
                     args.batch_size)
 
 
-def resolve_device(args) -> torch.device:
-    """``--device`` as a torch device; raises when the GPU is asked for
-    (the default) and there is none.  Nothing falls back to the CPU."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {args.device}: no CUDA device; the CLIs run on the "
-            f"GPU unless the CPU is asked for (--device cpu)")
-    return device
+def init_runtime(args):
+    """``runtime.init`` from the parsed flags: the process group when
+    ``--process_id`` is given, this rank's device (``--device``; raises
+    when the GPU is asked for, the default, and there is none: nothing
+    falls back to the CPU), the mesh."""
+    from icl_torch import runtime
+
+    return runtime.init(args.mesh, seed=args.seed,
+                        coordinator=args.coordinator,
+                        num_processes=args.num_processes,
+                        process_id=args.process_id, device=args.device)
+
+
+def round_to_data_axis(rows: int, rt, predict: bool, what: str) -> int:
+    """``--images_per_batch`` / ``--batch_size`` rounded up to a multiple of
+    the data axis this run's batches shard over, with a warning."""
+    from icl_torch.dist.mesh import sweep_data_axis_size
+
+    ndev = sweep_data_axis_size(rt.mesh, predict)
+    if rows % ndev:
+        rows = ((rows + ndev - 1) // ndev) * ndev
+        LOG.warning("%s rounded to %d for %d devices", what, rows, ndev)
+    return rows
+
+
+def begin_predict(rt, n_examples: int, weights=None) -> tuple[int, int]:
+    """Set up the (possibly multi-process) predict sweep: the ``[lo, hi)``
+    slice of the dataset's examples this process sweeps.
+
+    Single-process: ``(0, n_examples)``.  Multi-process: every rank sweeps
+    its own contiguous example slice on its own device (independent
+    programs, no collectives: a fast rank never stalls on a slow one); the
+    model and the table already lie there.  The per-rank `.scores` shards
+    merge via :func:`icl_torch.io.scores.write_scores_sharded`.
+
+    ``weights``: optional per-example sweep cost (pair or cell counts for
+    the image-keyed tasks): balances the ranks' wall clock, not just their
+    example counts (:func:`icl_torch.dist.mesh.predict_partition`).
+
+    ``--eval`` shards too: each rank accumulates its slice's confusion
+    counts and :func:`icl_torch.eval.scoredict.merge_sharded` sums the
+    (additive) part tables on process 0: the single-process table.
+    """
+    from icl_torch.dist.mesh import (predict_partition, process_count,
+                                     process_index)
+
+    if process_count() == 1:
+        return 0, n_examples
+    lo, hi = predict_partition(n_examples, weights)
+    LOG.info("sharded predict: process %d/%d sweeps examples [%d, %d) "
+             "on %s", process_index(), process_count(), lo, hi, rt.device)
+    return lo, hi
 
 
 def apply_precision(args) -> None:
@@ -394,12 +441,17 @@ def restore_for_predict(state, model_dir: str, task: str) -> None:
         state.step = int(json.load(f).get("step", 0))
 
 
-def dump_run_config(args, model_dir: str, device: torch.device) -> None:
-    """Write the fully-resolved flag set next to the checkpoints."""
+def dump_run_config(args, model_dir: str, rt) -> None:
+    """Write the fully-resolved flag set next to the checkpoints, with the
+    world size, the mesh and the backend of the gradient sums (call it on
+    the main process only)."""
+    device = rt.device
     os.makedirs(model_dir, exist_ok=True)
     info = {k: v for k, v in vars(args).items()}
     info["_platform"] = "gpu" if device.type == "cuda" else device.type
-    info["_num_devices"] = 1
+    info["_num_devices"] = rt.mesh.world
+    info["_mesh"] = dict(rt.mesh.shape)
+    info["_reduce_backend"] = rt.backend
     if device.type == "cuda":
         info["_device_kind"] = torch.cuda.get_device_name(device)
     try:
@@ -422,12 +474,6 @@ def to_device(arrays, device: torch.device):
     """A batcher's numpy arrays (a dict, or a tuple of them) as tensors on
     ``device``: on CUDA through pinned memory with ``non_blocking`` copies,
     so the copy overlaps the work already queued."""
-    def put(v):
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type != "cuda":
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
+    from icl_torch.dist.mesh import shard_batch_local
 
-    if isinstance(arrays, dict):
-        return {k: put(v) for k, v in arrays.items()}
-    return tuple(put(v) for v in arrays)
+    return shard_batch_local(arrays, None, device)

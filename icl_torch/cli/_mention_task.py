@@ -12,13 +12,20 @@ The model dir (``--model_file``) is laid out as the image tasks' is:
 ``<task>.npz`` (+ manifest) from ``icl-export``.  ``--predict`` takes the
 newest checkpoint, else the archive, else the initial weights with a
 warning; the hidden width comes from ``model_config.json`` (or the
-archive's manifest) when there is one.  Single process: the reference's
-multi-process branches are not ported.
+archive's manifest) when there is one.
+
+With ``--coordinator``, ``--num_processes`` and ``--process_id`` the run is
+one rank of a data-parallel one (:mod:`icl_torch.cli._common`).  Mention
+batches are cheap to assemble, so in ``--train`` every rank builds the
+(rng-deterministic, hence identical) global batch and feeds its own row
+slice; ``--predict`` sweeps the rank's contiguous slice of the mentions and
+rank 0 merges the ``.scores`` parts and the ``--eval`` tables.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import time
@@ -26,13 +33,15 @@ import time
 import numpy as np
 import torch
 
-from icl_torch.cli._common import (apply_precision, default_model_dir,
-                                   default_scores_path, dump_run_config,
+from icl_torch.cli._common import (apply_precision, begin_predict,
+                                   default_model_dir, default_scores_path,
+                                   dump_run_config, init_runtime,
                                    load_embeddings, read_model_config,
-                                   resolve_device, restore_for_predict,
+                                   restore_for_predict, round_to_data_axis,
                                    to_device, weights_archive)
 from icl_torch.data.buckets import Bucketizer, BucketSpec
 from icl_torch.data.pipeline import load_mention_dataset
+from icl_torch.dist.mesh import is_main_process, local_data_rows
 from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.train.evalhook import build_mention_eval_hook
@@ -43,7 +52,8 @@ from icl_torch.util.log import LOG
 
 
 def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
-    device = resolve_device(args)
+    rt = init_runtime(args)
+    device = rt.device
     apply_precision(args)
     emb = load_embeddings(args)
     table = torch.from_numpy(emb.table).to(device)
@@ -62,33 +72,40 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     if archive:
         LOG.info("weights from %s", archive)
 
-    bz = Bucketizer(BucketSpec((ds.max_len,)), batch_size=args.batch_size)
+    bs = round_to_data_axis(args.batch_size, rt, bool(args.predict),
+                            "batch_size")
+    bz = Bucketizer(BucketSpec((ds.max_len,)), batch_size=bs)
     arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
               "labels": ds.labels}
 
     if args.train:
-        step = make_mention_train_step()
+        step = make_mention_train_step(mesh=rt.mesh)
+        lo, hi = local_data_rows(rt.mesh, bs)    # one process: every row
 
         def make_batches(epoch_rng, skip=0):
             for _, b in bz.batches(ds.lengths, arrays, ds.ids,
                                    shuffle_rng=epoch_rng, skip=skip):
-                yield to_device((b.arrays["token_ids"], b.arrays["lengths"],
-                                 b.arrays["labels"], b.valid), device)
+                tup = (b.arrays["token_ids"], b.arrays["lengths"],
+                       b.arrays["labels"], b.valid)
+                yield to_device(tuple(a[lo:hi] for a in tup), device)
 
-        eval_fn = build_mention_eval_hook(args, model, table, task, emb, bz)
-        dump_run_config(args, model_dir, device)
+        eval_fn = build_mention_eval_hook(args, model, table, task, emb, bz,
+                                          mesh=rt.mesh)
+        if is_main_process():
+            dump_run_config(args, model_dir, rt)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,
                          metrics_path=args.metrics_file, seed=args.seed,
                          eval_every=args.eval_every,
-                         early_stop=args.early_stop)
+                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, *a: step(s, table, *a),
                              make_batches, cfg, eval_fn=eval_fn)
-        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-            json.dump({"task": task, "hidden": hidden,
-                       "num_classes": len(classes),
-                       "dropout": args.dropout}, f)
+        if is_main_process():
+            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+                json.dump({"task": task, "hidden": hidden,
+                           "num_classes": len(classes),
+                           "dropout": args.dropout}, f)
         LOG.info("trained to step %d; checkpoints in %s", state.step,
                  model_dir)
         return
@@ -96,6 +113,18 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     # --predict
     restore_for_predict(state, model_dir, task)
     model.eval()
+    # multi-process: this rank sweeps mentions[lo:hi) on its own device
+    total_mentions = len(ds.ids)
+    lo, hi = begin_predict(rt, len(ds.ids))
+    if (lo, hi) != (0, len(ds.ids)):
+        ds = dataclasses.replace(ds, token_ids=ds.token_ids[lo:hi],
+                                 lengths=ds.lengths[lo:hi],
+                                 labels=ds.labels[lo:hi], ids=ds.ids[lo:hi])
+        # `arrays` was captured from the FULL dataset above: rebuild from
+        # the slice, or the bucketizer pairs local lengths and ids with
+        # global feature rows
+        arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
+                  "labels": ds.labels}
     probs_by_id: dict[str, np.ndarray] = {}
 
     def _consume(b, dev_p):
@@ -124,14 +153,16 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     scores_path = default_scores_path(args, task)
     write_scores_sharded(scores_path, ds.ids, probs,
                          num_classes=len(classes),
-                         total_examples=len(ds.ids), class_order=classes,
+                         total_examples=total_mentions, class_order=classes,
                          meta={"task": task, "split": args.data_split,
                                "checkpoint_step": int(state.step)})
-    LOG.info("wrote %d scores (%d total) to %s", len(ds.ids), len(ds.ids),
-             scores_path)
+    LOG.info("wrote %d scores (%d total) to %s", len(ds.ids),
+             total_mentions, scores_path)
     if args.eval:
         sd = ScoreDict(labels=list(classes))
         preds = probs.argmax(-1)
         for g, p in zip(ds.labels, preds):
             sd.increment(classes[int(g)], classes[int(p)])
-        print(merge_sharded(sd, scores_path).table())
+        merged = merge_sharded(sd, scores_path)   # None off process 0
+        if merged is not None:
+            print(merged.table())

@@ -14,12 +14,15 @@ with plain array code (``rank_boxes``), which is what an unfused model runs
 here.
 
 The model dir holds what ``icl-torch-relation``'s does, with
-``affinity.npz`` as the archive's name.
+``affinity.npz`` as the archive's name.  The multi-process flags do what
+they do there; a sharded ``--predict`` balances the ranks by cell counts and
+merges the ``--rank_file`` as it merges the ``.scores``.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import time
@@ -28,14 +31,16 @@ import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
-                                   check_lstm_width, default_model_dir,
-                                   default_scores_path, dump_run_config,
+                                   begin_predict, check_lstm_width,
+                                   default_model_dir, default_scores_path,
+                                   dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
-                                   read_model_config, resolve_device,
-                                   restore_for_predict, to_device, use_fused,
+                                   read_model_config, restore_for_predict,
+                                   round_to_data_axis, to_device, use_fused,
                                    weights_archive)
 from icl_torch.data.imagebatch import AffinityBatcher
 from icl_torch.data.pipeline import load_affinity_dataset
+from icl_torch.dist.mesh import is_main_process, local_data_rows
 from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.captions import parse_mention_id
 from icl_torch.io.scores import write_scores_sharded
@@ -67,7 +72,8 @@ def main(argv=None) -> None:
     p.add_argument("--phrase_enc", default="lstm",
                    choices=["lstm", "mean_w2v"])
     args = parse_task_args(p, argv, "affinity")
-    device = resolve_device(args)
+    rt = init_runtime(args)
+    device = rt.device
     apply_precision(args)
     emb = load_embeddings(args)
     table = torch.from_numpy(emb.table).to(device)
@@ -75,8 +81,10 @@ def main(argv=None) -> None:
     LOG.info("affinity %s: %d images, %d cells", args.data_split,
              len(ds.images), ds.num_cells)
 
+    ipb = round_to_data_axis(args.images_per_batch, rt, bool(args.predict),
+                             "images_per_batch")
     batcher = AffinityBatcher(
-        images_per_batch=args.images_per_batch,
+        images_per_batch=ipb,
         mention_spec=bucket_spec(args, "mentions_per_image", (8, 16, 32)),
         box_spec=bucket_spec(args, "boxes_per_image", (8, 16, 32)),
         box_dtype=np.float32, with_ids=not args.train)
@@ -103,40 +111,53 @@ def main(argv=None) -> None:
         LOG.info("weights from %s", archive)
 
     if args.train:
-        step = make_affinity_train_step(grid_loss=model.fused)
+        step = make_affinity_train_step(grid_loss=model.fused, mesh=rt.mesh)
+        # input sharding: this rank builds only the rows it feeds, 4096-d
+        # box features included (see icl_torch/cli/relation.py)
+        rows = local_data_rows(rt.mesh, ipb)
 
         def make_batches(epoch_rng, skip=0):
-            for b in batcher.batches(ds, rng=epoch_rng, skip=skip):
+            for b in batcher.batches(ds, rng=epoch_rng, skip=skip,
+                                     host_rows=rows):
                 yield (to_device(b.arrays, device),)
 
         eval_fn = build_eval_hook(
             args, model, table,
             lambda d, sp: load_affinity_dataset(d, sp, emb),
-            batcher)
-        dump_run_config(args, model_dir, device)
+            batcher, mesh=rt.mesh)
+        if is_main_process():
+            dump_run_config(args, model_dir, rt)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,
                          metrics_path=args.metrics_file, seed=args.seed,
                          eval_every=args.eval_every,
-                         early_stop=args.early_stop)
+                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, b: step(s, table, b),
                              make_batches, cfg, eval_fn=eval_fn)
-        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-            json.dump({"task": "affinity",
-                       "lstm_hidden": args.lstm_hidden_width,
-                       "head_hidden": args.head_hidden,
-                       "dropout": args.dropout,
-                       "phrase_enc": args.phrase_enc,
-                       "compute_dtype": args.compute_dtype,
-                       "box_dim": ds.box_dim}, f)
+        if is_main_process():
+            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+                json.dump({"task": "affinity",
+                           "lstm_hidden": args.lstm_hidden_width,
+                           "head_hidden": args.head_hidden,
+                           "dropout": args.dropout,
+                           "phrase_enc": args.phrase_enc,
+                           "compute_dtype": args.compute_dtype,
+                           "box_dim": ds.box_dim}, f)
         LOG.info("trained to step %d; checkpoints in %s", state.step,
                  model_dir)
         return
 
     restore_for_predict(state, model_dir, "affinity")
     model.eval()
+    # multi-process: this rank sweeps images[lo:hi); see relation.py
     total_cells = ds.num_cells
+    lo, hi = begin_predict(rt, len(ds.images),
+                           weights=[int(im.grid_valid.sum())
+                                    for im in ds.images])
+    if (lo, hi) != (0, len(ds.images)):
+        ds = dataclasses.replace(ds, images=ds.images[lo:hi])
+    swept_cells = ds.num_cells
     probs_by_id: dict[str, np.ndarray] = {}
     sd = ScoreDict(labels=list(AFFINITY_CLASSES))
     rank_by_id: dict[str, float] = {}
@@ -185,8 +206,8 @@ def main(argv=None) -> None:
         _consume(*pending.popleft())
     dt = max(time.perf_counter() - t_sweep, 1e-9)
     LOG.info("predict sweep: %d cells in %.2f s (%.0f cells/s), batch "
-             "assembly and host bookkeeping included", total_cells, dt,
-             total_cells / dt)
+             "assembly and host bookkeeping included", swept_cells, dt,
+             swept_cells / dt)
     # write in dataset order: per image, mention-major over valid cells
     order = []
     for im in ds.images:
@@ -219,7 +240,9 @@ def main(argv=None) -> None:
                           "per mention"})
         LOG.info("wrote %d rank probs to %s", len(order), args.rank_file)
     if args.eval:
-        print(merge_sharded(sd, scores_path).table())
+        merged = merge_sharded(sd, scores_path)   # None off process 0
+        if merged is not None:
+            print(merged.table())
 
 
 if __name__ == "__main__":

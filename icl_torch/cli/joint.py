@@ -8,6 +8,11 @@ ranking with ``--with_rank``), by calling each task's own ``main`` with the
 shared flags.  Inference only.  On the GPU the relation and affinity
 sub-runs go through the hand-written kernels (grid head, LSTM recurrence,
 and the box ranking with ``--with_rank``); the mention sub-runs launch none.
+
+The multi-process flags (``--mesh``, ``--coordinator``, ``--num_processes``,
+``--process_id``) are forwarded to every sub-run, so each runs its sharded
+predict: the first brings up the process group, the rest reuse it
+(:func:`icl_torch.runtime.init` is idempotent per topology).
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ def main(argv=None) -> None:
             ("--profile_dir", args.profile_dir, "train-only")):
         if val:
             p.error(f"{flag} is not supported by icl-torch-joint ({why})")
-    # the distributed, bf16, oracle and precision flags: refused here, by
-    # name, before any sub-run starts
+    # the bf16, oracle and precision flags: refused here, by name, before
+    # any sub-run starts
     refuse_unported(args)
 
     common = ["--predict", "--data_dir", args.data_dir,
@@ -64,8 +69,17 @@ def main(argv=None) -> None:
               "--batch_size", str(args.batch_size),
               "--dropout", str(args.dropout),
               "--device", args.device]
+    if args.mesh:
+        common += ["--mesh", args.mesh]
+    # multi-process sweep: forward the bootstrap flags so every sub-CLI runs
+    # its sharded predict.  Dropping them would make every process sweep the
+    # FULL split and race on the same .scores paths.
+    if args.coordinator:
+        common += ["--coordinator", args.coordinator]
     if args.num_processes is not None:
         common += ["--num_processes", str(args.num_processes)]
+    if args.process_id is not None:
+        common += ["--process_id", str(args.process_id)]
     if args.matmul_precision:
         common += ["--matmul_precision", args.matmul_precision]
     if args.compilation_cache_dir:

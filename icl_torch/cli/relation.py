@@ -14,11 +14,19 @@ hold ``relation.npz`` (+ manifest) from ``icl-export``: ``--predict`` takes
 the newest checkpoint, else the archive, else predicts from the initial
 weights with a warning; ``--train`` starts from the archive when there is
 one (and ``--resume auto`` from the newest checkpoint).
+
+With ``--coordinator``, ``--num_processes`` and ``--process_id`` the run is
+one rank of a data-parallel one (:mod:`icl_torch.cli._common`): ``--train``
+feeds this rank's rows of every batch and writes from rank 0 alone;
+``--predict`` sweeps this rank's slice of the images (balanced by their pair
+counts) and rank 0 merges the ranks' ``.scores`` parts and ``--eval``
+tables.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import time
@@ -27,15 +35,17 @@ import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
-                                   check_lstm_width, default_model_dir,
-                                   default_scores_path, dump_run_config,
+                                   begin_predict, check_lstm_width,
+                                   default_model_dir, default_scores_path,
+                                   dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
-                                   read_model_config, resolve_device,
-                                   restore_for_predict,
-                                   to_device, use_fused, weights_archive)
+                                   read_model_config, restore_for_predict,
+                                   round_to_data_axis, to_device, use_fused,
+                                   weights_archive)
 from icl_torch.data.imagebatch import RelationBatcher
 from icl_torch.data.pairs import RELATION_CLASSES
 from icl_torch.data.pipeline import load_relation_dataset
+from icl_torch.dist.mesh import is_main_process, local_data_rows
 from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.models.relation import RelationModel
@@ -62,7 +72,8 @@ def main(argv=None) -> None:
                    help="the hand-written kernels (auto: on when the "
                         "device is CUDA)")
     args = parse_task_args(p, argv, "relation")
-    device = resolve_device(args)
+    rt = init_runtime(args)
+    device = rt.device
     apply_precision(args)
     emb = load_embeddings(args)
     table = torch.from_numpy(emb.table).to(device)
@@ -70,8 +81,10 @@ def main(argv=None) -> None:
     LOG.info("relation %s: %d images, %d pairs", args.data_split,
              len(ds.images), ds.num_pairs)
 
+    ipb = round_to_data_axis(args.images_per_batch, rt, bool(args.predict),
+                             "images_per_batch")
     batcher = RelationBatcher(
-        images_per_batch=args.images_per_batch,
+        images_per_batch=ipb,
         len_spec=bucket_spec(args, "caption_len", (16, 32, 48)),
         mention_spec=bucket_spec(args, "mentions_per_image", (8, 16, 32)),
         build_grid=bool(args.train), with_ids=not args.train)
@@ -96,10 +109,15 @@ def main(argv=None) -> None:
     if args.train:
         class_weights = [args.null_weight, 1.0, 1.0, 1.0]
         step = make_relation_train_step(class_weights=class_weights,
-                                        grid_loss=model.fused)
+                                        grid_loss=model.fused, mesh=rt.mesh)
+        # input sharding: this rank pads ONLY the rows it feeds; the
+        # schedule stays globally agreed (rng-deterministic), so the ranks
+        # stay in lockstep.  One process: every row.
+        rows = local_data_rows(rt.mesh, ipb)
 
         def make_batches(epoch_rng, skip=0):
-            for b in batcher.batches(ds, rng=epoch_rng, skip=skip):
+            for b in batcher.batches(ds, rng=epoch_rng, skip=skip,
+                                     host_rows=rows):
                 yield (to_device(b.arrays, device),)
 
         # the train batcher already has build_grid=True/with_ids=False and
@@ -107,29 +125,38 @@ def main(argv=None) -> None:
         eval_fn = build_eval_hook(
             args, model, table,
             lambda d, sp: load_relation_dataset(d, sp, emb),
-            batcher, class_weights=class_weights)
-        dump_run_config(args, model_dir, device)
+            batcher, class_weights=class_weights, mesh=rt.mesh)
+        if is_main_process():
+            dump_run_config(args, model_dir, rt)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,
                          metrics_path=args.metrics_file, seed=args.seed,
                          eval_every=args.eval_every,
-                         early_stop=args.early_stop)
+                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, b: step(s, table, b),
                              make_batches, cfg, eval_fn=eval_fn)
-        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-            json.dump({"task": "relation",
-                       "lstm_hidden": args.lstm_hidden_width,
-                       "head_hidden": args.head_hidden,
-                       "dropout": args.dropout,
-                       "compute_dtype": args.compute_dtype}, f)
+        if is_main_process():
+            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+                json.dump({"task": "relation",
+                           "lstm_hidden": args.lstm_hidden_width,
+                           "head_hidden": args.head_hidden,
+                           "dropout": args.dropout,
+                           "compute_dtype": args.compute_dtype}, f)
         LOG.info("trained to step %d; checkpoints in %s", state.step,
                  model_dir)
         return
 
     restore_for_predict(state, model_dir, "relation")
     model.eval()
+    # multi-process: this rank sweeps images[lo:hi) on its own device and
+    # the `.scores` shards merge by byte-exact concatenation
     total_pairs = sum(len(im.pair_ids) for im in ds.images)
+    lo, hi = begin_predict(rt, len(ds.images),
+                           weights=[len(im.pair_ids) for im in ds.images])
+    if (lo, hi) != (0, len(ds.images)):
+        ds = dataclasses.replace(ds, images=ds.images[lo:hi])
+    swept_pairs = sum(len(im.pair_ids) for im in ds.images)
     probs_by_id: dict[str, np.ndarray] = {}
     sd = ScoreDict(labels=list(RELATION_CLASSES))
 
@@ -163,8 +190,8 @@ def main(argv=None) -> None:
         _consume(*pending.popleft())
     dt = max(time.perf_counter() - t_sweep, 1e-9)
     LOG.info("predict sweep: %d pairs in %.2f s (%.0f pairs/s), batch "
-             "assembly and host bookkeeping included", total_pairs, dt,
-             total_pairs / dt)
+             "assembly and host bookkeeping included", swept_pairs, dt,
+             swept_pairs / dt)
     order = [pid for im in ds.images for pid in im.pair_ids]
     out = (np.stack([probs_by_id[pid] for pid in order]) if order
            else np.zeros((0, len(RELATION_CLASSES))))
@@ -178,7 +205,12 @@ def main(argv=None) -> None:
     LOG.info("wrote %d scores (%d total) to %s", len(order), total_pairs,
              scores_path)
     if args.eval:
-        print(merge_sharded(sd, scores_path).table())
+        # multi-process: each rank counted its own image slice; the merged
+        # table equals the single-process one (counts are additive) and
+        # only process 0 prints it
+        merged = merge_sharded(sd, scores_path)
+        if merged is not None:
+            print(merged.table())
 
 
 if __name__ == "__main__":

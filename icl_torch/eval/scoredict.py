@@ -1,7 +1,7 @@
 """ScoreDict — per-label precision/recall/F1 accumulator.
 
-The port's copy of ``icl/eval/scoredict.py`` (single-process
-``merge_sharded``); ``tests/test_torch_data.py`` holds it to the original.
+The port's copy of ``icl/eval/scoredict.py`` (``merge_sharded`` over
+``torch.distributed``); ``tests/test_torch_data.py`` holds it to the original.
 
 Reference parity: SURVEY.md §3.1 C10 — mirrors the reference's
 ``utils/ScoreDict.py``, itself a port of the Java ``ScoreDict``, which
@@ -130,7 +130,33 @@ class ScoreDict:
 
 
 def merge_sharded(sd: ScoreDict, path: str) -> ScoreDict | None:
-    """The ``--eval`` table of a predict sweep.  The port runs one process,
-    which has counted every example: returns ``sd`` unchanged (``path``,
-    where the reference's processes leave their part tables, is unused)."""
-    return sd
+    """Merge per-process ScoreDicts for a sharded ``--eval`` sweep.
+
+    Single-process: returns ``sd`` unchanged.  Multi-process: every process
+    holds the confusion counts of its own example slice; counts are
+    additive, so each writes a small JSON part ``<path>.sdpart-<k:05d>``
+    next to the (shared-storage, same contract as
+    :func:`icl_torch.io.scores.write_scores_sharded`) ``path``, and after a
+    barrier process 0 sums them into the GLOBAL table, identical to a
+    single-process sweep by construction.  Returns the merged ScoreDict on
+    process 0 and ``None`` elsewhere (only one process should print).
+    """
+    import json
+
+    from icl_torch.dist.mesh import gather_parts, process_count
+
+    if process_count() == 1:
+        return sd
+
+    def _write(part_path):
+        with open(part_path, "w", encoding="utf-8") as f:
+            json.dump(sd.state_dict(), f)
+
+    def _merge(part_paths):
+        merged = ScoreDict(labels=sd._labels)
+        for pp in part_paths:
+            with open(pp, encoding="utf-8") as f:
+                merged.update_state(json.load(f))
+        return merged
+
+    return gather_parts(path, "sdpart", _write, _merge)

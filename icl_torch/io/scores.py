@@ -1,8 +1,9 @@
 """.scores writer/reader: the output format the downstream ILP reads.
 
 The port's copy of ``icl/io/scores.py`` (pure Python: the optional C++ row
-writer and the multi-process merge are left out); ``tests/test_torch_data.py``
-holds it to the original byte for byte.
+writer is left out; the multi-process merge runs over
+``torch.distributed``); ``tests/test_torch_data.py`` holds it to the original
+byte for byte.
 
 Reference parity: SURVEY.md §6.2 (frozen contract).  One line per example::
 
@@ -91,24 +92,51 @@ def write_scores_sharded(
     class_order: Sequence[str] | None = None,
     meta: dict | None = None,
 ) -> None:
-    """The predict CLIs' `.scores` write: rows of this process's slice of
-    the dataset order, and the meta sidecar with the GLOBAL example count.
+    """Multi-process `.scores` write.
 
-    The port runs one process, so the slice is the whole dataset and this
-    is :func:`write_scores` with an explicit class count (an empty sweep
-    still records ``num_classes``) and example total.  The reference's
-    multi-process branch (per-process part files merged by process 0) is
-    not ported.
+    Each process holds the probabilities for its own *contiguous* slice of
+    the dataset order (:func:`icl_torch.dist.mesh.predict_partition`) and
+    writes them to ``<path>.part-<k:05d>`` through the same formatting chain
+    as :func:`write_scores`; after a barrier, process 0 concatenates the
+    parts in process order, a byte-exact concatenation: given the same
+    probability arrays, the merged file is byte-identical to a
+    single-process write.  Process 0 then writes the meta sidecar with the
+    GLOBAL example count, and a second barrier lets every process delete
+    its own part file (:func:`icl_torch.dist.mesh.gather_parts`).
+
+    ``path`` must live on storage visible to every process (the same
+    contract the checkpoint directory carries); without it, process 0's
+    merge fails loudly with the missing part path.
+
+    Single-process calls degrade to :func:`write_scores` with an explicit
+    class count (an empty sweep still records ``num_classes``) and example
+    total.
     """
     probs = np.asarray(local_probs, dtype=np.float64)
     if probs.size == 0:
-        probs = probs.reshape(0, num_classes)
+        probs = probs.reshape(0, num_classes)   # an empty slice
     if probs.ndim != 2 or probs.shape[0] != len(local_ids) \
             or probs.shape[1] != num_classes:
         raise ValueError(f"probs shape {probs.shape} does not match "
                          f"{len(local_ids)} ids x {num_classes} classes")
-    _write_rows(path, local_ids, probs)
-    _write_meta(path, total_examples, num_classes, class_order, meta)
+    from icl_torch.dist.mesh import gather_parts, process_count
+
+    if process_count() == 1:
+        _write_rows(path, local_ids, probs)
+        _write_meta(path, total_examples, num_classes, class_order, meta)
+        return
+
+    def _merge(part_paths):
+        import shutil
+
+        with open(path, "wb") as out:
+            for pp in part_paths:
+                with open(pp, "rb") as f:
+                    shutil.copyfileobj(f, out)
+        _write_meta(path, total_examples, num_classes, class_order, meta)
+
+    gather_parts(path, "part",
+                 lambda pp: _write_rows(pp, local_ids, probs), _merge)
 
 
 def read_scores(path: str) -> tuple[list[str], np.ndarray]:

@@ -148,11 +148,16 @@ def init_relation_params(seed: int, dims: dict,
 
 
 def _orthogonal(shape: tuple[int, int], gen: torch.Generator) -> torch.Tensor:
-    """flax ``orthogonal()`` for a 2-D [rows, cols] kernel."""
+    """flax ``orthogonal()`` for a 2-D [rows, cols] kernel.
+
+    The factorisation runs in float64 and is rounded once: a threaded
+    LAPACK blocks by the threads it finds free, which moves a float32
+    factor by 1e-7 to 1e-5 from one call to the next, and two ranks that
+    start from one seed at one moment must draw the same bits."""
     rows, cols = shape
     a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen)
-    q, r = torch.linalg.qr(a)
-    q = q * torch.sign(torch.diagonal(r))
+    q, r = torch.linalg.qr(a.double())
+    q = (q * torch.sign(torch.diagonal(r))).float()
     return (q.T if rows < cols else q).contiguous()
 
 

@@ -20,7 +20,15 @@ of the reference are kept:
   raised, so ``latest_step``, ``all_steps`` and durability after ``wait``
   are those of synchronous saves.
 
-Single process: the reference's multi-process arrangement is not ported.
+More than one process (a ``torch.distributed`` group is up): EVERY rank
+calls :meth:`Checkpointer.save`, ``restore`` and the listing methods at the
+same points, and rank 0 is the single writer.  A save is then synchronous
+(a collective from a background thread could interleave with the train
+step's collectives differently on each rank) and ends in a barrier; the
+listing (``latest_step``, ``all_steps``) is rank 0's, broadcast, never each
+rank's own view of the directory, so ``--resume auto`` restores one step on
+every rank; what rank 0 fails at raises on every rank.  The model dir must
+be on storage all ranks can read.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import threading
 
 import torch
 
+from icl_torch.dist.mesh import (is_main_process, on_main, process_count,
+                                 sync_processes)
 from icl_torch.train.state import TrainState
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
@@ -95,16 +105,21 @@ class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if is_main_process():       # the single writer makes the directory
+            os.makedirs(self.directory, exist_ok=True)
         self._inflight: threading.Thread | None = None
         self._inflight_exc: BaseException | None = None
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.pt")
 
-    def _steps(self) -> list[int]:
+    def _local_steps(self) -> list[int]:
         return sorted(int(m.group(1)) for m in
                       map(_STEP_FILE.match, os.listdir(self.directory)) if m)
+
+    def _steps(self) -> list[int]:
+        """The steps on disk, as rank 0 sees them."""
+        return on_main(self._local_steps, f"listing {self.directory}")
 
     def _join(self) -> None:
         t = self._inflight
@@ -126,7 +141,7 @@ class Checkpointer:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self._path(step))
-        for old in self._steps()[:-self.max_to_keep]:
+        for old in self._local_steps()[:-self.max_to_keep]:
             os.unlink(self._path(old))
 
     def save(self, state: TrainState, wait: bool = False,
@@ -139,19 +154,31 @@ class Checkpointer:
         when a periodic save landed on it); without it that is an error."""
         self._join()
         step = int(state.step)
-        if not force and os.path.exists(self._path(step)):
-            raise FileExistsError(f"checkpoint step {step} exists in "
-                                  f"{self.directory}; pass force=True to "
-                                  f"replace it")
         meta = {"step": step, "seed": int(state.seed), "epoch": int(epoch),
                 "batch_in_epoch": int(batch_in_epoch)}
-        if wait or force:
+
+        def refuse_existing():
+            if not force and os.path.exists(self._path(step)):
+                raise FileExistsError(f"checkpoint step {step} exists in "
+                                      f"{self.directory}; pass force=True "
+                                      f"to replace it")
+
+        def write_live():
             # synchronous: the pull finishes before any later step can
             # touch the live tensors, so no device copy is needed
+            refuse_existing()
             live = {"model": state.model.state_dict(),
                     "optimizer": state.optimizer.state_dict()}
             self._write(step, {**to_host(live), **meta})
+
+        if process_count() > 1:
+            on_main(write_live, f"checkpoint save at step {step}")
+            sync_processes(f"checkpoint save at step {step}")
             return
+        if wait or force:
+            write_live()
+            return
+        refuse_existing()
         snap = snapshot(state)
         device = next(state.model.parameters()).device
         ready = None
@@ -218,7 +245,8 @@ class Checkpointer:
         """Drop one checkpoint (used to prune the stale tail past the
         best-eval step when early stopping restores the best weights)."""
         self._join()
-        os.unlink(self._path(step))
+        on_main(lambda: os.unlink(self._path(step)),
+                f"deleting checkpoint step {step}")
 
     def restore(self, state: TrainState) -> TrainState:
         """Restore the newest checkpoint into the (freshly initialised)

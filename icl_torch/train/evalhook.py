@@ -13,6 +13,15 @@ cell, not a mean of per-batch means.  It runs under
 are allowed.  The mention tasks (:func:`make_mention_eval_fn`) sum ``ce*w``,
 hits and ``w`` over the whole eval set the same way.  Each eval reads the
 device once.
+
+More than one process (a ``mesh`` under a process group): eval batches are
+rng-deterministic, so every rank builds the IDENTICAL host-side batch list,
+places only its own data-axis rows of each batch (:func:`_eval_placer`) and
+computes its rows' sums; the per-batch sums are all-reduced in one
+collective before the one read, so every rank reads the SAME loss and the
+loop's early-stop decision stays in lockstep.  The image tasks' weight sum
+is computed host-side from the full (pre-slice) batch, so the normaliser is
+global by construction.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from icl_torch.dist.mesh import (Mesh, all_reduce_sum, process_count,
+                                 shard_batch, shard_batch_local)
 from icl_torch.ops.ce import onehot_ce
 from icl_torch.util.log import LOG
 
@@ -40,15 +51,28 @@ def _host_cell_weights(labels, valid, class_weights) -> np.ndarray:
     return w * sel
 
 
-def _place(tree: dict, device: torch.device) -> dict:
-    """Host arrays (nested one level) as tensors on ``device``."""
-    return {k: (_place(v, device) if isinstance(v, dict)
-                else torch.from_numpy(np.ascontiguousarray(v)).to(device))
-            for k, v in tree.items()}
+def _eval_placer(mesh: Mesh | None, device: torch.device) -> Callable:
+    """tree-of-host-arrays -> tensors on the device.  Single-process: the
+    whole batch.  Multi-process: every rank holds the full batch
+    (deterministic build) and places its own contiguous [lo, hi) data-axis
+    rows of every array."""
+    if mesh is None:
+        return lambda tree: shard_batch_local(tree, mesh, device)
+    return lambda tree: shard_batch(tree, mesh, device)
+
+
+def _global_sums(sums: list, mesh: Mesh | None) -> list:
+    """The per-batch ``[sum ce*w, hits, valid]`` rows summed over the ranks
+    (one collective), read from the device once."""
+    stacked = torch.stack(sums)
+    if mesh is not None and process_count() > 1:
+        all_reduce_sum([stacked], mesh)
+    return stacked.cpu().tolist()
 
 
 def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
-                      class_weights=None, pin: bool = True) -> Callable:
+                      class_weights=None, pin: bool = True,
+                      mesh: Mesh | None = None) -> Callable:
     """Build ``eval_fn(state) -> {"loss", "acc"}`` over fixed batches.
 
     ``eval_batches``: list of HOST-side batch dicts (numpy) that carry
@@ -76,17 +100,19 @@ def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
         LOG.warning("eval hook: class weight <= 0 — eval_loss keeps the "
                     "train weighting; accuracy is computed from a second "
                     "uniform-weight pass so every valid cell counts")
-    device = table.device
+    place = _eval_placer(mesh, table.device)
     prepared = []
     for hb in eval_batches:
         weights = _host_cell_weights(hb["grid_label"], hb["grid_valid"],
                                      class_weights)
-        wsum = float(weights.sum())     # the global normaliser's share
+        # weight sum from the FULL host batch: the global normaliser, even
+        # when this process only feeds a row slice below
+        wsum = float(weights.sum())
         tree = {"b": hb, "w": weights}
         if degenerate:
             tree["u"] = _host_cell_weights(hb["grid_label"],
                                            hb["grid_valid"], None)
-        prepared.append((_place(tree, device) if pin else tree, wsum))
+        prepared.append((place(tree) if pin else tree, wsum))
 
     def one(state, jb, weights):
         return state.model(table, jb, loss_grid=(
@@ -101,7 +127,7 @@ def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
             with torch.inference_mode():
                 sums = []
                 for tree, w in prepared:
-                    dev = tree if pin else _place(tree, device)
+                    dev = tree if pin else place(tree)
                     jb, weights, uniform = dev["b"], dev["w"], dev.get("u")
                     ls, h, nv = one(state, jb, weights)
                     if uniform is not None:
@@ -109,7 +135,7 @@ def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
                     sums.append(torch.stack([ls, h, nv]))
                     wsum += w
                 # one device-to-host read for the whole eval
-                for ls, h, nv in torch.stack(sums).cpu().tolist():
+                for ls, h, nv in _global_sums(sums, mesh):
                     loss_sum += ls
                     hits += h
                     nval += nv
@@ -122,11 +148,14 @@ def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
 
 
 def build_eval_hook(args, model, table: torch.Tensor, load_dataset, batcher,
-                    class_weights=None) -> Callable | None:
+                    class_weights=None,
+                    mesh: Mesh | None = None) -> Callable | None:
     """CLI glue: resolve --eval_every/--eval_split into an eval_fn.
 
     Returns None (with a log line explaining why) when eval is off or the
-    split is missing."""
+    split is missing.  Multi-process runs are supported: every process
+    builds the identical batch list (deterministic rng) and feeds its own
+    data-axis slice (module docstring)."""
     if not getattr(args, "eval_every", 0):
         return None
     try:
@@ -161,11 +190,12 @@ def build_eval_hook(args, model, table: torch.Tensor, load_dataset, batcher,
              "held on the device",
              args.eval_split, args.eval_every)
     return make_grid_eval_fn(model, table, batches, class_weights,
-                             pin=not full)
+                             pin=not full, mesh=mesh)
 
 
 def make_mention_eval_fn(model, table: torch.Tensor, eval_batches: list,
-                         pin: bool = True) -> Callable:
+                         pin: bool = True,
+                         mesh: Mesh | None = None) -> Callable:
     """Mention-task (nonvisual, cardinality) counterpart of
     :func:`make_grid_eval_fn`.
 
@@ -178,12 +208,7 @@ def make_mention_eval_fn(model, table: torch.Tensor, eval_batches: list,
     """
     from icl_torch.models.nonvisual import mean_pool_tokens
 
-    device = table.device
-
-    def place(hb):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in hb)
-
+    place = _eval_placer(mesh, table.device)
     prepared = [place(hb) if pin else hb for hb in eval_batches]
 
     def one(state, tok, ln, lab, valid):
@@ -203,7 +228,7 @@ def make_mention_eval_fn(model, table: torch.Tensor, eval_batches: list,
                 sums = [one(state, *(hb if pin else place(hb)))
                         for hb in prepared]
                 # one device-to-host read for the whole eval
-                for ls, h, nv in torch.stack(sums).cpu().tolist():
+                for ls, h, nv in _global_sums(sums, mesh):
                     loss_sum += ls
                     hits += h
                     nval += nv
@@ -216,7 +241,8 @@ def make_mention_eval_fn(model, table: torch.Tensor, eval_batches: list,
 
 
 def build_mention_eval_hook(args, model, table: torch.Tensor, task: str, emb,
-                            bucketizer) -> Callable | None:
+                            bucketizer,
+                            mesh: Mesh | None = None) -> Callable | None:
     """CLI glue for the mention tasks (mirrors :func:`build_eval_hook`)."""
     if not getattr(args, "eval_every", 0):
         return None
@@ -252,4 +278,5 @@ def build_mention_eval_hook(args, model, table: torch.Tensor, task: str, emb,
              "copied to the device per eval" if full else
              "held on the device",
              args.eval_split, args.eval_every)
-    return make_mention_eval_fn(model, table, batches, pin=not full)
+    return make_mention_eval_fn(model, table, batches, pin=not full,
+                                mesh=mesh)

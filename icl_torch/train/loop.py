@@ -15,6 +15,16 @@ tuples whose tensors already lie on the device.
 The host never waits for the device inside the loop: PyTorch queues the
 step's kernels and returns, the step counter is mirrored on the host, and
 the device is only read at log, eval and checkpoint points.
+
+Under a process group (``LoopConfig.mesh``) every rank runs this loop in
+lockstep over its own rows of the same schedule.  The metrics file is
+written by the main process alone (checkpoint saves gate themselves in
+:class:`~icl_torch.train.checkpoint.Checkpointer`); the eval sums are
+all-reduced inside the hook, so every rank reads the same dev loss, takes
+the same early-stop decision at the same step and restores the same best
+state; ``--resume auto`` restores the step rank 0 names, and the ranks'
+states are held to rank 0's at the start and again at the end
+(:func:`icl_torch.dist.mesh.replicate`).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from icl_torch.dist import mesh as dist_mesh
+from icl_torch.dist.mesh import Mesh, is_main_process, replicate
 from icl_torch.train.checkpoint import (Checkpointer, load_into, snapshot,
                                         to_host)
 from icl_torch.train.state import TrainState
@@ -50,6 +62,7 @@ class LoopConfig:
     early_stop: int = 0           # stop after N consecutive evals without
                                   # eval-loss improvement (0: off; needs
                                   # eval_every)
+    mesh: Mesh | None = None      # the process mesh (None: one process)
 
 
 def prefetch(iterator, depth: int = 2):
@@ -144,9 +157,16 @@ def run_training(state: TrainState, step_fn: Callable,
             LOG.info("resumed from checkpoint at step %d (was %d; epoch %d, "
                      "batch %d)", state.step, before, start_epoch,
                      start_batch)
+    if cfg.mesh is not None:
+        # every rank starts from one state: equal seeds, or the one
+        # checkpoint rank 0 named
+        replicate(state.tensors(), cfg.mesh, "the train state")
 
+    # artifact writes (the metrics JSONL here; checkpoint saves gate
+    # themselves) happen on the main process only: N ranks sharing a model
+    # dir must not interleave one stream
     metrics_f = None
-    if cfg.metrics_path:
+    if cfg.metrics_path and is_main_process():
         os.makedirs(os.path.dirname(os.path.abspath(cfg.metrics_path)),
                     exist_ok=True)
         metrics_f = open(cfg.metrics_path, "a", encoding="utf-8")
@@ -189,6 +209,7 @@ def _run(state, step_fn, make_batches, cfg, eval_fn, ckpt, start_epoch,
     stale_evals = 0
     stop_early = False
     t_loop, first_step = time.perf_counter(), step
+    reduced0 = dict(dist_mesh.REDUCE_STATS)
     for epoch in range(start_epoch, cfg.epochs):
         epoch_rng = np.random.default_rng(
             np.random.SeedSequence([cfg.seed, epoch]))
@@ -213,7 +234,7 @@ def _run(state, step_fn, make_batches, cfg, eval_fn, ckpt, start_epoch,
                 loss = float(metrics["loss"])
                 acc = float(metrics.get("acc", np.nan))
                 now = time.perf_counter()
-                rate = _batch_examples(args) * ex_since / max(
+                rate = _global_examples(args, cfg.mesh) * ex_since / max(
                     now - t_last, 1e-9)
                 t_last, ex_since = now, 0
                 LOG.info("epoch %d step %d loss %.4f acc %.3f (%.0f ex/s)",
@@ -275,9 +296,22 @@ def _run(state, step_fn, make_batches, cfg, eval_fn, ckpt, start_epoch,
         LOG.info("early stop: restoring best-eval state (step %d, "
                  "loss %.4f)", best_state["step"], best_eval)
         load_into(state, best_state)
+    if cfg.mesh is not None and step > first_step:
+        # before anything is saved as the run's result: the ranks ran the
+        # same updates on the same sums, so their states are one state
+        replicate(state.tensors(), cfg.mesh, "the trained state")
     if n_saves:
         LOG.info("periodic checkpoint saves: %d, total loop-visible "
                  "stall %.2f s", n_saves, save_stall)
+    reduced = {k: v - reduced0[k]
+               for k, v in dist_mesh.REDUCE_STATS.items()}
+    if reduced["calls"] and step > first_step:
+        # two collectives a step: four sums of the loss, then the gradients
+        LOG.info("all-reduce (%s): %d calls, %.3f ms and %.0f bytes a step "
+                 "over %d steps, evals included",
+                 dist_mesh.reduce_backend(), reduced["calls"],
+                 reduced["seconds"] * 1e3 / (step - first_step),
+                 reduced["bytes"] / (step - first_step), step - first_step)
     if ckpt:
         if stop_early and best_state is not None:
             # prune checkpoints past the best step — otherwise predict
@@ -299,6 +333,21 @@ def host_copy(state: TrainState) -> dict:
     with the live state (``load_into`` puts them back)."""
     return {**to_host(snapshot(state)), "step": int(state.step),
             "seed": int(state.seed)}
+
+
+def _global_examples(args: tuple, mesh: Mesh | None) -> int:
+    """The valid examples of the GLOBAL batch: this rank's count, summed
+    over the ranks on the control group (every rank logs at the same
+    steps, so the collective lines up); the ranks of one data row hold
+    the same rows and count once."""
+    n = _batch_examples(args)
+    if mesh is None or dist_mesh.process_count() == 1:
+        return n
+    import torch.distributed as dist
+
+    total = torch.tensor([n], dtype=torch.int64)
+    dist.all_reduce(total)
+    return int(total) // mesh.model
 
 
 def _batch_examples(args: tuple) -> int:

@@ -26,17 +26,32 @@ class TrainState:
     seed: int
     step: int = 0
 
-    def dropout_seeds(self, n: int) -> torch.Tensor:
+    def dropout_seeds(self, n_global: int,
+                      rows: tuple[int, int] | None = None) -> torch.Tensor:
         """This step's dropout seeds, one per image (relation, affinity) or
-        per row (the mention tasks): int32 [n] in [0, 2**31-1), on the
-        model's device.  A pure function of (seed, step): both enter
-        a ``SeedSequence`` (torch's CPU generator would keep only the low
-        32 bits of one packed 64-bit seed, which dropped the run's seed)."""
+        per row (the mention tasks): int32 in [0, 2**31-1), on the model's
+        device.  Drawn for the GLOBAL batch of ``n_global`` rows as a pure
+        function of (seed, step); ``rows=(lo, hi)`` returns the seeds of
+        those rows, so a rank that feeds rows [lo, hi) of a sharded batch
+        masks them as one process would.  Both numbers enter a
+        ``SeedSequence`` (torch's CPU generator would keep only the low 32
+        bits of one packed 64-bit seed, which dropped the run's seed)."""
         rng = np.random.default_rng(np.random.SeedSequence(
             [self.seed & 0xFFFFFFFF, self.step & 0xFFFFFFFF]))
-        seeds = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, n,
-                                              dtype=np.int32))
-        return seeds.to(next(self.model.parameters()).device)
+        seeds = rng.integers(0, 2 ** 31 - 1, n_global, dtype=np.int32)
+        if rows is not None:
+            seeds = seeds[rows[0]:rows[1]]
+        return torch.from_numpy(seeds).to(
+            next(self.model.parameters()).device)
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the state, in a fixed order: the model's
+        ``state_dict``, then Adam's per-parameter state."""
+        out = list(self.model.state_dict().values())
+        for _, st in sorted(self.optimizer.state_dict()["state"].items()):
+            out += [v for _, v in sorted(st.items())
+                    if isinstance(v, torch.Tensor)]
+        return out
 
     def apply_gradients(self) -> None:
         """One Adam update from the parameters' ``.grad``; step += 1."""

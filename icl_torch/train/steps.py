@@ -18,6 +18,19 @@ count of valid examples.  Two train forms per task, as in the reference:
 
 A class weight <= 0 turns the grid-loss form off (see
 :func:`make_relation_train_step`).
+
+Data parallelism (a ``mesh`` given to a step maker, under a process group):
+the loss is ``sum ce*w / max(sum w, 1)`` over the GLOBAL batch, and the
+ranks hold different weight sums, so a mean of per-rank means would be
+another number.  Each rank computes its local ``sum ce*w``, ``sum w``, hits
+and valid count; those four are summed over the ranks first
+(:func:`icl_torch.dist.mesh.all_reduce_sum`); the rank's loss is its local
+``sum ce*w`` over the global ``max(sum w, 1)``; after ``backward`` the
+gradients are summed over the ranks in one flat all-reduce; then Adam, the
+same on every rank.  A rank whose rows are all padding takes part in both
+collectives with zeros.  The metrics returned are the global ones, equal on
+every rank.  The dropout seeds are the global batch's, cut to the rank's
+rows.
 """
 
 from __future__ import annotations
@@ -25,7 +38,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from icl_torch.dist.mesh import Mesh, all_reduce_sum, local_data_rows
 from icl_torch.util.log import LOG
 from icl_torch.models.affinity import AffinityModel, rank_boxes
 from icl_torch.models.nonvisual import MentionFFNN, mean_pool_tokens
@@ -40,16 +55,70 @@ def masked_weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
                        class_weights: torch.Tensor | None = None
                        ) -> torch.Tensor:
     """Mean CE over valid entries, optionally weighted per class."""
+    loss_sum, wsum = _ce_sums(logits, labels, valid, class_weights)
+    return loss_sum / torch.clamp_min(wsum, 1.0)
+
+
+def _ce_sums(logits, labels, valid, class_weights):
+    """``(sum ce*w, sum w)`` of :func:`masked_weighted_ce`."""
     ce, onehot = onehot_ce(logits, labels)
     w = valid.to(ce.dtype)
     if class_weights is not None:
         w = w * (onehot * class_weights).sum(dim=-1)
-    return (ce * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return (ce * w).sum(), w.sum()
 
 
 def _accuracy(logits, labels, valid):
     hit = (logits.argmax(dim=-1) == labels) & valid
     return hit.sum() / torch.clamp_min(valid.sum(), 1)
+
+
+def _finish(loss_sum, wsum, hits, nvalid, mesh: Mesh | None, extra=False):
+    """``(loss, metrics)`` from a batch's four sums.  Under a mesh they are
+    this rank's: the global sums come from one all-reduce, the loss that is
+    differentiated is the rank's share ``local sum ce*w / max(global sum w,
+    1)`` (its gradients add up to the global loss's over the ranks), and the
+    metrics are the global ones."""
+    if mesh is None:
+        loss = loss_sum / torch.clamp_min(wsum, 1.0)
+        metrics = {"loss": loss, "acc": hits / torch.clamp_min(nvalid, 1)}
+    else:
+        sums = torch.stack([loss_sum.detach(), wsum.detach()]
+                           + [x.detach().to(loss_sum.dtype)
+                              for x in (hits, nvalid)])
+        all_reduce_sum([sums], mesh)
+        g_loss, g_wsum, hits, nvalid = sums.unbind(0)
+        loss = loss_sum / torch.clamp_min(g_wsum, 1.0)
+        metrics = {"loss": g_loss / torch.clamp_min(g_wsum, 1.0),
+                   "acc": hits / torch.clamp_min(nvalid, 1.0)}
+    if extra:
+        metrics.update(hits=hits, nvalid=nvalid)
+    return loss, metrics
+
+
+def _sync_gradients(state: TrainState, mesh: Mesh) -> None:
+    """Sum the parameters' gradients over the ranks, in place, in one flat
+    all-reduce; a parameter the rank's loss did not reach adds zeros."""
+    grads = []
+    for p in state.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    all_reduce_sum(grads, mesh)
+
+
+def _active(mesh: Mesh | None) -> Mesh | None:
+    """The mesh when a process group is up (a world of one included: the
+    sums then run over one rank), else None: the single-process step."""
+    return mesh if mesh is not None and dist.is_initialized() else None
+
+
+def _seeds(state: TrainState, local_rows: int, mesh: Mesh | None):
+    """The rank's rows of the global batch's dropout seeds."""
+    if mesh is None:
+        return state.dropout_seeds(local_rows)
+    n_global = local_rows * mesh.data
+    return state.dropout_seeds(n_global, local_data_rows(mesh, n_global))
 
 
 # ---------------------------------------------------------------------------
@@ -59,27 +128,33 @@ def _accuracy(logits, labels, valid):
 def mention_loss(model: MentionFFNN, table: torch.Tensor,
                  token_ids: torch.Tensor, lengths: torch.Tensor,
                  labels: torch.Tensor, valid: torch.Tensor,
-                 seeds: torch.Tensor | None) -> tuple[torch.Tensor, dict]:
+                 seeds: torch.Tensor | None,
+                 mesh: Mesh | None = None) -> tuple[torch.Tensor, dict]:
     """The mention train loss and its metrics, before any update:
     ``(loss, {"loss", "acc"})``.  ``seeds``: per-row dropout seeds (None: no
-    dropout).  The table is an input: it gets no gradient."""
+    dropout).  The table is an input: it gets no gradient.  ``mesh``: the
+    batch is this rank's rows of a global one (the module docstring)."""
     pooled = mean_pool_tokens(table.detach(), token_ids, lengths)
-    return _logit_loss(model(pooled, seeds=seeds), labels, valid, None)
+    return _logit_loss(model(pooled, seeds=seeds), labels, valid, None, mesh)
 
 
-def make_mention_train_step() -> Callable:
+def make_mention_train_step(mesh: Mesh | None = None) -> Callable:
     """``step(state, table, token_ids, lengths, labels, valid) -> metrics``
     for the FFNN-over-mean-word-vector tasks: one Adam update in place.
-    After the step, the parameters' ``.grad`` hold the step's gradients."""
+    After the step, the parameters' ``.grad`` hold the step's gradients.
+    ``mesh``: the data-parallel step over this rank's rows."""
 
     def train_step(state: TrainState, table: torch.Tensor,
                    token_ids: torch.Tensor, lengths: torch.Tensor,
                    labels: torch.Tensor, valid: torch.Tensor) -> dict:
-        seeds = state.dropout_seeds(token_ids.shape[0])
+        dp = _active(mesh)
+        seeds = _seeds(state, token_ids.shape[0], dp)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = mention_loss(state.model, table, token_ids, lengths,
-                                     labels, valid, seeds)
+                                     labels, valid, seeds, dp)
         loss.backward()
+        if dp is not None:
+            _sync_gradients(state, dp)
         state.apply_gradients()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -127,55 +202,59 @@ def _grid_cells(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return glabel, gvalid > 0
 
 
-def _grid_loss(model, table, batch, seeds, glabel, gvalid, class_weights):
+def _grid_loss(model, table, batch, seeds, glabel, gvalid, class_weights,
+               mesh=None):
     """The grid-loss form: the model's grid CE sums over the cells of
     weight ``gvalid * class_weight[label]`` -> (loss, metrics)."""
     gweight = _cell_weights(glabel, gvalid, class_weights)
     loss_sum, hits, nval = model(table, batch, seeds=seeds,
                                  loss_grid=(glabel, gweight))
-    loss = loss_sum / torch.clamp_min(gweight.sum(), 1.0)
-    return loss, {"loss": loss, "acc": hits / torch.clamp_min(nval, 1.0),
-                  "hits": hits, "nvalid": nval}
+    return _finish(loss_sum, gweight.sum(), hits, nval, mesh, extra=True)
 
 
-def _logit_loss(logits, labels, valid, class_weights):
-    loss = masked_weighted_ce(logits, labels, valid, class_weights)
-    return loss, {"loss": loss, "acc": _accuracy(logits, labels, valid)}
+def _logit_loss(logits, labels, valid, class_weights, mesh=None):
+    loss_sum, wsum = _ce_sums(logits, labels, valid, class_weights)
+    hit = (logits.argmax(dim=-1) == labels) & valid
+    return _finish(loss_sum, wsum, hit.sum(), valid.sum(), mesh)
 
 
 def relation_loss(model: RelationModel, table: torch.Tensor, batch: dict,
                   seeds: torch.Tensor | None,
                   class_weights: torch.Tensor | None = None,
-                  grid_loss: bool = False) -> tuple[torch.Tensor, dict]:
+                  grid_loss: bool = False,
+                  mesh: Mesh | None = None) -> tuple[torch.Tensor, dict]:
     """The train loss and its metrics, before any update.
 
     Returns ``(loss, {"loss", "acc"})``; the grid-loss form adds ``hits``
     and ``nvalid``.  ``seeds``: per-image dropout seeds (None: no dropout).
+    ``mesh``: the batch is this rank's rows of a global one (the module
+    docstring).
     """
     if grid_loss:
         return _grid_loss(model, table, batch, seeds, *_grid_cells(batch),
-                          class_weights)
+                          class_weights, mesh)
     return _logit_loss(model(table, batch, seeds=seeds), batch["pair_label"],
-                       batch["pair_valid"], class_weights)
+                       batch["pair_valid"], class_weights, mesh)
 
 
 def affinity_loss(model: AffinityModel, table: torch.Tensor, batch: dict,
                   seeds: torch.Tensor | None,
                   class_weights: torch.Tensor | None = None,
-                  grid_loss: bool = False) -> tuple[torch.Tensor, dict]:
+                  grid_loss: bool = False,
+                  mesh: Mesh | None = None) -> tuple[torch.Tensor, dict]:
     """As :func:`relation_loss`, over the (mention, box) cells: the labels
     are grid-shaped already (``grid_label``/``grid_valid``), so the cell
     form is :func:`masked_weighted_ce` over the logit grid."""
     glabel, gvalid = batch["grid_label"].to(torch.int32), batch["grid_valid"]
     if grid_loss:
         return _grid_loss(model, table, batch, seeds, glabel, gvalid,
-                          class_weights)
+                          class_weights, mesh)
     return _logit_loss(model(table, batch, seeds=seeds), glabel, gvalid,
-                       class_weights)
+                       class_weights, mesh)
 
 
 def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
-                     other_form: str) -> Callable:
+                     other_form: str, mesh: Mesh | None = None) -> Callable:
     if grid_loss and class_weights is not None and any(
             w <= 0 for w in class_weights):
         LOG.warning("grid_loss disabled: a class weight <= 0 would drop "
@@ -198,11 +277,14 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
     def train_step(state: TrainState, table: torch.Tensor,
                    batch: dict) -> dict:
         cw = class_weight_tensor(table.device)
-        seeds = state.dropout_seeds(batch[images_key].shape[0])
+        dp = _active(mesh)
+        seeds = _seeds(state, batch[images_key].shape[0], dp)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
-                                grid_loss)
+                                grid_loss, dp)
         loss.backward()
+        if dp is not None:
+            _sync_gradients(state, dp)
         state.apply_gradients()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -211,26 +293,28 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
     return train_step
 
 
-def make_relation_train_step(class_weights=None,
-                             grid_loss: bool = False) -> Callable:
+def make_relation_train_step(class_weights=None, grid_loss: bool = False,
+                             mesh: Mesh | None = None) -> Callable:
     """``step(state, table, batch) -> metrics``: one Adam update in place.
 
     ``grid_loss=True`` (the fused production mode) computes the CE over the
     M x M grid.  Its accuracy counts cells of weight > 0, so a class weight
     <= 0 would drop that class from the accuracy's denominator; then the
     pair form is kept instead, so metric meanings never depend on the form.
-    After the step, the parameters' ``.grad`` hold the step's gradients.
+    After the step, the parameters' ``.grad`` hold the step's gradients
+    (under a ``mesh``: the global batch's, summed over the ranks).
+    ``mesh``: the data-parallel step over this rank's rows of the batch.
     """
     return _make_train_step(relation_loss, "tokens", class_weights,
-                            grid_loss, "pair")
+                            grid_loss, "pair", mesh)
 
 
-def make_affinity_train_step(class_weights=None,
-                             grid_loss: bool = False) -> Callable:
+def make_affinity_train_step(class_weights=None, grid_loss: bool = False,
+                             mesh: Mesh | None = None) -> Callable:
     """As :func:`make_relation_train_step` for the affinity model; a class
     weight <= 0 keeps the cell form."""
     return _make_train_step(affinity_loss, "phrase_tokens", class_weights,
-                            grid_loss, "cell")
+                            grid_loss, "cell", mesh)
 
 
 def relation_predict(model: RelationModel, table: torch.Tensor,

@@ -215,11 +215,18 @@ def _parse(extra, task="relation"):
         p, ["--train", "--data_dir", "x", *extra], task)
 
 
+@pytest.mark.parametrize("extra,dest,value", [
+    (["--mesh", "8"], "mesh", "8"),
+    (["--coordinator", "host:1234"], "coordinator", "host:1234"),
+    (["--num_processes", "2"], "num_processes", 2),
+    (["--process_id", "0"], "process_id", 0)])
+def test_the_multi_process_flags_parse(extra, dest, value):
+    """``torch.distributed`` is ported: the four flags are taken as given
+    (``icl_torch.runtime.init`` reads them), no longer refused."""
+    assert getattr(_parse(extra), dest) == value
+
+
 @pytest.mark.parametrize("extra,flag", [
-    (["--mesh", "8"], "--mesh"),
-    (["--coordinator", "host:1234"], "--coordinator"),
-    (["--num_processes", "2"], "--num_processes"),
-    (["--process_id", "0"], "--process_id"),
     (["--compute_dtype", "bf16"], "--compute_dtype"),
     (["--oracle-parity"], "--oracle-parity"),
     (["--oracle-parity-full"], "--oracle-parity-full"),
@@ -257,9 +264,11 @@ def test_config_file_sets_defaults_and_rejects_unknown_keys(tmp_path):
     cfg.write_text(json.dumps({"task": "affinity"}))
     with pytest.raises(SystemExit):
         _parse(["--config", str(cfg)])
-    cfg.write_text(json.dumps({"hosts": {"num_processes": 4}}))
-    with pytest.raises(tcommon.RefusedFlagError):    # a pod config: refused
-        _parse(["--config", str(cfg)])
+    cfg.write_text(json.dumps({"hosts": {"num_processes": 4,
+                                         "coordinator": "h:1"}}))
+    args = _parse(["--config", str(cfg)])            # a multi-process config
+    assert (args.num_processes, args.coordinator) == (4, "h:1")
+    assert args.process_id is None                   # the launcher's to give
     with pytest.raises(SystemExit):                  # needs --eval_every
         _parse(["--early_stop", "2"])
 

@@ -234,9 +234,8 @@ def test_hidden_width_and_batch_size_are_the_mention_tasks_flags(
          "9"], task)
     assert (args.hidden_width, args.batch_size) == (7, 9)
     assert "unused" not in said
-    with pytest.raises(tcommon.RefusedFlagError):
-        tcommon.parse_task_args(tcommon.base_parser(task, ""), [
-            "--train", "--data_dir", "x", "--mesh", "2"], task)
+    assert tcommon.parse_task_args(tcommon.base_parser(task, ""), [
+        "--train", "--data_dir", "x", "--mesh", "2"], task).mesh == "2"
 
 
 @pytest.mark.parametrize("extra", [
@@ -255,11 +254,24 @@ def test_joint_is_inference_only(capsys):
     assert "inference-only" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("extra", [
+    ["--mesh", "8"], ["--coordinator", "host:1234"],
+    ["--num_processes", "2"], ["--process_id", "0"]])
+def test_joint_forwards_the_multi_process_flags(extra, monkeypatch):
+    """Each sub-run gets the bootstrap flags as given: dropping one would
+    leave every process sweeping the whole split."""
+    seen = []
+    for mod in (tjoint.nv_cli, tjoint.rel_cli, tjoint.aff_cli,
+                tjoint.card_cli):
+        monkeypatch.setattr(mod, "main", seen.append)
+    tjoint.main(["--predict", "--data_dir", "x", "--with_cardinality",
+                 *extra])
+    assert len(seen) == 4
+    for argv in seen:
+        assert argv[argv.index(extra[0]) + 1] == extra[1]
+
+
 @pytest.mark.parametrize("extra,flag", [
-    (["--mesh", "8"], "--mesh"),
-    (["--coordinator", "host:1234"], "--coordinator"),
-    (["--num_processes", "2"], "--num_processes"),
-    (["--process_id", "0"], "--process_id"),
     (["--compute_dtype", "bf16"], "--compute_dtype"),
     (["--oracle-parity"], "--oracle-parity"),
     (["--matmul_precision", "default"], "--matmul_precision")])

@@ -24,7 +24,10 @@ CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
              "icl_torch.cli.cardinality", "icl_torch.cli.joint",
              "icl_torch.cli.export", "icl_torch.cli.import_",
              "icl_torch.cli.evaluate", "icl_torch.cli.check",
-             "icl_torch.cli.baseline", "icl_torch.serve")
+             "icl_torch.cli.baseline", "icl_torch.serve",
+             # data parallelism over torch.distributed
+             "icl_torch.dist.mesh", "icl_torch.testing.dist_worker")
+DIST_PACKAGES = ("icl_torch.dist", "icl_torch.runtime")
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -37,7 +40,7 @@ def test_importing_every_module_leaves_jax_out():
         "    importlib.import_module(n)\n"
         f"bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {BANNED!r})\n"
-        f"missing = sorted(set({CLI_SLICE!r}) - set(names))\n"
+        f"missing = sorted(set({CLI_SLICE + DIST_PACKAGES!r}) - set(names))\n"
         "print(len(names), bad + missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -62,6 +65,7 @@ def test_no_source_line_imports_jax():
     assert len(files) >= 10 and not hits, hits
     rel = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
     assert set(CLI_SLICE) <= rel
+    assert {p + ".__init__" for p in DIST_PACKAGES} <= rel
 
 
 def test_sklearn_is_imported_only_inside_the_baseline_main():
