@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (icl_torch) on one NVIDIA GPU.
 
 Drives the port's paths at full width with random weights made from a
-seed, f32 with TF32 off: relation scoring served over HTTP and relation
+seed, f32 with TF32 off (and, in phase 10b, ``--compute_dtype bf16``, bf16
+matrix products summing in f32): relation scoring served over HTTP and relation
 training (BiLSTM 200 per direction over 300-d word vectors, head 800,
 O = 4), affinity scoring served over HTTP, affinity batch predict with
 the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
@@ -111,6 +112,39 @@ command lines as two data-parallel ranks on the one card:
    recurrence and the box ranking launched from it and no kernel from the
    mention runs; ``icl_torch.cli.evaluate.main`` and ``check.main`` over
    what was written (the accuracy ``--eval`` printed, no finding);
+10b. ``--compute_dtype bf16``.  The kernels' bf16 modes against their plain
+   versions on the card, each twice with equal bits: the grid head's fast
+   dot (K1/K2) at the relation and affinity batch shapes (G=64, A=B=16,
+   K=800, O=4; A=16, B=32, K=1024, O=2), ragged tiles, K % 4 != 0, O=8 and
+   unaligned operands, gate 1e-5 * max(1, max |plain|) (both round the
+   same values to bf16 and sum in f32); the box ranking over the fast-dot
+   logits (K9) at G in {4, 64} with ragged validity; the bf16 recurrence
+   at G=2 L=32 B in {64, 320}, G=1 L=16 B=1024, H=200 and the odd widths
+   63 and 255, with its residuals, gate BF16_REC_ULPS bf16 units of
+   max |plain| (the order of the h . R sum moves a rounded value by a unit
+   now and then, and the unit travels down the steps).  Then on phase 9's
+   split, at full width: ``--train --compute_dtype bf16`` of relation and
+   affinity (10 epochs, eval every 5 steps), which must launch the bf16
+   recurrence, K7/K8 in f32 and, in the dev eval, the fast-dot grid head,
+   and no f32 recurrence; ``--predict --eval`` of that checkpoint in bf16
+   (only the bf16 modes launch) and in f32 (only the f32 kernels); dev
+   accuracy in bf16 within 4 points of phase 9's f32 run, printed beside
+   the dev split's majority-class rate (both models sit near it: 128
+   images at vocabulary 2000 teach neither rule), so the bf16 run's dev
+   loss is also held to the f32 run's at every eval within
+   BF16_LOSS_CURVE; the two predicts' probabilities within BF16_DRIFT, the
+   ``--rank_file`` rows summing to 1; the reference's planted gate
+   (tests/integration/test_convergence.py) at full width on a split its
+   rule can be learnt from (vocabulary 16, 96 train and 24 dev images, 25
+   epochs of 16 images, learn rate 0.01, dropout 0): relation dev accuracy
+   >= 93 % in f32 and >= 90 % in bf16, within 4 points of each other, well
+   above the majority-class rate; ``icl_torch.cli.joint.main
+   --compute_dtype bf16`` over phase 10's model dirs: the mention tasks'
+   files the f32 run's bytes, relation, affinity and the ranking within
+   BF16_DRIFT of it, the bf16 modes launched and no f32 one.  Each bf16
+   mode is also timed beside its f32 mode at the same shape (phase 12),
+   with its bound on bf16 bytes, and affinity ranked predict gets a
+   profile line in bf16 beside the f32 one;
 11. data parallelism (``icl_torch.dist``, ``icl_torch.runtime``).  A world
    of one: ``runtime.init(num_processes=1, process_id=0)`` on the card must
    choose NCCL, and one relation train step at full width through the
@@ -157,7 +191,8 @@ command lines as two data-parallel ranks on the one card:
    time, launches, the five longest kernels; the wall clock of the whole
    script;
 13. prints one JSON line with every kernel at every timed shape (all nine
-    TPU kernels among them): launches over the driven paths, error, times,
+    TPU kernels among them, and the three bf16 modes as kernels of their
+    own): launches over the driven paths, error, times,
     bound, and the time of one PyTorch call for the same function (null:
     there is none for any of them, NO_LIBRARY_CALL says why), then, last,
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -173,6 +208,7 @@ import contextlib
 import io
 import json
 import logging
+import math
 import os
 import re
 import socket
@@ -267,8 +303,26 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
                                  "icl/ops/grid_head_train.py:789"),
     "affinity_rank": ("icl_torch/csrc/affinity_rank.cu",
                       "icl/ops/affinity_rank.py:90"),
+    # the bf16 modes (--compute_dtype bf16): the reference's fast_dot of
+    # both grid-head bodies, the bf16 mode of the streamed recurrence, and
+    # K9 over the fast-dot logits
+    "grid_head_bf16dot": ("icl_torch/csrc/grid_head.cu",
+                          "icl/ops/grid_head.py:147"),
+    "lstm_recurrence_bf16": ("icl_torch/csrc/lstm_recurrence.cu",
+                             "icl/ops/lstm_kernel.py:282"),
+    "affinity_rank_bf16dot": ("icl_torch/csrc/affinity_rank.cu",
+                              "icl/ops/affinity_rank.py:90"),
 }
+BF16_KERNELS = {       # name -> the launch count of a kernel's bf16 mode
+    "grid_head_bf16dot": grid_head.bf16dot,
+    "lstm_recurrence_bf16": lstm_recurrence.bf16,
+    "affinity_rank_bf16dot": affinity_rank.bf16dot,
+}
+BF16_REC_ULPS = 4      # bf16 recurrence vs its plain version, bf16 units
+BF16_DRIFT = 0.05      # bf16 vs f32 probabilities of one checkpoint
+BF16_LOSS_CURVE = 0.02  # bf16 vs f32 dev loss at each eval, relative
 F32_RATE = 67e12       # H100 SXM, f32 outside the tensor cores, operations/s
+BF16_RATE = 989e12     # H100 SXM, dense bf16 on the tensor cores, operations/s
 INT32_RATE = 16.7e12   # H100 SXM, 32-bit integer: 64 lanes x 132 SMs x 1.98 GHz
 HBM_RATE = 3.35e12     # H100 SXM, bytes/s
 NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
@@ -282,6 +336,11 @@ NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
                                 "weighted CE sums",
     "grid_head_train_loss_bwd": "backward of that, one call",
     "affinity_rank": "grid head column plus a masked softmax over boxes",
+    "grid_head_bf16dot": "as grid_head; a bf16 matmul would need the "
+                         "[A,B,K] activation materialised",
+    "lstm_recurrence_bf16": "as lstm_recurrence; cuDNN's bf16 LSTM rounds "
+                            "elsewhere and takes no masks",
+    "affinity_rank_bf16dot": "as affinity_rank, over the fast-dot column",
 }
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
@@ -294,6 +353,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
 
     # 1. the card
@@ -313,11 +373,15 @@ def main() -> int:
         print(f"build {name}: {secs:.1f} s -> {path.name}")
         log = path.with_suffix(".log")
         if log.exists():
+            entry = ""
             for line in log.read_text().splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    entry = m.group(1)
                 if "registers" in line or "spill" in line:
                     print(f"  {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line):
-                    spilled.append(name)
+                    spilled.append(f"{name} {entry}")
     if spilled:
         raise RuntimeError(f"ptxas reports register spills in {spilled}")
 
@@ -603,7 +667,8 @@ def main() -> int:
     # line, operations this run's data needs).
     def head_ops(kind, G, A, B, K, O, cells=None, rate=0.0):
         """Operations of a grid-head kernel over `cells` cells (all, unless
-        the data needs fewer), as (float operations, integer operations).
+        the data needs fewer), as (float operations, integer operations, bf16
+        tensor-core operations: none in the f32 modes).
         Per element of [cells, K]: add and ReLU (2) and the O-wide dot (2
         O) forward; the mask of z > 0, dh and dW2 (4 O), dz, dX, dY and
         the two scalings (6) backward; with dropout the hash (10 32-bit
@@ -619,16 +684,20 @@ def main() -> int:
         bwd = cells * K * (6 + 4 * O + (2 if drop else 0))
         hashed = cells * K * HASH_INT_OPS if drop else 0
         pre = G * A * K                                     # X + b1
-        return {"fwd": (pre + fwd, hashed), "bwd": (pre + bwd, hashed),
-                "loss_fwd": (pre + fwd + cells * 6 * O, hashed),
-                "loss_bwd": (2 * pre + fwd + bwd + cells * 8 * O, hashed),
-                "rank": (pre + cells * K * 4 + cells * 6, 0)}[kind]
+        return {"fwd": (pre + fwd, hashed, 0), "bwd": (pre + bwd, hashed, 0),
+                "loss_fwd": (pre + fwd + cells * 6 * O, hashed, 0),
+                "loss_bwd": (2 * pre + fwd + bwd + cells * 8 * O, hashed, 0),
+                "rank": (pre + cells * K * 4 + cells * 6, 0, 0)}[kind]
 
     def rec_ops(args):
         """2 H 4H per valid (row, step) for h . R, and about 10 per unit
-        for the gates."""
+        for the gates.  In bf16, h . R is a product of bf16 values summed in
+        f32: tensor-core work, rated at BF16_RATE."""
         H = args[2].shape[1]
-        return int(args[1].sum()) * (8 * H * H + 10 * H), 0
+        rows = int(args[1].sum())
+        if args[2].dtype == torch.bfloat16:
+            return rows * 10 * H, 0, rows * 8 * H * H
+        return rows * (8 * H * H + 10 * H), 0, 0
 
     cases = {}
 
@@ -711,12 +780,57 @@ def main() -> int:
              lambda: lstm_recurrence_fwd(*phrase_rec, residuals=True),
              lambda: lstm_recurrence_reference(*phrase_rec, residuals=True),
              phrase_rec, "G=1 L=16 B=1024 H=200", rec_ops(phrase_rec))
+    # the bf16 modes, each at the shape of an f32 case above: the bound
+    # counts their bytes (bf16 in and out for the recurrence) and rates
+    # their products of bf16 values at BF16_RATE
+    def fast(ops, cells, K, dot):
+        """A fast-dot mode's operations: the `dot` multiply-add operations
+        a cell and k leave the f32 count for the bf16 one, and each
+        activation element gains a rounding."""
+        return (ops[0] - cells * K * dot + cells * K, ops[1],
+                cells * K * dot)
+
+    rel_fast = head_inputs(64, 16)
+    add_case("grid_head_bf16dot G=64", "grid_head_bf16dot",
+             lambda: grid_head(*rel_fast, fast_dot=True),
+             lambda: grid_head_reference(*rel_fast, fast_dot=True), rel_fast,
+             "G=64 A=B=16 K=800 O=4",
+             fast(head_ops("fwd", 64, 16, 16, 800, 4), 64 * 16 * 16, 800,
+                  2 * 4))
+    aff_fast = head_inputs(64, 16, 32, K_AFF, 2)
+    add_case("grid_head_bf16dot affinity", "grid_head_bf16dot",
+             lambda: grid_head(*aff_fast, fast_dot=True),
+             lambda: grid_head_reference(*aff_fast, fast_dot=True), aff_fast,
+             f"G=64 A=16 B=32 K={K_AFF} O=2",
+             fast(head_ops("fwd", 64, 16, 32, K_AFF, 2), 64 * 16 * 32,
+                  K_AFF, 2 * 2),
+             "icl/ops/grid_head.py:173")
+    rank_fast = rank_inputs(64, 16, 32)
+    n_valid = 16 * int(rank_fast[-1].sum())
+    add_case("affinity_rank_bf16dot", "affinity_rank_bf16dot",
+             lambda: affinity_rank(*rank_fast, fast_dot=True),
+             lambda: affinity_rank_reference(*rank_fast, 1, True), rank_fast,
+             f"G=64 A=16 B=32 K={K_AFF}",
+             fast(head_ops("rank", 64, 16, 32, K_AFF, 2, cells=n_valid),
+                  n_valid, K_AFF, 2))
+    for name, f32_args, res, shape in (
+            ("lstm_recurrence_bf16", rec_args, False, "G=2 L=32 B=64 H=200"),
+            ("lstm_recurrence_bf16 with residuals", big_rec, True,
+             "G=2 L=32 B=512 H=200"),
+            ("lstm_recurrence_bf16 G=1", phrase_rec, False,
+             "G=1 L=16 B=1024 H=200")):
+        a = (f32_args[0].bfloat16(), f32_args[1], f32_args[2].bfloat16())
+        add_case(name, "lstm_recurrence_bf16",
+                 (lambda a=a, r=res: lstm_recurrence_fwd(*a, residuals=r)),
+                 (lambda a=a, r=res: lstm_recurrence_reference(*a, r)), a,
+                 shape, rec_ops(a), "icl/ops/lstm_kernel.py:282")
     timing = {}
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
         nbytes = _nbytes(c["inputs"]) + _nbytes(_tuple(got))
-        f_ops, i_ops = c["ops"]
-        t_ops = max(f_ops / F32_RATE, i_ops / INT32_RATE) * 1e3
+        f_ops, i_ops, b_ops = c["ops"]
+        t_ops = max(f_ops / F32_RATE, i_ops / INT32_RATE,
+                    b_ops / BF16_RATE) * 1e3
         t_bytes = nbytes / HBM_RATE * 1e3
         timing[name] = {"shape": c["shape"], "kernel": c["kernel"],
                         "replaces": c["replaces"],
@@ -725,7 +839,8 @@ def main() -> int:
                         "plain_ms": _time_ms(c["plain"]),
                         "device_ms": _device_ms(c["fn"]),
                         "plain_device_ms": _device_ms(c["plain"]),
-                        "ops": f_ops, "int_ops": i_ops, "bytes": nbytes,
+                        "ops": f_ops, "int_ops": i_ops, "bf16_ops": b_ops,
+                        "bytes": nbytes,
                         "bound_ms": max(t_ops, t_bytes),
                         "bound_by": ("operations" if t_ops >= t_bytes
                                      else "bytes")}
@@ -829,6 +944,10 @@ def main() -> int:
         # 10. the mention tasks, their server endpoints, the joint run
         mention = _mention(men_dir)
 
+        # 10b. --compute_dtype bf16: the kernels' bf16 modes, relation and
+        # affinity on phase 9's split, the joint run over phase 10's dirs
+        bf16 = _bf16(dev, check, cli_dir, men_dir, cli["accuracy"])
+
         # 11. a world of one over NCCL; two ranks on the one card
         ranks = _dist(cli_dir, men_dir, card)
 
@@ -838,8 +957,9 @@ def main() -> int:
               f"ms, plain {t['plain_ms']:.4f} ms; device kernel "
               f"{t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms "
               f"({card})")
-        print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G float "
-              f"and {t['int_ops'] / 1e9:.4f} G integer operations, "
+        print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G float, "
+              f"{t['int_ops'] / 1e9:.4f} G integer and "
+              f"{t['bf16_ops'] / 1e9:.4f} G bf16 tensor-core operations, "
               f"{t['bytes'] / 1e6:.3f} MB -> {t['bound_ms']:.4f} "
               f"ms by {t['bound_by']}; device {t['device_ms']:.4f} ms = "
               f"{t['device_ms'] / t['bound_ms']:.1f} x the bound, share "
@@ -879,7 +999,8 @@ def main() -> int:
           f"{RATE}: kernel path {aff['step_ms']:.2f} ms, plain path "
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
-    for line in cli["times"] + mention["times"] + ranks["times"]:
+    for line in (cli["times"] + mention["times"] + bf16["times"]
+                 + ranks["times"]):
         print(f"time {line} ({card})")
     for line in (served_profiles + train["profiles"] + aff["profiles"]
                  + mention["profiles"]):
@@ -889,7 +1010,7 @@ def main() -> int:
 
     # 13. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
-    for phase in (result, aff_result, train, aff, cli, mention, ranks):
+    for phase in (result, aff_result, train, aff, cli, mention, bf16, ranks):
         for k, n in phase["launches"].items():
             launches[k] += n
         for unit, counts in phase["per_unit"].items():
@@ -924,8 +1045,8 @@ def _max_err(got, want) -> float:
     if len(got) != len(want) or any(a.shape != b.shape
                                     for a, b in zip(got, want)):
         return float("inf")
-    return max(((a - b).abs().max().item() for a, b in zip(got, want)
-                if b.numel()), default=0.0)
+    return max(((a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want) if b.numel()), default=0.0)
 
 
 def _offset_view(t: torch.Tensor) -> torch.Tensor:
@@ -1467,6 +1588,16 @@ def _affinity(dev, check) -> dict:
                          "fullest batch",
                          lambda: affinity_predict(model, table, batches[0],
                                                   rank=True))]
+    # the same in bf16 (the boxes already bf16, as the CLI copies them)
+    bf = AffinityModel(**AFF_DIMS, fused=True, device=dev,
+                       compute_dtype=torch.bfloat16)
+    bf.load_flat(model.flat_params())
+    bf_table = table.bfloat16()
+    bf_batch = {**batches[0], "box_feats": batches[0]["box_feats"].bfloat16()}
+    profiles.append(_profile(
+        "affinity predict with ranking, kernel path, the fullest batch, "
+        "--compute_dtype bf16",
+        lambda: affinity_predict(bf, bf_table, bf_batch, rank=True)))
     step_ms = {}
     for name, st in (("kernel", state), ("plain", plain_state)):
         step(st, table, batches[0])
@@ -1538,6 +1669,7 @@ def _cli(d: str) -> dict:
     logger = logging.getLogger("icl")
     logger.addHandler(said)
     times, per_unit = [], {}
+    accuracy = {}       # task -> dev accuracy of the f32 model, percent
     _reset(kernels)
     try:
         kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
@@ -1559,18 +1691,21 @@ def _cli(d: str) -> dict:
                      *common]
 
             def run(what, argv):
-                """One command line: its log lines and wall clock."""
+                """One command line: its log lines and wall clock; what it
+                printed is printed, and kept in `printed`."""
                 said.lines.clear()
                 before = {k: fn.launches for k, fn in kernels.items()}
                 t0 = time.perf_counter()
-                main_fn(argv)
+                printed[0] = _captured(main_fn, argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                print(printed[0], end="")
                 per_unit[f"icl-torch-{task} {what}"] = {
                     k: fn.launches - before[k]
                     for k, fn in kernels.items()}
                 return wall
 
+            printed = [""]
             # an uninterrupted run, and one stopped half way whose end
             # marker is deleted: it resumes from a periodic checkpoint.
             # (The dev loss need not fall: the planted relation rule is
@@ -1641,6 +1776,7 @@ def _cli(d: str) -> dict:
                 if task == "affinity":
                     argv += ["--rank_file", f"{d}/{task}.{k}.rank"]
                 wall = run("--predict", argv)
+                accuracy[task] = _accuracy(printed[0])
                 rate = said.numbers(rf"predict sweep: .*\((\d+) {unit}/s\)")
                 count = said.numbers(rf"predict sweep: (\d+) {unit}")
                 times.append(
@@ -1694,6 +1830,331 @@ def _cli(d: str) -> dict:
     missing = [k for k in needed if launches[k] < 1]
     if missing:
         raise RuntimeError(f"not launched from the command lines: {missing}")
+    return {"launches": launches, "per_unit": per_unit, "times": times,
+            "accuracy": accuracy}
+
+
+def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
+    """Phase 10b, ``--compute_dtype bf16``: the kernels' bf16 modes against
+    their plain versions on the card, each twice with equal bits; then
+    relation and affinity trained in bf16 through their CLIs on phase 9's
+    split, predicted in bf16 and in f32 from that checkpoint, and the joint
+    run in bf16 over phase 10's model dirs; counts what each command line
+    launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    failures = []
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def head(G, A, B, K, O):
+        return (rnd(G, A, K), rnd(G, B, K), rnd(K), rnd(K, O) / K ** 0.5,
+                rnd(O))
+
+    def rec(G, L, B, H):
+        lengths = torch.randint(0, L + 1, (B,), generator=gen, device=dev)
+        lengths[0], lengths[-1] = 0, L
+        t = torch.arange(L, device=dev)[:, None]
+        mask = torch.stack([t < lengths, (L - 1 - t) < lengths])[:G]
+        return (rnd(G, L, B, 4 * H).bfloat16(), mask.contiguous(),
+                (rnd(G, H, 4 * H) / H ** 0.5).bfloat16())
+
+    def check_ulps(what, got, want):
+        """max |kernel - plain| of each tensor within BF16_REC_ULPS bf16
+        units of its max |plain|; returns the worst in units."""
+        worst = 0.0
+        for g, w in zip(got, want):
+            w = w.float()
+            unit = 2.0 ** (math.floor(math.log2(max(_max_abs(w), 1e-30)))
+                           - 7)
+            worst = max(worst, _max_err(g.float(), w) / unit)
+        ok = worst <= BF16_REC_ULPS and all(bool(torch.isfinite(g).all())
+                                            for g in got)
+        print(f"check {what}: max|d| {worst:.2f} bf16 units of max|plain| "
+              f"(gate {BF16_REC_ULPS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    def twice(what, fn, args):
+        got = fn(*args)
+        if not all(torch.equal(a, b)
+                   for a, b in zip(_tuple(got), _tuple(fn(*args)))):
+            failures.append(f"{what} not repeatable")
+        return got
+
+    # the fast-dot grid head (K1/K2): the relation and affinity batch
+    # shapes, ragged tiles, K % 4 != 0, O = 8, and unaligned operands (the
+    # scalar form)
+    for G, A, B, K, O, moved in ((64, 16, 16, 800, 4, None),
+                                 (64, 16, 32, 1024, 2, None),
+                                 (2, 9, 17, 800, 3, None),
+                                 (1, 17, 20, 1024, 4, None),
+                                 (2, 7, 9, 50, 2, None),
+                                 (2, 20, 33, 50, 8, None),
+                                 (8, 16, 16, 800, 4, 1),
+                                 (4, 16, 20, 1024, 2, 0)):
+        args = list(head(G, A, B, K, O))
+        want = grid_head_reference(*args, fast_dot=True)
+        if moved is not None:
+            args[moved] = _offset_view(args[moved])
+        what = (f"grid_head bf16 fast dot G={G} A={A} B={B} K={K} O={O}"
+                + (f", operand {moved} unaligned" if moved is not None
+                   else "") + ", twice")
+        check(what, twice(what, lambda *a: grid_head(*a, fast_dot=True),
+                          args), want)
+    # the box ranking (K9) over the fast-dot logits, ragged validity
+    for G, moved in ((4, None), (64, None), (4, 1)):
+        valid = torch.rand(G, 32, generator=gen, device=dev) < 0.7
+        valid[:, 0] = True
+        valid[-1] = False
+        args = [*head(G, 16, 32, AFF_DIMS["head_hidden"], 2), valid]
+        want = affinity_rank_reference(*args, 1, True)
+        if moved is not None:
+            args[moved] = _offset_view(args[moved])
+        what = (f"affinity_rank bf16 fast dot G={G} A=16 B=32 K="
+                f"{AFF_DIMS['head_hidden']}" + (
+                    f", operand {moved} unaligned" if moved is not None
+                    else "") + ", twice")
+        got = twice(what, lambda *a: affinity_rank(*a, fast_dot=True), args)
+        check(what, got, want)
+        if got[~valid[:, None, :].expand_as(got)].any():
+            failures.append(f"{what}: an invalid box not 0")
+    # the bf16 recurrence: the relation batch (both directions, B = 64 and
+    # 320), the phrase LSTM (G = 1, B = 1024), odd widths; hs and h_final,
+    # and with the residuals (which must not change hs)
+    for G, L, B, H in ((2, 32, 64, 200), (2, 32, 320, 200),
+                       (1, 16, 1024, 200), (2, 16, 61, 63), (1, 8, 9, 255)):
+        args = rec(G, L, B, H)
+        what = f"lstm_recurrence bf16 G={G} L={L} B={B} H={H}"
+        got = twice(what, lambda *a: lstm_recurrence_fwd(*a, residuals=True),
+                    args)
+        bare = lstm_recurrence_fwd(*args)
+        if not (torch.equal(got[0], bare[0]) and torch.equal(got[1],
+                                                              bare[1])):
+            failures.append(f"{what}: the residuals changed hs")
+        if any(t.dtype != torch.bfloat16 for t in got):
+            failures.append(f"{what}: not bf16 out")
+        check_ulps(f"{what} (hs, final, gates, c), twice", got,
+                   lstm_recurrence_reference(*args, True))
+    if failures:
+        raise RuntimeError(f"bf16 kernel checks failed: {failures}")
+
+    # the command lines on phase 9's split
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
+               "affinity_rank": affinity_rank, **BF16_KERNELS}
+    said = _Said()
+    logger = logging.getLogger("icl")
+    logger.addHandler(said)
+    d = cli_dir
+    times, per_unit = [], {}
+    _reset(kernels)
+    try:
+        for task, main_fn, unit in (("relation", relation_cli.main, "pairs"),
+                                    ("affinity", affinity_cli.main,
+                                     "cells")):
+            common = ["--data_dir", d, "--device", "cuda",
+                      "--images_per_batch", "64", "--seed", str(SEED)]
+            model_dir = f"{d}/{task}.bf16"
+
+            def run(what, argv, need, never):
+                """One command line; the kernels in `need` must launch from
+                it, those in `never` must not.  Returns its wall clock and
+                what it printed."""
+                said.lines.clear()
+                before = {k: fn.launches for k, fn in kernels.items()}
+                t0 = time.perf_counter()
+                out = _captured(main_fn, argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                print(out, end="")
+                n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+                per_unit[f"icl-torch-{task} {what}"] = n
+                bad = [k for k in need if n[k] < 1] + [
+                    k for k in never if n[k] > 0]
+                print(f"check icl-torch-{task} {what}: launched "
+                      f"{[k for k in need]}, not {[k for k in never]}: "
+                      f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+                if bad:
+                    raise RuntimeError(f"icl-torch-{task} {what}: launches "
+                                       f"{n}")
+                return wall, out
+
+            wall, _ = run(
+                "--train --compute_dtype bf16",
+                ["--train", "--ckpt_every", "4", "--eval_every", "5",
+                 *common, "--epochs", "10", "--model_file", model_dir,
+                 "--compute_dtype", "bf16", "--metrics_file",
+                 f"{d}/{task}.bf16.jsonl"],
+                ("lstm_recurrence_bf16", "grid_head_train_loss_fwd",
+                 "grid_head_train_loss_bwd", "grid_head_bf16dot"),
+                ("lstm_recurrence", "grid_head"))
+            steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+            rows = [json.loads(ln) for ln in open(f"{d}/{task}.bf16.jsonl")]
+            if not all(np.isfinite(r[k]) for r in rows
+                       for k in ("loss", "eval_loss") if k in r):
+                raise RuntimeError(f"icl-torch-{task} bf16: a loss is not "
+                                   f"finite: {rows}")
+            mc = json.load(open(f"{model_dir}/model_config.json"))
+            end = torch.load(f"{model_dir}/step_"
+                             f"{Checkpointer(model_dir).latest_step}.pt",
+                             weights_only=True)
+            if mc["compute_dtype"] != "bf16" or any(
+                    v.dtype != torch.float32 for v in end["model"].values()):
+                raise RuntimeError(f"icl-torch-{task} bf16: model_config "
+                                   f"{mc} or non-f32 parameters")
+            times.append(f"icl-torch-{task} --train --compute_dtype bf16 "
+                         f"[10 epochs of 128 images, 64 a batch]: "
+                         f"{steps_s[0]:.2f} steps/s in the loop; the command "
+                         f"{wall:.2f} s")
+            probs, acc = {}, {}
+            for dtype in ("bf16", "f32"):
+                scores = f"{d}/{task}.bf16.{dtype}.scores"
+                argv = ["--predict", "--eval", "--data_split", "dev",
+                        *common, "--model_file", model_dir, "--scores_file",
+                        scores, "--compute_dtype", dtype]
+                if task == "affinity":
+                    argv += ["--rank_file", f"{d}/{task}.bf16.{dtype}.rank"]
+                f32_ids = ("grid_head", "lstm_recurrence", "affinity_rank")
+                bf16_ids = tuple(BF16_KERNELS)
+                if task == "relation":
+                    f32_ids, bf16_ids = f32_ids[:2], bf16_ids[:2]
+                wall, out = run(
+                    f"--predict --eval --compute_dtype {dtype}", argv,
+                    *((bf16_ids, f32_ids) if dtype == "bf16"
+                      else (f32_ids, bf16_ids)))
+                acc[dtype] = _accuracy(out)
+                ids, probs[dtype] = read_scores(scores)
+                rate = said.numbers(rf"predict sweep: .*\((\d+) {unit}/s\)")
+                times.append(f"icl-torch-{task} --predict --eval "
+                             f"--compute_dtype {dtype} [dev, 32 images, the "
+                             f"bf16-trained model]: {rate[0]:.0f} {unit}/s "
+                             f"in the sweep; the command {wall:.2f} s")
+                if task == "affinity":
+                    rids, rank = read_scores(f"{d}/{task}.bf16.{dtype}.rank")
+                    rows = {}
+                    for cid, p in zip(rids, rank[:, 0]):
+                        rows.setdefault(cid.rsplit(";box:", 1)[0],
+                                        []).append(p)
+                    off = max(abs(sum(v) - 1) for v in rows.values())
+                    if off > 2e-5 or rids != ids:
+                        raise RuntimeError(f"bf16 phase: bad rank file "
+                                           f"({dtype}): {off}")
+            drift = float(np.abs(probs["bf16"] - probs["f32"]).max())
+            gap = abs(acc["bf16"] - f32_accuracy[task])
+            # the dev loss of the bf16 run at each eval against phase 9's
+            # f32 run (same seed, flags and schedule)
+            curves = [{r["step"]: r["eval_loss"]
+                       for r in map(json.loads, open(f"{d}/{task}{s}.jsonl"))
+                       if "eval_loss" in r} for s in ("", ".bf16")]
+            curve = max(abs(curves[1][k] / v - 1) for k, v in
+                        curves[0].items()) if curves[0].keys() == curves[
+                            1].keys() else math.inf
+            ok = (drift <= BF16_DRIFT and gap <= 4.0
+                  and curve <= BF16_LOSS_CURVE
+                  and bool(np.isfinite(probs["bf16"]).all()))
+            print(f"check icl-torch-{task} --compute_dtype bf16: dev accuracy "
+                  f"{acc['bf16']:.2f}% trained and predicted in bf16 against "
+                  f"{f32_accuracy[task]:.2f}% in f32 (phase 9), gap "
+                  f"{gap:.2f} points (gate 4), the dev split's majority "
+                  f"class {_majority(out):.2f}%; dev loss at the "
+                  f"{len(curves[0])} evals within {curve:.2e} of the f32 "
+                  f"run's, relative (gate {BF16_LOSS_CURVE}; bf16 "
+                  f"{[round(x, 4) for x in curves[1].values()]}); the bf16 "
+                  f"checkpoint predicted in f32: {acc['f32']:.2f}%; bf16 vs "
+                  f"f32 probabilities of that checkpoint max|d| {drift:.3e} "
+                  f"(gate {BF16_DRIFT})"
+                  f"{'; rank rows sum to 1' if task == 'affinity' else ''}: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"icl-torch-{task} bf16: accuracy gap "
+                                   f"{gap}, dev loss {curve} or drift "
+                                   f"{drift}")
+
+        # the reference's planted gate at full width, on a split whose rule
+        # 96 images teach (tests/integration/test_convergence.py)
+        pd = f"{d}/planted16"
+        kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=16,
+                  captions_per_image=3, max_mentions_per_caption=2,
+                  max_boxes_per_image=4)
+        for split, n in (("train", 96), ("dev", 24)):
+            generate_dataset(pd, split, SynthConfig(num_images=n, seed=1,
+                                                    **kw))
+        acc, t0 = {}, time.perf_counter()
+        for dtype in ("f32", "bf16"):
+            common = ["--data_dir", pd, "--device", "cuda",
+                      "--images_per_batch", "16", "--seed", "3",
+                      "--compute_dtype", dtype, "--model_file",
+                      f"{pd}/{dtype}.model"]
+            _captured(relation_cli.main, [
+                "--train", "--epochs", "25", "--dropout", "0.0",
+                "--learn_rate", "0.01", *common])
+            out = _captured(relation_cli.main, [
+                "--predict", "--eval", "--data_split", "dev",
+                "--scores_file", f"{pd}/{dtype}.scores", *common])
+            acc[dtype] = _accuracy(out)
+        wall = time.perf_counter() - t0
+        majority = _majority(out)
+        ok = (acc["f32"] >= 93.0 and acc["bf16"] >= 90.0
+              and abs(acc["f32"] - acc["bf16"]) <= 4.0)
+        print(f"check icl-torch-relation planted gate at full width "
+              f"(vocabulary 16, 96 train and 24 dev images, 25 epochs): dev "
+              f"accuracy {acc['f32']:.2f}% in f32 (gate 93), "
+              f"{acc['bf16']:.2f}% in bf16 (gate 90), gap "
+              f"{abs(acc['f32'] - acc['bf16']):.2f} points (gate 4), the "
+              f"majority class {majority:.2f}%: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"planted gate: {acc}")
+        times.append(f"icl-torch-relation planted gate [two --train of 25 "
+                     f"epochs of 96 images, 16 a batch, and two --predict "
+                     f"--eval]: {wall:.2f} s")
+
+        # the joint run in bf16 over phase 10's model dirs: the mention
+        # tasks ignore the flag (their files keep the f32 run's bytes)
+        wrote = {t: f"{men_dir}/dev.{t}.scores"
+                 for t in ("nonvisual", "cardinality", "relation",
+                           "affinity")}
+        wrote["rank"] = f"{men_dir}/dev.affinity.rank"
+        f32_files = {t: open(p, "rb").read() for t, p in wrote.items()}
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        joint_cli.main(["--predict", "--data_dir", men_dir, "--device",
+                        "cuda", "--data_split", "dev", "--images_per_batch",
+                        "64", "--batch_size", str(MENTION_BATCH), "--seed",
+                        str(SEED), "--with_cardinality", "--with_rank",
+                        "--compute_dtype", "bf16"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        per_unit["icl-torch-joint --compute_dtype bf16"] = n
+        same = [t for t in ("nonvisual", "cardinality")
+                if open(wrote[t], "rb").read() == f32_files[t]]
+        drift = 0.0
+        for t in ("relation", "affinity", "rank"):
+            ids, p = read_scores(wrote[t])
+            with tempfile.NamedTemporaryFile(suffix=".scores") as f:
+                f.write(f32_files[t])
+                f.flush()
+                want_ids, q = read_scores(f.name)
+            if ids != want_ids:
+                raise RuntimeError(f"icl-torch-joint bf16: {t} ids differ")
+            drift = max(drift, float(np.abs(p - q).max()))
+        ok = (len(same) == 2 and drift <= BF16_DRIFT
+              and min(n[k] for k in BF16_KERNELS) > 0
+              and max(n[k] for k in ("grid_head", "lstm_recurrence",
+                                     "affinity_rank")) == 0)
+        print(f"check icl-torch-joint --compute_dtype bf16: the mention "
+              f"tasks' files the f32 run's bytes ({same}), relation, "
+              f"affinity and the ranking within {drift:.3e} of the f32 run "
+              f"(gate {BF16_DRIFT}), launches {n}: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("icl-torch-joint --compute_dtype bf16")
+        times.append(f"icl-torch-joint --compute_dtype bf16 --with_cardinality"
+                     f" --with_rank [dev, 275 images]: the command "
+                     f"{wall:.2f} s")
+    finally:
+        logger.removeHandler(said)
+    launches = _count(kernels, "the bf16 phase")
     return {"launches": launches, "per_unit": per_unit, "times": times}
 
 
@@ -1711,6 +2172,20 @@ def _accuracy_line(table: str) -> str:
     if len(lines) != 1:
         raise RuntimeError(f"no accuracy line in {table!r}")
     return lines[0]
+
+
+def _accuracy(table: str) -> float:
+    """The dev accuracy, in percent, of a ScoreDict table."""
+    return float(re.search(r"Accuracy: (\S+)%", _accuracy_line(table))
+                 .group(1))
+
+
+def _majority(table: str) -> float:
+    """The accuracy, in percent, of always answering the commonest gold
+    label of a ScoreDict table."""
+    gold = [int(n) for n in re.findall(r"\|\s*(\d+) \(\s*[\d.]+%\)$", table,
+                                       re.M)]
+    return 100.0 * max(gold) / sum(gold)
 
 
 def _mention_request(rng, k: int) -> dict:
@@ -2223,7 +2698,7 @@ def _rank_steps(cli_dir: str, scratch: str, emb, trained, per_unit) -> None:
         images_per_batch=64, build_grid=True).batches(
             load_relation_dataset(cli_dir, "train", emb))]
     aff = [b.arrays for b in AffinityBatcher(
-        images_per_batch=64, box_dtype=np.float32, with_ids=False).batches(
+        images_per_batch=64, with_ids=False).batches(
             load_affinity_dataset(cli_dir, "train", emb))]
     ragged = [a for a in rel if 32 < int(a["img_valid"].sum()) < 64]
     picked = {
@@ -2570,7 +3045,7 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
     launches = _count(kernels, "this process over the two-rank phase")
     for counts in per_unit.values():
         for k, n in counts.items():
-            launches[k] += n
+            launches[k] = launches.get(k, 0) + n
     print(f"check launches over the two-rank phase, both ranks of every "
           f"run and this process: {launches}")
     return {"launches": launches, "per_unit": per_unit, "times": times}

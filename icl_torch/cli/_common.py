@@ -15,10 +15,17 @@ contiguous slice of the split and merges the ranks' part files
 process, with a warning.  Only rank 0 writes the model dir, the metrics
 file and the merged outputs, so the ranks must share their storage.
 
+``--compute_dtype bf16`` is the reference's throughput mode
+(:func:`resolve_compute_dtype`): relation and affinity run their encoders,
+the word-vector table and, for affinity, the box features' copy to the
+device in bf16, and a fused model's predict the kernels' bf16 modes; the
+parameters, gradients, Adam state and checkpoints stay f32, so a model
+trained in one dtype predicts in the other.  The mention tasks take the
+flag and log that it has no effect, as the reference ignores it there.
+
 A flag whose machinery the port does not have yet is accepted by name and
 refused by value with :class:`RefusedFlagError`, never ignored:
 
-* ``--compute_dtype bf16``: the port's models and kernels are f32;
 * ``--oracle-parity``, ``--oracle-parity-full``: the Keras oracle is not
   ported;
 * ``--matmul_precision default`` / ``high``: the port computes f32 matrix
@@ -125,8 +132,15 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
                         "the best state. 0: off; requires --eval_every")
     p.add_argument("--compute_dtype", default="f32",
                    choices=["f32", "bf16"],
-                   help="model activation dtype; bf16 is refused: the "
-                        "port's models and kernels are f32")
+                   help="model activation dtype (relation/affinity). bf16 "
+                        "is the throughput mode: the encoders, the "
+                        "word-vector table and the box features' copy to "
+                        "the device run in bf16, and a fused model's "
+                        "predict takes the kernels' bf16 modes; its .scores "
+                        "exceed the 1e-5 parity gate. Params and "
+                        "checkpoints stay f32 either way, so a bf16-trained "
+                        "model can predict in f32 and vice versa. No effect "
+                        "on the mention tasks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compilation_cache_dir", default=None,
                    help="accepted for the reference's command lines; "
@@ -231,10 +245,6 @@ def refuse_unported(args, task: str | None = None) -> None:
     log the flags that have no effect in ``task``'s entry point (the
     mention tasks read ``--hidden_width`` and ``--batch_size``; the image
     tasks do not)."""
-    if args.compute_dtype != "f32":
-        raise RefusedFlagError(
-            "--compute_dtype", f"{args.compute_dtype} is not ported: the "
-            f"port's models and kernels are f32")
     for flag, on in (("--oracle-parity", args.oracle_parity),
                      ("--oracle-parity-full", args.oracle_parity_full)):
         if on:
@@ -318,9 +328,26 @@ def begin_predict(rt, n_examples: int, weights=None) -> tuple[int, int]:
 
 def apply_precision(args) -> None:
     """The port's one precision: f32 matrix products in full f32 (what
-    ``--matmul_precision highest`` names); TF32 off for cuBLAS and cuDNN."""
+    ``--matmul_precision highest`` names); TF32 off for cuBLAS and cuDNN;
+    bf16 matrix products sum in f32, as XLA's ``preferred_element_type=
+    f32`` does (PyTorch's default lets cuBLAS reduce in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def resolve_compute_dtype(args) -> torch.dtype:
+    """``--compute_dtype`` -> the torch dtype of relation's and affinity's
+    models, warning when bf16 scores a predict split (bf16 .scores exceed
+    the 1e-5 parity gate)."""
+    if args.compute_dtype != "bf16":
+        return torch.float32
+    if args.predict:
+        LOG.warning("bf16 predict exceeds the %.0e parity gate (PERF.md "
+                    "states the drift measured on the card); use "
+                    "--compute_dtype f32 for parity-grade .scores",
+                    PARITY_GATE)
+    return torch.bfloat16
 
 
 def use_fused(args, device: torch.device) -> bool:
@@ -471,7 +498,7 @@ def default_scores_path(args, task: str) -> str:
 
 
 def to_device(arrays, device: torch.device):
-    """A batcher's numpy arrays (a dict, or a tuple of them) as tensors on
+    """A batcher's arrays (a dict, or a tuple of them) as tensors on
     ``device``: on CUDA through pinned memory with ``non_blocking`` copies,
     so the copy overlaps the work already queued."""
     from icl_torch.dist.mesh import shard_batch_local

@@ -5,6 +5,8 @@ counterpart of ``icl/cli/_mention_task.py``.
 -> ``.scores`` -> ScoreDict.  One bucket (the dataset's padded mention
 length), ``--batch_size`` rows a batch.  Runs on the GPU unless ``--device
 cpu`` is given.  No hand-written kernel lies on this path.
+``--compute_dtype bf16`` is taken and has no effect (one log line says
+so): the reference's mention tasks take no compute dtype.
 
 The model dir (``--model_file``) is laid out as the image tasks' is:
 ``step_<n>.pt`` checkpoints, ``model_config.json`` (``task``, ``hidden``,
@@ -55,6 +57,9 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     rt = init_runtime(args)
     device = rt.device
     apply_precision(args)
+    if args.compute_dtype == "bf16":
+        LOG.info("--compute_dtype bf16 has no effect on %s: the mention "
+                 "tasks run in f32, as the reference's do", task)
     emb = load_embeddings(args)
     table = torch.from_numpy(emb.table).to(device)
     ds = load_mention_dataset(args.data_dir, args.data_split, task, emb)

@@ -11,7 +11,11 @@ recurrence throughout, and for ``--rank_file`` the box-ranking kernel
 (:func:`icl_torch.ops.affinity_rank.affinity_rank`, through
 :func:`icl_torch.train.steps.affinity_predict`); the reference CLI ranks
 with plain array code (``rank_boxes``), which is what an unfused model runs
-here.
+here.  Under ``--compute_dtype bf16`` the table, the phrase encoder and the
+box features' copy to the device are bf16, and the predict, the dev eval
+and the ranking take the kernels' bf16 fast-dot modes (rank and
+probabilities from one set of logits, as in the reference); training keeps
+the f32 training kernels.
 
 The model dir holds what ``icl-torch-relation``'s does, with
 ``affinity.npz`` as the archive's name.  The multi-process flags do what
@@ -35,9 +39,9 @@ from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    default_model_dir, default_scores_path,
                                    dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
-                                   read_model_config, restore_for_predict,
-                                   round_to_data_axis, to_device, use_fused,
-                                   weights_archive)
+                                   read_model_config, resolve_compute_dtype,
+                                   restore_for_predict, round_to_data_axis,
+                                   to_device, use_fused, weights_archive)
 from icl_torch.data.imagebatch import AffinityBatcher
 from icl_torch.data.pipeline import load_affinity_dataset
 from icl_torch.dist.mesh import is_main_process, local_data_rows
@@ -75,8 +79,10 @@ def main(argv=None) -> None:
     rt = init_runtime(args)
     device = rt.device
     apply_precision(args)
+    cd = resolve_compute_dtype(args)
     emb = load_embeddings(args)
-    table = torch.from_numpy(emb.table).to(device)
+    # the frozen word-vector table lies on the device in the compute dtype
+    table = torch.from_numpy(emb.table).to(device, cd)
     ds = load_affinity_dataset(args.data_dir, args.data_split, emb)
     LOG.info("affinity %s: %d images, %d cells", args.data_split,
              len(ds.images), ds.num_cells)
@@ -87,7 +93,7 @@ def main(argv=None) -> None:
         images_per_batch=ipb,
         mention_spec=bucket_spec(args, "mentions_per_image", (8, 16, 32)),
         box_spec=bucket_spec(args, "boxes_per_image", (8, 16, 32)),
-        box_dtype=np.float32, with_ids=not args.train)
+        box_dtype=cd, with_ids=not args.train)
     model_dir = default_model_dir(args, "affinity")
     lstm_hidden, head_hidden = args.lstm_hidden_width, args.head_hidden
     phrase_enc = args.phrase_enc
@@ -103,7 +109,8 @@ def main(argv=None) -> None:
                           lstm_hidden=lstm_hidden, head_hidden=head_hidden,
                           num_classes=len(AFFINITY_CLASSES),
                           phrase_enc=phrase_enc, fused=fused,
-                          dropout=args.dropout, device=device)
+                          dropout=args.dropout, device=device,
+                          compute_dtype=cd)
     archive = weights_archive(model_dir, "affinity")
     state = create_train_state(model, seed=args.seed,
                                learn_rate=args.learn_rate, params=archive)

@@ -57,8 +57,8 @@ def main(argv=None) -> None:
             ("--profile_dir", args.profile_dir, "train-only")):
         if val:
             p.error(f"{flag} is not supported by icl-torch-joint ({why})")
-    # the bf16, oracle and precision flags: refused here, by name, before
-    # any sub-run starts
+    # the oracle and precision flags: refused here, by name, before any
+    # sub-run starts (--compute_dtype goes to every sub-run)
     refuse_unported(args)
 
     common = ["--predict", "--data_dir", args.data_dir,

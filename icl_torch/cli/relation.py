@@ -7,6 +7,9 @@ class order [null, coref, subset_ij, subset_ji].  Runs on the GPU unless
 model runs the hand-written kernels: the grid head at predict, the
 fused-CE training grid head in ``--train`` (the pair form when a class
 weight is <= 0) and in the dev eval, and the LSTM recurrence throughout.
+Under ``--compute_dtype bf16`` the table and the BiLSTM are bf16 (the
+recurrence kernel's bf16 mode), and the predict and the dev eval take the
+grid head's bf16 fast-dot mode; training keeps the f32 training kernels.
 
 The model dir (``--model_file``) holds the port's checkpoints
 (``step_<n>.pt``), ``model_config.json`` and ``train_config.json``, and may
@@ -39,9 +42,9 @@ from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    default_model_dir, default_scores_path,
                                    dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
-                                   read_model_config, restore_for_predict,
-                                   round_to_data_axis, to_device, use_fused,
-                                   weights_archive)
+                                   read_model_config, resolve_compute_dtype,
+                                   restore_for_predict, round_to_data_axis,
+                                   to_device, use_fused, weights_archive)
 from icl_torch.data.imagebatch import RelationBatcher
 from icl_torch.data.pairs import RELATION_CLASSES
 from icl_torch.data.pipeline import load_relation_dataset
@@ -75,8 +78,10 @@ def main(argv=None) -> None:
     rt = init_runtime(args)
     device = rt.device
     apply_precision(args)
+    cd = resolve_compute_dtype(args)
     emb = load_embeddings(args)
-    table = torch.from_numpy(emb.table).to(device)
+    # the frozen word-vector table lies on the device in the compute dtype
+    table = torch.from_numpy(emb.table).to(device, cd)
     ds = load_relation_dataset(args.data_dir, args.data_split, emb)
     LOG.info("relation %s: %d images, %d pairs", args.data_split,
              len(ds.images), ds.num_pairs)
@@ -99,7 +104,8 @@ def main(argv=None) -> None:
     model = RelationModel(emb_dim=emb.dim, lstm_hidden=lstm_hidden,
                           head_hidden=head_hidden,
                           num_classes=len(RELATION_CLASSES), fused=fused,
-                          dropout=args.dropout, device=device)
+                          dropout=args.dropout, device=device,
+                          compute_dtype=cd)
     archive = weights_archive(model_dir, "relation")
     state = create_train_state(model, seed=args.seed,
                                learn_rate=args.learn_rate, params=archive)

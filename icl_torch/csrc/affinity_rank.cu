@@ -37,6 +37,11 @@
 // order: repeated calls give the same bits.  Operands that are not 16-byte
 // aligned, or K % 4 != 0, take the same routine with 4-byte loads.
 //
+// The bf16 mode (icl_affinity_rank_bf16dot) takes the tile routine's fast
+// dot (the activation and the W2 column rounded to bf16, f32 sums): under
+// --compute_dtype bf16 the reference ranks the fast-dot logits it also
+// writes as probabilities, so the ranking follows the same logits here.
+//
 // Shared memory a block: 2 KB of K-split partials and 16 x B bytes of
 // scores.  Registers a thread (ptxas, sm_90a, no spill; chip_smoke.py
 // prints them and fails on a spill): 98 in the 16-byte form at O = 2, 100
@@ -68,8 +73,9 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Block b is (image g, row tile): rows a0 .. a0 + 3.  Warp w is column
 // tile w % col_warps of each group of col_warps tiles and k slice
-// w / col_warps.  kExactO: W2 is [K, 2]; kV: 4 (16-byte loads) or 1.
-template <bool kExactO, int kV>
+// w / col_warps.  kExactO: W2 is [K, 2]; kV: 4 (16-byte loads) or 1;
+// kFastDot: the tile routine's bf16 fast dot.
+template <bool kExactO, int kV, bool kFastDot>
 __global__ void __launch_bounds__(kRankWarps * 32)
 affinity_rank_kernel(const HeadArgs p, const uint8_t* __restrict__ box_valid) {
   using T = Tile<1>;
@@ -88,7 +94,8 @@ affinity_rank_kernel(const HeadArgs p, const uint8_t* __restrict__ box_valid) {
   for (int ct0 = 0; ct0 < col_tiles; ct0 += p.col_warps) {
     t.b0 = (ct0 + t.ctw) * T::kCols;  // beyond B: no live cell, no work
     float logit[1];
-    head_tile_logits<1, kExactO, kV, false, false, true>(p, t, red, logit);
+    head_tile_logits<1, kExactO, kV, false, false, true, kFastDot>(p, t, red,
+                                                                  logit);
     const int r = c / T::kCols, b = t.b0 + c % T::kCols;
     if (t.s == 0 && (lane & (T::kGroup - 1)) == 0 && t.a0 + r < p.A && b < B)
       sc[r * B + b] = logit[0];
@@ -115,23 +122,11 @@ affinity_rank_kernel(const HeadArgs p, const uint8_t* __restrict__ box_valid) {
   }
 }
 
-}  // namespace
-
-// Launches on `stream` (a cudaStream_t from the caller) on `device`.
-// box_valid is one byte per box (torch.bool).  Returns the cudaError_t of
-// the launch: 0 on success.  G, A and B must be positive (the caller
-// handles an empty grid without a launch), 0 <= col < O.  ksplit warps of a
-// block split K (icl_torch/ops/grid_head.py launch_plan picks it for a
-// block of whole rows); a block has min(column tiles, 8) x ksplit warps, at
-// most 16.  The 16-byte form is taken when X, Y, b1 and W2 are 16-byte
-// aligned and K % 4 == 0.
-extern "C" int icl_affinity_rank_f32(const float* X, const float* Y,
-                                     const float* b1, const float* W2,
-                                     const float* b2,
-                                     const uint8_t* box_valid, float* out,
-                                     int G, int A, int B, int K, int O,
-                                     int col, int ksplit, int device,
-                                     void* stream) {
+template <bool kFastDot>
+int launch(const float* X, const float* Y, const float* b1, const float* W2,
+           const float* b2, const uint8_t* box_valid, float* out, int G,
+           int A, int B, int K, int O, int col, int ksplit, int device,
+           void* stream) {
   if (G <= 0 || A <= 0 || B <= 0 || K <= 0 || col < 0 || col >= O)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -157,11 +152,11 @@ extern "C" int icl_affinity_rank_f32(const float* X, const float* Y,
   do {                                                                      \
     if (smem > 40 * 1024) {                                                 \
       err = cudaFuncSetAttribute(                                           \
-          affinity_rank_kernel<kExactO, kV>,                                \
+          affinity_rank_kernel<kExactO, kV, kFastDot>,                      \
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);          \
       if (err != cudaSuccess) return (int)err;                              \
     }                                                                       \
-    affinity_rank_kernel<kExactO, kV>                                       \
+    affinity_rank_kernel<kExactO, kV, kFastDot>                             \
         <<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(        \
             p, box_valid);                                                  \
   } while (0)
@@ -174,4 +169,38 @@ extern "C" int icl_affinity_rank_f32(const float* X, const float* Y,
   }
 #undef ICL_CALL
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream` (a cudaStream_t from the caller) on `device`.
+// box_valid is one byte per box (torch.bool).  Returns the cudaError_t of
+// the launch: 0 on success.  G, A and B must be positive (the caller
+// handles an empty grid without a launch), 0 <= col < O.  ksplit warps of a
+// block split K (icl_torch/ops/grid_head.py launch_plan picks it for a
+// block of whole rows); a block has min(column tiles, 8) x ksplit warps, at
+// most 16.  The 16-byte form is taken when X, Y, b1 and W2 are 16-byte
+// aligned and K % 4 == 0.
+extern "C" int icl_affinity_rank_f32(const float* X, const float* Y,
+                                     const float* b1, const float* W2,
+                                     const float* b2,
+                                     const uint8_t* box_valid, float* out,
+                                     int G, int A, int B, int K, int O,
+                                     int col, int ksplit, int device,
+                                     void* stream) {
+  return launch<false>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O, col,
+                       ksplit, device, stream);
+}
+
+// The same call in the bf16 fast-dot mode: the scores are the fast-dot
+// grid head's column, as the reference ranks the fast-dot logits it writes.
+extern "C" int icl_affinity_rank_bf16dot(const float* X, const float* Y,
+                                         const float* b1, const float* W2,
+                                         const float* b2,
+                                         const uint8_t* box_valid,
+                                         float* out, int G, int A, int B,
+                                         int K, int O, int col, int ksplit,
+                                         int device, void* stream) {
+  return launch<true>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O, col,
+                      ksplit, device, stream);
 }

@@ -2,6 +2,16 @@
 //
 //     logit[g, a, b, :] = dropout(relu(X[g, a] + b1 + Y[g, b])) . W2 + b2
 //
+// and its fast-dot mode (kFastDot; the bf16 mode of K1/K2 and K9, the
+// reference's fast_dot in icl/ops/grid_head.py _kernel and _flat_kernel):
+// the activation relu((X + b1) + Y), added in f32 in that order, and every
+// W2 entry are rounded to bf16 (round to nearest even) before the dot.  A
+// product of two bf16 values is exact in f32, so the FMAs and the sums stay
+// f32: what a one-pass bf16 dot with f32 accumulation computes.  Inputs and
+// outputs stay f32.  It runs the same FMAs as the f32 mode, plus two
+// conversions an element; the f32 mode is another instantiation and keeps
+// its bits.
+//
 // One source for every forward kernel of the grid head: grid_head.cu (the
 // Pallas kernels K1 _flat_kernel and K2 _kernel of icl/ops/grid_head.py)
 // and the forward family of grid_head_train.cu (K5 _fwd_kernel, K7
@@ -85,6 +95,14 @@ constexpr int kMaxWarps = 8;    // warps a block: column tiles x k slices
 constexpr int kColTiles = 4;    // column tiles a block where K is not split
 constexpr int kRedFloats = kMaxWarps * 64;   // K-split partials a block
 constexpr unsigned kFull = 0xffffffffu;
+
+// x rounded to bf16 (nearest even) and widened back: exact in f32; one
+// cvt.rn.bf16.f32 and a shift
+__device__ __forceinline__ float bf16_round(float x) {
+  uint16_t b;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(b) : "f"(x));
+  return __uint_as_float((uint32_t)b << 16);
+}
 
 __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   x = ((x >> 16) ^ x) * 0x45d9f3bu;
@@ -185,11 +203,13 @@ struct TileState {
 // tile.  kAligned: the operands take 16-byte loads (the kW == 4 passes of
 // the 16-byte form, and W2's rows in its scalar last pass).  kColumn: kO
 // is 1 and the head is column p.col of W2 [K, p.O]; kExactO then says that
-// p.O is 2.
+// p.O is 2.  kFastDot: the activation and W2 are rounded to bf16 (the
+// header's note).
 template <int kO, bool kExactO, int kW, bool kAligned, bool kDrop,
-          bool kColumn = false>
+          bool kColumn = false, bool kFastDot = false>
 __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
                                                 TileState<kO>& st, int k) {
+  static_assert(!(kDrop && kFastDot), "the fast dot is a predict mode");
   using T = Tile<kO>;
   constexpr int TA = T::kRows, TB = T::kCols;
   float xb[TA][kW], yv[TB][kW], w[kW * kO], bv[kW];
@@ -222,6 +242,10 @@ __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
         w[v * kO + o] =
             o < p.O ? __ldg(p.W2 + (size_t)(k + v) * p.O + o) : 0.f;
   }
+  if constexpr (kFastDot) {
+#pragma unroll
+    for (int i = 0; i < kW * kO; ++i) w[i] = bf16_round(w[i]);
+  }
 #pragma unroll
   for (int r = 0; r < TA; ++r) {
 #pragma unroll
@@ -230,6 +254,7 @@ __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
 #pragma unroll
         for (int v = 0; v < kW; ++v) {
           float h = fmaxf(xb[r][v] + yv[c][v], 0.f);
+          if constexpr (kFastDot) h = bf16_round(h);
           if constexpr (kDrop)
             h = hash32(st.keys[r * TB + c] ^ (uint32_t)(k + v)) >= p.thr
                     ? h * p.scale
@@ -286,9 +311,10 @@ __device__ __forceinline__ TileCoords tile_coords(const HeadArgs& p) {
 // computed: they come out as b2.  On return, in the warps of slice 0,
 // logit[0 .. O) are the logits of the lane's cell (b2 added; zero beyond
 // O), equal bits in the lanes that share a cell.  In the column form
-// (kColumn, kO = 1) logit[0] is the logit of column p.col.
+// (kColumn, kO = 1) logit[0] is the logit of column p.col.  kFastDot: the
+// bf16 fast dot (the header's note).
 template <int kO, bool kExactO, int kV, bool kDrop, bool kWeighted,
-          bool kColumn = false>
+          bool kColumn = false, bool kFastDot = false>
 __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,
                                                  const TileCoords& t,
                                                  float* red,
@@ -334,11 +360,12 @@ __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,
     constexpr int kPass = 32 * kV;
     const int full = K / kPass;
     for (int it = t.s; it < full; it += p.ksplit)
-      tile_accumulate<kO, kExactO, kV, kV == 4, kDrop, kColumn>(
+      tile_accumulate<kO, kExactO, kV, kV == 4, kDrop, kColumn, kFastDot>(
           p, st, (it * 32 + lane) * kV);
     if (full % p.ksplit == t.s) {
       for (int k = full * kPass + lane; k < K; k += 32)
-        tile_accumulate<kO, kExactO, 1, kV == 4, kDrop, kColumn>(p, st, k);
+        tile_accumulate<kO, kExactO, 1, kV == 4, kDrop, kColumn, kFastDot>(
+            p, st, k);
     }
     __syncwarp();
     reduce_step<kN, kO, 16, kN>(acc, lane);

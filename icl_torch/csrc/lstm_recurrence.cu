@@ -78,13 +78,39 @@
 //    store nothing; a half whose tile lies beyond B leaves after the
 //    cluster barrier.
 //
+// The bf16 mode (icl_lstm_recurrence_bf16): x_proj, R, hs, h_final and the
+// residuals are __nv_bfloat16 in device memory, half the bytes; the
+// semantics are the reference's lax.scan at compute_dtype=bf16
+// (icl/models/rnn.py lstm_recurrence, whose TPU kernel is the bf16 mode of
+// _stream_kernel in icl/ops/lstm_kernel.py).  Inside, the kernel is the f32
+// one: R and h stay f32 in shared memory and registers, holding values
+// that bf16 represents exactly, so h . R is exact products summed in f32.
+// The kernel rounds to bf16 where the plain version (eager PyTorch ops on
+// bf16 tensors, lstm_recurrence_reference) rounds, each op computed in f32
+// and rounded once:
+//   d = bf16(h . R)              the batched matmul's output
+//   z = bf16(x_proj + d)
+//   i, f, o = bf16(sigmoid(z)), c~ = bf16(tanh(z))
+//   c = bf16(bf16(f * c_prev) + bf16(i * c~))
+//   h = bf16(o * bf16(tanh(c)))
+// and the masked carry copies values.  Products of two bf16 values are
+// exact in f32.  The gates here are expf with an IEEE divide and tanhf,
+// the functions PyTorch's own bf16 sigmoid and tanh evaluate in f32: an
+// approximate gate would move a value across a bf16 rounding boundary now
+// and then.  What stays apart from the plain version is the order of the
+// h . R sum, which moves a rounded d by one bf16 unit where the sum lies
+// near a boundary, and that unit travels down the steps.
+//
 // Compiled with -DICL_LSTM_CLOCKS the kernel also adds up, for thread 0 of
 // block (0, 0), the cycles of each phase of a step (icl_torch/tools/
 // lstm_phase_clocks.py reads them): the machine this runs on has no
 // profiler that sees inside a kernel.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -116,6 +142,34 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 __device__ __forceinline__ float tanh_fast(float x) {
   return 2.f * sigmoid(2.f * x) - 1.f;
+}
+
+// the bf16 mode's gates: PyTorch's f32 evaluation of its bf16 sigmoid
+__device__ __forceinline__ float sigmoid_ieee(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// x rounded to bf16 (nearest even): its 16 bits (one cvt.rn.bf16.f32), and
+// the value widened back, exact in f32
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  uint16_t b;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(b) : "f"(x));
+  return b;
+}
+__device__ __forceinline__ float bf16r(float x) {
+  return __uint_as_float((uint32_t)bf16_bits(x) << 16);
+}
+
+// device memory <-> the kernel's f32 registers
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  // v is a bf16 value already: exact
+  *reinterpret_cast<unsigned short*>(p) = bf16_bits(v);
 }
 
 // barrier of one half block (ids 1 and 2; 0 is __syncthreads)
@@ -168,12 +222,16 @@ __device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
       : "memory");
 }
 
+// E: the element type of device memory, float or __nv_bfloat16 (the bf16
+// mode); everything on chip is f32.
+template <typename E>
 __global__ void __launch_bounds__(2 * kHalf)
-lstm_cluster_kernel(const float* __restrict__ xp,
+lstm_cluster_kernel(const E* __restrict__ xp,
                     const uint8_t* __restrict__ mask,
-                    const float* __restrict__ R, float* __restrict__ hs,
-                    float* __restrict__ h_final, float* __restrict__ gates,
-                    float* __restrict__ cs, int L, int B, int H) {
+                    const E* __restrict__ R, E* __restrict__ hs,
+                    E* __restrict__ h_final, E* __restrict__ gates,
+                    E* __restrict__ cs, int L, int B, int H) {
+  constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
   constexpr int T = kTile;
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t full[2][2];  // [half][buffer]: h is whole
@@ -202,15 +260,15 @@ lstm_cluster_kernel(const float* __restrict__ xp,
   const int k1 = min(H, k0 + kc);
 
   // once: this block's columns of R[g], h = 0, and the barriers
-  const float* Rg = R + (size_t)g * H * H4;
+  const E* Rg = R + (size_t)g * H * H4;
   for (int i = threadIdx.x; i < H * Hc; i += blockDim.x) {
     const int k = i / Hc;
     const int uu = rank * Hc + (i - k * Hc);
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
     if (uu < H) {
-      const float* p = Rg + (size_t)k * H4 + uu;
-      w = make_float4(__ldg(p), __ldg(p + H), __ldg(p + 2 * H),
-                      __ldg(p + 3 * H));
+      const E* p = Rg + (size_t)k * H4 + uu;
+      w = make_float4(load_f32(p), load_f32(p + H), load_f32(p + 2 * H),
+                      load_f32(p + 3 * H));
     }
     Rs[i] = w;
   }
@@ -236,14 +294,15 @@ lstm_cluster_kernel(const float* __restrict__ xp,
   // load waits on a condition
   const int b = b0 + s;
   const bool stores = active && b < B;
-  const float* xrow = xp + ((size_t)g * L * B + min(b, B - 1)) * H4
-                     + min(u, H - 1);
+  const E* xrow = xp + ((size_t)g * L * B + min(b, B - 1)) * H4
+                 + min(u, H - 1);
   const uint8_t* mrow = mask + (size_t)g * L * B + min(b, B - 1);
   float c = 0.f, h = 0.f, zx[4];
   uint8_t m;
   auto load_step = [&](int t) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) zx[q] = __ldg(xrow + (size_t)t * B * H4 + q * H);
+    for (int q = 0; q < 4; ++q)
+      zx[q] = load_f32(xrow + (size_t)t * B * H4 + q * H);
     m = __ldg(mrow + (size_t)t * B);
   };
   load_step(0);
@@ -334,14 +393,26 @@ lstm_cluster_kernel(const float* __restrict__ xp,
         d.z += v.z;
         d.w += v.w;
       }
-      ig = sigmoid(zx[0] + d.x);
-      fg = sigmoid(zx[1] + d.y);
-      gg = tanh_fast(zx[2] + d.z);
-      og = sigmoid(zx[3] + d.w);
-      const float ct = fg * c + ig * gg;
-      if (m) {
-        c = ct;
-        h = og * tanh_fast(ct);
+      if constexpr (kBf16) {   // the rounding points of the header's note
+        ig = bf16r(sigmoid_ieee(bf16r(zx[0] + bf16r(d.x))));
+        fg = bf16r(sigmoid_ieee(bf16r(zx[1] + bf16r(d.y))));
+        gg = bf16r(tanhf(bf16r(zx[2] + bf16r(d.z))));
+        og = bf16r(sigmoid_ieee(bf16r(zx[3] + bf16r(d.w))));
+        const float ct = bf16r(bf16r(fg * c) + bf16r(ig * gg));
+        if (m) {
+          c = ct;
+          h = bf16r(og * bf16r(tanhf(ct)));
+        }
+      } else {
+        ig = sigmoid(zx[0] + d.x);
+        fg = sigmoid(zx[1] + d.y);
+        gg = tanh_fast(zx[2] + d.z);
+        og = sigmoid(zx[3] + d.w);
+        const float ct = fg * c + ig * gg;
+        if (m) {
+          c = ct;
+          h = og * tanh_fast(ct);
+        }
       }
       // the new h of this unit's row, into this block's other buffer
       hbuf[(cur ^ 1) * H * T + u * T + s] = h;
@@ -365,18 +436,18 @@ lstm_cluster_kernel(const float* __restrict__ xp,
     }
     if (stores) {
       const size_t row = ((size_t)g * L + t) * B + b;
-      hs[row * H + u] = h;
+      store(hs + row * H + u, h);
       if (gates != nullptr) {
-        float* gp = gates + row * H4 + u;
-        gp[0] = ig;
-        gp[H] = fg;
-        gp[2 * H] = gg;
-        gp[3 * H] = og;
-        cs[row * H + u] = c;
+        E* gp = gates + row * H4 + u;
+        store(gp, ig);
+        store(gp + H, fg);
+        store(gp + 2 * H, gg);
+        store(gp + 3 * H, og);
+        store(cs + row * H + u, c);
       }
     }
   }
-  if (stores) h_final[((size_t)g * B + b) * H + u] = h;
+  if (stores) store(h_final + ((size_t)g * B + b) * H + u, h);
 }
 
 size_t smem_bytes(int H) {
@@ -385,6 +456,37 @@ size_t smem_bytes(int H) {
   return ((size_t)4 * H * Hc + 2 * (2 * (size_t)H * kTile
                                     + (size_t)4 * kSplit * kTile * Hc))
          * sizeof(float);
+}
+
+template <typename E>
+int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
+           E* h_final, E* gates, E* cs, int G, int L, int B, int H,
+           int device, void* stream) {
+  if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
+  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || H > 256 || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(H);
+  err = cudaFuncSetAttribute(lstm_cluster_kernel<E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (B + kTile - 1) / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * ((tiles + 1) / 2), G);
+  cfg.blockDim = dim3(2 * kHalf);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, lstm_cluster_kernel<E>, x_proj, mask,
+                                 R, hs, h_final, gates, cs, L, B, H);
 }
 
 }  // namespace
@@ -417,29 +519,22 @@ extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
                                        float* gates, float* cs, int G, int L,
                                        int B, int H, int device,
                                        void* stream) {
-  if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
-  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || H > 256 || G > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(H);
-  err = cudaFuncSetAttribute(lstm_cluster_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (B + kTile - 1) / kTile;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * ((tiles + 1) / 2), G);
-  cfg.blockDim = dim3(2 * kHalf);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, lstm_cluster_kernel, x_proj, mask, R,
-                                 hs, h_final, gates, cs, L, B, H);
+  return launch<float>(x_proj, mask, R, hs, h_final, gates, cs, G, L, B, H,
+                       device, stream);
+}
+
+// The same call in the bf16 mode (the header's note): every tensor but the
+// mask is contiguous bf16.  Any H in 1..256, odd ones too: the kernel reads
+// and writes device memory one element at a time.
+extern "C" int icl_lstm_recurrence_bf16(const __nv_bfloat16* x_proj,
+                                        const uint8_t* mask,
+                                        const __nv_bfloat16* R,
+                                        __nv_bfloat16* hs,
+                                        __nv_bfloat16* h_final,
+                                        __nv_bfloat16* gates,
+                                        __nv_bfloat16* cs, int G, int L,
+                                        int B, int H, int device,
+                                        void* stream) {
+  return launch<__nv_bfloat16>(x_proj, mask, R, hs, h_final, gates, cs, G, L,
+                               B, H, device, stream);
 }

@@ -40,6 +40,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.pipeline import AffinityDataset, AffinityImage, RelationDataset, RelationImage
@@ -240,7 +241,7 @@ class AffinityBatcher:
                  mention_spec: BucketSpec = BucketSpec((8, 16, 32)),
                  box_spec: BucketSpec = BucketSpec((8, 16, 32)),
                  phrase_len: int = 16,
-                 box_dtype=np.float32,
+                 box_dtype: torch.dtype = torch.float32,
                  with_ids: bool = True):
         self.ipb = images_per_batch
         self.mention_spec = mention_spec
@@ -250,10 +251,11 @@ class AffinityBatcher:
         # nested parse/format loops dominate batch assembly — train
         # turns this off (see RelationBatcher.with_ids)
         self.with_ids = with_ids
-        # bf16 training ships fc7 features to the device half-width: the
-        # [I,B,4096] box block is the largest host->device stream of the
-        # whole framework (ml_dtypes.bfloat16 here; numpy converts on
-        # assignment, torch.from_numpy transfers the 2-byte rows unchanged)
+        # bf16 ships fc7 features to the device half-width: the [I,B,4096]
+        # box block is the largest host->device stream of the whole
+        # framework.  numpy has no bf16 type, so the block is assembled in
+        # float32 and rounded with torch as the batch is built (on the
+        # prefetch thread), before the pinned copy (with_box_dtype)
         self.box_dtype = box_dtype
 
     def shape_of(self, im: AffinityImage) -> tuple[int, int]:
@@ -283,7 +285,7 @@ class AffinityBatcher:
         a = {
             "phrase_tokens": np.zeros((I, M, L), np.int32),
             "phrase_len": np.zeros((I, M), np.int32),
-            "box_feats": np.zeros((I, B, D), self.box_dtype),
+            "box_feats": np.zeros((I, B, D), np.float32),
             "box_valid": np.zeros((I, B), bool),
             "grid_label": np.zeros((I, M, B), np.int32),
             "grid_valid": np.zeros((I, M, B), bool),
@@ -309,4 +311,17 @@ class AffinityBatcher:
                             id_index.append(
                                 (s, r * B + c,
                                  im.cell_id(ci, mi, im.box_idx[c])))
-        return ImageBatch(arrays=a, id_index=id_index, shape_key=key)
+        return ImageBatch(arrays=with_box_dtype(a, self.box_dtype),
+                          id_index=id_index, shape_key=key)
+
+
+def with_box_dtype(arrays: dict, dtype: torch.dtype) -> dict:
+    """An affinity batch's arrays with ``box_feats`` as a host tensor of
+    ``dtype`` (bfloat16 under ``--compute_dtype bf16``: torch rounds to
+    nearest even, as the reference's ml_dtypes conversion does, and the
+    copy to the device then moves half the bytes); any other batch, or
+    float32, as it is."""
+    if "box_feats" not in arrays or dtype == torch.float32:
+        return arrays
+    return {**arrays, "box_feats": torch.as_tensor(arrays["box_feats"],
+                                                   dtype=dtype)}

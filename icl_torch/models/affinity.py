@@ -21,6 +21,14 @@ forms:
   these are hand-written kernels; on the CPU their wrappers run the plain
   versions.
 
+``compute_dtype`` (float32 or bfloat16) is that of the phrase encoder (the
+LSTM, or the mean of the word vectors); the phrase embedding and the box
+features are widened to f32 before the two projections, as JAX promotes
+bf16 @ f32.  In bf16 a fused model's deterministic passes run the grid
+head's fast-dot mode, and its box ranking the box-ranking kernel's
+(:func:`icl_torch.train.steps.affinity_predict`); training runs the exact
+f32 training kernels (see :mod:`icl_torch.models.relation`).
+
 Training mode is ``forward(..., seeds=...)``: per-image int32 dropout
 seeds, and the same hash mask of (seed, a, b, k) in both forms, so both
 give one loss at any rate.  :func:`rank_boxes` is the one source of the
@@ -59,20 +67,25 @@ class AffinityModel(FlatParams):
     def __init__(self, emb_dim: int, box_dim: int, lstm_hidden: int = 200,
                  head_hidden: int = 1024, num_classes: int = 2,
                  phrase_enc: str = "lstm", fused: bool = False,
-                 dropout: float = 0.5, device: torch.device | None = None):
+                 dropout: float = 0.5, device: torch.device | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if phrase_enc not in PHRASE_ENCODERS:
             raise ValueError(f"unknown phrase_enc {phrase_enc!r}")
         self.fused = fused
         self.dropout = float(dropout)
         self.phrase_enc = phrase_enc
+        self.compute_dtype = compute_dtype
+        # the bf16 mode of the fused model's deterministic grid head
+        self.fast_dot = fused and compute_dtype == torch.bfloat16
         self.dims = {"emb_dim": emb_dim, "box_dim": box_dim,
                      "lstm_hidden": lstm_hidden, "head_hidden": head_hidden,
                      "num_classes": num_classes, "phrase_enc": phrase_enc}
         Dp = emb_dim
         if phrase_enc == "lstm":
             self.phrase_lstm = LSTM(emb_dim, lstm_hidden, use_kernel=fused,
-                                    device=device)
+                                    device=device,
+                                    compute_dtype=compute_dtype)
             Dp = lstm_hidden
         self.head_dense_phrase = Dense(Dp, head_hidden, device)
         self.head_dense_box = Dense(box_dim, head_hidden, device,
@@ -89,12 +102,13 @@ class AffinityModel(FlatParams):
         if self.phrase_enc == "lstm":
             _, ph = self.phrase_lstm(x, plen)
         else:
+            x = x.to(self.compute_dtype)
             mask = (torch.arange(L, device=x.device)[None, :]
                     < plen[:, None]).to(x.dtype)
             ph = torch.einsum("bld,bl->bd", x, mask) / torch.clamp_min(
                 plen[:, None].to(x.dtype), 1.0)
-        X = ph.reshape(I, M, -1) @ self.head_dense_phrase.kernel
-        Y = batch["box_feats"] @ self.head_dense_box.kernel
+        X = ph.float().reshape(I, M, -1) @ self.head_dense_phrase.kernel
+        Y = batch["box_feats"].float() @ self.head_dense_box.kernel
         return X, Y
 
     def head(self, X: torch.Tensor, Y: torch.Tensor,
@@ -112,6 +126,9 @@ class AffinityModel(FlatParams):
         if loss_grid is not None:
             labels, weights = loss_grid
             weights = weights.detach()
+            if self.fused and not train and self.fast_dot:
+                return grid_ce_sums(grid_head(X, Y, b1, W2, b2,
+                                              fast_dot=True), labels, weights)
             if self.fused:
                 # the CE inside the kernel: only three sums leave it; a
                 # deterministic pass (a dev eval) is the same kernel at
@@ -127,7 +144,7 @@ class AffinityModel(FlatParams):
             return grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate)
         if train:
             return grid_head_train(X, Y, b1, W2, b2, seeds, rate)
-        return grid_head(X, Y, b1, W2, b2)
+        return grid_head(X, Y, b1, W2, b2, fast_dot=self.fast_dot)
 
     def forward(self, table: torch.Tensor, batch: dict,
                 seeds: torch.Tensor | None = None,

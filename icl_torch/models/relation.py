@@ -21,6 +21,17 @@ so each mention is projected once.  Two forms:
   inside the kernel).  On CUDA these are hand-written kernels; on the CPU
   their wrappers run the plain versions.
 
+``compute_dtype`` (float32 or bfloat16, the reference's ``--compute_dtype``)
+is the BiLSTM's (:mod:`icl_torch.models.rnn`); the mention reps are widened
+to f32 before the head's projections, as JAX promotes bf16 @ f32, so the
+head's inputs are f32 either way.  In bf16 a fused model's deterministic
+passes (predict, and the grid loss of a dev eval) run the grid head's bf16
+fast-dot mode (``grid_head(..., fast_dot=True)``), as the reference's fused
+model does; training runs the exact f32 training kernels, which is what the
+reference runs under ``--matmul_precision highest``, the one precision the
+port honours.  The gather form keeps the exact f32 head, as the
+reference's unfused model does.
+
 Training mode is ``forward(..., seeds=...)``: per-image int32 dropout seeds.
 The dropout mask is a pure function of (seed, a, b, k)
 (:func:`icl_torch.ops.grid_head_train.keep_mask`), and the gather form
@@ -75,14 +86,19 @@ class RelationModel(FlatParams):
     def __init__(self, emb_dim: int, lstm_hidden: int = 200,
                  head_hidden: int = 800, num_classes: int = 4,
                  fused: bool = False, dropout: float = 0.5,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fused = fused
         self.dropout = float(dropout)
+        self.compute_dtype = compute_dtype
+        # the bf16 mode of the fused model's deterministic grid head
+        self.fast_dot = fused and compute_dtype == torch.bfloat16
         self.dims = {"emb_dim": emb_dim, "lstm_hidden": lstm_hidden,
                      "head_hidden": head_hidden, "num_classes": num_classes}
         self.caption_bilstm = BiLSTM(emb_dim, lstm_hidden, use_kernel=fused,
-                                     device=device)
+                                     device=device,
+                                     compute_dtype=compute_dtype)
         self.head_dense = Dense(8 * lstm_hidden, head_hidden, device)
         self.head_out = Dense(head_hidden, num_classes, device)
 
@@ -101,7 +117,7 @@ class RelationModel(FlatParams):
         enc_flat, _ = self.caption_bilstm(x, batch["tok_len"].reshape(I * C))
         enc = enc_flat.reshape(I, C, L, -1)
         mreps = gather_mention_reps(enc, batch["m_cap"], batch["m_first"],
-                                    batch["m_last"])           # [I, M, R]
+                                    batch["m_last"]).float()   # [I, M, R]
         R = mreps.shape[-1]
         W1, b1 = self.head_dense.kernel, self.head_dense.bias
         W2, b2 = self.head_out.kernel, self.head_out.bias
@@ -113,6 +129,9 @@ class RelationModel(FlatParams):
         if loss_grid is not None:
             labels, weights = loss_grid
             weights = weights.detach()
+            if self.fused and not train and self.fast_dot:
+                return grid_ce_sums(grid_head(proj_i, proj_j, b1, W2, b2,
+                                              fast_dot=True), labels, weights)
             if self.fused:
                 # the CE inside the kernel: only three sums leave it; a
                 # deterministic pass (a dev eval) is the same kernel at
@@ -131,7 +150,8 @@ class RelationModel(FlatParams):
         img = torch.arange(I, device=tokens.device)[:, None]
         if self.fused:
             grid = (grid_head_train(proj_i, proj_j, b1, W2, b2, seeds, rate)
-                    if train else grid_head(proj_i, proj_j, b1, W2, b2))
+                    if train else grid_head(proj_i, proj_j, b1, W2, b2,
+                                            fast_dot=self.fast_dot))
             return grid[img, pi, pj]                           # [I, P, O]
         h = torch.relu(proj_i[img, pi] + proj_j[img, pj] + b1)
         if train and dropout_applies(rate):

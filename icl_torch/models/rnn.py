@@ -10,6 +10,12 @@ BiLSTM, both directions); the recurrence goes to
 the reference's residual-set backward) when ``use_kernel`` is set, else to
 its plain version (differentiated by autograd step by step).
 
+``compute_dtype`` (float32 or bfloat16, as the reference's): the inputs and
+the kernel, bias and recurrent kernel are cast to it before the input
+projection, which and the recurrence then run in it; the states come back
+in it.  The parameters stay f32 (their gradients flow back through the
+casts).
+
 Parameters start at zero; real values come from ``load_state_dict`` (see
 :meth:`icl_torch.models.relation.RelationModel.load_flat`).
 """
@@ -46,22 +52,25 @@ class LSTM(LSTMParams):
 
     def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
                  use_kernel: bool = True,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_dim, hidden, device)
         self.reverse = reverse
         self.recurrence = _recurrence(use_kernel)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
         B, L, D = x.shape
+        cd = self.compute_dtype
         t = torch.arange(L, device=x.device)
-        xt = x.transpose(0, 1)                                # [L, B, D]
+        xt = x.to(cd).transpose(0, 1)                         # [L, B, D]
         if self.reverse:
             xt = xt.flip(0)
             t = L - 1 - t
         mask = t[:, None] < lengths[None, :]                  # [L, B]
-        x_proj = xt @ self.kernel + self.bias                 # [L, B, 4H]
+        x_proj = xt @ self.kernel.to(cd) + self.bias.to(cd)   # [L, B, 4H]
         hs, h_final = self.recurrence(x_proj[None], mask[None],
-                                      self.recurrent_kernel[None])
+                                      self.recurrent_kernel.to(cd)[None])
         out = hs[0].transpose(0, 1)                           # [B, L, H]
         if self.reverse:
             out = out.flip(1)
@@ -77,20 +86,23 @@ class BiLSTM(nn.Module):
     """
 
     def __init__(self, in_dim: int, hidden: int, use_kernel: bool = True,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fwd = LSTMParams(in_dim, hidden, device)
         self.bwd = LSTMParams(in_dim, hidden, device)
         self.recurrence = _recurrence(use_kernel)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
         B, L, D = x.shape
-        xt = x.transpose(0, 1)                                # [L, B, D]
+        cd = self.compute_dtype
+        xt = x.to(cd).transpose(0, 1)                         # [L, B, D]
         xs2 = torch.stack([xt, xt.flip(0)]).reshape(2, L * B, D)
-        K2 = torch.stack([self.fwd.kernel, self.bwd.kernel])  # [2, D, 4H]
-        b2 = torch.stack([self.fwd.bias, self.bwd.bias])      # [2, 4H]
+        K2 = torch.stack([self.fwd.kernel, self.bwd.kernel]).to(cd)
+        b2 = torch.stack([self.fwd.bias, self.bwd.bias]).to(cd)
         R2 = torch.stack([self.fwd.recurrent_kernel,
-                          self.bwd.recurrent_kernel])         # [2, H, 4H]
+                          self.bwd.recurrent_kernel]).to(cd)  # [2, H, 4H]
         # input projection for both directions in one batched GEMM
         x_proj = (torch.bmm(xs2, K2) + b2[:, None, :]).reshape(2, L, B, -1)
         t = torch.arange(L, device=x.device)

@@ -19,11 +19,18 @@ Invalid boxes get exactly 0; an image with no valid box gets zeros.
   launch in ``affinity_rank.launches``; for CPU tensors it runs the plain
   version.  A CUDA call that the kernel cannot take raises, as does one
   that autograd would record (the kernel has no backward).
+* ``fast_dot=True`` is the bf16 mode of both: the scores are the grid
+  head's fast-dot logits (:func:`~icl_torch.ops.grid_head.
+  grid_head_reference`), which the reference both writes and ranks under
+  ``--compute_dtype bf16``; the CUDA entry point is
+  ``icl_affinity_rank_bf16dot``, its launches count in
+  ``affinity_rank.bf16dot.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -39,24 +46,27 @@ _SMEM = 227 * 1024   # a block's shared memory
 def affinity_rank_reference(X: torch.Tensor, Y: torch.Tensor,
                             b1: torch.Tensor, W2: torch.Tensor,
                             b2: torch.Tensor, box_valid: torch.Tensor,
-                            affinity_col: int = 1) -> torch.Tensor:
+                            affinity_col: int = 1,
+                            fast_dot: bool = False) -> torch.Tensor:
     """Plain version: [G,A,K], [G,B,K], [G,B] bool -> [G,A,B]."""
     from icl_torch.models.affinity import rank_boxes
 
-    return rank_boxes(grid_head_reference(X, Y, b1, W2, b2), box_valid,
-                      affinity_col=affinity_col)
+    return rank_boxes(grid_head_reference(X, Y, b1, W2, b2, fast_dot),
+                      box_valid, affinity_col=affinity_col)
 
 
 def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
                   W2: torch.Tensor, b2: torch.Tensor, box_valid: torch.Tensor,
-                  affinity_col: int = 1) -> torch.Tensor:
-    """Same contract as :func:`affinity_rank_reference`; the kernel on CUDA.
+                  affinity_col: int = 1,
+                  fast_dot: bool = False) -> torch.Tensor:
+    """Same contract as :func:`affinity_rank_reference`; the kernel on CUDA
+    (``fast_dot``: its bf16 mode).
 
     An empty grid (G, A or B = 0) returns zeros without a launch.
     """
     if X.device.type == "cpu":
         return affinity_rank_reference(X, Y, b1, W2, b2, box_valid,
-                                       affinity_col)
+                                       affinity_col, fast_dot)
     G, A, B, K, O = _check(X, Y, b1, W2, b2, box_valid, affinity_col)
     check_no_grad("affinity_rank", X, Y, b1, W2, b2)
     out = torch.empty((G, A, B), dtype=torch.float32, device=X.device)
@@ -64,19 +74,21 @@ def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
         return out
     plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2),
                        whole_rows=True)
-    lib = _build.load("affinity_rank", "icl_affinity_rank_f32", _ARGTYPES)
+    entry = ("icl_affinity_rank_bf16dot" if fast_dot
+             else "icl_affinity_rank_f32")
+    fn = getattr(_build.load("affinity_rank", entry, _ARGTYPES), entry)
     dev = X.device
-    err = lib.icl_affinity_rank_f32(
-        X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
-        b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K, O,
-        affinity_col, plan.ksplit, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
+             b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K,
+             O, affinity_col, plan.ksplit, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "affinity_rank")
-    affinity_rank.launches += 1
+    (affinity_rank.bf16dot if fast_dot else affinity_rank).launches += 1
     return out
 
 
 affinity_rank.launches = 0   # kernel launches since the last reset
+affinity_rank.bf16dot = SimpleNamespace(launches=0)   # those of the bf16 mode
 
 
 def _check(X, Y, b1, W2, b2, box_valid, col):

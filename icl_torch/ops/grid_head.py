@@ -8,6 +8,12 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
 
 * :func:`grid_head_reference` is the plain PyTorch version; it materialises
   the [G, A, B, K] activation.
+* ``fast_dot=True`` is the bf16 mode of both (the reference's ``fast_dot``
+  under ``--compute_dtype bf16``): the activation ``relu((X + b1) + Y)``,
+  added in f32 in that order, and W2 are rounded to bf16, and the dot
+  sums their exact products in f32.  Inputs and output stay f32.  The CUDA
+  entry point is ``icl_grid_head_bf16dot``; its launches count in
+  ``grid_head.bf16dot.launches``.
 * :func:`grid_head` is the wrapper: for CUDA tensors it launches the
   hand-written kernel ``icl_torch/csrc/grid_head.cu`` (the [A, B, K]
   activation never leaves the registers); for CPU tensors it runs the plain
@@ -25,6 +31,7 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -112,20 +119,37 @@ def launch_plan(G: int, A: int, B: int, K: int, O: int, aligned: bool,
 
 
 def grid_head_reference(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
-                        W2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Plain version: [G,A,K], [G,B,K] -> [G,A,B,O] via the full grid."""
-    h = torch.relu(X[:, :, None, :] + Y[:, None, :, :] + b1)
-    return torch.einsum("gabk,ko->gabo", h, W2) + b2
+                        W2: torch.Tensor, b2: torch.Tensor,
+                        fast_dot: bool = False) -> torch.Tensor:
+    """Plain version: [G,A,K], [G,B,K] -> [G,A,B,O] via the full grid.
+
+    ``fast_dot``: b1 is folded into X first, as the reference's kernels and
+    the CUDA tile routine add it (the order of the f32 adds decides which
+    cells round to which bf16 value); then h and W2 are rounded to bf16 and
+    contracted in f32."""
+    if not fast_dot:
+        h = torch.relu(X[:, :, None, :] + Y[:, None, :, :] + b1)
+        return torch.einsum("gabk,ko->gabo", h, W2) + b2
+    h = torch.relu((X + b1)[:, :, None, :] + Y[:, None, :, :])
+    return torch.einsum("gabk,ko->gabo", _bf16_values(h),
+                        _bf16_values(W2)) + b2
+
+
+def _bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), as f32."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
-              W2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Same contract as :func:`grid_head_reference`; the kernel on CUDA.
+              W2: torch.Tensor, b2: torch.Tensor,
+              fast_dot: bool = False) -> torch.Tensor:
+    """Same contract as :func:`grid_head_reference`; the kernel on CUDA
+    (``fast_dot``: its bf16 mode).
 
     An empty grid (G, A or B = 0) returns zeros without a launch.
     """
     if X.device.type == "cpu":
-        return grid_head_reference(X, Y, b1, W2, b2)
+        return grid_head_reference(X, Y, b1, W2, b2, fast_dot)
     if X.device.type != "cuda":
         raise ValueError(f"grid_head: unsupported device {X.device}")
     G, A, K = X.shape
@@ -137,18 +161,19 @@ def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     if G == 0 or A == 0 or B == 0:
         return out.zero_()
     plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
-    lib = _build.load("grid_head", "icl_grid_head_f32", _ARGTYPES)
+    entry = "icl_grid_head_bf16dot" if fast_dot else "icl_grid_head_f32"
+    fn = getattr(_build.load("grid_head", entry, _ARGTYPES), entry)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = lib.icl_grid_head_f32(
-        X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), G, A, B, K, O, plan.ksplit,
-        X.device.index, stream)
+    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
+             b2.data_ptr(), out.data_ptr(), G, A, B, K, O, plan.ksplit,
+             X.device.index, stream)
     _build.check(err, "grid_head")
-    grid_head.launches += 1
+    (grid_head.bf16dot if fast_dot else grid_head).launches += 1
     return out
 
 
 grid_head.launches = 0   # kernel launches since the last reset
+grid_head.bf16dot = SimpleNamespace(launches=0)   # those of the bf16 mode
 
 
 def _check(X, Y, b1, W2, b2, G, A, B, K, O) -> None:

@@ -28,11 +28,20 @@ Layout, direction-major as the Pallas kernels had it::
   that keeps only the dgates . R^T chain inside the loop; dR is one einsum
   afterwards, and dx_proj is dgates.  The JAX package has no Pallas
   backward, so neither does this module.
+
+Two dtypes: float32, and bfloat16 (``--compute_dtype bf16``; the
+reference's lax.scan in bf16).  In bf16 x_proj, R, hs, h_final and the
+residuals are bf16; the plain version runs its eager ops on bf16 tensors,
+each computed in f32 and rounded once, and the kernel's bf16 entry point
+``icl_lstm_recurrence_bf16`` rounds at the same points (the note in the
+source); its launches count in ``lstm_recurrence.bf16.launches``.  The
+backward runs in the residuals' dtype, as the reference's does.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -90,31 +99,33 @@ def lstm_recurrence_fwd(x_proj, mask, R, residuals: bool = False):
     G, L, B, H4 = x_proj.shape
     H = R.shape[1]
     _check(x_proj, mask, R, G, L, B, H)
-    dev = x_proj.device
-    hs = torch.empty((G, L, B, H), dtype=torch.float32, device=dev)
-    h_final = torch.empty((G, B, H), dtype=torch.float32, device=dev)
-    res = ((torch.empty((G, L, B, 4 * H), dtype=torch.float32, device=dev),
-            torch.empty((G, L, B, H), dtype=torch.float32, device=dev))
-           if residuals else ())
+    kw = {"dtype": x_proj.dtype, "device": x_proj.device}
+    hs = torch.empty((G, L, B, H), **kw)
+    h_final = torch.empty((G, B, H), **kw)
+    res = ((torch.empty((G, L, B, 4 * H), **kw),
+            torch.empty((G, L, B, H), **kw)) if residuals else ())
     if G == 0 or L == 0 or B == 0:
         return hs, h_final.zero_(), *res
-    lib = _build.load("lstm_recurrence", "icl_lstm_recurrence_f32",
-                      _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.icl_lstm_recurrence_f32(
-        x_proj.data_ptr(), mask.data_ptr(), R.data_ptr(), hs.data_ptr(),
-        h_final.data_ptr(), *((t.data_ptr() for t in res) if res
-                              else (None, None)),
-        G, L, B, H, dev.index, stream)
+    bf16 = x_proj.dtype == torch.bfloat16
+    entry = "icl_lstm_recurrence_bf16" if bf16 else "icl_lstm_recurrence_f32"
+    fn = getattr(_build.load("lstm_recurrence", entry, _ARGTYPES), entry)
+    dev = x_proj.device
+    err = fn(x_proj.data_ptr(), mask.data_ptr(), R.data_ptr(), hs.data_ptr(),
+             h_final.data_ptr(), *((t.data_ptr() for t in res) if res
+                                   else (None, None)),
+             G, L, B, H, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lstm_recurrence")
-    lstm_recurrence.launches += 1
+    (lstm_recurrence.bf16 if bf16 else lstm_recurrence).launches += 1
     return hs, h_final, *res
 
 
 def lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf):
-    """Reverse loop of ``_lstm_recurrence_bwd_impl`` -> (dx_proj, dR)."""
+    """Reverse loop of ``_lstm_recurrence_bwd_impl`` -> (dx_proj, dR), in
+    the residuals' dtype (the cotangents are cast to it, as the reference
+    casts them to its compute dtype)."""
     G, L, B, H = hs.shape
     m = mask[..., None].to(hs.dtype)                      # [G, L, B, 1]
+    dhs, dhf = dhs.to(hs.dtype), dhf.to(hs.dtype)
     dh, dc = dhf, torch.zeros_like(dhf)
     dgates = torch.empty_like(gates)
     Rt = R.transpose(1, 2)
@@ -168,6 +179,7 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
 
 
 lstm_recurrence.launches = 0   # kernel launches since the last reset
+lstm_recurrence.bf16 = SimpleNamespace(launches=0)   # those of the bf16 mode
 
 
 def _check(x_proj, mask, R, G, L, B, H) -> None:
@@ -177,9 +189,11 @@ def _check(x_proj, mask, R, G, L, B, H) -> None:
                              f"x_proj on {x_proj.device}")
         if not t.is_contiguous():
             raise ValueError(f"lstm_recurrence: {name} is not contiguous")
-    if x_proj.dtype != torch.float32 or R.dtype != torch.float32:
-        raise TypeError(f"lstm_recurrence: needs float32 x_proj and R, got "
-                        f"{x_proj.dtype} and {R.dtype}")
+    if x_proj.dtype not in (torch.float32, torch.bfloat16) or \
+            R.dtype != x_proj.dtype:
+        raise TypeError(f"lstm_recurrence: needs float32 or bfloat16 x_proj "
+                        f"and R of one dtype, got {x_proj.dtype} and "
+                        f"{R.dtype}")
     if mask.dtype != torch.bool:
         raise TypeError(f"lstm_recurrence: mask is {mask.dtype}, needs bool")
     if tuple(x_proj.shape) != (G, L, B, 4 * H):

@@ -114,7 +114,11 @@ def _write_run_stats(path: str) -> None:
                 "grid_head_train_bwd": ght.grid_head_train_bwd,
                 "grid_head_train_loss_fwd": ght.grid_head_train_loss_fwd,
                 "grid_head_train_loss_bwd": ght.grid_head_train_loss_bwd,
-                "affinity_rank": affinity_rank}
+                "affinity_rank": affinity_rank,
+                # the bf16 modes
+                "grid_head_bf16dot": grid_head.bf16dot,
+                "lstm_recurrence_bf16": lstm_recurrence.bf16,
+                "affinity_rank_bf16dot": affinity_rank.bf16dot}
     rank = _boot.get("process_id", 0)
     with open(f"{path}.rank{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": _boot.get("num_processes", 1),

@@ -75,11 +75,12 @@ def make_grid_eval_fn(model, table: torch.Tensor, eval_batches: list,
                       mesh: Mesh | None = None) -> Callable:
     """Build ``eval_fn(state) -> {"loss", "acc"}`` over fixed batches.
 
-    ``eval_batches``: list of HOST-side batch dicts (numpy) that carry
-    ``grid_label``/``grid_valid`` (RelationBatcher with ``build_grid=True``,
-    or any AffinityBatcher batch).  The list is built ONCE (seeded shuffle
-    in :func:`build_eval_hook`, then frozen), so successive evals are
-    comparable point-to-point.
+    ``eval_batches``: list of HOST-side batch dicts (numpy; under bf16
+    affinity box features are a host tensor of the batcher's ``box_dtype``)
+    that carry ``grid_label``/``grid_valid`` (RelationBatcher with
+    ``build_grid=True``, or any AffinityBatcher batch).  The list is built
+    ONCE (seeded shuffle in :func:`build_eval_hook`, then frozen), so
+    successive evals are comparable point-to-point.
 
     ``pin=True`` copies every batch to the table's device once and holds it
     for the whole run (device memory = the whole sample; the hook log prints
@@ -174,7 +175,7 @@ def build_eval_hook(args, model, table: torch.Tensor, load_dataset, batcher,
     # point-to-point across the run
     rng = np.random.default_rng(getattr(args, "seed", 0))
     for b in batcher.batches(ds, rng=rng):
-        batches.append({k: np.asarray(v) for k, v in b.arrays.items()})
+        batches.append(dict(b.arrays))
         if cap is not None and len(batches) >= cap:
             break
     if not batches:

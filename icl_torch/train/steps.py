@@ -332,8 +332,9 @@ def affinity_predict(model: AffinityModel, table: torch.Tensor, batch: dict,
     is the per-image softmax of the affinity logit over the valid boxes
     (``batch["box_valid"]``), the ranking a ``--rank_file`` writes.  A
     fused model computes it with the box-ranking kernel
-    (:func:`icl_torch.ops.affinity_rank.affinity_rank`), a plain one with
-    :func:`~icl_torch.models.affinity.rank_boxes` over its logits.
+    (:func:`icl_torch.ops.affinity_rank.affinity_rank`; in bf16 its
+    fast-dot mode, over the logits the probabilities come from), a plain
+    one with :func:`~icl_torch.models.affinity.rank_boxes` over its logits.
     """
     with torch.inference_mode():
         X, Y = model.project(table, batch)
@@ -345,7 +346,8 @@ def affinity_predict(model: AffinityModel, table: torch.Tensor, batch: dict,
         if model.fused:
             ranking = affinity_rank(X, Y, model.head_dense_phrase.bias,
                                     model.head_out.kernel,
-                                    model.head_out.bias, box_valid)
+                                    model.head_out.bias, box_valid,
+                                    fast_dot=model.fast_dot)
         else:
             ranking = rank_boxes(logits, box_valid)
         return probs, ranking

@@ -9,7 +9,10 @@ box-ranking kernel's wrapper (its plain version on the CPU), the reference
 through ``rank_boxes``.  Two port predicts give identical bytes; ``--eval``
 prints the reference's table.  Every flag of the reference's
 ``base_parser`` parses in the port's with the same default; each flag the
-port cannot honour raises ``RefusedFlagError``.
+port cannot honour raises ``RefusedFlagError``.  ``--compute_dtype bf16``
+runs end to end, as tests/integration/test_cli_e2e.py runs it in the
+reference: train in bf16, predict from that checkpoint in f32 and in bf16,
+with ``--rank_file``.
 """
 
 import contextlib
@@ -226,8 +229,17 @@ def test_the_multi_process_flags_parse(extra, dest, value):
     assert getattr(_parse(extra), dest) == value
 
 
+@pytest.mark.parametrize("task", ["relation", "affinity", "nonvisual",
+                                  "cardinality"])
+def test_compute_dtype_bf16_is_taken(task):
+    """``--compute_dtype bf16`` is ported: every task CLI takes it (the
+    mention tasks log that it has no effect there)."""
+    args = _parse(["--compute_dtype", "bf16"], task)
+    assert args.compute_dtype == "bf16"
+    assert tcommon.resolve_compute_dtype(args) is torch.bfloat16
+
+
 @pytest.mark.parametrize("extra,flag", [
-    (["--compute_dtype", "bf16"], "--compute_dtype"),
     (["--oracle-parity"], "--oracle-parity"),
     (["--oracle-parity-full"], "--oracle-parity-full"),
     (["--matmul_precision", "default"], "--matmul_precision"),
@@ -302,3 +314,46 @@ def test_split_vocab_matches_the_reference(runs):
     for split in ("train", "dev"):
         assert tcommon.split_vocab(runs["dir"], split) == jcommon.split_vocab(
             runs["dir"], split)
+
+
+# --- --compute_dtype bf16 end to end ---------------------------------------
+
+@pytest.mark.parametrize("task", sorted(CLIS))
+def test_bf16_trains_and_predicts_in_either_dtype(runs, task, tmp_path,
+                                                  monkeypatch):
+    """A bf16 run trains with f32 parameters, writes ``compute_dtype`` into
+    ``model_config.json``, and its checkpoint predicts in f32 and in bf16
+    (affinity with ``--rank_file``: each mention's row sums to 1, its ids
+    those of the scores); the bf16 predict warns that its scores are not
+    parity-grade and lands near the f32 one."""
+    tcli = CLIS[task][1]
+    md = str(tmp_path / "bf16.model")
+    small = ["--data_dir", runs["dir"], "--device", "cpu", "--fused", "on",
+             "--images_per_batch", "4", "--model_file", md, *WIDTHS]
+    tcli.main(["--train", "--epochs", "1", "--compute_dtype", "bf16",
+               *small])
+    assert json.load(open(f"{md}/model_config.json"))["compute_dtype"] == \
+        "bf16"
+    saved = torch.load(f"{md}/step_{Checkpointer(md).latest_step}.pt",
+                       weights_only=True)
+    assert all(v.dtype == torch.float32 for v in saved["model"].values())
+    said = _Said(monkeypatch)
+    probs = {}
+    for dtype in ("f32", "bf16"):
+        sp = str(tmp_path / f"{dtype}.scores")
+        rank = ["--rank_file", str(tmp_path / f"{dtype}.rank")] \
+            if task == "affinity" else []
+        tcli.main(["--predict", "--data_split", "dev", "--compute_dtype",
+                   dtype, "--scores_file", sp, *rank, *small])
+        ids, probs[dtype] = read_scores(sp)
+        assert len(ids) > 50 and np.isfinite(probs[dtype]).all()
+        assert np.abs(probs[dtype].sum(axis=1) - 1).max() <= 2e-6
+        if rank:
+            rids, r = read_scores(rank[1])
+            assert rids == ids
+            rows = {}
+            for cid, p in zip(rids, r[:, 0]):
+                rows.setdefault(cid.rsplit(";box:", 1)[0], []).append(p)
+            assert max(abs(sum(v) - 1) for v in rows.values()) <= 1e-5
+    assert "bf16 predict exceeds" in said
+    assert 0 < np.abs(probs["bf16"] - probs["f32"]).max() <= 0.05

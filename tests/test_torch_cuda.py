@@ -520,3 +520,60 @@ def test_affinity_train_kernel_path_matches_plain(dev, grid_loss):
         _assert_close(out[True][0][k], out[False][0][k])
     for k, want in out[False][1].items():
         _assert_close(out[True][1][k], want)
+
+
+# --- the bf16 modes (--compute_dtype bf16) ----------------------------------
+
+@pytest.mark.parametrize("G,A,B,K,O", [
+    (64, 16, 16, 800, 4), (64, 16, 32, 1024, 2), (8, 16, 16, 800, 4),
+    (2, 9, 17, 800, 3), (2, 7, 9, 50, 2), (2, 20, 33, 50, 8),
+    (1, 5, 7, 30, 1)])
+def test_grid_head_fast_dot_matches_plain(dev, G, A, B, K, O):
+    """The fast-dot mode against its plain version, the f32 gate: both
+    round the same activation and W2 to bf16 and sum exact products in
+    f32.  Its launches count apart from the f32 entry point's."""
+    args = _head_inputs(G, A, B, K, O, dev)
+    n0, n1 = grid_head.launches, grid_head.bf16dot.launches
+    out = grid_head(*args, fast_dot=True)
+    torch.cuda.synchronize()
+    assert (grid_head.launches, grid_head.bf16dot.launches) == (n0, n1 + 1)
+    _assert_close(out, grid_head_reference(*args, fast_dot=True))
+    assert torch.equal(out, grid_head(*args, fast_dot=True))
+    assert not torch.equal(out, grid_head(*args))   # it is another mode
+
+
+@pytest.mark.parametrize("G,moved", [(4, None), (64, None), (4, 1)])
+def test_affinity_rank_fast_dot_matches_plain(dev, G, moved):
+    args = list(_rank_inputs(G, 16, 32, 1024, dev))
+    want = affinity_rank_reference(*args, 1, True)
+    if moved is not None:
+        args[moved] = _offset_view(args[moved])
+    n0 = affinity_rank.bf16dot.launches
+    out = affinity_rank(*args, fast_dot=True)
+    torch.cuda.synchronize()
+    assert affinity_rank.bf16dot.launches == n0 + 1
+    _assert_close(out, want)
+    assert torch.equal(out, affinity_rank(*args, fast_dot=True))
+
+
+@pytest.mark.parametrize("G,L,B,H", [
+    (2, 32, 64, 200), (2, 32, 320, 200), (1, 16, 1024, 200),
+    (2, 16, 61, 63), (1, 8, 9, 255), (2, 3, 9, 1)])
+def test_bf16_recurrence_matches_plain(dev, G, L, B, H):
+    """The bf16 mode against the plain version's eager bf16 ops: within 4
+    bf16 units of max |plain| (the order of the h . R sum moves a rounded
+    value by a unit now and then); odd widths too."""
+    x_proj, mask, R = _rec_inputs(G, L, B, H, dev)
+    args = (x_proj.bfloat16(), mask, R.bfloat16())
+    n0, n1 = lstm_recurrence.launches, lstm_recurrence.bf16.launches
+    got = lstm_recurrence_fwd(*args, residuals=True)
+    torch.cuda.synchronize()
+    assert (lstm_recurrence.launches, lstm_recurrence.bf16.launches) == (
+        n0, n1 + 1)
+    for g, w in zip(got, lstm_recurrence_reference(*args, True)):
+        assert g.dtype == torch.bfloat16
+        w = w.float()
+        unit = 2.0 ** (int(torch.log2(w.abs().max()).floor()) - 7)
+        assert (g.float() - w).abs().max().item() <= 4 * unit
+    again = lstm_recurrence_fwd(*args, residuals=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -17,7 +17,9 @@ the JAX package):
   differently), the global count in the sidecar, no part file left;
   ``--eval`` prints the one-process table once; the same for affinity with
   ``--rank_file``, a mention task, ``icl-torch-joint`` and four ranks with
-  an empty slice.
+  an empty slice;
+* under ``--compute_dtype bf16`` two affinity ranks end within 1e-4 of one
+  process (``BF16_RANKS_GATE``) and their sharded predict merges as above.
 
 Every rank gets a 60 s process-group timeout and a bounded ``communicate``.
 """
@@ -47,6 +49,11 @@ MAINS = {"relation": relation_cli.main, "affinity": affinity_cli.main,
          "nonvisual": nonvisual_cli.main, "joint": joint_cli.main}
 RANKS_GATE = 1e-6       # two ranks' weights vs one process's, absolute
 SCORES_GATE = 2.1e-6    # merged probabilities vs one process's file
+# two ranks' weights vs one process's under --compute_dtype bf16: each
+# rank's LSTM gradient crosses the bf16 cast on its half batch, so the sum
+# differs from the whole batch's by bf16 roundings, which Adam's first
+# steps scale towards the learning rate (1e-3); measured 2.7e-05
+BF16_RANKS_GATE = 1e-4
 
 
 def _free_port() -> int:
@@ -298,6 +305,34 @@ def test_cli_two_process_affinity_train_and_predict_with_rank(data, tmp_path):
     meta = json.loads((tmp_path / "m.rank.meta.json").read_text())
     assert meta["task"] == "affinity_rank" and meta["num_examples"] == len(
         (tmp_path / "s.rank").read_text().splitlines())
+
+
+def test_cli_two_process_bf16_affinity_train_and_predict(data, tmp_path):
+    """``--compute_dtype bf16`` under a mesh: two ranks train affinity in
+    bf16 (bf16 boxes cross to each rank's device; the gradients, their
+    all-reduce and the weights stay f32) to the one-process run's weights,
+    and the sharded bf16 predict merges to its files."""
+    common = ["--data_dir", data, "--device", "cpu", "--images_per_batch", 8,
+              "--lstm_hidden_width", 6, "--head_hidden", 12, "--seed", 7,
+              "--fused", "on", "--compute_dtype", "bf16"]
+    _one("affinity", ["--train", "--epochs", 2, *common, "--model_file",
+                      tmp_path / "s"])
+    _ranks("affinity", ["--train", "--epochs", 2, *common, "--model_file",
+                        tmp_path / "m"])
+    (steps_s, single), (steps_m, mp) = _latest(tmp_path / "s"), \
+        _latest(tmp_path / "m")
+    assert steps_s == steps_m
+    for k, v in single["model"].items():
+        assert v.dtype == mp["model"][k].dtype == torch.float32, k
+        np.testing.assert_allclose(mp["model"][k].numpy(), v.numpy(),
+                                   atol=BF16_RANKS_GATE, rtol=0, err_msg=k)
+    base = ["--predict", *common, "--model_file", tmp_path / "m"]
+    _one("affinity", base + ["--scores_file", tmp_path / "s.scores",
+                             "--rank_file", tmp_path / "s.rank"])
+    _ranks("affinity", base + ["--scores_file", tmp_path / "m.scores",
+                               "--rank_file", tmp_path / "m.rank"])
+    _assert_scores_equiv(tmp_path / "m.scores", tmp_path / "s.scores")
+    _assert_scores_equiv(tmp_path / "m.rank", tmp_path / "s.rank")
 
 
 def test_cli_two_process_mention_train_and_predict(data, tmp_path):

@@ -271,8 +271,44 @@ def test_joint_forwards_the_multi_process_flags(extra, monkeypatch):
         assert argv[argv.index(extra[0]) + 1] == extra[1]
 
 
+def test_joint_forwards_compute_dtype_bf16(monkeypatch):
+    """``--compute_dtype bf16`` is ported: joint takes it and passes it to
+    every sub-run."""
+    seen = []
+    for mod in (tjoint.nv_cli, tjoint.rel_cli, tjoint.aff_cli,
+                tjoint.card_cli):
+        monkeypatch.setattr(mod, "main", seen.append)
+    tjoint.main(["--predict", "--data_dir", "x", "--with_cardinality",
+                 "--compute_dtype", "bf16"])
+    assert len(seen) == 4
+    assert all(argv[argv.index("--compute_dtype") + 1] == "bf16"
+               for argv in seen)
+
+
+def test_joint_runs_in_bf16_and_the_mention_tasks_ignore_it(runs, tmp_path):
+    """``icl-torch-joint --compute_dtype bf16`` over the port's data dir:
+    the mention tasks' ``.scores`` are the f32 run's bytes (bf16 has no
+    effect on them, as in the reference), relation and affinity score
+    every id of the f32 run, within the bf16 drift."""
+    td = str(tmp_path / "bf16")
+    shutil.copytree(runs["td"], td)
+    for name in FILES:
+        os.unlink(f"{td}/{name}")
+    tjoint.main(["--predict", "--data_dir", td, "--data_split", "dev",
+                 "--batch_size", "64", "--images_per_batch", "4",
+                 "--device", "cpu", "--fused", "on", "--with_cardinality",
+                 "--with_rank", "--compute_dtype", "bf16"])
+    for name in FILES:
+        got, want = f"{td}/{name}", f"{runs['td']}/{name}"
+        if name.split(".")[1] in MENTION:
+            assert filecmp.cmp(got, want, shallow=False), name
+            continue
+        ids, p = read_scores(got)
+        want_ids, q = read_scores(want)
+        assert ids == want_ids and np.abs(p - q).max() <= 0.05, name
+
+
 @pytest.mark.parametrize("extra,flag", [
-    (["--compute_dtype", "bf16"], "--compute_dtype"),
     (["--oracle-parity"], "--oracle-parity"),
     (["--matmul_precision", "default"], "--matmul_precision")])
 def test_joint_refuses_the_unported_flags_before_any_sub_run(extra, flag):

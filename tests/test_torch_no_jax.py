@@ -1,9 +1,10 @@
 """The port runs where JAX is not installed and stands without the JAX
 package: icl_torch and chip_smoke.py import no JAX, flax, optax or orbax,
 and nothing of ``icl``, directly or through another module.  Nor do they
-need ``keras`` or ``sklearn`` at import: the machine with the GPU has
-neither (``sklearn`` is imported inside ``icl-torch-baseline``'s ``main``
-and nowhere else)."""
+need ``keras``, ``sklearn`` or ``ml_dtypes`` at import: the machine with
+the GPU has none of them (``sklearn`` is imported inside
+``icl-torch-baseline``'s ``main`` and nowhere else; bf16 conversions go
+through torch)."""
 
 import os
 import re
@@ -11,7 +12,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NO_SOURCE_LINE = ("jax", "jaxlib", "flax", "optax", "orbax", "icl", "keras")
+NO_SOURCE_LINE = ("jax", "jaxlib", "flax", "optax", "orbax", "icl", "keras",
+                  "ml_dtypes")
 BANNED = NO_SOURCE_LINE + ("sklearn",)      # not in sys.modules after import
 # the modules of the CLI slice: the walk below must reach each of them
 CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
