@@ -3,7 +3,9 @@
 
 Drives the port's paths at full width with random weights made from a
 seed, f32 with TF32 off (and, in phase 10b, ``--compute_dtype bf16``, bf16
-matrix products summing in f32): relation scoring served over HTTP and relation
+matrix products summing in f32; in phases 10 and 10c the ``--train``
+default precision, TF32 and the one-pass training kernels): relation
+scoring served over HTTP and relation
 training (BiLSTM 200 per direction over 300-d word vectors, head 800,
 O = 4), affinity scoring served over HTTP, affinity batch predict with
 the box ranking, and affinity training (LSTM 200 over 300-d word vectors,
@@ -78,7 +80,10 @@ command lines as two data-parallel ranks on the one card:
    and K5-K8 launch; per-step times;
 9. the command lines: a planted split on disk (train 128 images, dev 32,
    boxes at 4096-d) through ``icl_torch.cli.relation.main`` and
-   ``icl_torch.cli.affinity.main`` on the card at full width: ``--train``
+   ``icl_torch.cli.affinity.main`` on the card at full width, every
+   command line with ``--matmul_precision highest`` (f32, TF32 off, exact
+   training kernels: the precision the 1e-5 gates and the bit-equal resume
+   are stated in, and what phases 10b, 10c and 11 compare with): ``--train``
    with ``--ckpt_every``, ``--eval_every`` and ``--metrics_file``; a
    shorter run whose end marker is deleted, continued with ``--resume
    auto`` from a periodic checkpoint, must end with the uninterrupted
@@ -105,14 +110,19 @@ command lines as two data-parallel ranks on the one card:
    (no ``.npz`` beside them): ``/score/nonvisual`` and
    ``/score/cardinality`` with 64 mentions a request (8 requests, 4
    concurrent ones, a byte-identical repeat) within 1e-5 of the CPU model,
-   ``/score/relation`` and ``/score/affinity`` from the same server,
+   ``/score/relation`` and ``/score/affinity`` from the same server (the
+   mention tasks and relation and affinity train here with no precision
+   flag: ``default``; the gates are on predicts, which resolve to
+   ``high``),
    ``mention_calls`` and ``mention_items`` on ``/healthz``;
    ``icl_torch.cli.joint.main --with_cardinality --with_rank`` on dev, each
    file byte-equal to the one the task's own CLI wrote, the grid head, the
    recurrence and the box ranking launched from it and no kernel from the
    mention runs; ``icl_torch.cli.evaluate.main`` and ``check.main`` over
    what was written (the accuracy ``--eval`` printed, no finding);
-10b. ``--compute_dtype bf16``.  The kernels' bf16 modes against their plain
+10b. ``--compute_dtype bf16``, its command lines (and the planted runs) with
+   ``--matmul_precision highest``, so they compare with phase 9's as they
+   did before the precision was ported.  The kernels' bf16 modes against their plain
    versions on the card, each twice with equal bits: the grid head's fast
    dot (K1/K2) at the relation and affinity batch shapes (G=64, A=B=16,
    K=800, O=4; A=16, B=32, K=1024, O=2), ragged tiles, K % 4 != 0, O=8 and
@@ -145,6 +155,25 @@ command lines as two data-parallel ranks on the one card:
    mode is also timed beside its f32 mode at the same shape (phase 12),
    with its bound on bf16 bytes, and affinity ranked predict gets a
    profile line in bf16 beside the f32 one;
+10c. ``--matmul_precision default``, the reference's training precision.
+   The one-pass bf16 mode of K5-K8 (``exact=False``: both operands of each
+   head contraction rounded to bf16, f32 sums) against its plain versions,
+   each twice with equal bits, gate 1e-5 * max(1, max |plain|) (both sides
+   round the same f32 values, only the sums' order differs), at the
+   relation and affinity batch shapes, ragged tiles, K % 4 != 0, O in
+   1..8, an unaligned Y, weight densities 0, 0.19 and 1, rates 0 and 0.5;
+   then relation and affinity ``--train`` with no precision flag on phase
+   9's split (TF32 and the one-pass kernels), which must launch the
+   one-pass K7/K8 once a step, the exact K7 only in the dev evals (as
+   many as phase 9's: the reference pins its eval kernel at ``highest``)
+   and no other training kernel, with the dev loss at every eval within
+   DEFAULT_LOSS_CURVE of phase 9's ``highest`` run and train_config.json
+   recording the mode; relation ``--train --null_weight 0`` (the pair
+   form), which must launch the one-pass K5/K6 and nothing else of the
+   training head; the planted gate (tests/integration/
+   test_convergence.py, >= PLANTED_GATE %) in ``default`` on phase 10b's
+   vocabulary-16 split.  The one-pass modes are timed beside the f32 ones
+   (phase 12), their products of bf16 values rated at BF16_RATE;
 11. data parallelism (``icl_torch.dist``, ``icl_torch.runtime``).  A world
    of one: ``runtime.init(num_processes=1, process_id=0)`` on the card must
    choose NCCL, and one relation train step at full width through the
@@ -163,7 +192,8 @@ command lines as two data-parallel ranks on the one card:
    beside it and held to nothing (cuBLAS rounds 64 rows otherwise than 32,
    a ReLU unit within 1e-7 of zero then switches, and a few gradient rows
    move by a hundredth).  Then ``python -m icl_torch.cli.<task>
-   --coordinator localhost:<port> --num_processes 2 --process_id k``:
+   --coordinator localhost:<port> --num_processes 2 --process_id k``,
+   every command line with ``--matmul_precision highest``:
    relation ``--train`` on phase 9's split (64 images a batch, 32 a rank)
    for an epoch with a checkpoint a step, then resumed to 5 epochs;
    affinity for an epoch (3 steps); nonvisual for an epoch at batch 512;
@@ -191,8 +221,9 @@ command lines as two data-parallel ranks on the one card:
    time, launches, the five longest kernels; the wall clock of the whole
    script;
 13. prints one JSON line with every kernel at every timed shape (all nine
-    TPU kernels among them, and the three bf16 modes as kernels of their
-    own): launches over the driven paths, error, times,
+    TPU kernels among them, the three bf16 modes and the one-pass mode of
+    K5-K8 as kernels of their own): launches over the driven paths, error,
+    times,
     bound, and the time of one PyTorch call for the same function (null:
     there is none for any of them, NO_LIBRARY_CALL says why), then, last,
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -224,6 +255,7 @@ import numpy as np
 import torch
 
 from icl_torch.cli import affinity as affinity_cli
+from icl_torch.cli._common import precision_policy
 from icl_torch.cli import cardinality as cardinality_cli
 from icl_torch.cli import check as check_cli
 from icl_torch.cli import evaluate as evaluate_cli
@@ -312,15 +344,30 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
                              "icl/ops/lstm_kernel.py:282"),
     "affinity_rank_bf16dot": ("icl_torch/csrc/affinity_rank.cu",
                               "icl/ops/affinity_rank.py:90"),
+    # the one-pass bf16 mode of K5-K8 (--matmul_precision default|high):
+    # the reference's exact=False, Precision.DEFAULT head dots
+    "grid_head_train_fwd_onepass": ("icl_torch/csrc/grid_head_train.cu",
+                                    "icl/ops/grid_head_train.py:266"),
+    "grid_head_train_bwd_onepass": ("icl_torch/csrc/grid_head_train.cu",
+                                    "icl/ops/grid_head_train.py:303"),
+    "grid_head_train_loss_fwd_onepass": ("icl_torch/csrc/grid_head_train.cu",
+                                         "icl/ops/grid_head_train.py:706"),
+    "grid_head_train_loss_bwd_onepass": ("icl_torch/csrc/grid_head_train.cu",
+                                         "icl/ops/grid_head_train.py:789"),
 }
 BF16_KERNELS = {       # name -> the launch count of a kernel's bf16 mode
     "grid_head_bf16dot": grid_head.bf16dot,
     "lstm_recurrence_bf16": lstm_recurrence.bf16,
     "affinity_rank_bf16dot": affinity_rank.bf16dot,
 }
+ONEPASS_KERNELS = {    # the one-pass bf16 mode (exact=False) of K5-K8
+    f"{name}_onepass": fn.onepass for name, fn in TRAIN_KERNELS.items()}
 BF16_REC_ULPS = 4      # bf16 recurrence vs its plain version, bf16 units
 BF16_DRIFT = 0.05      # bf16 vs f32 probabilities of one checkpoint
 BF16_LOSS_CURVE = 0.02  # bf16 vs f32 dev loss at each eval, relative
+DEFAULT_LOSS_CURVE = 0.02  # --matmul_precision default vs highest, the same
+PLANTED_GATE = 93.0    # tests/integration/test_convergence.py, dev accuracy %
+HIGHEST = ["--matmul_precision", "highest"]   # the f32 phases' parity runs
 F32_RATE = 67e12       # H100 SXM, f32 outside the tensor cores, operations/s
 BF16_RATE = 989e12     # H100 SXM, dense bf16 on the tensor cores, operations/s
 INT32_RATE = 16.7e12   # H100 SXM, 32-bit integer: 64 lanes x 132 SMs x 1.98 GHz
@@ -341,6 +388,14 @@ NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
     "lstm_recurrence_bf16": "as lstm_recurrence; cuDNN's bf16 LSTM rounds "
                             "elsewhere and takes no masks",
     "affinity_rank_bf16dot": "as affinity_rank, over the fast-dot column",
+    "grid_head_train_fwd_onepass": "as grid_head_train_fwd, operands of the "
+                                   "dot rounded to bf16",
+    "grid_head_train_bwd_onepass": "as grid_head_train_bwd, operands of the "
+                                   "contractions rounded to bf16",
+    "grid_head_train_loss_fwd_onepass": "as grid_head_train_loss_fwd, one "
+                                        "bf16 pass",
+    "grid_head_train_loss_bwd_onepass": "as grid_head_train_loss_bwd, one "
+                                        "bf16 pass",
 }
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
@@ -706,24 +761,36 @@ def main() -> int:
                        "inputs": inputs, "shape": shape, "ops": ops,
                        "replaces": replaces or REPLACES[kernel][1]}
 
-    def add_train_cases(suffix, G, A, B, K, O, density=None):
+    def add_train_cases(suffix, G, A, B, K, O, density=None, exact=True):
         """K5-K8 at one shape; with `density`, only the weighted kernels
-        (K7, K8) at that share of cells of weight > 0."""
+        (K7, K8) at that share of cells of weight > 0; `exact` False: their
+        one-pass bf16 mode, whose products of bf16 values (the logit dot
+        forward, g . W2 and hd . g backward: 2 O and 4 O operations an
+        element) are rated at BF16_RATE, and each rounded activation adds
+        an operation an element."""
         kinds = {"grid_head_train_fwd": "fwd", "grid_head_train_bwd": "bwd",
                  "grid_head_train_loss_fwd": "loss_fwd",
                  "grid_head_train_loss_bwd": "loss_bwd"}
+        dots = {"fwd": (2, 1), "bwd": (4, 1), "loss_fwd": (2, 1),
+                "loss_bwd": (6, 2)}   # bf16 products / O, roundings
         for name, a in train_inputs(G, A, B, K, O, density).items():
             weighted = "loss" in name     # weight-0 cells need no work
             if density is not None and not weighted:
                 continue
             cells = int((a[7] > 0).sum()) if weighted else None
-            add_case(name + suffix, name,
-                     (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE)),
-                     (lambda f=plain_of[name], a=a: f(*a, RATE)), a,
+            ops = head_ops(kinds[name], G, A, B, K, O, cells, RATE)
+            kernel = name if exact else f"{name}_onepass"
+            if not exact:
+                per, rounded = dots[kinds[name]]
+                n = (G * A * B if cells is None else cells) * K
+                ops = fast(ops, n // K, K, per * O)
+                ops = (ops[0] + (rounded - 1) * n, ops[1], ops[2])
+            add_case(kernel + suffix, kernel,
+                     (lambda f=TRAIN_KERNELS[name], a=a: f(*a, RATE, exact)),
+                     (lambda f=plain_of[name], a=a: f(*a, RATE, exact)), a,
                      f"G={G} A={A} B={B} K={K} O={O} rate={RATE}"
                      + (f", {cells} of {G * A * B} cells of weight > 0"
-                        if weighted else ""),
-                     head_ops(kinds[name], G, A, B, K, O, cells, RATE))
+                        if weighted else ""), ops)
 
     head_args = head_inputs(8, 16)
     add_case("grid_head", "grid_head", lambda: grid_head(*head_args),
@@ -824,6 +891,16 @@ def main() -> int:
                  (lambda a=a, r=res: lstm_recurrence_fwd(*a, residuals=r)),
                  (lambda a=a, r=res: lstm_recurrence_reference(*a, r)), a,
                  shape, rec_ops(a), "icl/ops/lstm_kernel.py:282")
+    # the one-pass bf16 mode of K5-K8 (--matmul_precision default|high) at
+    # the same shapes and densities
+    for suffix, shape, density in (
+            ("", (64, 16, 16, DIMS["head_hidden"], 4), None),
+            (" at the trained density", (64, 16, 16, DIMS["head_hidden"], 4),
+             0.19),
+            (" affinity", (64, 16, 32, K_AFF, 2), None),
+            (" affinity at the trained density", (64, 16, 32, K_AFF, 2),
+             0.42)):
+        add_train_cases(suffix, *shape, density=density, exact=False)
     timing = {}
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
@@ -948,8 +1025,16 @@ def main() -> int:
         # affinity on phase 9's split, the joint run over phase 10's dirs
         bf16 = _bf16(dev, check, cli_dir, men_dir, cli["accuracy"])
 
+        # 10c. --matmul_precision default: the one-pass kernels, relation
+        # and affinity trained with no flag on phase 9's split, the planted
+        # gate
+        onepass = _onepass(dev, check, cli_dir, cli["per_unit"])
+
         # 11. a world of one over NCCL; two ranks on the one card
         ranks = _dist(cli_dir, men_dir, card)
+
+    if failures:     # a kernel check of a later phase (10b, 10c)
+        raise RuntimeError(f"kernel checks failed: {failures}")
 
     # 12. times, each beside the card
     for name, t in timing.items():
@@ -1000,22 +1085,26 @@ def main() -> int:
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
     for line in (cli["times"] + mention["times"] + bf16["times"]
-                 + ranks["times"]):
+                 + onepass["times"] + ranks["times"]):
         print(f"time {line} ({card})")
     for line in (served_profiles + train["profiles"] + aff["profiles"]
-                 + mention["profiles"]):
+                 + mention["profiles"] + onepass["profiles"]):
         print(f"{line} ({card})")
     print(f"time whole script: {time.perf_counter() - t_script:.1f} s, the "
           f"kernels' build included ({card})")
 
     # 13. result lines: launches summed over the phases that drove the paths
     launches = dict.fromkeys(REPLACES, 0)
-    for phase in (result, aff_result, train, aff, cli, mention, bf16, ranks):
+    for phase in (result, aff_result, train, aff, cli, mention, bf16, onepass,
+                  ranks):
         for k, n in phase["launches"].items():
             launches[k] += n
         for unit, counts in phase["per_unit"].items():
             print(f"launches per {unit}: "
                   + ", ".join(f"{k} {n}" for k, n in counts.items() if n))
+    idle = [k for k, n in launches.items() if n < 1]
+    if idle:
+        raise RuntimeError(f"not launched on any driven path: {idle}")
     kernels = [{"name": name, "route": "cuda",
                 "source": REPLACES[t["kernel"]][0], "replaces": t["replaces"],
                 "shape": t["shape"], "launches": launches[t["kernel"]],
@@ -1686,7 +1775,8 @@ def _cli(d: str) -> dict:
                                     ("affinity", affinity_cli.main,
                                      "cells")):
             common = ["--data_dir", d, "--device", "cuda",
-                      "--images_per_batch", "64", "--seed", str(SEED)]
+                      "--images_per_batch", "64", "--seed", str(SEED),
+                      *HIGHEST]
             train = ["--train", "--ckpt_every", "4", "--eval_every", "5",
                      *common]
 
@@ -1953,7 +2043,8 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
                                     ("affinity", affinity_cli.main,
                                      "cells")):
             common = ["--data_dir", d, "--device", "cuda",
-                      "--images_per_batch", "64", "--seed", str(SEED)]
+                      "--images_per_batch", "64", "--seed", str(SEED),
+                      *HIGHEST]
             model_dir = f"{d}/{task}.bf16"
 
             def run(what, argv, need, never):
@@ -2084,7 +2175,7 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
             common = ["--data_dir", pd, "--device", "cuda",
                       "--images_per_batch", "16", "--seed", "3",
                       "--compute_dtype", dtype, "--model_file",
-                      f"{pd}/{dtype}.model"]
+                      f"{pd}/{dtype}.model", *HIGHEST]
             _captured(relation_cli.main, [
                 "--train", "--epochs", "25", "--dropout", "0.0",
                 "--learn_rate", "0.01", *common])
@@ -2117,11 +2208,13 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
         f32_files = {t: open(p, "rb").read() for t, p in wrote.items()}
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
-        joint_cli.main(["--predict", "--data_dir", men_dir, "--device",
-                        "cuda", "--data_split", "dev", "--images_per_batch",
-                        "64", "--batch_size", str(MENTION_BATCH), "--seed",
-                        str(SEED), "--with_cardinality", "--with_rank",
-                        "--compute_dtype", "bf16"])
+        with _flags_kept():
+            joint_cli.main(["--predict", "--data_dir", men_dir, "--device",
+                            "cuda", "--data_split", "dev",
+                            "--images_per_batch", "64", "--batch_size",
+                            str(MENTION_BATCH), "--seed", str(SEED),
+                            "--with_cardinality", "--with_rank",
+                            "--compute_dtype", "bf16"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = {k: fn.launches - before[k] for k, fn in kernels.items()}
@@ -2158,10 +2251,307 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
     return {"launches": launches, "per_unit": per_unit, "times": times}
 
 
+def _onepass(dev, check, cli_dir: str, f32_units: dict) -> dict:
+    """Phase 10c, ``--matmul_precision default``: the one-pass bf16 mode of
+    K5-K8 against its plain versions on the card, each twice with equal
+    bits; relation and affinity trained with no precision flag on phase
+    9's split, held to phase 9's ``highest`` runs; the planted gate in
+    ``default``.  ``f32_units``: phase 9's launches per command line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    failures = []
+
+    def inputs(G, A, B, K, O, density=0.75):
+        """K5-K8's arguments (rate aside) over one random problem."""
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+
+        X, Y, b1, W2, b2 = (rnd(G, A, K), rnd(G, B, K), rnd(K),
+                            rnd(K, O) / K ** 0.5, rnd(O))
+        seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
+                               dtype=torch.int32)
+        weights = ((torch.rand(G, A, B, generator=gen, device=dev) < density)
+                   * torch.where(torch.rand(G, A, B, generator=gen,
+                                            device=dev) > 0.5, 1.0, 0.3))
+        return {"grid_head_train_fwd": (X, Y, b1, W2, b2, seeds),
+                "grid_head_train_bwd": (X, Y, b1, W2, seeds,
+                                        rnd(G, A, B, O)),
+                "grid_head_train_loss_fwd": (X, Y, b1, W2, b2, seeds, labels,
+                                             weights),
+                "grid_head_train_loss_bwd": (X, Y, b1, W2, b2, seeds, labels,
+                                             weights, torch.rand(
+                                                 (), generator=gen,
+                                                 device=dev))}
+
+    plain_of = {"grid_head_train_fwd": ght.grid_head_train_reference,
+                "grid_head_train_bwd": ght.grid_head_train_bwd_plain,
+                "grid_head_train_loss_fwd": ght.grid_head_train_loss_reference,
+                "grid_head_train_loss_bwd": ght.grid_head_train_loss_bwd_plain}
+    # the relation and affinity batch shapes and the widest relation grid,
+    # ragged tiles, K % 4 != 0, every head width, an unaligned Y (the
+    # scalar form); K7/K8 at weight densities 0, 0.19 and 1; rates 0, 0.5
+    worst, n_cases = 0.0, 0
+    shapes = [(64, 16, 16, 800, 4, 0.75, None), (64, 32, 32, 800, 4, 0.75,
+                                                   None),
+              (64, 16, 32, 1024, 2, 0.75, None), (64, 16, 20, 1024, 2, 0.75,
+                                                    None),
+              (2, 9, 17, 800, 3, 0.75, None), (1, 5, 7, 30, 1, 0.75, None),
+              (2, 20, 33, 50, 8, 0.75, None), (1, 17, 20, 1024, 4, 0.75,
+                                                None),
+              (8, 16, 16, 800, 4, 0.75, 1), (4, 16, 20, 1024, 2, 0.75, 1),
+              (64, 16, 16, 800, 4, 0.0, None), (64, 16, 16, 800, 4, 0.19,
+                                                 None),
+              (64, 16, 16, 800, 4, 1.0, None), (8, 16, 32, 1024, 2, 0.0,
+                                                None),
+              (8, 16, 32, 1024, 2, 0.19, None), (8, 16, 32, 1024, 2, 1.0,
+                                                 None)]
+    for G, A, B, K, O, density, moved in shapes:
+        cases = inputs(G, A, B, K, O, density)
+        for rate in (0.0, RATE):
+            for name, plain_args in cases.items():
+                fn = TRAIN_KERNELS[name]
+                a = list(plain_args)
+                if moved is not None:
+                    a[moved] = _offset_view(a[moved])
+                # K8 in its two halves: its g3 against the plain g3, its
+                # gradients against the plain backward of its own g3 (the
+                # backward rounds g3 to bf16, and a g3 the logits' f32 sum
+                # order moved by a unit may round to the neighbouring value)
+                g3 = (torch.empty(G, A, B, O, device=dev)
+                      if name == "grid_head_train_loss_bwd" else None)
+                kw = {} if g3 is None else {"g3_out": g3}
+                n0, n1 = fn.launches, fn.onepass.launches
+                got = fn(*a, rate, False, **kw)
+                again = fn(*a, rate, False, **kw)
+                what = (f"{name} one-pass G={G} A={A} B={B} K={K} O={O} "
+                        f"rate={rate} weight density {density}"
+                        + (", Y unaligned" if moved is not None else ""))
+                if g3 is None:
+                    want = plain_of[name](*plain_args, rate, False)
+                else:
+                    X, Y, b1, W2, _, seeds = plain_args[:6]
+                    err, tol = check(f"{what}: g3", g3,
+                                     ght.grid_head_train_dlogits_plain(
+                                         *plain_args, rate, False),
+                                     quiet=True)
+                    if not err <= tol:
+                        failures.append(f"{what}: g3")
+                    worst = max(worst, err / tol)
+                    want = (*ght.grid_head_train_bwd_plain(
+                        X, Y, b1, W2, seeds, g3, rate, False),
+                        g3.sum((0, 1, 2)))
+                if (fn.launches, fn.onepass.launches) != (n0, n1 + 2):
+                    failures.append(f"{what}: launch counts")
+                if not all(torch.equal(x, y) for x, y in
+                           zip(_tuple(got), _tuple(again))):
+                    failures.append(f"{what} not repeatable")
+                if density == 0.0 and "loss" in name and any(
+                        t.any() for t in _tuple(got)):
+                    failures.append(f"{what}: not all zero")
+                err, tol = check(what, got, want, quiet=True)
+                if not err <= tol:
+                    failures.append(what)
+                worst = max(worst, err / tol)
+                n_cases += 1
+    print(f"check grid head K5-K8 one-pass bf16 against their plain "
+          f"versions (exact=False; K8 in its two halves, on its own g3), "
+          f"{n_cases} cases at the relation and "
+          f"affinity shapes, ragged tiles, K % 4 != 0, O in 1..8, an "
+          f"unaligned Y, weight densities 0-1, rates 0 and {RATE}, each "
+          f"twice: worst max|d| {worst:.3f} of the gate "
+          f"(1e-5 * max(1, max|plain|)), repeated bits equal, launches "
+          f"counted as one-pass: {'ok' if not failures else 'FAIL'}")
+    if failures:
+        raise RuntimeError(f"one-pass kernel checks failed: {failures}")
+
+    # the command lines on phase 9's split, no precision flag
+    kernels = {**TRAIN_KERNELS, **ONEPASS_KERNELS}
+    said = _Said()
+    logger = logging.getLogger("icl")
+    logger.addHandler(said)
+    d = cli_dir
+    times, per_unit = [], {}
+    _reset(kernels)
+    try:
+        for task, main_fn in (("relation", relation_cli.main),
+                              ("affinity", affinity_cli.main)):
+            model_dir = f"{d}/{task}.default"
+            before = {k: fn.launches for k, fn in kernels.items()}
+            t0 = time.perf_counter()
+            said.lines.clear()
+            _captured(main_fn, [
+                "--train", "--ckpt_every", "4", "--eval_every", "5",
+                "--data_dir", d, "--device", "cuda", "--images_per_batch",
+                "64", "--seed", str(SEED), "--epochs", "10", "--model_file",
+                model_dir, "--metrics_file", f"{d}/{task}.default.jsonl"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+            per_unit[f"icl-torch-{task} --train (default precision)"] = n
+            f32 = f32_units[f"icl-torch-{task} --train"]
+            steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
+            cfg = json.load(open(f"{model_dir}/train_config.json"))
+            # every step launches the one-pass K7 and K8; the dev evals the
+            # exact K7 at rate 0, as phase 9's did (the reference pins its
+            # eval kernel at highest); nothing else
+            steps = f32["grid_head_train_loss_bwd"]
+            evals = f32["grid_head_train_loss_fwd"] - steps
+            want = {"grid_head_train_loss_fwd_onepass": steps,
+                    "grid_head_train_loss_bwd_onepass": steps,
+                    "grid_head_train_loss_fwd": evals}
+            bad = {k: v for k, v in n.items() if v != want.get(k, 0)}
+            curves = [{r["step"]: r["eval_loss"]
+                       for r in map(json.loads, open(f"{d}/{task}{s}.jsonl"))
+                       if "eval_loss" in r} for s in ("", ".default")]
+            curve = max(abs(curves[1][k] / v - 1) for k, v in
+                        curves[0].items()) if curves[0].keys() == curves[
+                            1].keys() else math.inf
+            rows = [json.loads(ln) for ln in open(f"{d}/{task}.default.jsonl")]
+            finite = all(np.isfinite(r[k]) for r in rows
+                         for k in ("loss", "eval_loss") if k in r)
+            ok = (not bad and curve <= DEFAULT_LOSS_CURVE and finite
+                  and (cfg["_matmul_precision"], cfg["_tf32"],
+                       cfg["_head_exact"]) == ("default", True, False))
+            print(f"check icl-torch-{task} --train with no precision flag "
+                  f"(default: TF32, one-pass K7/K8) on phase 9's split: "
+                  f"launches {n} ({steps} steps one-pass, {evals} dev-eval "
+                  f"launches of the exact K7, no other training kernel); "
+                  f"dev loss at the {len(curves[0])} evals within "
+                  f"{curve:.2e} of the highest run's, relative (gate "
+                  f"{DEFAULT_LOSS_CURVE}; default "
+                  f"{[round(x, 4) for x in curves[1].values()]}, highest "
+                  f"{[round(x, 4) for x in curves[0].values()]}); "
+                  f"train_config.json {cfg['_matmul_precision']}, TF32 "
+                  f"{cfg['_tf32']}, exact {cfg['_head_exact']}: "
+                  f"{'ok' if ok else 'FAIL ' + str(bad)}")
+            if not ok:
+                raise RuntimeError(f"icl-torch-{task} --train in default "
+                                   f"precision: launches {bad}, dev loss "
+                                   f"{curve}, config {cfg}")
+            times.append(f"icl-torch-{task} --train, no precision flag "
+                         f"(default) [10 epochs of 128 images, 64 a batch]: "
+                         f"{steps_s[0]:.2f} steps/s in the loop; the command "
+                         f"{wall:.2f} s")
+
+        # the pair form (a class weight of 0 turns the grid loss off): the
+        # one-pass K5 and K6, no other training kernel
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        said.lines.clear()
+        _captured(relation_cli.main, [
+            "--train", "--null_weight", "0", "--data_dir", d, "--device",
+            "cuda", "--images_per_batch", "64", "--seed", str(SEED),
+            "--epochs", "2", "--model_file", f"{d}/relation.pair.default"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        per_unit["icl-torch-relation --train --null_weight 0 (default "
+                 "precision)"] = n
+        steps = n["grid_head_train_fwd_onepass"]
+        ok = (steps > 0 and n["grid_head_train_bwd_onepass"] == steps
+              and not any(v for k, v in n.items()
+                          if k not in ("grid_head_train_fwd_onepass",
+                                       "grid_head_train_bwd_onepass")))
+        print(f"check icl-torch-relation --train --null_weight 0 with no "
+              f"precision flag (the pair form): launches {n}: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"the pair form in default precision: {n}")
+        times.append(f"icl-torch-relation --train --null_weight 0, default "
+                     f"precision [2 epochs of 128 images, the pair form]: "
+                     f"the command {wall:.2f} s")
+
+        # the planted gate (tests/integration/test_convergence.py) in the
+        # reference's default training precision, at full width on phase
+        # 10b's vocabulary-16 split
+        pd = f"{d}/planted16"
+        common = ["--data_dir", pd, "--device", "cuda", "--images_per_batch",
+                  "16", "--seed", "3", "--model_file", f"{pd}/default.model"]
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        _captured(relation_cli.main, ["--train", "--epochs", "25",
+                                      "--dropout", "0.0", "--learn_rate",
+                                      "0.01", *common])
+        out = _captured(relation_cli.main, [
+            "--predict", "--eval", "--data_split", "dev", "--scores_file",
+            f"{pd}/default.scores", *common])
+        wall = time.perf_counter() - t0
+        n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        per_unit["icl-torch-relation planted, default precision"] = n
+        acc = _accuracy(out)
+        ok = (acc >= PLANTED_GATE
+              and n["grid_head_train_loss_bwd_onepass"] > 0
+              and n["grid_head_train_loss_bwd"] == 0)
+        print(f"check icl-torch-relation planted gate in default precision "
+              f"(one-pass K7/K8, TF32; vocabulary 16, 96 train and 24 dev "
+              f"images, 25 epochs): dev accuracy {acc:.2f}% (gate "
+              f"{PLANTED_GATE:.0f}), the majority class {_majority(out):.2f}%"
+              f", launches {n}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"planted gate in default precision: {acc}, "
+                               f"{n}")
+        times.append(f"icl-torch-relation planted gate, default precision "
+                     f"[--train 25 epochs of 96 images, 16 a batch, and "
+                     f"--predict --eval]: {wall:.2f} s")
+    finally:
+        logger.removeHandler(said)
+    launches = _count(kernels, "the one-pass phase's command lines")
+    print("launches of the one-pass entry points over phase 10c's command "
+          "lines: " + ", ".join(f"{k} {launches[k]}"
+                                for k in ONEPASS_KERNELS))
+
+    # the relation train step in both precisions, in turns, on the fullest
+    # batch of phase 9's split: where the device time goes
+    emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+    table = torch.from_numpy(emb.table).to(dev)
+    batch = max((b.arrays for b in RelationBatcher(
+        images_per_batch=64, build_grid=True).batches(
+            load_relation_dataset(d, "train", emb))),
+        key=lambda a: int(a["pair_valid"].sum()))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step = make_relation_train_step(class_weights=[0.3, 1.0, 1.0, 1.0],
+                                    grid_loss=True)
+    profiles = []
+    for mode in ("highest", "default", "default", "highest"):
+        prec = precision_policy(mode, "cuda", False)
+        model = RelationModel(**DIMS, fused=True, dropout=RATE, device=dev,
+                              exact=prec.head_exact)
+        state = create_train_state(model, seed=SEED)
+        with _flags_kept():
+            torch.backends.cuda.matmul.allow_tf32 = prec.tf32
+            torch.backends.cudnn.allow_tf32 = prec.tf32
+            profiles.append(_profile(
+                f"relation train step, grid loss, --matmul_precision {mode} "
+                f"(TF32 {prec.tf32}, exact K5-K8 {prec.head_exact}) "
+                f"[I={batch['tokens'].shape[0]}]",
+                lambda s=state: step(s, table, batch)))
+    return {"launches": launches, "per_unit": per_unit, "times": times,
+            "profiles": profiles}
+
+
+@contextlib.contextmanager
+def _flags_kept():
+    """Restores the matmul flags a command line sets (its
+    ``--matmul_precision``), so a ``default`` run leaves no TF32 behind for
+    the plain GEMMs of later phases."""
+    keep = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+         ) = keep
+
+
 def _captured(main_fn, argv) -> str:
-    """What one command line prints on its standard output."""
+    """What one command line prints on its standard output; the matmul
+    flags are as they were before it."""
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _flags_kept():
         main_fn(argv)
     return buf.getvalue()
 
@@ -2238,7 +2628,8 @@ def _mention(d: str) -> dict:
             """One command line: wall clock; its log lines in said."""
             said.lines.clear()
             t0 = time.perf_counter()
-            main_fn(argv)
+            with _flags_kept():
+                main_fn(argv)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -2831,9 +3222,9 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
         _Ranks.stop()
 
     image = ["--device", "cuda", "--images_per_batch", "64", "--seed",
-             str(SEED)]
+             str(SEED), *HIGHEST]
     men = ["--data_dir", men_dir, "--device", "cuda", "--batch_size",
-           str(MENTION_BATCH), "--seed", str(SEED)]
+           str(MENTION_BATCH), "--seed", str(SEED), *HIGHEST]
     try:
         # round 1: a first epoch with a checkpoint a step, two ranks and
         # (here, meanwhile) one process; nonvisual a whole epoch
@@ -2855,12 +3246,14 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
                 "two ranks: icl-torch-nonvisual --train", "nonvisual",
                 ["--train", *men, "--epochs", "1", "--model_file",
                  f"{scratch}/nonvisual.mp"], 2, scratch)}
-        relation_cli.main([*first("relation", cli_dir, image), "--model_file",
-                           f"{scratch}/relation.one", "--eval_every", "1"])
-        affinity_cli.main([*first("affinity", cli_dir, image), "--model_file",
-                           f"{scratch}/affinity.one"])
-        nonvisual_cli.main(["--train", *men, "--epochs", "1", "--model_file",
-                            f"{scratch}/nonvisual.one"])
+        with _flags_kept():
+            relation_cli.main([*first("relation", cli_dir, image),
+                               "--model_file", f"{scratch}/relation.one",
+                               "--eval_every", "1"])
+            affinity_cli.main([*first("affinity", cli_dir, image),
+                               "--model_file", f"{scratch}/affinity.one"])
+            nonvisual_cli.main(["--train", *men, "--epochs", "1",
+                                "--model_file", f"{scratch}/nonvisual.one"])
         for task, r in runs.items():
             r.wait()
             for k in range(2):
@@ -2899,7 +3292,9 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
             predicts[task] = (_Ranks.cli(
                 f"two ranks: icl-torch-{task} --predict --eval", task, argv,
                 2, scratch), argv)
-        relation_cli.main([*more, "--model_file", f"{scratch}/relation.one"])
+        with _flags_kept():
+            relation_cli.main([*more, "--model_file",
+                               f"{scratch}/relation.one"])
         resumed.wait().need(trained, per_unit)
 
         # the weights against the one-process command line's.  That run

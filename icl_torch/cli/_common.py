@@ -23,14 +23,20 @@ parameters, gradients, Adam state and checkpoints stay f32, so a model
 trained in one dtype predicts in the other.  The mention tasks take the
 flag and log that it has no effect, as the reference ignores it there.
 
+``--matmul_precision default|high|highest`` resolves as the reference's
+does (``high`` for ``--predict``, else ``default``) and
+:func:`apply_precision` applies it on the run's device
+(:func:`precision_policy`, the table in PERF.md section 2): on CUDA,
+``default`` takes TF32 for cuBLAS and cuDNN f32 products and the one-pass
+bf16 mode of the training grid-head kernels (the reference's default
+training precision), ``high`` full f32 products and that one-pass mode,
+``highest`` full f32 and exact kernels; on the CPU every mode is exact
+f32, as XLA:CPU ignores the precision.
+
 A flag whose machinery the port does not have yet is accepted by name and
 refused by value with :class:`RefusedFlagError`, never ignored:
-
-* ``--oracle-parity``, ``--oracle-parity-full``: the Keras oracle is not
-  ported;
-* ``--matmul_precision default`` / ``high``: the port computes f32 matrix
-  products in full f32 (TF32 off), which is ``highest``; it has no lower
-  mode to honour.
+``--oracle-parity`` and ``--oracle-parity-full`` (the Keras oracle is not
+ported).
 
 ``--compilation_cache_dir`` is accepted and logged: PyTorch runs eagerly,
 there is no compiled program to cache (the kernels' libraries are kept
@@ -44,6 +50,7 @@ silence).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -113,9 +120,13 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
                    help="checkpoint every N steps (0: only at end)")
     p.add_argument("--matmul_precision", default=None,
                    choices=["default", "high", "highest"],
-                   help="the port computes f32 matrix products in full f32 "
-                        "(TF32 off), which is 'highest' and the default "
-                        "here; 'default' and 'high' are refused")
+                   help="f32 matrix-product precision; default: 'high' for "
+                        "--predict, else 'default'. On CUDA 'default' runs "
+                        "cuBLAS/cuDNN in TF32 and the training grid-head "
+                        "kernels in one bf16 pass, 'high' full f32 with "
+                        "those kernels in one bf16 pass, 'highest' full "
+                        "f32 and exact kernels (parity runs); on the CPU "
+                        "every mode is exact f32")
     p.add_argument("--eval_every", type=int, default=0,
                    help="train: every N steps, compute the deterministic "
                         "loss/acc over (a capped sample of) --eval_split "
@@ -251,11 +262,6 @@ def refuse_unported(args, task: str | None = None) -> None:
             raise RefusedFlagError(flag, "the Keras oracle is not ported; "
                                    "parity with the reference is held by "
                                    "the tests")
-    if args.matmul_precision not in (None, "highest"):
-        raise RefusedFlagError(
-            "--matmul_precision", f"{args.matmul_precision!r} cannot be "
-            f"honoured: the port computes f32 matrix products in full f32 "
-            f"with TF32 off, which is 'highest'")
     if args.compilation_cache_dir:
         LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
                  "runs eagerly (the kernels' libraries are kept under "
@@ -326,14 +332,50 @@ def begin_predict(rt, n_examples: int, weights=None) -> tuple[int, int]:
     return lo, hi
 
 
-def apply_precision(args) -> None:
-    """The port's one precision: f32 matrix products in full f32 (what
-    ``--matmul_precision highest`` names); TF32 off for cuBLAS and cuDNN;
-    bf16 matrix products sum in f32, as XLA's ``preferred_element_type=
-    f32`` does (PyTorch's default lets cuBLAS reduce in bf16)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """What ``--matmul_precision`` resolves to on a run's device:
+    ``mode`` ("default", "high" or "highest"); ``tf32``, cuBLAS and cuDNN
+    take f32 products in TF32; ``head_exact``, the training grid-head
+    kernels (K5-K8) run in exact f32, else in their one-pass bf16 mode."""
+    mode: str
+    tf32: bool
+    head_exact: bool
+
+
+def precision_policy(mode: str | None, device_type: str,
+                     predict: bool) -> Precision:
+    """The reference's resolution, ``mode or ("high" if predict else
+    "default")``, mapped onto the device.  On CUDA ``default`` is TF32 (what
+    JAX's ``Precision.DEFAULT`` means on an H100) with the one-pass kernels;
+    ``high`` keeps cuBLAS in f32 (parity-grade, where TF32 is not; the card
+    has no three-pass product) with the one-pass kernels, whose ``exact``
+    the reference sets only under ``highest``; ``highest`` is f32 and exact.
+    On the CPU every mode is f32 and exact: XLA:CPU ignores the precision,
+    so that is what the reference computes there."""
+    mode = mode or ("high" if predict else "default")
+    cuda = device_type == "cuda"
+    return Precision(mode, tf32=cuda and mode == "default",
+                     head_exact=not cuda or mode == "highest")
+
+
+def apply_precision(args, device) -> Precision:
+    """Resolve ``--matmul_precision`` for ``device`` and set the torch flags
+    both ways, so no earlier call leaks into this run: TF32 for cuBLAS and
+    cuDNN per :func:`precision_policy`; bf16 matrix products sum in f32, as
+    XLA's ``preferred_element_type=f32`` does (PyTorch's default lets
+    cuBLAS reduce in bf16).  Returns the resolved :class:`Precision`; the
+    models take its ``head_exact``."""
+    prec = precision_policy(args.matmul_precision, torch.device(device).type,
+                            bool(getattr(args, "predict", False)))
+    torch.backends.cuda.matmul.allow_tf32 = prec.tf32
+    torch.backends.cudnn.allow_tf32 = prec.tf32
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    LOG.info("matmul precision %s on %s: f32 products in %s, training "
+             "grid-head kernels %s", prec.mode, device,
+             "TF32" if prec.tf32 else "f32",
+             "exact f32" if prec.head_exact else "one-pass bf16")
+    return prec
 
 
 def resolve_compute_dtype(args) -> torch.dtype:
@@ -468,13 +510,16 @@ def restore_for_predict(state, model_dir: str, task: str) -> None:
         state.step = int(json.load(f).get("step", 0))
 
 
-def dump_run_config(args, model_dir: str, rt) -> None:
+def dump_run_config(args, model_dir: str, rt, precision: Precision) -> None:
     """Write the fully-resolved flag set next to the checkpoints, with the
-    world size, the mesh and the backend of the gradient sums (call it on
-    the main process only)."""
+    world size, the mesh, the backend of the gradient sums and the resolved
+    matmul precision (call it on the main process only)."""
     device = rt.device
     os.makedirs(model_dir, exist_ok=True)
     info = {k: v for k, v in vars(args).items()}
+    info["_matmul_precision"] = precision.mode
+    info["_tf32"] = precision.tf32
+    info["_head_exact"] = precision.head_exact
     info["_platform"] = "gpu" if device.type == "cuda" else device.type
     info["_num_devices"] = rt.mesh.world
     info["_mesh"] = dict(rt.mesh.shape)

@@ -7,6 +7,10 @@ length), ``--batch_size`` rows a batch.  Runs on the GPU unless ``--device
 cpu`` is given.  No hand-written kernel lies on this path.
 ``--compute_dtype bf16`` is taken and has no effect (one log line says
 so): the reference's mention tasks take no compute dtype.
+``--matmul_precision`` sets cuBLAS's f32 mode for the FFNN (TF32 under
+``default`` on CUDA, the ``--train`` default; full f32 under ``high``, the
+``--predict`` default, and ``highest``), as in the image tasks; no kernel
+of the training grid head lies on this path.
 
 The model dir (``--model_file``) is laid out as the image tasks' is:
 ``step_<n>.pt`` checkpoints, ``model_config.json`` (``task``, ``hidden``,
@@ -56,7 +60,7 @@ from icl_torch.util.log import LOG
 def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     rt = init_runtime(args)
     device = rt.device
-    apply_precision(args)
+    prec = apply_precision(args, device)
     if args.compute_dtype == "bf16":
         LOG.info("--compute_dtype bf16 has no effect on %s: the mention "
                  "tasks run in f32, as the reference's do", task)
@@ -97,7 +101,7 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
         eval_fn = build_mention_eval_hook(args, model, table, task, emb, bz,
                                           mesh=rt.mesh)
         if is_main_process():
-            dump_run_config(args, model_dir, rt)
+            dump_run_config(args, model_dir, rt, prec)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,

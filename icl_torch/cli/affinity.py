@@ -14,8 +14,9 @@ with plain array code (``rank_boxes``), which is what an unfused model runs
 here.  Under ``--compute_dtype bf16`` the table, the phrase encoder and the
 box features' copy to the device are bf16, and the predict, the dev eval
 and the ranking take the kernels' bf16 fast-dot modes (rank and
-probabilities from one set of logits, as in the reference); training keeps
-the f32 training kernels.
+probabilities from one set of logits, as in the reference).
+``--matmul_precision`` sets cuBLAS's f32 mode and the training kernels'
+precision as in ``icl-torch-relation``.
 
 The model dir holds what ``icl-torch-relation``'s does, with
 ``affinity.npz`` as the archive's name.  The multi-process flags do what
@@ -78,7 +79,7 @@ def main(argv=None) -> None:
     args = parse_task_args(p, argv, "affinity")
     rt = init_runtime(args)
     device = rt.device
-    apply_precision(args)
+    prec = apply_precision(args, device)
     cd = resolve_compute_dtype(args)
     emb = load_embeddings(args)
     # the frozen word-vector table lies on the device in the compute dtype
@@ -110,7 +111,7 @@ def main(argv=None) -> None:
                           num_classes=len(AFFINITY_CLASSES),
                           phrase_enc=phrase_enc, fused=fused,
                           dropout=args.dropout, device=device,
-                          compute_dtype=cd)
+                          compute_dtype=cd, exact=prec.head_exact)
     archive = weights_archive(model_dir, "affinity")
     state = create_train_state(model, seed=args.seed,
                                learn_rate=args.learn_rate, params=archive)
@@ -133,7 +134,7 @@ def main(argv=None) -> None:
             lambda d, sp: load_affinity_dataset(d, sp, emb),
             batcher, mesh=rt.mesh)
         if is_main_process():
-            dump_run_config(args, model_dir, rt)
+            dump_run_config(args, model_dir, rt, prec)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,

@@ -13,6 +13,7 @@ The multi-process flags (``--mesh``, ``--coordinator``, ``--num_processes``,
 ``--process_id``) are forwarded to every sub-run, so each runs its sharded
 predict: the first brings up the process group, the rest reuse it
 (:func:`icl_torch.runtime.init` is idempotent per topology).
+``--matmul_precision`` and ``--compute_dtype`` go to every sub-run too.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ def main(argv=None) -> None:
             ("--profile_dir", args.profile_dir, "train-only")):
         if val:
             p.error(f"{flag} is not supported by icl-torch-joint ({why})")
-    # the oracle and precision flags: refused here, by name, before any
-    # sub-run starts (--compute_dtype goes to every sub-run)
+    # the oracle flags: refused here, by name, before any sub-run starts
+    # (--compute_dtype and --matmul_precision go to every sub-run)
     refuse_unported(args)
 
     common = ["--predict", "--data_dir", args.data_dir,

@@ -9,7 +9,11 @@ fused-CE training grid head in ``--train`` (the pair form when a class
 weight is <= 0) and in the dev eval, and the LSTM recurrence throughout.
 Under ``--compute_dtype bf16`` the table and the BiLSTM are bf16 (the
 recurrence kernel's bf16 mode), and the predict and the dev eval take the
-grid head's bf16 fast-dot mode; training keeps the f32 training kernels.
+grid head's bf16 fast-dot mode.  ``--matmul_precision`` (default:
+``default`` for ``--train``, ``high`` for ``--predict``) sets cuBLAS's f32
+mode and, in ``--train`` on CUDA, the training kernels' precision: exact
+f32 under ``highest``, else their one-pass bf16 mode, as the reference's
+(:func:`icl_torch.cli._common.precision_policy`).
 
 The model dir (``--model_file``) holds the port's checkpoints
 (``step_<n>.pt``), ``model_config.json`` and ``train_config.json``, and may
@@ -77,7 +81,7 @@ def main(argv=None) -> None:
     args = parse_task_args(p, argv, "relation")
     rt = init_runtime(args)
     device = rt.device
-    apply_precision(args)
+    prec = apply_precision(args, device)
     cd = resolve_compute_dtype(args)
     emb = load_embeddings(args)
     # the frozen word-vector table lies on the device in the compute dtype
@@ -105,7 +109,7 @@ def main(argv=None) -> None:
                           head_hidden=head_hidden,
                           num_classes=len(RELATION_CLASSES), fused=fused,
                           dropout=args.dropout, device=device,
-                          compute_dtype=cd)
+                          compute_dtype=cd, exact=prec.head_exact)
     archive = weights_archive(model_dir, "relation")
     state = create_train_state(model, seed=args.seed,
                                learn_rate=args.learn_rate, params=archive)
@@ -133,7 +137,7 @@ def main(argv=None) -> None:
             lambda d, sp: load_relation_dataset(d, sp, emb),
             batcher, class_weights=class_weights, mesh=rt.mesh)
         if is_main_process():
-            dump_run_config(args, model_dir, rt)
+            dump_run_config(args, model_dir, rt, prec)
         cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
                          ckpt_every=args.ckpt_every,
                          profile_dir=args.profile_dir, resume=args.resume,

@@ -2,15 +2,18 @@
 //
 //     logit[g, a, b, :] = dropout(relu(X[g, a] + b1 + Y[g, b])) . W2 + b2
 //
-// and its fast-dot mode (kFastDot; the bf16 mode of K1/K2 and K9, the
-// reference's fast_dot in icl/ops/grid_head.py _kernel and _flat_kernel):
-// the activation relu((X + b1) + Y), added in f32 in that order, and every
-// W2 entry are rounded to bf16 (round to nearest even) before the dot.  A
-// product of two bf16 values is exact in f32, so the FMAs and the sums stay
-// f32: what a one-pass bf16 dot with f32 accumulation computes.  Inputs and
-// outputs stay f32.  It runs the same FMAs as the f32 mode, plus two
-// conversions an element; the f32 mode is another instantiation and keeps
-// its bits.
+// and its one-pass bf16 dot (kFastDot): the two operands of the dot, the
+// activation dropout(relu((X + b1) + Y)) (added in f32 in that order, and
+// rounded after the dropout scale) and every W2 entry, are rounded to bf16
+// (round to nearest even).  A product of two bf16 values is exact in f32,
+// so the FMAs and the sums stay f32: what a one-pass bf16 dot with f32
+// accumulation computes.  Inputs and outputs stay f32.  It is the bf16
+// mode of K1/K2 and K9 without dropout (the reference's fast_dot in
+// icl/ops/grid_head.py _kernel and _flat_kernel) and the exact=False mode
+// of the training forward family with it (Precision.DEFAULT in
+// icl/ops/grid_head_train.py).  It runs the same FMAs as the f32 mode,
+// plus two conversions an element; the f32 mode is another instantiation
+// and keeps its bits.
 //
 // One source for every forward kernel of the grid head: grid_head.cu (the
 // Pallas kernels K1 _flat_kernel and K2 _kernel of icl/ops/grid_head.py)
@@ -203,13 +206,12 @@ struct TileState {
 // tile.  kAligned: the operands take 16-byte loads (the kW == 4 passes of
 // the 16-byte form, and W2's rows in its scalar last pass).  kColumn: kO
 // is 1 and the head is column p.col of W2 [K, p.O]; kExactO then says that
-// p.O is 2.  kFastDot: the activation and W2 are rounded to bf16 (the
-// header's note).
+// p.O is 2.  kFastDot: the activation, after the dropout scale, and W2
+// are rounded to bf16 (the header's note).
 template <int kO, bool kExactO, int kW, bool kAligned, bool kDrop,
           bool kColumn = false, bool kFastDot = false>
 __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
                                                 TileState<kO>& st, int k) {
-  static_assert(!(kDrop && kFastDot), "the fast dot is a predict mode");
   using T = Tile<kO>;
   constexpr int TA = T::kRows, TB = T::kCols;
   float xb[TA][kW], yv[TB][kW], w[kW * kO], bv[kW];
@@ -254,11 +256,11 @@ __device__ __forceinline__ void tile_accumulate(const HeadArgs& p,
 #pragma unroll
         for (int v = 0; v < kW; ++v) {
           float h = fmaxf(xb[r][v] + yv[c][v], 0.f);
-          if constexpr (kFastDot) h = bf16_round(h);
           if constexpr (kDrop)
             h = hash32(st.keys[r * TB + c] ^ (uint32_t)(k + v)) >= p.thr
                     ? h * p.scale
                     : 0.f;
+          if constexpr (kFastDot) h = bf16_round(h);
 #pragma unroll
           for (int o = 0; o < kO; ++o)
             st.acc[(r * TB + c) * kO + o] =
@@ -312,7 +314,7 @@ __device__ __forceinline__ TileCoords tile_coords(const HeadArgs& p) {
 // logit[0 .. O) are the logits of the lane's cell (b2 added; zero beyond
 // O), equal bits in the lanes that share a cell.  In the column form
 // (kColumn, kO = 1) logit[0] is the logit of column p.col.  kFastDot: the
-// bf16 fast dot (the header's note).
+// one-pass bf16 dot (the header's note).
 template <int kO, bool kExactO, int kV, bool kDrop, bool kWeighted,
           bool kColumn = false, bool kFastDot = false>
 __device__ __forceinline__ void head_tile_logits(const HeadArgs& p,

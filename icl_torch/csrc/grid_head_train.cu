@@ -11,6 +11,9 @@
 //                                              -> icl_ght_loss_fwd_f32
 //   K8 _bwd_loss_pallas (_bwd_loss_flat_kernel, _bwd_loss_kernel)
 //                                              -> icl_ght_loss_bwd_f32
+// and, each its own instantiation, their exact=False mode (the reference's
+// default training precision: Precision.DEFAULT in _dot_precision and the
+// head dots) -> icl_ght_{fwd,bwd,loss_fwd,loss_bwd}_onepass.
 // The TPU's flat/tiled split, its transposed [O, N] CE layout and its
 // VPU-vs-MXU dot choices existed for 128-lane vregs and Mosaic's limits;
 // here one design covers every shape.
@@ -55,6 +58,22 @@
 //  * The per-image (or per-row) partials are summed over rows by a second,
 //    fixed-order pass.  No atomics anywhere: results repeat bit for bit.
 //
+// The one-pass mode (kOnePass).  Each operand of the three head
+// contractions is rounded to bf16 (round to nearest even) and their exact
+// products are summed in f32, as one bf16 pass of the TPU's matrix unit
+// does: in the forward family the logit dot hd . W2, hd rounded after the
+// dropout scale (the tile routine's kFastDot); in the backward kernel
+// dh = g3 . W2[k, :] and dW2 += hd * g3, where W2[k, :] is rounded once as
+// it is loaded, g3 once in shared memory after db2 has summed it, and hd
+// as it is recomputed.  dz = dh * [z > 0] * keep * scale, dX, dY, db1 and
+// db2 stay f32.  K8's first kernel writes g3 from the one-pass logits, so
+// its softmax is the forward's.  It runs the f32 mode's FMAs plus a
+// conversion an operand (no tensor cores: O = 2 or 4 would pad an mma's N
+// to 8).  The forward kernels of the mode
+// have their own __global__ with one block an SM in their launch bounds,
+// so ptxas gives them the registers the roundings need without touching
+// the f32 kernels' allocation.
+//
 // What bounds it on the H100: at the relation shapes (G = 64, A = B <= 32,
 // K = 800, O = 4) each call is a few microseconds of arithmetic spread
 // over 448 to 2048 blocks; the hash (a dozen integer operations per
@@ -77,9 +96,9 @@ enum Mode { kLogits = 0, kLoss = 1, kDLogits = 2 };
 // kLogits: out = logits [G, A, B, O]
 // kLoss:   out = per-block partials [blocks, 3] (sum ce*w, hits, valid)
 // kDLogits: out = g3 [G, A, B, O] = (softmax - onehot) * w * gl[0]
-template <int kMode, int kO, bool kExactO, int kV>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-head_fwd_kernel(const HeadArgs p) {
+// kOnePass: the logits of the one-pass bf16 dot (the note above).
+template <int kMode, int kO, bool kExactO, int kV, bool kOnePass>
+__device__ __forceinline__ void head_fwd(const HeadArgs& p) {
   __shared__ float red[kRedFloats];
   __shared__ float red3[kMaxWarps][3];
   float logit[kO];
@@ -92,7 +111,8 @@ head_fwd_kernel(const HeadArgs p) {
     w = __ldg(p.weights + t.cell);
   }
   const float gscale = kMode == kDLogits ? __ldg(p.gl) : 0.f;
-  head_tile_logits<kO, kExactO, kV, true, kMode != kLogits>(p, t, red, logit);
+  head_tile_logits<kO, kExactO, kV, true, kMode != kLogits, false, kOnePass>(
+      p, t, red, logit);
   if (kMode == kLogits) {
     if (t.owner) store_cell<kO, kExactO>(p.out + t.cell * O, logit, O);
     return;
@@ -150,12 +170,24 @@ head_fwd_kernel(const HeadArgs p) {
   }
 }
 
+template <int kMode, int kO, bool kExactO, int kV>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+head_fwd_kernel(const HeadArgs p) {
+  head_fwd<kMode, kO, kExactO, kV, false>(p);
+}
+
+template <int kMode, int kO, bool kExactO, int kV>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+head_fwd_onepass_kernel(const HeadArgs p) {
+  head_fwd<kMode, kO, kExactO, kV, true>(p);
+}
+
 // One block per (g = blockIdx.y, 32 columns k); thread (kl, s) = (lane,
 // warp).  g3 [G, A, B, O] is the logits' cotangent.  Writes dX [G, A, K],
 // dY [G, B, K] and the image's partials part[g] = [dW2 (K x O) | db1 (K) |
 // db2 (O), when with_db2].  kO is the head width the registers are sized
-// for: O == kO, or O <= kO = kMaxO.
-template <int kO>
+// for: O == kO, or O <= kO = kMaxO.  kOnePass: the one-pass bf16 mode.
+template <int kO, bool kOnePass>
 __global__ void __launch_bounds__(kBwdCols * kBwdSlices, kO <= 4 ? 8 : 4)
 head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const float* __restrict__ b1, const float* __restrict__ W2,
@@ -192,11 +224,18 @@ head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     for (int c = 0; c < cells; ++c) t += gs[c * O + threadIdx.x];
     pg[K * O + K + threadIdx.x] = t;
   }
+  if constexpr (kOnePass) {   // g3 rounded once, after db2 has summed it
+    if (with_db2 && blockIdx.x == 0) __syncthreads();   // block-uniform
+    for (int i = threadIdx.x; i < cells * O; i += blockDim.x)
+      gs[i] = bf16_round(gs[i]);
+    __syncthreads();
+  }
 
   float w2[kO], dw2[2][kO];
 #pragma unroll
   for (int o = 0; o < kO; ++o) {
     w2[o] = (active && o < O) ? W2[k * O + o] : 0.f;
+    if constexpr (kOnePass) w2[o] = bf16_round(w2[o]);
     dw2[0][o] = dw2[1][o] = 0.f;
   }
   const float bk = active ? b1[k] : 0.f;
@@ -224,7 +263,8 @@ head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
           const float z = xk[i] + yv;
           float f = 1.f;
           if (thr != 0u) f = hash32(keys[c] ^ (uint32_t)k) >= thr ? scale : 0.f;
-          const float h = fmaxf(z, 0.f) * f;
+          float h = fmaxf(z, 0.f) * f;
+          if constexpr (kOnePass) h = bf16_round(h);
           const float sg = z > 0.f ? f : 0.f;
           float gv[kO];
           if constexpr (kO == 4) {
@@ -302,7 +342,7 @@ sum_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
 // The forward family: ksplit warps of a block split K (icl_torch/ops/
 // grid_head.py launch_plan picks it); plan_launch settles the rest.  The
 // loss kernel writes a row of partials a block: part_rows must be its grid.
-template <int kMode>
+template <int kMode, bool kOnePass>
 cudaError_t launch_fwd(HeadArgs p, int G, int ksplit, int part_rows,
                        cudaStream_t stream) {
   int vec;
@@ -311,8 +351,15 @@ cudaError_t launch_fwd(HeadArgs p, int G, int ksplit, int part_rows,
     return cudaErrorInvalidValue;
   if (kMode == kLoss && (long long)blocks != part_rows)
     return cudaErrorInvalidValue;
-#define ICL_CALL(kO, kExactO, kV) \
-  head_fwd_kernel<kMode, kO, kExactO, kV><<<blocks, threads, 0, stream>>>(p)
+#define ICL_CALL(kO, kExactO, kV)                                    \
+  do {                                                               \
+    if constexpr (kOnePass)                                          \
+      head_fwd_onepass_kernel<kMode, kO, kExactO, kV>                \
+          <<<blocks, threads, 0, stream>>>(p);                       \
+    else                                                             \
+      head_fwd_kernel<kMode, kO, kExactO, kV>                        \
+          <<<blocks, threads, 0, stream>>>(p);                       \
+  } while (0)
   ICL_HEAD_DISPATCH(p.O, vec, ICL_CALL);
 #undef ICL_CALL
   return cudaGetLastError();
@@ -330,7 +377,7 @@ HeadArgs head_args(const float* X, const float* Y, const float* b1,
   return p;
 }
 
-template <int kO>
+template <int kO, bool kOnePass>
 cudaError_t launch_bwd_o(const float* X, const float* Y, const float* b1,
                          const float* W2, const int* seeds, const float* g3,
                          float* dX, float* dY, float* part, int G, int A,
@@ -342,30 +389,35 @@ cudaError_t launch_bwd_o(const float* X, const float* Y, const float* b1,
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        head_bwd_kernel<kO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        head_bwd_kernel<kO, kOnePass>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((K + kBwdCols - 1) / kBwdCols, G);
-  head_bwd_kernel<kO><<<grid, kBwdCols * kBwdSlices, smem, stream>>>(
+  head_bwd_kernel<kO, kOnePass>
+      <<<grid, kBwdCols * kBwdSlices, smem, stream>>>(
       X, Y, b1, W2, seeds, g3, dX, dY, part, A, B, K, O, with_db2, thr,
       scale);
   return cudaGetLastError();
 }
 
+template <bool kOnePass>
 cudaError_t launch_bwd(const float* X, const float* Y, const float* b1,
                        const float* W2, const int* seeds, const float* g3,
                        float* dX, float* dY, float* part, float* sums, int G,
                        int A, int B, int K, int O, int with_db2, uint32_t thr,
                        float scale, cudaStream_t stream) {
   cudaError_t err =
-      O == 4 ? launch_bwd_o<4>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A, B,
-                               K, O, with_db2, thr, scale, stream)
+      O == 4 ? launch_bwd_o<4, kOnePass>(X, Y, b1, W2, seeds, g3, dX, dY,
+                                         part, G, A, B, K, O, with_db2, thr,
+                                         scale, stream)
       : O == 2
-          ? launch_bwd_o<2>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A, B, K,
-                            O, with_db2, thr, scale, stream)
-          : launch_bwd_o<kMaxO>(X, Y, b1, W2, seeds, g3, dX, dY, part, G, A,
-                                B, K, O, with_db2, thr, scale, stream);
+          ? launch_bwd_o<2, kOnePass>(X, Y, b1, W2, seeds, g3, dX, dY, part,
+                                      G, A, B, K, O, with_db2, thr, scale,
+                                      stream)
+          : launch_bwd_o<kMaxO, kOnePass>(X, Y, b1, W2, seeds, g3, dX, dY,
+                                          part, G, A, B, K, O, with_db2, thr,
+                                          scale, stream);
   if (err != cudaSuccess) return err;
   const int cols = K * O + K + (with_db2 ? O : 0);
   sum_rows_kernel<<<cols, kSumThreads, 0, stream>>>(part, sums, G, cols);
@@ -377,6 +429,71 @@ cudaError_t prologue(int G, int A, int B, int K, int O, int device) {
       G > 65535)
     return cudaErrorInvalidValue;
   return cudaSetDevice(device);
+}
+
+// The four calls of either mode; the extern "C" entry points below name
+// them.
+template <bool kOnePass>
+int fwd_entry(const float* X, const float* Y, const float* b1,
+              const float* W2, const float* b2, const int* seeds, float* out,
+              int G, int A, int B, int K, int O, uint32_t thr, float scale,
+              int ksplit, int device, void* stream) {
+  cudaError_t err = prologue(G, A, B, K, O, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fwd<kLogits, kOnePass>(
+      head_args(X, Y, b1, W2, b2, seeds, nullptr, nullptr, nullptr, out, A, B,
+                K, O, thr, scale),
+      G, ksplit, 0, (cudaStream_t)stream);
+}
+
+template <bool kOnePass>
+int bwd_entry(const float* X, const float* Y, const float* b1,
+              const float* W2, const int* seeds, const float* g, float* dX,
+              float* dY, float* part, float* sums, int G, int A, int B, int K,
+              int O, uint32_t thr, float scale, int device, void* stream) {
+  cudaError_t err = prologue(G, A, B, K, O, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_bwd<kOnePass>(X, Y, b1, W2, seeds, g, dX, dY, part, sums,
+                                   G, A, B, K, O, 0, thr, scale,
+                                   (cudaStream_t)stream);
+}
+
+template <bool kOnePass>
+int loss_fwd_entry(const float* X, const float* Y, const float* b1,
+                   const float* W2, const float* b2, const int* seeds,
+                   const int* labels, const float* weights, float* part,
+                   float* sums, int part_rows, int G, int A, int B, int K,
+                   int O, uint32_t thr, float scale, int ksplit, int device,
+                   void* stream) {
+  cudaError_t err = prologue(G, A, B, K, O, device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_fwd<kLoss, kOnePass>(
+      head_args(X, Y, b1, W2, b2, seeds, labels, weights, nullptr, part, A, B,
+                K, O, thr, scale),
+      G, ksplit, part_rows, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  sum_rows_kernel<<<3, kSumThreads, 0, (cudaStream_t)stream>>>(part, sums,
+                                                               part_rows, 3);
+  return (int)cudaGetLastError();
+}
+
+template <bool kOnePass>
+int loss_bwd_entry(const float* X, const float* Y, const float* b1,
+                   const float* W2, const float* b2, const int* seeds,
+                   const int* labels, const float* weights, const float* gl,
+                   float* g3, float* dX, float* dY, float* part, float* sums,
+                   int G, int A, int B, int K, int O, uint32_t thr,
+                   float scale, int ksplit, int device, void* stream) {
+  cudaError_t err = prologue(G, A, B, K, O, device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_fwd<kDLogits, kOnePass>(
+      head_args(X, Y, b1, W2, b2, seeds, labels, weights, gl, g3, A, B, K, O,
+                thr, scale),
+      G, ksplit, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_bwd<kOnePass>(X, Y, b1, W2, seeds, g3, dX, dY, part,
+                                   sums, G, A, B, K, O, 1, thr, scale,
+                                   (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -391,78 +508,70 @@ cudaError_t prologue(int G, int A, int B, int K, int O, int device) {
 // as in the header; thr = 0 keeps every element.  The forward family takes
 // ksplit, the number of warps that split K (1..8), from the caller, and
 // the 16-byte form when X, Y, b1 and W2 are 16-byte aligned and K % 4 == 0.
-// Outputs and scratch are allocated by the caller.
+// Outputs and scratch are allocated by the caller.  Each call has an _f32
+// entry point (exact) and an _onepass one (the one-pass bf16 mode) with
+// the same arguments.
 
 // K5: out [G, A, B, O] logits.
-extern "C" int icl_ght_fwd_f32(const float* X, const float* Y,
-                               const float* b1, const float* W2,
-                               const float* b2, const int* seeds, float* out,
-                               int G, int A, int B, int K, int O,
-                               uint32_t thr, float scale, int ksplit,
-                               int device, void* stream) {
-  cudaError_t err = prologue(G, A, B, K, O, device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fwd<kLogits>(
-      head_args(X, Y, b1, W2, b2, seeds, nullptr, nullptr, nullptr, out, A, B,
-                K, O, thr, scale),
-      G, ksplit, 0, (cudaStream_t)stream);
-}
+#define ICL_GHT_FWD(SUFFIX, ONEPASS)                                        \
+  extern "C" int icl_ght_fwd_##SUFFIX(                                      \
+      const float* X, const float* Y, const float* b1, const float* W2,     \
+      const float* b2, const int* seeds, float* out, int G, int A, int B,   \
+      int K, int O, uint32_t thr, float scale, int ksplit, int device,      \
+      void* stream) {                                                       \
+    return fwd_entry<ONEPASS>(X, Y, b1, W2, b2, seeds, out, G, A, B, K, O,  \
+                              thr, scale, ksplit, device, stream);          \
+  }
 
 // K6: cotangent g [G, A, B, O] -> dX [G, A, K], dY [G, B, K] and
 // sums = [dW2 (K x O) | db1 (K)]; part is scratch [G, K*O + K].
-extern "C" int icl_ght_bwd_f32(const float* X, const float* Y,
-                               const float* b1, const float* W2,
-                               const int* seeds, const float* g, float* dX,
-                               float* dY, float* part, float* sums, int G,
-                               int A, int B, int K, int O, uint32_t thr,
-                               float scale, int device, void* stream) {
-  cudaError_t err = prologue(G, A, B, K, O, device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_bwd(X, Y, b1, W2, seeds, g, dX, dY, part, sums, G, A, B,
-                         K, O, 0, thr, scale, (cudaStream_t)stream);
-}
+#define ICL_GHT_BWD(SUFFIX, ONEPASS)                                        \
+  extern "C" int icl_ght_bwd_##SUFFIX(                                      \
+      const float* X, const float* Y, const float* b1, const float* W2,     \
+      const int* seeds, const float* g, float* dX, float* dY, float* part,  \
+      float* sums, int G, int A, int B, int K, int O, uint32_t thr,         \
+      float scale, int device, void* stream) {                              \
+    return bwd_entry<ONEPASS>(X, Y, b1, W2, seeds, g, dX, dY, part, sums,   \
+                              G, A, B, K, O, thr, scale, device, stream);   \
+  }
 
 // K7: labels [G, A, B] int32, weights [G, A, B] -> sums = [sum ce*w,
 // sum hits, sum valid]; part is scratch [part_rows, 3], one row a block of
 // the plan.
-extern "C" int icl_ght_loss_fwd_f32(const float* X, const float* Y,
-                                    const float* b1, const float* W2,
-                                    const float* b2, const int* seeds,
-                                    const int* labels, const float* weights,
-                                    float* part, float* sums, int part_rows,
-                                    int G, int A, int B, int K, int O,
-                                    uint32_t thr, float scale, int ksplit,
-                                    int device, void* stream) {
-  cudaError_t err = prologue(G, A, B, K, O, device);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_fwd<kLoss>(
-      head_args(X, Y, b1, W2, b2, seeds, labels, weights, nullptr, part, A, B,
-                K, O, thr, scale),
-      G, ksplit, part_rows, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  sum_rows_kernel<<<3, kSumThreads, 0, (cudaStream_t)stream>>>(part, sums,
-                                                               part_rows, 3);
-  return (int)cudaGetLastError();
-}
+#define ICL_GHT_LOSS_FWD(SUFFIX, ONEPASS)                                   \
+  extern "C" int icl_ght_loss_fwd_##SUFFIX(                                 \
+      const float* X, const float* Y, const float* b1, const float* W2,     \
+      const float* b2, const int* seeds, const int* labels,                 \
+      const float* weights, float* part, float* sums, int part_rows, int G, \
+      int A, int B, int K, int O, uint32_t thr, float scale, int ksplit,    \
+      int device, void* stream) {                                           \
+    return loss_fwd_entry<ONEPASS>(X, Y, b1, W2, b2, seeds, labels,         \
+                                   weights, part, sums, part_rows, G, A, B, \
+                                   K, O, thr, scale, ksplit, device,        \
+                                   stream);                                 \
+  }
 
 // K8: gl [1] (device) is the loss cotangent -> dX, dY and sums = [dW2 |
 // db1 | db2]; g3 is scratch [G, A, B, O], part scratch [G, K*O + K + O].
-extern "C" int icl_ght_loss_bwd_f32(const float* X, const float* Y,
-                                    const float* b1, const float* W2,
-                                    const float* b2, const int* seeds,
-                                    const int* labels, const float* weights,
-                                    const float* gl, float* g3, float* dX,
-                                    float* dY, float* part, float* sums,
-                                    int G, int A, int B, int K, int O,
-                                    uint32_t thr, float scale, int ksplit,
-                                    int device, void* stream) {
-  cudaError_t err = prologue(G, A, B, K, O, device);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_fwd<kDLogits>(
-      head_args(X, Y, b1, W2, b2, seeds, labels, weights, gl, g3, A, B, K, O,
-                thr, scale),
-      G, ksplit, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_bwd(X, Y, b1, W2, seeds, g3, dX, dY, part, sums, G, A,
-                         B, K, O, 1, thr, scale, (cudaStream_t)stream);
-}
+#define ICL_GHT_LOSS_BWD(SUFFIX, ONEPASS)                                   \
+  extern "C" int icl_ght_loss_bwd_##SUFFIX(                                 \
+      const float* X, const float* Y, const float* b1, const float* W2,     \
+      const float* b2, const int* seeds, const int* labels,                 \
+      const float* weights, const float* gl, float* g3, float* dX,          \
+      float* dY, float* part, float* sums, int G, int A, int B, int K,      \
+      int O, uint32_t thr, float scale, int ksplit, int device,             \
+      void* stream) {                                                       \
+    return loss_bwd_entry<ONEPASS>(X, Y, b1, W2, b2, seeds, labels,         \
+                                   weights, gl, g3, dX, dY, part, sums, G,  \
+                                   A, B, K, O, thr, scale, ksplit, device,  \
+                                   stream);                                 \
+  }
+
+ICL_GHT_FWD(f32, false)
+ICL_GHT_BWD(f32, false)
+ICL_GHT_LOSS_FWD(f32, false)
+ICL_GHT_LOSS_BWD(f32, false)
+ICL_GHT_FWD(onepass, true)
+ICL_GHT_BWD(onepass, true)
+ICL_GHT_LOSS_FWD(onepass, true)
+ICL_GHT_LOSS_BWD(onepass, true)

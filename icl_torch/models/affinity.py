@@ -26,8 +26,9 @@ LSTM, or the mean of the word vectors); the phrase embedding and the box
 features are widened to f32 before the two projections, as JAX promotes
 bf16 @ f32.  In bf16 a fused model's deterministic passes run the grid
 head's fast-dot mode, and its box ranking the box-ranking kernel's
-(:func:`icl_torch.train.steps.affinity_predict`); training runs the exact
-f32 training kernels (see :mod:`icl_torch.models.relation`).
+(:func:`icl_torch.train.steps.affinity_predict`).  ``exact`` picks the
+training kernels' precision, exact f32 (the default) or their one-pass
+bf16 mode, as in :mod:`icl_torch.models.relation`.
 
 Training mode is ``forward(..., seeds=...)``: per-image int32 dropout
 seeds, and the same hash mask of (seed, a, b, k) in both forms, so both
@@ -68,11 +69,13 @@ class AffinityModel(FlatParams):
                  head_hidden: int = 1024, num_classes: int = 2,
                  phrase_enc: str = "lstm", fused: bool = False,
                  dropout: float = 0.5, device: torch.device | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 exact: bool = True):
         super().__init__()
         if phrase_enc not in PHRASE_ENCODERS:
             raise ValueError(f"unknown phrase_enc {phrase_enc!r}")
         self.fused = fused
+        self.exact = exact   # the training kernels' head contractions
         self.dropout = float(dropout)
         self.phrase_enc = phrase_enc
         self.compute_dtype = compute_dtype
@@ -137,13 +140,14 @@ class AffinityModel(FlatParams):
                     seeds = torch.zeros(X.shape[0], dtype=torch.int32,
                                         device=X.device)
                 return grid_head_train_loss(X, Y, b1, W2, b2, seeds, labels,
-                                            weights, rate)
+                                            weights, rate,
+                                            self.exact or not train)
             return grid_ce_sums(self.head(X, Y, seeds), labels, weights)
         if not self.fused:
             # plain oracle: materialises the [I, M, B, K] activation
             return grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate)
         if train:
-            return grid_head_train(X, Y, b1, W2, b2, seeds, rate)
+            return grid_head_train(X, Y, b1, W2, b2, seeds, rate, self.exact)
         return grid_head(X, Y, b1, W2, b2, fast_dot=self.fast_dot)
 
     def forward(self, table: torch.Tensor, batch: dict,

@@ -27,10 +27,18 @@ to f32 before the head's projections, as JAX promotes bf16 @ f32, so the
 head's inputs are f32 either way.  In bf16 a fused model's deterministic
 passes (predict, and the grid loss of a dev eval) run the grid head's bf16
 fast-dot mode (``grid_head(..., fast_dot=True)``), as the reference's fused
-model does; training runs the exact f32 training kernels, which is what the
-reference runs under ``--matmul_precision highest``, the one precision the
-port honours.  The gather form keeps the exact f32 head, as the
-reference's unfused model does.
+model does.
+
+``exact`` is the precision of the fused training kernels' head
+contractions, the reference's ``exact = jax_default_matmul_precision ==
+"highest"``: True (the default) runs them in exact f32, False in their
+one-pass bf16 mode (:mod:`icl_torch.ops.grid_head_train`), which is the
+reference's default training precision; the CLIs set it from
+``--matmul_precision`` (:func:`icl_torch.cli._common.apply_precision`).
+The deterministic passes stay exact in every mode, as the reference pins
+its predict kernel at ``highest``.  The gather form's head is plain
+PyTorch (cuBLAS, whose f32 mode the CLIs set), as the reference's unfused
+model is XLA's.
 
 Training mode is ``forward(..., seeds=...)``: per-image int32 dropout seeds.
 The dropout mask is a pure function of (seed, a, b, k)
@@ -87,9 +95,11 @@ class RelationModel(FlatParams):
                  head_hidden: int = 800, num_classes: int = 4,
                  fused: bool = False, dropout: float = 0.5,
                  device: torch.device | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 exact: bool = True):
         super().__init__()
         self.fused = fused
+        self.exact = exact   # the training kernels' head contractions
         self.dropout = float(dropout)
         self.compute_dtype = compute_dtype
         # the bf16 mode of the fused model's deterministic grid head
@@ -140,7 +150,8 @@ class RelationModel(FlatParams):
                     seeds = torch.zeros(I, dtype=torch.int32,
                                         device=tokens.device)
                 return grid_head_train_loss(proj_i, proj_j, b1, W2, b2,
-                                            seeds, labels, weights, rate)
+                                            seeds, labels, weights, rate,
+                                            self.exact or not train)
             # plain oracle: materialises the [I, M, M, K] activation
             grid = grid_head_train_reference(proj_i, proj_j, b1, W2, b2,
                                              seeds, rate)
@@ -149,7 +160,8 @@ class RelationModel(FlatParams):
         pi, pj = batch["pair_ij"][..., 0].long(), batch["pair_ij"][..., 1].long()
         img = torch.arange(I, device=tokens.device)[:, None]
         if self.fused:
-            grid = (grid_head_train(proj_i, proj_j, b1, W2, b2, seeds, rate)
+            grid = (grid_head_train(proj_i, proj_j, b1, W2, b2, seeds, rate,
+                                    self.exact)
                     if train else grid_head(proj_i, proj_j, b1, W2, b2,
                                             fast_dot=self.fast_dot))
             return grid[img, pi, pj]                           # [I, P, O]

@@ -30,11 +30,26 @@ the explicit backward formulas ``grid_head_train_bwd_plain`` and
 ``grid_head_train_loss_bwd_plain``.  A kernel wrapper runs the plain version
 for CPU tensors and launches its kernel (``icl_torch/csrc/
 grid_head_train.cu``) for CUDA tensors, counting launches in ``launches``.
+
+``exact`` (default True) picks the precision of the head's contractions,
+as the reference's ``exact_grads`` does.  True: exact f32 (the reference
+under ``--matmul_precision highest``).  False: the one-pass bf16 mode (the
+reference's default training precision, Mosaic's ``Precision.DEFAULT``):
+both operands of the logit dot ``hd . W2``, of ``dh = g . W2^T`` and of
+``dW2 = hd^T . g`` are rounded to bf16 (nearest even) and their exact
+products summed in f32; hd is rounded after the dropout scale, and g is
+the cell cotangent (K8: g3 = (softmax - onehot) * w * gl from the one-pass
+logits).  Everything else stays f32 and unrounded: dz = dh * scale, dX,
+dY, db1 and db2 (the sum of the unrounded g3).  The plain versions honour
+``exact`` on every device; the CUDA entry points of the mode are
+``icl_ght_*_onepass``, and their launches count in ``<wrapper>.onepass.
+launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -53,11 +68,11 @@ _DIMS = [_I] * 5 + [_U, _F]               # G, A, B, K, O, thr, scale
 _PLAN = [_I]                              # ksplit
 _TAIL = [_I, _P]                          # device, stream
 _ARGTYPES = {
-    "icl_ght_fwd_f32": [_P] * 7 + _DIMS + _PLAN + _TAIL,
-    "icl_ght_bwd_f32": [_P] * 10 + _DIMS + _TAIL,
-    "icl_ght_loss_fwd_f32": [_P] * 10 + [_I] + _DIMS + _PLAN + _TAIL,
-    "icl_ght_loss_bwd_f32": [_P] * 14 + _DIMS + _PLAN + _TAIL,
-}
+    "icl_ght_fwd": [_P] * 7 + _DIMS + _PLAN + _TAIL,
+    "icl_ght_bwd": [_P] * 10 + _DIMS + _TAIL,
+    "icl_ght_loss_fwd": [_P] * 10 + [_I] + _DIMS + _PLAN + _TAIL,
+    "icl_ght_loss_bwd": [_P] * 14 + _DIMS + _PLAN + _TAIL,
+}   # each entry point has an _f32 and a _onepass symbol
 
 
 # --- dropout mask ----------------------------------------------------------
@@ -137,25 +152,38 @@ def grid_ce_sums(logits: torch.Tensor, labels: torch.Tensor,
             valid.to(torch.float32).sum())
 
 
-def grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate: float = 0.0):
+def _operand(t: torch.Tensor, exact: bool) -> torch.Tensor:
+    """An operand of a head contraction: as it is when ``exact``, else
+    rounded to bf16 (nearest even) and widened back, so the f32 products of
+    two such values are exact (one bf16 pass)."""
+    return t if exact else t.to(torch.bfloat16).to(t.dtype)
+
+
+def grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate: float = 0.0,
+                              exact: bool = True):
     """Plain version of K5: the materialised masked grid -> [G,A,B,O].
     Differentiable through autograd; ``seeds`` may be None at rate 0."""
     hd, _ = _hd_scale(X, Y, b1, seeds, rate)
-    return torch.einsum("gabk,ko->gabo", hd, W2) + b2
+    return torch.einsum("gabk,ko->gabo", _operand(hd, exact),
+                        _operand(W2, exact)) + b2
 
 
 def grid_head_train_loss_reference(X, Y, b1, W2, b2, seeds, labels, weights,
-                                   rate: float = 0.0):
+                                   rate: float = 0.0, exact: bool = True):
     """Plain version of K7: the head, then :func:`grid_ce_sums`."""
     return grid_ce_sums(grid_head_train_reference(X, Y, b1, W2, b2, seeds,
-                                                  rate), labels, weights)
+                                                  rate, exact),
+                        labels, weights)
 
 
-def grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g, rate: float):
+def grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g, rate: float,
+                              exact: bool = True):
     """Plain version of K6: cotangent g [G,A,B,O] -> dX, dY, dW2, db1."""
     hd, scale = _hd_scale(X, Y, b1, seeds, rate)
-    dz = torch.einsum("gabo,ko->gabk", g, W2) * scale
-    return (dz.sum(2), dz.sum(1), torch.einsum("gabk,gabo->ko", hd, g),
+    g = _operand(g, exact)
+    dz = torch.einsum("gabo,ko->gabk", g, _operand(W2, exact)) * scale
+    return (dz.sum(2), dz.sum(1),
+            torch.einsum("gabk,gabo->ko", _operand(hd, exact), g),
             dz.sum((0, 1, 2)))
 
 
@@ -169,38 +197,47 @@ def _dlogits(logits, labels, weights, gl):
     return (probs - onehot.to(probs.dtype)) * (weights * gl)[..., None]
 
 
+def grid_head_train_dlogits_plain(X, Y, b1, W2, b2, seeds, labels, weights,
+                                  gl, rate: float, exact: bool = True):
+    """Plain version of K8's first half: the logit gradient g3 [G,A,B,O]
+    of ``gl * sum ce * w`` (the logits recomputed as K7 computes them)."""
+    logits = grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate, exact)
+    return _dlogits(logits, labels, weights, gl)
+
+
 def grid_head_train_loss_bwd_plain(X, Y, b1, W2, b2, seeds, labels, weights,
-                                   gl, rate: float):
+                                   gl, rate: float, exact: bool = True):
     """Plain version of K8: loss cotangent gl -> dX, dY, dW2, db1, db2."""
-    logits = grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate)
-    g3 = _dlogits(logits, labels, weights, gl)
+    g3 = grid_head_train_dlogits_plain(X, Y, b1, W2, b2, seeds, labels,
+                                       weights, gl, rate, exact)
     dX, dY, dW2, db1 = grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g3,
-                                                 rate)
+                                                 rate, exact)
     return dX, dY, dW2, db1, g3.sum((0, 1, 2))
 
 
 # --- kernel wrappers -----------------------------------------------------------
 
-def grid_head_train_fwd(X, Y, b1, W2, b2, seeds, rate: float):
+def grid_head_train_fwd(X, Y, b1, W2, b2, seeds, rate: float,
+                        exact: bool = True):
     """K5: [G,A,B,O] logits with dropout applied."""
     if X.device.type == "cpu":
-        return grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate)
+        return grid_head_train_reference(X, Y, b1, W2, b2, seeds, rate, exact)
     G, A, B, K, O = _check("grid_head_train_fwd", X, Y, b1, W2, b2, seeds)
     out = torch.empty((G, A, B, O), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
     plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
-    _launch("icl_ght_fwd_f32", "grid_head_train_fwd", X,
+    _launch("icl_ght_fwd", grid_head_train_fwd, exact, X,
             X, Y, b1, W2, b2, seeds, out, dims=(G, A, B, K, O), rate=rate,
             plan=plan)
-    grid_head_train_fwd.launches += 1
     return out
 
 
-def grid_head_train_bwd(X, Y, b1, W2, seeds, g, rate: float):
+def grid_head_train_bwd(X, Y, b1, W2, seeds, g, rate: float,
+                        exact: bool = True):
     """K6: cotangent g [G,A,B,O] -> (dX, dY, dW2, db1)."""
     if X.device.type == "cpu":
-        return grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g, rate)
+        return grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g, rate, exact)
     grid = (X.shape[0], X.shape[1], Y.shape[1], W2.shape[1])
     G, A, B, K, O = _check("grid_head_train_bwd", X, Y, b1, W2, None, seeds,
                            cells={"g": (g, torch.float32, grid)})
@@ -214,19 +251,18 @@ def grid_head_train_bwd(X, Y, b1, W2, seeds, g, rate: float):
     sums = new(K * O + K, dtype=torch.float32, device=dev)
     if G and A and B:
         part = torch.empty((G, K * O + K), dtype=torch.float32, device=dev)
-        _launch("icl_ght_bwd_f32", "grid_head_train_bwd", X,
+        _launch("icl_ght_bwd", grid_head_train_bwd, exact, X,
                 X, Y, b1, W2, seeds, g, dX, dY, part, sums,
                 dims=(G, A, B, K, O), rate=rate)
-        grid_head_train_bwd.launches += 1
     return dX, dY, sums[:K * O].view(K, O), sums[K * O:]
 
 
 def grid_head_train_loss_fwd(X, Y, b1, W2, b2, seeds, labels, weights,
-                             rate: float):
+                             rate: float, exact: bool = True):
     """K7: (sum ce*w, sum hits, sum valid) as three 0-d tensors."""
     if X.device.type == "cpu":
         return grid_head_train_loss_reference(X, Y, b1, W2, b2, seeds, labels,
-                                              weights, rate)
+                                              weights, rate, exact)
     G, A, B, K, O = _check("grid_head_train_loss_fwd", X, Y, b1, W2, b2, seeds,
                            cells=_label_cells(X, Y, labels, weights))
     sums = torch.zeros(3, dtype=torch.float32, device=X.device)
@@ -234,21 +270,37 @@ def grid_head_train_loss_fwd(X, Y, b1, W2, b2, seeds, labels, weights,
         plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
         part = torch.empty((plan.blocks, 3), dtype=torch.float32,
                            device=X.device)     # a row of sums a block
-        _launch("icl_ght_loss_fwd_f32", "grid_head_train_loss_fwd", X,
+        _launch("icl_ght_loss_fwd", grid_head_train_loss_fwd, exact, X,
                 X, Y, b1, W2, b2, seeds, labels, weights, part, sums,
                 plan.blocks, dims=(G, A, B, K, O), rate=rate, plan=plan)
-        grid_head_train_loss_fwd.launches += 1
     return sums[0], sums[1], sums[2]
 
 
 def grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights, gl,
-                             rate: float):
-    """K8: loss cotangent gl (0-d) -> (dX, dY, dW2, db1, db2)."""
+                             rate: float, exact: bool = True, *,
+                             g3_out: torch.Tensor | None = None):
+    """K8: loss cotangent gl (0-d) -> (dX, dY, dW2, db1, db2).
+
+    ``g3_out`` (f32 [G,A,B,O], contiguous), if given, receives the logit
+    gradient g3 the first half computes and the second consumes.  In the
+    one-pass mode g3 is rounded to bf16 where the logits' f32 sum order
+    may have moved it by a unit, so the checks hold each half to its plain
+    version on the same g3."""
     if X.device.type == "cpu":
-        return grid_head_train_loss_bwd_plain(X, Y, b1, W2, b2, seeds, labels,
-                                              weights, gl, rate)
+        if g3_out is None:
+            return grid_head_train_loss_bwd_plain(X, Y, b1, W2, b2, seeds,
+                                                  labels, weights, gl, rate,
+                                                  exact)
+        g3_out.copy_(grid_head_train_dlogits_plain(
+            X, Y, b1, W2, b2, seeds, labels, weights, gl, rate, exact))
+        return (*grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g3_out, rate,
+                                           exact), g3_out.sum((0, 1, 2)))
+    cells = _label_cells(X, Y, labels, weights)
+    if g3_out is not None:
+        cells["g3_out"] = (g3_out, torch.float32,
+                           (*cells["labels"][2], W2.shape[1]))
     G, A, B, K, O = _check("grid_head_train_loss_bwd", X, Y, b1, W2, b2,
-                           seeds, cells=_label_cells(X, Y, labels, weights))
+                           seeds, cells=cells)
     _check_bwd_grid("grid_head_train_loss_bwd", A, B, O)
     dev = X.device
     gl = gl.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
@@ -257,13 +309,13 @@ def grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights, gl,
     dY = new(Y.shape, dtype=torch.float32, device=dev)
     sums = new(K * O + K + O, dtype=torch.float32, device=dev)
     if G and A and B:
-        g3 = torch.empty((G, A, B, O), dtype=torch.float32, device=dev)
+        g3 = (torch.empty((G, A, B, O), dtype=torch.float32, device=dev)
+              if g3_out is None else g3_out)
         part = torch.empty((G, K * O + K + O), dtype=torch.float32, device=dev)
-        _launch("icl_ght_loss_bwd_f32", "grid_head_train_loss_bwd", X,
+        _launch("icl_ght_loss_bwd", grid_head_train_loss_bwd, exact, X,
                 X, Y, b1, W2, b2, seeds, labels, weights, gl, g3, dX, dY,
                 part, sums, dims=(G, A, B, K, O), rate=rate,
                 plan=launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2)))
-        grid_head_train_loss_bwd.launches += 1
     return (dX, dY, sums[:K * O].view(K, O), sums[K * O:K * O + K],
             sums[K * O + K:])
 
@@ -271,20 +323,25 @@ def grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels, weights, gl,
 for _fn in (grid_head_train_fwd, grid_head_train_bwd, grid_head_train_loss_fwd,
             grid_head_train_loss_bwd):
     _fn.launches = 0   # kernel launches since the last reset
+    _fn.onepass = SimpleNamespace(launches=0)   # those of the one-pass mode
 
 
-def _launch(symbol, what, like, *args, dims, rate, plan=None):
-    """Calls an entry point: tensors (as pointers) and ints in ``args``,
-    then the dims, the dropout threshold and scale, the forward family's
-    K split (``plan.ksplit``), the device and the stream."""
-    lib = _build.load("grid_head_train", symbol, _ARGTYPES[symbol])
+def _launch(entry, wrapper, exact, like, *args, dims, rate, plan=None):
+    """Calls an entry point, ``<entry>_f32`` or, unless ``exact``,
+    ``<entry>_onepass``, and counts the launch on ``wrapper`` (or its
+    ``onepass``): tensors (as pointers) and ints in ``args``, then the
+    dims, the dropout threshold and scale, the forward family's K split
+    (``plan.ksplit``), the device and the stream."""
+    symbol = f"{entry}_{'f32' if exact else 'onepass'}"
+    lib = _build.load("grid_head_train", symbol, _ARGTYPES[entry])
     dev = like.device
     err = getattr(lib, symbol)(
         *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
         *dims, _keep_threshold(rate), dropout_scale(rate),
         *((plan.ksplit,) if plan is not None else ()), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, what)
+    _build.check(err, wrapper.__name__)
+    (wrapper if exact else wrapper.onepass).launches += 1
 
 
 def _check_bwd_grid(what, A, B, O):
@@ -342,29 +399,29 @@ class GridHeadTrain(torch.autograd.Function):
     """K5 forward, K6 backward (see :func:`grid_head_train`)."""
 
     @staticmethod
-    def forward(ctx, X, Y, b1, W2, b2, seeds, rate):
-        ctx.rate = rate
+    def forward(ctx, X, Y, b1, W2, b2, seeds, rate, exact):
+        ctx.rate, ctx.exact = rate, exact
         ctx.save_for_backward(X, Y, b1, W2, seeds)
-        return grid_head_train_fwd(X, Y, b1, W2, b2, seeds, rate)
+        return grid_head_train_fwd(X, Y, b1, W2, b2, seeds, rate, exact)
 
     @staticmethod
     def backward(ctx, g):
         X, Y, b1, W2, seeds = ctx.saved_tensors
         g = g.contiguous()
         dX, dY, dW2, db1 = grid_head_train_bwd(X, Y, b1, W2, seeds, g,
-                                               ctx.rate)
-        return dX, dY, db1, dW2, g.sum((0, 1, 2)), None, None
+                                               ctx.rate, ctx.exact)
+        return dX, dY, db1, dW2, g.sum((0, 1, 2)), None, None, None
 
 
 class GridHeadTrainLoss(torch.autograd.Function):
     """K7 forward, K8 backward (see :func:`grid_head_train_loss`)."""
 
     @staticmethod
-    def forward(ctx, X, Y, b1, W2, b2, seeds, labels, weights, rate):
-        ctx.rate = rate
+    def forward(ctx, X, Y, b1, W2, b2, seeds, labels, weights, rate, exact):
+        ctx.rate, ctx.exact = rate, exact
         ctx.save_for_backward(X, Y, b1, W2, b2, seeds, labels, weights)
         loss, hits, nval = grid_head_train_loss_fwd(
-            X, Y, b1, W2, b2, seeds, labels, weights, rate)
+            X, Y, b1, W2, b2, seeds, labels, weights, rate, exact)
         ctx.mark_non_differentiable(hits, nval)
         return loss, hits, nval
 
@@ -372,28 +429,32 @@ class GridHeadTrainLoss(torch.autograd.Function):
     def backward(ctx, gl, _hits, _nval):
         X, Y, b1, W2, b2, seeds, labels, weights = ctx.saved_tensors
         dX, dY, dW2, db1, db2 = grid_head_train_loss_bwd(
-            X, Y, b1, W2, b2, seeds, labels, weights, gl, ctx.rate)
-        return dX, dY, db1, dW2, db2, None, None, None, None
+            X, Y, b1, W2, b2, seeds, labels, weights, gl, ctx.rate,
+            ctx.exact)
+        return dX, dY, db1, dW2, db2, None, None, None, None, None
 
 
-def grid_head_train(X, Y, b1, W2, b2, seeds, rate: float = 0.0):
+def grid_head_train(X, Y, b1, W2, b2, seeds, rate: float = 0.0,
+                    exact: bool = True):
     """Training grid head -> [G,A,B,O] logits.
 
     X [G,A,K], Y [G,B,K] f32; b1 [K], W2 [K,O], b2 [O]; seeds int32[G]
-    per-image dropout seeds; rate a Python float in [0, 1).  Gradients flow
-    to X, Y, b1, W2, b2.
+    per-image dropout seeds; rate a Python float in [0, 1); ``exact``: exact
+    f32 head contractions, else the one-pass bf16 mode (the module's note).
+    Gradients flow to X, Y, b1, W2, b2.
     """
-    return GridHeadTrain.apply(X, Y, b1, W2, b2, seeds, rate)
+    return GridHeadTrain.apply(X, Y, b1, W2, b2, seeds, rate, exact)
 
 
 def grid_head_train_loss(X, Y, b1, W2, b2, seeds, labels, weights,
-                         rate: float = 0.0):
+                         rate: float = 0.0, exact: bool = True):
     """Training grid head with the CE fused in -> (sum ce*w, sum hits,
     sum valid), three 0-d tensors.
 
     labels int32[G,A,B], weights f32[G,A,B] (constant: no gradient).  The
     caller normalises: ``loss = loss_sum / max(sum weights, 1)``, ``acc =
     hits / max(nvalid, 1)``; cells of weight 0 take part in neither.
+    ``exact`` as in :func:`grid_head_train`.
     """
     return GridHeadTrainLoss.apply(X, Y, b1, W2, b2, seeds, labels, weights,
-                                   rate)
+                                   rate, exact)

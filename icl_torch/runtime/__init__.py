@@ -118,7 +118,14 @@ def _write_run_stats(path: str) -> None:
                 # the bf16 modes
                 "grid_head_bf16dot": grid_head.bf16dot,
                 "lstm_recurrence_bf16": lstm_recurrence.bf16,
-                "affinity_rank_bf16dot": affinity_rank.bf16dot}
+                "affinity_rank_bf16dot": affinity_rank.bf16dot,
+                # the one-pass bf16 mode of the training kernels
+                "grid_head_train_fwd_onepass": ght.grid_head_train_fwd.onepass,
+                "grid_head_train_bwd_onepass": ght.grid_head_train_bwd.onepass,
+                "grid_head_train_loss_fwd_onepass":
+                    ght.grid_head_train_loss_fwd.onepass,
+                "grid_head_train_loss_bwd_onepass":
+                    ght.grid_head_train_loss_bwd.onepass}
     rank = _boot.get("process_id", 0)
     with open(f"{path}.rank{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": _boot.get("num_processes", 1),

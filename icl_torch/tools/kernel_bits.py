@@ -1,12 +1,18 @@
-"""Every f32 kernel's output at chip_smoke.py's phase 3 shapes, saved for a
-bitwise comparison between two trees of the repository.
+"""Every kernel entry point's output at chip_smoke.py's phase 3 shapes,
+saved for a bitwise comparison between two trees of the repository.
 
 A GPU tool.  One process imports one tree's ``icl_torch`` (the one first
-on ``PYTHONPATH``), feeds each f32 entry point seeded inputs (K1/K2, the
-recurrence with and without its residuals, K5-K8 at rate 0 and 0.5, K9)
-and saves the outputs; ``--compare`` loads two such files and says, entry
-by entry, whether the bits are equal.  On one card, from the repository's
-root, with the other tree unpacked under ``_archive/parent``::
+on ``PYTHONPATH``), feeds each entry point seeded inputs and saves the
+outputs: the f32 modes (K1/K2, the recurrence with and without its
+residuals, K5-K8 at rate 0 and 0.5, K9), the bf16 modes (the fast dot of
+K1/K2 and K9, the bf16 recurrence) and, where the tree has it, the
+one-pass bf16 mode of K5-K8 (``exact=False``), on the same inputs: a tree
+without a mode draws the same random numbers for the others.
+``--compare`` loads two such files and says, case by case, whether the
+bits are equal; it fails on a case of the first file that the second
+lacks or computes otherwise, and lists the second's new cases.  On one
+card, from the repository's root, with the other tree unpacked under
+``_archive/parent``::
 
     PYTHONPATH=_archive/parent python icl_torch/tools/kernel_bits.py p.pt
     PYTHONPATH=. python icl_torch/tools/kernel_bits.py c.pt
@@ -25,7 +31,7 @@ import torch
 
 
 def outputs(seed: int = 0) -> dict:
-    """{case: tuple of output tensors} of every f32 entry point."""
+    """{case: tuple of output tensors} of every entry point."""
     from icl_torch.ops import grid_head_train as ght
     from icl_torch.ops.affinity_rank import affinity_rank
     from icl_torch.ops.grid_head import grid_head
@@ -42,6 +48,7 @@ def outputs(seed: int = 0) -> dict:
         return (rnd(G, A, K), rnd(G, B, K), rnd(K), rnd(K, O) / K ** 0.5,
                 rnd(O))
 
+    onepass = hasattr(ght.grid_head_train_fwd, "onepass")
     out = {}
     for G, A, B, K, O in ((1, 16, 16, 800, 4), (8, 16, 16, 800, 4),
                           (64, 16, 16, 800, 4), (64, 16, 32, 1024, 2),
@@ -49,6 +56,8 @@ def outputs(seed: int = 0) -> dict:
                           (1, 5, 7, 30, 1)):
         args = head(G, A, B, K, O)
         out[f"grid_head {G} {A} {B} {K} {O}"] = (grid_head(*args),)
+        out[f"grid_head bf16dot {G} {A} {B} {K} {O}"] = (
+            grid_head(*args, fast_dot=True),)
         seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
                               device=dev, dtype=torch.int32)
         labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
@@ -66,6 +75,16 @@ def outputs(seed: int = 0) -> dict:
             out[f"K8 {tag}"] = ght.grid_head_train_loss_bwd(
                 *args, seeds, labels, weights, torch.ones((), device=dev),
                 rate)
+            if onepass:
+                out[f"K5 onepass {tag}"] = (ght.grid_head_train_fwd(
+                    *args, seeds, rate, False),)
+                out[f"K6 onepass {tag}"] = ght.grid_head_train_bwd(
+                    X, Y, b1, W2, seeds, cot, rate, False)
+                out[f"K7 onepass {tag}"] = ght.grid_head_train_loss_fwd(
+                    *args, seeds, labels, weights, rate, False)
+                out[f"K8 onepass {tag}"] = ght.grid_head_train_loss_bwd(
+                    *args, seeds, labels, weights,
+                    torch.ones((), device=dev), rate, False)
     for G, L, B, H in ((2, 32, 64, 200), (2, 32, 512, 200),
                        (1, 16, 1024, 200), (2, 16, 61, 256), (2, 8, 5, 64)):
         lengths = torch.randint(0, L + 1, (B,), generator=gen, device=dev)
@@ -76,11 +95,16 @@ def outputs(seed: int = 0) -> dict:
         out[f"recurrence {G} {L} {B} {H}"] = lstm_recurrence_fwd(*args)
         out[f"recurrence {G} {L} {B} {H} residuals"] = lstm_recurrence_fwd(
             *args, residuals=True)
+        bf16 = (args[0].bfloat16(), args[1], args[2].bfloat16())
+        out[f"recurrence bf16 {G} {L} {B} {H} residuals"] = \
+            lstm_recurrence_fwd(*bf16, residuals=True)
     for G in (4, 64):
         valid = rnd(G, 32) > -0.5
         valid[:, 0] = True
-        out[f"affinity_rank {G}"] = (affinity_rank(
-            *head(G, 16, 32, 1024, 2), valid),)
+        args = head(G, 16, 32, 1024, 2)
+        out[f"affinity_rank {G}"] = (affinity_rank(*args, valid),)
+        out[f"affinity_rank bf16dot {G}"] = (affinity_rank(
+            *args, valid, fast_dot=True),)
     torch.cuda.synchronize()
     return {k: tuple(t.cpu() for t in v) for k, v in out.items()}
 
@@ -91,9 +115,11 @@ def main(argv=None) -> int:
         a, b = (torch.load(p, weights_only=True) for p in argv[1:3])
         differ = [k for k in a if k not in b or len(a[k]) != len(b[k])
                   or not all(torch.equal(x, y) for x, y in zip(a[k], b[k]))]
-        print(f"kernel bits: {len(a) - len(differ)} of {len(a)} f32 cases "
-              f"bit-equal; differ: {differ}")
-        return 1 if differ or set(a) != set(b) else 0
+        new = [k for k in b if k not in a]
+        print(f"kernel bits: {len(a) - len(differ)} of {len(a)} cases "
+              f"bit-equal; differ: {differ}; {len(new)} cases only in the "
+              f"second file: {new}")
+        return 1 if differ else 0
     torch.save(outputs(), argv[0])
     return 0
 

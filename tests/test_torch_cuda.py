@@ -577,3 +577,141 @@ def test_bf16_recurrence_matches_plain(dev, G, L, B, H):
         assert (g.float() - w).abs().max().item() <= 4 * unit
     again = lstm_recurrence_fwd(*args, residuals=True)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# --- the one-pass bf16 mode of K5-K8 (--matmul_precision default|high) ------
+
+def _onepass_loss_bwd_matches_plain(X, Y, b1, W2, b2, seeds, labels, weights,
+                                    gl, rate):
+    """K8 in the one-pass mode, held in its two halves: its logit gradient
+    g3 against the plain version's (the one-pass logits, f32 CE, nothing
+    rounded after them), and its gradients against the plain backward of
+    that same g3.  Fed the plain g3 instead, the backward would round a g3
+    that the logits' f32 sum order moved by a unit to the neighbouring
+    bf16 value now and then."""
+    G, A, B = labels.shape
+    g3 = torch.empty(G, A, B, W2.shape[1], device=X.device)
+    got = ght.grid_head_train_loss_bwd(X, Y, b1, W2, b2, seeds, labels,
+                                       weights, gl, rate, False, g3_out=g3)
+    _assert_close(g3, ght.grid_head_train_dlogits_plain(
+        X, Y, b1, W2, b2, seeds, labels, weights, gl, rate, False))
+    want = (*ght.grid_head_train_bwd_plain(X, Y, b1, W2, seeds, g3, rate,
+                                           False), g3.sum((0, 1, 2)))
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape
+        _assert_close(a, b)
+    return got
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("G,A,B,K,O", [
+    (1, 8, 8, 800, 4), (64, 16, 16, 800, 4), (64, 32, 32, 800, 4),
+    (64, 16, 32, 1024, 2), (64, 16, 20, 1024, 2), (2, 33, 5, 70, 8),
+    (1, 5, 7, 30, 1), (2, 7, 9, 50, 2), (2, 9, 17, 800, 3),
+    (2, 20, 33, 50, 8), (4, 16, 32, 1024, 2)])
+def test_grid_head_train_onepass_kernels_match_plain(dev, G, A, B, K, O,
+                                                     rate):
+    """Each one-pass entry point against its plain version (exact=False),
+    the f32 gate: both round the same f32 values to bf16, so only the order
+    of the f32 sums differs (K8 in its two halves).  Twice with equal bits;
+    the launches count apart from the f32 entry points'; the mode differs
+    from exact f32 (but for the CE of a one-class head, 0 in both)."""
+    (X, Y, b1, W2, b2), seeds, labels, weights, cot = _train_inputs(
+        G, A, B, K, O, dev)
+    gl = torch.tensor(0.37, device=dev)
+    cases = [
+        (ght.grid_head_train_fwd, (X, Y, b1, W2, b2, seeds, rate),
+         ght.grid_head_train_reference),
+        (ght.grid_head_train_bwd, (X, Y, b1, W2, seeds, cot, rate),
+         ght.grid_head_train_bwd_plain),
+        (ght.grid_head_train_loss_fwd,
+         (X, Y, b1, W2, b2, seeds, labels, weights, rate),
+         ght.grid_head_train_loss_reference),
+        (ght.grid_head_train_loss_bwd,
+         (X, Y, b1, W2, b2, seeds, labels, weights, gl, rate),
+         ght.grid_head_train_loss_bwd_plain)]
+    for fn, args, plain in cases:
+        n0, n1 = fn.launches, fn.onepass.launches
+        if fn is ght.grid_head_train_loss_bwd:
+            got = _onepass_loss_bwd_matches_plain(*args)
+        else:
+            got = fn(*args, False)
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain(*args, False)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want, strict=True):
+                assert a.shape == b.shape
+                _assert_close(a, b)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.onepass.launches) == (n0, n1 + 1)
+        again = fn(*args, False)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        if O == 1 and fn in (ght.grid_head_train_loss_fwd,
+                             ght.grid_head_train_loss_bwd):
+            continue    # the CE of one class is 0 in both modes
+        exact = fn(*args)
+        exact = exact if isinstance(exact, tuple) else (exact,)
+        assert not all(torch.equal(a, b) for a, b in zip(got, exact))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.19, 1.0])
+@pytest.mark.parametrize("G,A,B,K,O", [(64, 16, 16, 800, 4),
+                                       (8, 16, 32, 1024, 2)])
+def test_grid_head_train_onepass_loss_kernels_at_weight_densities(
+        dev, G, A, B, K, O, density):
+    (X, Y, b1, W2, b2), seeds, labels, _, _ = _train_inputs(G, A, B, K, O,
+                                                            dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    weights = ((torch.rand(G, A, B, generator=g, device=dev) < density)
+               * torch.where(torch.rand(G, A, B, generator=g, device=dev)
+                             > 0.5, 1.0, 0.3))
+    gl = torch.tensor(0.37, device=dev)
+    args = (X, Y, b1, W2, b2, seeds, labels, weights)
+    got = ght.grid_head_train_loss_fwd(*args, 0.5, False)
+    for a, b in zip(got, ght.grid_head_train_loss_reference(*args, 0.5, False),
+                    strict=True):
+        _assert_close(a, b)
+    got = (*got, *_onepass_loss_bwd_matches_plain(*args, gl, 0.5))
+    if density == 0.0:
+        assert not any(a.any() for a in got)
+
+
+@pytest.mark.parametrize("grid_loss", [True, False])
+def test_onepass_train_step_launches_only_the_onepass_kernels(dev, grid_loss):
+    """A relation train step of a model with exact=False launches the
+    one-pass K7/K8 (grid loss) or K5/K6 (pair form) and no f32 training
+    kernel."""
+    dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
+    flat = init_relation_params(0, dims)
+    g = torch.Generator().manual_seed(1)
+    table = torch.randn(100, 300, generator=g).to(dev)
+    I, C, L, M = 4, 8, 16, 8
+    iu, ju = torch.triu_indices(M, M, 1)
+    P = iu.numel()
+    batch = {"tokens": torch.randint(1, 100, (I, C, L), generator=g),
+             "tok_len": torch.randint(0, L + 1, (I, C), generator=g),
+             "m_cap": torch.randint(0, 5, (I, M), generator=g),
+             "m_first": torch.randint(0, 4, (I, M), generator=g),
+             "m_last": torch.randint(4, 8, (I, M), generator=g),
+             "pair_ij": torch.stack([iu, ju], 1).expand(I, P, 2),
+             "pair_label": torch.randint(0, 4, (I, P), generator=g),
+             "pair_valid": torch.rand(I, P, generator=g) < 0.9}
+    batch = {k: v.contiguous().to(dev) for k, v in batch.items()}
+    seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device=dev)
+    cw = torch.tensor([0.3, 1.0, 1.0, 1.0], device=dev)
+    kernels = [ght.grid_head_train_fwd, ght.grid_head_train_bwd,
+               ght.grid_head_train_loss_fwd, ght.grid_head_train_loss_bwd]
+    before = [(k.launches, k.onepass.launches) for k in kernels]
+    model = RelationModel(300, 200, 800, fused=True, dropout=0.5, device=dev,
+                          exact=False)
+    model.load_flat(flat)
+    loss, metrics = relation_loss(model, table, batch, seeds, cw, grid_loss)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = [(k.launches, k.onepass.launches) for k in kernels]
+    used = (2, 3) if grid_loss else (0, 1)
+    for i, ((f0, o0), (f1, o1)) in enumerate(zip(before, after)):
+        assert f1 == f0
+        assert o1 == o0 + (1 if i in used else 0)
+    assert torch.isfinite(loss)

@@ -217,6 +217,10 @@ def test_only_rank_0_writes(trained):
     cfg = json.load(open(tmp / "mp" / "train_config.json"))
     assert cfg["_num_devices"] == 2 and cfg["_reduce_backend"] == "gloo"
     assert cfg["_mesh"] == {"data": 2, "model": 1} and cfg["process_id"] == 0
+    # the resolved precision, recorded once (rank 0 writes the file): the
+    # --train default, exact kernels on the CPU
+    assert (cfg["_matmul_precision"], cfg["_tf32"], cfg["_head_exact"]) == (
+        "default", False, True)
     one = json.load(open(tmp / "single" / "train_config.json"))
     assert one["_num_devices"] == 1 and one["_reduce_backend"] is None
     # every rank logged the backend it was given, and its own all-reduces
