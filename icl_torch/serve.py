@@ -679,7 +679,7 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
     return httpd
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="icl-torch-serve",
         description="HTTP scoring of the four tasks on PyTorch (CUDA "
@@ -715,7 +715,24 @@ def main(argv=None) -> None:
     p.add_argument("--max_pending", type=int, default=256,
                    help="coalescer queue bound (image items); submits past "
                         "it get 503 + Retry-After")
-    args = p.parse_args(argv)
+    p.add_argument("--compilation_cache_dir", default=None,
+                   help="accepted for the reference's command lines; "
+                        "PyTorch runs eagerly, nothing is cached")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's flags; logs the ones that have no effect here."""
+    args = _parser().parse_args(argv)
+    if args.compilation_cache_dir:
+        LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
+                 "runs eagerly (the kernels' libraries are kept under "
+                 "icl_torch/_build)", args.compilation_cache_dir)
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     httpd = serve(args.data_dir, args.port, args.embeddings_file,
                   warmup=args.warmup, batch_window_ms=args.batch_window_ms,
                   max_body_mb=args.max_body_mb, max_items=args.max_items,

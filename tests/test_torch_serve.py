@@ -223,6 +223,26 @@ def test_cli_without_a_card_refuses_to_start(served):
     assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
 
 
+def test_the_reference_flag_compilation_cache_dir_is_taken_and_logged(
+        monkeypatch):
+    """``icl-serve --compilation_cache_dir d`` is a reference command line
+    (``icl/serve.py``); the port accepts it and says that nothing is
+    cached."""
+    from icl_torch import serve as tserve
+
+    said = []
+    monkeypatch.setattr(tserve.LOG, "info",
+                        lambda msg, *a: said.append(msg % a if a else msg))
+    args = tserve.parse_args(["--data_dir", "d", "--compilation_cache_dir",
+                              "/x", "--device", "cpu"])
+    assert args.compilation_cache_dir == "/x" and args.data_dir == "d"
+    assert any("--compilation_cache_dir /x" in s and "nothing to cache" in s
+               for s in said), said
+    said.clear()
+    assert tserve.parse_args(["--data_dir", "d"]).compilation_cache_dir is None
+    assert not said
+
+
 # --- the mention endpoints, and a server over the port's model dirs ---------
 
 MENTIONS = {"mentions": [
