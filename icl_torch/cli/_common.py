@@ -64,7 +64,6 @@ from icl_torch.io.captions import read_captions
 from icl_torch.util.log import LOG
 
 IMAGE_TASKS = ("relation", "affinity")    # batch by --images_per_batch
-MAX_KERNEL_LSTM_WIDTH = 256   # the recurrence kernel's widest H on CUDA
 PARITY_GATE = 1e-5            # f32, TF32 off: on the CPU and on the card
 
 
@@ -397,18 +396,6 @@ def use_fused(args, device: torch.device) -> bool:
     kernels); on the CPU ``on`` runs the kernels' plain versions."""
     return args.fused == "on" or (args.fused == "auto"
                                   and device.type == "cuda")
-
-
-def check_lstm_width(lstm_hidden: int, fused: bool,
-                     device: torch.device) -> None:
-    """The recurrence kernel holds H <= 256; say so at start-up instead of
-    failing at the first batch (there is no silent plain-loop fallback)."""
-    if fused and device.type == "cuda" and \
-            lstm_hidden > MAX_KERNEL_LSTM_WIDTH:
-        raise ValueError(
-            f"--lstm_hidden_width {lstm_hidden}: the recurrence kernel "
-            f"takes at most {MAX_KERNEL_LSTM_WIDTH} units on CUDA; use a "
-            f"narrower LSTM, or --fused off for the plain PyTorch path")
 
 
 def bucket_spec(args, key: str, default):

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
-                                   begin_predict, check_lstm_width,
-                                   default_model_dir, default_scores_path,
+                                   begin_predict, default_model_dir,
+                                   default_scores_path,
                                    dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
                                    read_model_config, resolve_compute_dtype,
@@ -105,8 +105,7 @@ def main(argv=None) -> None:
         phrase_enc = mc.get("phrase_enc", phrase_enc)
     fused = use_fused(args, device)
     if phrase_enc == "lstm":
-        check_lstm_width(lstm_hidden, fused, device)
-    model = AffinityModel(emb_dim=emb.dim, box_dim=ds.box_dim,
+        model = AffinityModel(emb_dim=emb.dim, box_dim=ds.box_dim,
                           lstm_hidden=lstm_hidden, head_hidden=head_hidden,
                           num_classes=len(AFFINITY_CLASSES),
                           phrase_enc=phrase_enc, fused=fused,

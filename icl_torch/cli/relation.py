@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
-                                   begin_predict, check_lstm_width,
-                                   default_model_dir, default_scores_path,
+                                   begin_predict, default_model_dir,
+                                   default_scores_path,
                                    dump_run_config, init_runtime,
                                    load_embeddings, parse_task_args,
                                    read_model_config, resolve_compute_dtype,
@@ -104,7 +104,6 @@ def main(argv=None) -> None:
         lstm_hidden = mc.get("lstm_hidden", lstm_hidden)
         head_hidden = mc.get("head_hidden", head_hidden)
     fused = use_fused(args, device)
-    check_lstm_width(lstm_hidden, fused, device)
     model = RelationModel(emb_dim=emb.dim, lstm_hidden=lstm_hidden,
                           head_hidden=head_hidden,
                           num_classes=len(RELATION_CLASSES), fused=fused,

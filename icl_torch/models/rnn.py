@@ -8,7 +8,11 @@ step.  The input projection is one plain matmul for all steps (and, in the
 BiLSTM, both directions); the recurrence goes to
 :func:`icl_torch.ops.lstm_recurrence` (the hand-written kernel on CUDA, and
 the reference's residual-set backward) when ``use_kernel`` is set, else to
-its plain version (differentiated by autograd step by step).
+its plain version (differentiated by autograd step by step).  The kernel
+takes at most ``MAX_H`` units: a wider LSTM on CUDA runs the plain
+recurrence, decided once when the layer is built and logged at WARNING
+(:func:`check_lstm_width`), as the reference trains any width through its
+``lax.scan``.
 
 ``compute_dtype`` (float32 or bfloat16, as the reference's): the inputs and
 the kernel, bias and recurrent kernel are cast to it before the input
@@ -25,8 +29,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
+from icl_torch.ops.lstm_recurrence import (MAX_H, lstm_recurrence,
                                            lstm_recurrence_reference)
+from icl_torch.util.log import LOG
 
 
 class LSTMParams(nn.Module):
@@ -42,8 +47,26 @@ class LSTMParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(4 * hidden, device=device))
 
 
-def _recurrence(use_kernel: bool):
-    return lstm_recurrence if use_kernel else lstm_recurrence_reference
+def check_lstm_width(hidden: int, use_kernel: bool,
+                     device: torch.device | str | None) -> bool:
+    """Whether an LSTM of ``hidden`` units runs the recurrence kernel:
+    ``use_kernel``, but not on CUDA above the kernel's ``MAX_H`` units,
+    where the plain recurrence runs instead (with a warning; the grid-head
+    kernels stay on).  A stated limit of the kernel, settled at build time:
+    a kernel that fails to build or launch still raises."""
+    if use_kernel and torch.device(device or "cpu").type == "cuda" \
+            and hidden > MAX_H:
+        LOG.warning("--lstm_hidden_width %d: the recurrence kernel takes at "
+                    "most MAX_H = %d units; this LSTM runs the plain "
+                    "recurrence (lstm_recurrence_reference), the grid-head "
+                    "kernels stay on", hidden, MAX_H)
+        return False
+    return use_kernel
+
+
+def _recurrence(hidden: int, use_kernel: bool, device):
+    return (lstm_recurrence if check_lstm_width(hidden, use_kernel, device)
+            else lstm_recurrence_reference)
 
 
 class LSTM(LSTMParams):
@@ -56,7 +79,7 @@ class LSTM(LSTMParams):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_dim, hidden, device)
         self.reverse = reverse
-        self.recurrence = _recurrence(use_kernel)
+        self.recurrence = _recurrence(hidden, use_kernel, device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
@@ -91,7 +114,7 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.fwd = LSTMParams(in_dim, hidden, device)
         self.bwd = LSTMParams(in_dim, hidden, device)
-        self.recurrence = _recurrence(use_kernel)
+        self.recurrence = _recurrence(hidden, use_kernel, device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):

@@ -33,6 +33,11 @@ from icl_torch.cli import _common as tcommon
 from icl_torch.cli import affinity as taffinity
 from icl_torch.cli import relation as trelation
 from icl_torch.io.scores import read_scores
+from icl_torch.models import rnn
+from icl_torch.models.affinity import AffinityModel
+from icl_torch.models.relation import RelationModel
+from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
+                                           lstm_recurrence_reference)
 from icl_torch.params import load_npz
 from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.train.checkpoint import Checkpointer
@@ -303,21 +308,54 @@ def test_the_default_device_is_the_card_and_raises_without_one(runs, task):
         CLIS[task][1].main(["--predict", "--data_dir", runs["dir"]])
 
 
-def test_fused_auto_and_the_lstm_width_check():
+def test_fused_auto_and_the_lstm_width_check(monkeypatch):
+    """Above the recurrence kernel's MAX_H units on CUDA the LSTM runs the
+    plain recurrence with a warning, as the reference trains any width;
+    nothing raises."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for fused, dev, want in (("auto", cpu, False), ("auto", cuda, True),
                              ("on", cpu, True), ("off", cuda, False)):
         assert tcommon.use_fused(_parse(["--fused", fused]), dev) is want
-    tcommon.check_lstm_width(256, True, cuda)
-    tcommon.check_lstm_width(300, True, cpu)       # the plain recurrence
-    tcommon.check_lstm_width(300, False, cuda)
-    with pytest.raises(ValueError, match="--lstm_hidden_width 300"):
-        tcommon.check_lstm_width(300, True, cuda)
+    said = _Said(monkeypatch)
+    assert rnn.check_lstm_width(256, True, cuda) is True
+    assert rnn.check_lstm_width(300, True, cpu) is True   # its plain version
+    assert rnn.check_lstm_width(300, False, cuda) is False
+    assert not said.lines
+    assert rnn.check_lstm_width(300, True, cuda) is False
+    assert len(said.lines) == 1 and "--lstm_hidden_width 300" in said
+    assert "MAX_H = 256" in said and "lstm_recurrence_reference" in said
     assert tcommon.parity_gate() == 1e-5
     assert tcommon.default_scores_path(_parse([]), "relation") == os.path.join(
         "x", "train.relation.scores")
     assert tcommon.default_model_dir(_parse([]), "affinity") == os.path.join(
         "x", "affinity.model")
+
+
+@pytest.mark.parametrize("task", sorted(CLIS))
+def test_a_wide_lstm_on_cuda_takes_the_plain_recurrence_and_keeps_the_head(
+        monkeypatch, task):
+    """A model built for the card at H = 300 (past the kernel's 256) chose
+    the plain recurrence, once, with one warning, and kept ``fused`` for
+    the grid-head kernels.  Fake tensors stand for the card's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    said = _Said(monkeypatch)
+    kw = dict(emb_dim=8, lstm_hidden=300, head_hidden=16, fused=True,
+              device=torch.device("cuda"))
+    with FakeTensorMode():
+        model = (RelationModel(**kw) if task == "relation"
+                 else AffinityModel(box_dim=12, **kw))
+    lstm = model.caption_bilstm if task == "relation" else model.phrase_lstm
+    assert lstm.recurrence is lstm_recurrence_reference
+    assert model.fused and model.head_out.bias.device.type == "cuda"
+    assert len(said.lines) == 1 and "--lstm_hidden_width 300" in said
+    with FakeTensorMode():
+        narrow = (RelationModel(**{**kw, "lstm_hidden": 256})
+                  if task == "relation" else
+                  AffinityModel(box_dim=12, **{**kw, "lstm_hidden": 256}))
+    lstm = (narrow.caption_bilstm if task == "relation"
+            else narrow.phrase_lstm)
+    assert lstm.recurrence is lstm_recurrence and len(said.lines) == 1
 
 
 def test_split_vocab_matches_the_reference(runs):
