@@ -104,8 +104,7 @@ def main(argv=None) -> None:
         head_hidden = mc.get("head_hidden", head_hidden)
         phrase_enc = mc.get("phrase_enc", phrase_enc)
     fused = use_fused(args, device)
-    if phrase_enc == "lstm":
-        model = AffinityModel(emb_dim=emb.dim, box_dim=ds.box_dim,
+    model = AffinityModel(emb_dim=emb.dim, box_dim=ds.box_dim,
                           lstm_hidden=lstm_hidden, head_hidden=head_hidden,
                           num_classes=len(AFFINITY_CLASSES),
                           phrase_enc=phrase_enc, fused=fused,
