@@ -190,6 +190,24 @@ def test_predict_without_weights_warns_and_scores_from_init(runs, tmp_path,
     assert len(ids) > 50 and np.isfinite(probs).all()
 
 
+def test_affinity_trains_and_predicts_with_either_phrase_encoder(runs,
+                                                                tmp_path):
+    """``--phrase_enc mean_w2v`` has no LSTM: the CLI builds and trains
+    that model as well, and ``--predict`` reads the encoder back from the
+    model dir."""
+    model = str(tmp_path / "m")
+    taffinity.main(["--train", "--data_dir", runs["dir"], "--device", "cpu",
+                    "--phrase_enc", "mean_w2v", "--epochs", "1",
+                    "--model_file", model, *WIDTHS])
+    assert json.load(open(f"{model}/model_config.json"))[
+        "phrase_enc"] == "mean_w2v"
+    taffinity.main(["--predict", "--data_dir", runs["dir"], "--data_split",
+                    "dev", "--device", "cpu", "--model_file", model,
+                    "--scores_file", str(tmp_path / "s.scores"), *WIDTHS])
+    ids, probs = read_scores(str(tmp_path / "s.scores"))
+    assert len(ids) > 10 and np.isfinite(probs).all()
+
+
 # --- the flag surface -------------------------------------------------------
 
 REFERENCE_FLAGS = sorted(
