@@ -43,12 +43,15 @@
 //    device memory.
 //  * Backward (K6, and the second half of K8): one block per (g, tile of
 //    kBwdCols = 32 columns k), of kBwdSlices = 4 warps.  The image's cell
-//    cotangents g3 [A, B, O] and the per-cell hash keys
-//    hash32(hash32(hash32(seed) ^ a) ^ b) [A, B] are put into shared memory
-//    once per block, so an element costs one hash, not three, and one or
-//    two broadcast loads.  Thread (k, s) takes kBwdRows = 4 rows a of slice
-//    s (rows 4s .., then 4s + 16 .. where A > 16) and walks b: it recomputes
-//    z, the mask and hd; dz = (g3 . W2[k, :]) * [z > 0] * keep * scale.
+//    cotangents g3 [A, B, O] are put into shared memory once per block.
+//    Thread (k, s) takes kBwdRows = 4 rows a of slice s (rows 4s .., then
+//    4s + 16 .. where A > 16); its warp first lists the b's at which any
+//    of the four rows' cells has a non-zero g3 and puts those cells' hash
+//    keys hash32(hash32(hash32(seed) ^ a) ^ b) into shared memory, so an
+//    element costs one hash, not three, and one or two broadcast loads.
+//    The thread then walks the listed cells alone (in K8 the cells of
+//    weight 0 carry no gradient): it recomputes z, the mask and hd;
+//    dz = (g3 . W2[k, :]) * [z > 0] * keep * scale.
 //    dX[a, k] is finished in that thread, in 4 independent sums over b;
 //    the slices' partial dY[b, k], db1[k] and dW2[k, :] (two accumulators
 //    each, even and odd rows) meet in shared memory and are added in the
@@ -182,11 +185,41 @@ head_fwd_onepass_kernel(const HeadArgs p) {
   head_fwd<kMode, kO, kExactO, kV, true>(p);
 }
 
+// Whether a cell's cotangent g3[c, :] (at gc, kO wide as in the walk) has
+// a non-zero entry; NaN counts as non-zero.
+template <int kO>
+__device__ __forceinline__ bool cell_live(const float* gc, int O) {
+  if constexpr (kO == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(gc);
+    return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+  } else if constexpr (kO == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(gc);
+    return v.x != 0.f || v.y != 0.f;
+  } else {
+    bool live = false;
+#pragma unroll
+    for (int o = 0; o < kO; ++o) live |= o < O && gc[o] != 0.f;
+    return live;
+  }
+}
+
 // One block per (g = blockIdx.y, 32 columns k); thread (kl, s) = (lane,
 // warp).  g3 [G, A, B, O] is the logits' cotangent.  Writes dX [G, A, K],
 // dY [G, B, K] and the image's partials part[g] = [dW2 (K x O) | db1 (K) |
 // db2 (O), when with_db2].  kO is the head width the registers are sized
 // for: O == kO, or O <= kO = kMaxO.  kOnePass: the one-pass bf16 mode.
+//
+// Only the cells with a non-zero cotangent are walked (in K8 the cells of
+// weight 0 have none).  Before it walks a group of kBwdRows rows, warp s
+// lists in shared memory the b's, in ascending order, at which any of the
+// group's cells is live, each with a bit per live cell, and hashes the
+// keys of those cells alone.  A skipped cell would add dz = +0 to dX and
+// dY and h * (+0) to dW2: every sum starts at +0.f and is never -0 (x + y
+// is -0 only when both are), so adding +0 leaves it as it was, and with
+// each sum still taken in its order (dX over b, dY over the rows and then
+// the slices, dW2 in its even and odd accumulators) the results keep their
+// bits.  A cell is warp-uniform (the lanes are columns k), so a skip costs
+// no divergence.
 template <int kO, bool kOnePass>
 __global__ void __launch_bounds__(kBwdCols * kBwdSlices, kO <= 4 ? 8 : 4)
 head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
@@ -197,27 +230,24 @@ head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 int with_db2, uint32_t thr, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int cells = A * B;
-  float* gs = smem;                                   // [A][B][O]  g3[g]
-  uint32_t* keys = reinterpret_cast<uint32_t*>(gs + cells * O);  // [A][B]
-  float* red = gs + cells * (O + 1);   // [slices][B][32] dY partials
-  float* redw = red + kBwdSlices * B * kBwdCols;      // [slices][O + 1][32]
   const int g = blockIdx.y;
   const int kl = threadIdx.x & (kBwdCols - 1);
   const int s = threadIdx.x / kBwdCols;
   const int k = blockIdx.x * kBwdCols + kl;
   const bool active = k < K;
+  float* gs = smem;                                   // [A][B][O]  g3[g]
+  float* red = gs + cells * O;         // [slices][B][32] dY partials
+  float* redw = red + kBwdSlices * B * kBwdCols;      // [slices][O + 1][32]
+  // warp s's group: the keys hash32(hash32(hash32(seed) ^ a) ^ b) of its
+  // live cells, [kBwdRows][B], and its work list, [B]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(
+      redw + kBwdSlices * (O + 1) * kBwdCols) + s * (kBwdRows + 1) * B;
+  int* list = reinterpret_cast<int*>(keys + kBwdRows * B);
   const int cols = K * O + K + (with_db2 ? O : 0);
   float* pg = part + (size_t)g * cols;
 
   const float* gg = g3 + (size_t)g * cells * O;
   for (int i = threadIdx.x; i < cells * O; i += blockDim.x) gs[i] = gg[i];
-  if (thr != 0u) {
-    const uint32_t seed_key = hash32((uint32_t)seeds[g]);
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-      const int a = c / B;
-      keys[c] = hash32(hash32(seed_key ^ (uint32_t)a) ^ (uint32_t)(c - a * B));
-    }
-  }
   __syncthreads();
   if (with_db2 && blockIdx.x == 0 && threadIdx.x < O) {
     float t = 0.f;                       // db2: the image's cells in order
@@ -241,11 +271,32 @@ head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   const float bk = active ? b1[k] : 0.f;
   const float* Xg = X + (size_t)g * A * K;
   const float* Yg = Y + (size_t)g * B * K;
+  const uint32_t seed_key = thr != 0u ? hash32((uint32_t)seeds[g]) : 0u;
   float db1 = 0.f;
   float* myred = red + (size_t)s * B * kBwdCols + kl;
-  for (int a0 = s * kBwdRows; a0 < A || a0 == s * kBwdRows;
-       a0 += kBwdSlices * kBwdRows) {
-    const bool first = a0 == s * kBwdRows;
+  for (int b = 0; b < B; ++b) myred[b * kBwdCols] = 0.f;   // b's never walked
+  for (int a0 = s * kBwdRows; a0 < A; a0 += kBwdSlices * kBwdRows) {
+    // the group's work list: entry b << kBwdRows | (a bit per live row)
+    int n = 0;
+    for (int b0 = 0; b0 < B; b0 += kBwdCols) {
+      const int b = b0 + kl;
+      int rows = 0;
+#pragma unroll
+      for (int i = 0; i < kBwdRows; ++i) {
+        if (b < B && a0 + i < A &&
+            cell_live<kO>(gs + ((a0 + i) * B + b) * O, O)) {
+          rows |= 1 << i;
+          if (thr != 0u)
+            keys[i * B + b] =
+                hash32(hash32(seed_key ^ (uint32_t)(a0 + i)) ^ (uint32_t)b);
+        }
+      }
+      const unsigned live = __ballot_sync(kFull, rows != 0);
+      if (rows != 0)
+        list[n + __popc(live & ((1u << kl) - 1u))] = (b << kBwdRows) | rows;
+      n += __popc(live);
+    }
+    __syncwarp();
     float xk[kBwdRows], dx[kBwdRows];
 #pragma unroll
     for (int i = 0; i < kBwdRows; ++i) {
@@ -253,48 +304,59 @@ head_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
       dx[i] = 0.f;
     }
 #pragma unroll 2
-    for (int b = 0; b < B; ++b) {
+    for (int e = 0; e < n; ++e) {
+      const int entry = list[e];
+      const int b = entry >> kBwdRows;
       const float yv = active ? Yg[(size_t)b * K + k] : 0.f;
       float dy = 0.f;
+      const auto cell = [&](const int i) {
+        const int c = (a0 + i) * B + b;
+        const float z = xk[i] + yv;
+        float f = 1.f;
+        if (thr != 0u)
+          f = hash32(keys[i * B + b] ^ (uint32_t)k) >= thr ? scale : 0.f;
+        float h = fmaxf(z, 0.f) * f;
+        if constexpr (kOnePass) h = bf16_round(h);
+        const float sg = z > 0.f ? f : 0.f;
+        float gv[kO];
+        if constexpr (kO == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(gs + c * 4);
+          gv[0] = v.x, gv[1] = v.y, gv[2] = v.z, gv[3] = v.w;
+        } else if constexpr (kO == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(gs + c * 2);
+          gv[0] = v.x, gv[1] = v.y;
+        } else {
 #pragma unroll
-      for (int i = 0; i < kBwdRows; ++i) {
-        if (a0 + i < A) {
-          const int c = (a0 + i) * B + b;
-          const float z = xk[i] + yv;
-          float f = 1.f;
-          if (thr != 0u) f = hash32(keys[c] ^ (uint32_t)k) >= thr ? scale : 0.f;
-          float h = fmaxf(z, 0.f) * f;
-          if constexpr (kOnePass) h = bf16_round(h);
-          const float sg = z > 0.f ? f : 0.f;
-          float gv[kO];
-          if constexpr (kO == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(gs + c * 4);
-            gv[0] = v.x, gv[1] = v.y, gv[2] = v.z, gv[3] = v.w;
-          } else if constexpr (kO == 2) {
-            const float2 v = *reinterpret_cast<const float2*>(gs + c * 2);
-            gv[0] = v.x, gv[1] = v.y;
-          } else {
-#pragma unroll
-            for (int o = 0; o < kO; ++o) gv[o] = o < O ? gs[c * O + o] : 0.f;
-          }
-          float dh = 0.f;
-#pragma unroll
-          for (int o = 0; o < kO; ++o) {
-            dh = fmaf(gv[o], w2[o], dh);
-            dw2[i & 1][o] = fmaf(h, gv[o], dw2[i & 1][o]);
-          }
-          const float dz = dh * sg;
-          dx[i] += dz;
-          dy += dz;
+          for (int o = 0; o < kO; ++o) gv[o] = o < O ? gs[c * O + o] : 0.f;
         }
+        float dh = 0.f;
+#pragma unroll
+        for (int o = 0; o < kO; ++o) {
+          dh = fmaf(gv[o], w2[o], dh);
+          dw2[i & 1][o] = fmaf(h, gv[o], dw2[i & 1][o]);
+        }
+        const float dz = dh * sg;
+        dx[i] += dz;
+        dy += dz;
+      };
+      // all rows live (a dense grid) takes one branch-free body, whose
+      // rows the compiler interleaves
+      if ((entry & ((1 << kBwdRows) - 1)) == (1 << kBwdRows) - 1) {
+#pragma unroll
+        for (int i = 0; i < kBwdRows; ++i) cell(i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBwdRows; ++i)
+          if ((entry >> i) & 1) cell(i);
       }
-      myred[b * kBwdCols] = first ? dy : myred[b * kBwdCols] + dy;
+      myred[b * kBwdCols] += dy;
     }
 #pragma unroll
     for (int i = 0; i < kBwdRows; ++i) {
       if (active && a0 + i < A) dX[((size_t)g * A + a0 + i) * K + k] = dx[i];
       db1 += dx[i];
     }
+    __syncwarp();                 // the next group rewrites list and keys
   }
   float* myw = redw + (size_t)s * (O + 1) * kBwdCols + kl;
 #pragma unroll
@@ -383,9 +445,11 @@ cudaError_t launch_bwd_o(const float* X, const float* Y, const float* b1,
                          float* dX, float* dY, float* part, int G, int A,
                          int B, int K, int O, int with_db2, uint32_t thr,
                          float scale, cudaStream_t stream) {
-  // g3 and keys of the image, the slices' dY, and their dW2 and db1
-  const size_t smem = ((size_t)A * B * (O + 1) + (size_t)kBwdSlices * kBwdCols
-                       * (B + O + 1)) * sizeof(float);
+  // g3 of the image, the slices' dY, their dW2 and db1, and each warp's
+  // keys and work list
+  const size_t smem = ((size_t)A * B * O + (size_t)kBwdSlices * kBwdCols
+                       * (B + O + 1) + (size_t)kBwdSlices * (kBwdRows + 1)
+                       * B) * sizeof(float);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -503,8 +567,9 @@ int loss_bwd_entry(const float* X, const float* Y, const float* b1,
 // returns the cudaError_t of its launches: 0 on success.  G, A and B must
 // be positive (the caller handles an empty grid without a launch),
 // 1 <= O <= 8, G <= 65535; the backward kernels also need the image's
-// cotangents and keys, 4 * A * B * (O + 1) bytes, and 512 * (B + O + 1) bytes
-// of partials within a block's 227 KB of shared memory.  `thr` and `scale`
+// cotangents, 4 * A * B * O bytes, 512 * (B + O + 1) bytes of partials and
+// 80 * B bytes of work lists and keys within a block's 227 KB of shared
+// memory.  `thr` and `scale`
 // as in the header; thr = 0 keeps every element.  The forward family takes
 // ksplit, the number of warps that split K (1..8), from the caller, and
 // the 16-byte form when X, Y, b1 and W2 are 16-byte aligned and K % 4 == 0.

@@ -345,10 +345,10 @@ def _launch(entry, wrapper, exact, like, *args, dims, rate, plan=None):
 
 
 def _check_bwd_grid(what, A, B, O):
-    """The backward kernel keeps one image's cotangents [A, B, O] and hash
-    keys [A, B], and 128 threads' partials over B + O + 1 columns, in a
-    block's shared memory."""
-    need = 4 * (A * B * (O + 1) + 128 * (B + O + 1))
+    """The backward kernel keeps one image's cotangents [A, B, O], 128
+    threads' partials over B + O + 1 columns, and each of its 4 warps' work
+    list [B] and hash keys [4, B] in a block's shared memory."""
+    need = 4 * (A * B * O + 128 * (B + O + 1) + 20 * B)
     if need > _BWD_SMEM:
         raise ValueError(f"{what}: a grid of A={A} by B={B} cells, O={O}, "
                          f"needs {need} bytes of shared memory a block; the "

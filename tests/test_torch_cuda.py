@@ -677,6 +677,61 @@ def test_grid_head_train_onepass_loss_kernels_at_weight_densities(
         assert not any(a.any() for a in got)
 
 
+# --- the backward walks only the cells with a cotangent ---------------------
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("G,A,B,K,O", [(2, 17, 20, 1024, 2),
+                                       (2, 17, 20, 800, 4), (3, 9, 7, 50, 3)])
+def test_loss_backward_with_one_live_cell_in_every_other_row_group(
+        dev, G, A, B, K, O, rate, exact):
+    """K8 with weights zero but for one cell in groups 0, 2, ... of four
+    rows (the walk lists one cell there and none in the other groups):
+    its gradients against the plain version's (the one-pass mode in its two
+    halves), twice with equal bits."""
+    from icl_torch.tools.kernel_bits import one_cell_groups
+
+    (X, Y, b1, W2, b2), seeds, labels, _, _ = _train_inputs(G, A, B, K, O,
+                                                            dev)
+    weights = one_cell_groups(G, A, B, torch.Generator(
+        device=dev).manual_seed(5), dev)
+    args = (X, Y, b1, W2, b2, seeds, labels, weights,
+            torch.tensor(0.37, device=dev), rate)
+    if exact:
+        got = ght.grid_head_train_loss_bwd(*args)
+        for a, b in zip(got, ght.grid_head_train_loss_bwd_plain(*args),
+                        strict=True):
+            _assert_close(a, b)
+    else:
+        got = _onepass_loss_bwd_matches_plain(*args)
+    again = ght.grid_head_train_loss_bwd(*args, exact)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dX = got[0]
+    live_rows = weights.sum(2) > 0                        # [G, A]
+    assert not dX[~live_rows].any() and dX[live_rows].abs().sum(-1).all()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("G,A,B,K,O", [(64, 16, 16, 800, 4),
+                                       (8, 16, 32, 1024, 2), (2, 33, 5, 70, 8)])
+def test_backward_with_a_cotangent_zero_at_weight_0(dev, G, A, B, K, O, rate,
+                                                    exact):
+    """K6 with a cotangent that is zero (of either sign) on the cells of
+    weight 0, as the pair and cell forms give it: against the plain
+    version, twice with equal bits."""
+    (X, Y, b1, W2, _), seeds, _, weights, cot = _train_inputs(G, A, B, K, O,
+                                                              dev)
+    cot = cot * (weights > 0)[..., None]       # -0 where cot < 0
+    assert (cot == 0).any() and torch.signbit(cot[cot == 0]).any()
+    args = (X, Y, b1, W2, seeds, cot, rate, exact)
+    got = ght.grid_head_train_bwd(*args)
+    for a, b in zip(got, ght.grid_head_train_bwd_plain(*args), strict=True):
+        _assert_close(a, b)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, ght.grid_head_train_bwd(*args)))
+
+
 @pytest.mark.parametrize("grid_loss", [True, False])
 def test_onepass_train_step_launches_only_the_onepass_kernels(dev, grid_loss):
     """A relation train step of a model with exact=False launches the
