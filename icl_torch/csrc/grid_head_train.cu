@@ -73,9 +73,9 @@
 // its softmax is the forward's.  It runs the f32 mode's FMAs plus a
 // conversion an operand (no tensor cores: O = 2 or 4 would pad an mma's N
 // to 8).  The forward kernels of the mode
-// have their own __global__ with one block an SM in their launch bounds,
-// so ptxas gives them the registers the roundings need without touching
-// the f32 kernels' allocation.
+// have their own __global__ with their own launch bounds, so ptxas gives
+// them the registers the roundings need without touching the f32 kernels'
+// allocation.
 //
 // What bounds it on the H100: at the relation shapes (G = 64, A = B <= 32,
 // K = 800, O = 4) each call is a few microseconds of arithmetic spread
@@ -179,8 +179,12 @@ head_fwd_kernel(const HeadArgs p) {
   head_fwd<kMode, kO, kExactO, kV, false>(p);
 }
 
+// The one-pass mode's roundings take more registers than the f32 kernels
+// get: at kO = 4 (177-180) one block an SM; at kO = 2 two, which caps a
+// thread at 128, so four blocks of four warps fit an SM (one, at 132-142,
+// left three, and the affinity batch's 512 blocks two waves).
 template <int kMode, int kO, bool kExactO, int kV>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+__global__ void __launch_bounds__(kMaxWarps * 32, kO <= 2 ? 2 : 1)
 head_fwd_onepass_kernel(const HeadArgs p) {
   head_fwd<kMode, kO, kExactO, kV, true>(p);
 }
