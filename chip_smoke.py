@@ -37,7 +37,10 @@ command lines as two data-parallel ranks on the one card:
    K8) also at ragged register tiles (A, B in {5, 7, 9, 17, 20, 33, 130}),
    K in {30, 50} (no multiple of 4), O in {1, 2, 3, 4, 8}, with an operand
    that is only 4-byte aligned, at weight densities 0, 0.19 and 1, each
-   twice with equal bits; then times each kernel beside its plain
+   twice with equal bits; K8 in both modes with weights zero but for one
+   cell in every other group of four rows, and K6 with a cotangent zero on
+   the cells of weight 0 (the backward walks only the cells with a
+   cotangent), each twice with equal bits; then times each kernel beside its plain
    version, per call with CUDA events over back-to-back calls, and device
    time alone with the profiler, and prints each kernel's time beside its
    bound: the least time the card could take for the same work, the larger
@@ -47,7 +50,7 @@ command lines as two data-parallel ranks on the one card:
    bit once, in K8 too) over the integer pipe's 16.7 T/s (the hash alone
    and an empty kernel are timed beside them), where the work is what
    this run's data needs (valid steps of the recurrence, cells of weight
-   > 0 for K7/K8, valid boxes for K9);
+   > 0 for K7/K8, cells with a cotangent for K6, valid boxes for K9);
 4. relation serving: writes a data dir (synthetic 300-d word vectors,
    seeded relation and affinity weights as icl-export archives), serves it
    with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
@@ -170,7 +173,10 @@ command lines as two data-parallel ranks on the one card:
    DEFAULT_LOSS_CURVE of phase 9's ``highest`` run and train_config.json
    recording the mode; relation ``--train --null_weight 0`` (the pair
    form), which must launch the one-pass K5/K6 and nothing else of the
-   training head; the planted gate (tests/integration/
+   training head; relation ``--train --lstm_hidden_width 300``, wider than
+   the recurrence kernel takes, which must warn once, run the plain
+   recurrence (no recurrence kernel launched) and launch the one-pass
+   K7/K8; the planted gate (tests/integration/
    test_convergence.py, >= PLANTED_GATE %) in ``default`` on phase 10b's
    vocabulary-16 split.  The one-pass modes are timed beside the f32 ones
    (phase 12), their products of bf16 values rated at BF16_RATE;
@@ -293,6 +299,8 @@ from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
 from icl_torch.tools.head_probes import (HASH_INT_OPS, empty_launch,
                                          hash_kept)
+from icl_torch.tools.kernel_bits import (device_ms, device_rows,
+                                         one_cell_groups)
 from icl_torch.train.checkpoint import Checkpointer
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import (affinity_loss, affinity_predict,
@@ -713,6 +721,54 @@ def main() -> int:
             print(f"check grid head K7, K8 G={G} A={A} B={B} K={K} O={O} "
                   f"weight density {density}: max|d| (gate) " + ", ".join(
                       f"{n} {e:.2e} ({t:.1e})" for n, (e, t) in errs.items()))
+    # K6 and K8 walk only the cells with a cotangent: K8 with weights zero
+    # but for one cell in every other group of four rows (none in the
+    # others), K6 with a cotangent zero on the cells of weight 0; both
+    # modes (the one-pass K8 in its two halves, as phase 10c holds it),
+    # each twice with equal bits
+    errs = {}
+    for G, A, B, K, O, kind in ((2, 17, 20, K_AFF, 2, "K8"),
+                                (2, 17, 20, 800, 4, "K8"),
+                                (64, 16, 16, 800, 4, "K6")):
+        case = train_inputs(G, A, B, K, O, density=0.19)
+        if kind == "K8":
+            name = "grid_head_train_loss_bwd"
+            a = list(case[name])
+            a[7] = one_cell_groups(G, A, B, gen, dev)
+        else:
+            name = "grid_head_train_bwd"
+            a = list(case[name])
+            a[5] = a[5] * (case["grid_head_train_loss_bwd"][7] > 0)[..., None]
+        fn = TRAIN_KERNELS[name]
+        for rate in (0.0, RATE):
+            for exact in (True, False):
+                what = (f"{name} {'f32' if exact else 'one-pass'} G={G} "
+                        f"A={A} B={B} K={K} O={O} rate={rate}, "
+                        + ("one cell in every other four-row group"
+                           if kind == "K8" else
+                           "cotangent zero at weight 0"))
+                if exact or kind == "K6":
+                    errs[what] = twice(
+                        what, lambda *x, r=rate, e=exact: fn(*x, r, e),
+                        lambda *x, r=rate, e=exact: plain_of[name](*x, r, e),
+                        a)
+                    continue
+                g3 = torch.empty(G, A, B, O, device=dev)
+                got = fn(*a, rate, False, g3_out=g3)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        got, fn(*a, rate, False, g3_out=g3))):
+                    failures.append(f"{what} not repeatable")
+                errs[what + ": g3"] = check(
+                    what + ": g3", g3, ght.grid_head_train_dlogits_plain(
+                        *a, rate, False), quiet=True)
+                errs[what] = check(what, got, (*ght.grid_head_train_bwd_plain(
+                    *a[:4], a[5], g3, rate, False), g3.sum((0, 1, 2))),
+                    quiet=True)
+    print(f"check grid head K8 with one live cell in every other four-row "
+          f"group, K6 with a cotangent zero at weight 0, f32 and one-pass, "
+          f"rates 0 and {RATE}, each twice with equal bits: {len(errs)} "
+          f"cases, worst max|d| {max(e / t for e, t in errs.values()):.3f} "
+          f"of the gate")
     if failures:
         raise RuntimeError(f"kernel checks failed: {failures}")
 
@@ -777,7 +833,11 @@ def main() -> int:
             weighted = "loss" in name     # weight-0 cells need no work
             if density is not None and not weighted:
                 continue
-            cells = int((a[7] > 0).sum()) if weighted else None
+            # K6 walks the cells with a non-zero cotangent, K7/K8 those of
+            # weight > 0
+            cells = (int((a[7] > 0).sum()) if weighted else
+                     int((a[5] != 0).any(-1).sum()) if "bwd" in name
+                     else None)
             ops = head_ops(kinds[name], G, A, B, K, O, cells, RATE)
             kernel = name if exact else f"{name}_onepass"
             if not exact:
@@ -914,8 +974,8 @@ def main() -> int:
                         "max_abs_err": _max_err(got, want),
                         "ms": _time_ms(c["fn"]),
                         "plain_ms": _time_ms(c["plain"]),
-                        "device_ms": _device_ms(c["fn"]),
-                        "plain_device_ms": _device_ms(c["plain"]),
+                        "device_ms": device_ms(c["fn"]),
+                        "plain_device_ms": device_ms(c["plain"]),
                         "ops": f_ops, "int_ops": i_ops, "bf16_ops": b_ops,
                         "bytes": nbytes,
                         "bound_ms": max(t_ops, t_bytes),
@@ -924,7 +984,7 @@ def main() -> int:
     del cases
     # the two yardsticks of the bounds: an empty kernel (the floor under a
     # launch) and the dropout hash alone (the integer pipe's rate)
-    probes = {"empty_ms": _device_ms(lambda: empty_launch(dev))}
+    probes = {"empty_ms": device_ms(lambda: empty_launch(dev))}
     for name, (G, A, B, K) in (("R", (64, 16, 16, 800)),
                                ("A", (64, 16, 32, K_AFF))):
         seeds = torch.arange(1, G + 1, dtype=torch.int32, device=dev)
@@ -932,7 +992,7 @@ def main() -> int:
         if not torch.equal(kept[:2].long(), ght.dropout_keep_mask(
                 seeds[:2], A, B, K, RATE).sum(-1)):
             raise RuntimeError("the hash probe disagrees with the mask")
-        ms = _device_ms(lambda: hash_kept(seeds, A, B, K, RATE))
+        ms = device_ms(lambda: hash_kept(seeds, A, B, K, RATE))
         probes[name] = (f"G={G} A={A} B={B} K={K}", ms,
                         G * A * B * K * HASH_INT_OPS / ms / 1e9)
 
@@ -1171,37 +1231,6 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 20) -> float:
-    """Mean device time per fn() call of a kernel wrapper or its plain
-    version, without the host's share.  A profiler window now and then
-    loses records of a kernel, or catches one of the call before; so a
-    kernel's time per call is its mean recorded time times its launches
-    per call (the recorded count over iters, rounded), kernels seen in
-    fewer than half the calls are left out, and a window that kept none
-    is taken again."""
-    for _ in range(3):
-        rows = [e for e in _device_rows(fn, iters) if 2 * e.count >= iters]
-        if rows:
-            return sum(e.self_device_time_total / e.count
-                       * round(e.count / iters) for e in rows) / 1e3
-    raise RuntimeError("the profiler recorded no kernel in three windows")
-
-
-def _device_rows(fn, iters: int) -> list:
-    """The profiler's rows (one per kernel name) of the GPU work of iters
-    calls of fn()."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.count > 0]
-
-
 def _profile(what: str, fn, iters: int = 5) -> str:
     """One line on where fn()'s time goes on the card: host-clock time per
     call (ending in a synchronize), the summed device time of its kernels
@@ -1214,7 +1243,7 @@ def _profile(what: str, fn, iters: int = 5) -> str:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / iters * 1e3
-    rows = sorted(_device_rows(fn, iters),
+    rows = sorted(device_rows(fn, iters),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / iters / 1e3
     return (f"profile {what}: {wall:.3f} ms per call, device busy "
@@ -2461,6 +2490,36 @@ def _onepass(dev, check, cli_dir: str, f32_units: dict) -> dict:
         times.append(f"icl-torch-relation --train --null_weight 0, default "
                      f"precision [2 epochs of 128 images, the pair form]: "
                      f"the command {wall:.2f} s")
+
+        # an LSTM wider than the recurrence kernel takes (MAX_H = 256): the
+        # plain recurrence, one warning, the grid-head kernels launched
+        before = {k: fn.launches for k, fn in kernels.items()}
+        rec0 = (lstm_recurrence.launches, lstm_recurrence.bf16.launches)
+        said.lines.clear()
+        _captured(relation_cli.main, [
+            "--train", "--lstm_hidden_width", "300", "--data_dir", d,
+            "--device", "cuda", "--images_per_batch", "64", "--seed",
+            str(SEED), "--epochs", "1", "--model_file", f"{d}/relation.wide",
+            "--metrics_file", f"{d}/relation.wide.jsonl"])
+        torch.cuda.synchronize()
+        n = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        per_unit["icl-torch-relation --train --lstm_hidden_width 300 "
+                 "(default precision)"] = n
+        warned = [ln for ln in said.lines if "--lstm_hidden_width 300" in ln]
+        rows = [json.loads(ln) for ln in open(f"{d}/relation.wide.jsonl")]
+        steps = n["grid_head_train_loss_bwd_onepass"]
+        ok = (len(warned) == 1 and steps > 0
+              and n["grid_head_train_loss_fwd_onepass"] == steps
+              and rec0 == (lstm_recurrence.launches,
+                           lstm_recurrence.bf16.launches)
+              and all(np.isfinite(r["loss"]) for r in rows if "loss" in r))
+        print(f"check icl-torch-relation --train --lstm_hidden_width 300 on "
+              f"the card: warned {len(warned)} time(s) ({warned[:1]}), the "
+              f"recurrence kernel launched "
+              f"{lstm_recurrence.launches - rec0[0]} times, the training "
+              f"grid head {n}, losses finite: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"--lstm_hidden_width 300: {warned}, {n}")
 
         # the planted gate (tests/integration/test_convergence.py) in the
         # reference's default training precision, at full width on phase

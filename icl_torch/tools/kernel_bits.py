@@ -1,5 +1,6 @@
 """Every kernel entry point's output at chip_smoke.py's phase 3 shapes,
-saved for a bitwise comparison between two trees of the repository.
+saved for a bitwise comparison between two trees of the repository, and
+the device times of the training grid-head kernels for comparing them.
 
 A GPU tool.  One process imports one tree's ``icl_torch`` (the one first
 on ``PYTHONPATH``), feeds each entry point seeded inputs and saves the
@@ -8,15 +9,23 @@ residuals, K5-K8 at rate 0 and 0.5, K9), the bf16 modes (the fast dot of
 K1/K2 and K9, the bf16 recurrence) and, where the tree has it, the
 one-pass bf16 mode of K5-K8 (``exact=False``), on the same inputs: a tree
 without a mode draws the same random numbers for the others.
-``--compare`` loads two such files and says, case by case, whether the
-bits are equal; it fails on a case of the first file that the second
-lacks or computes otherwise, and lists the second's new cases.  On one
-card, from the repository's root, with the other tree unpacked under
-``_archive/parent``::
+Since K8 and K6 walk only the cells with a cotangent, K8 also runs with
+weights zero but for one cell in every other group of four rows and K6
+with a cotangent zero on the cells of weight 0.  ``--compare`` loads two
+such files and says, case by case, whether the bits are equal; it fails on
+a case of the first file that the second lacks or computes otherwise, and
+lists the second's new cases.  ``--times <label>`` prints, one JSON line a
+case, the device ms (profiler) of K5-K8 in both modes at chip_smoke.py's
+timed shapes.  On one card, from the repository's root, with the other
+tree unpacked under ``_archive/parent``::
 
     PYTHONPATH=_archive/parent python icl_torch/tools/kernel_bits.py p.pt
     PYTHONPATH=. python icl_torch/tools/kernel_bits.py c.pt
     python icl_torch/tools/kernel_bits.py --compare p.pt c.pt
+    PYTHONPATH=_archive/parent python icl_torch/tools/kernel_bits.py --times parent
+    PYTHONPATH=. python icl_torch/tools/kernel_bits.py --times change
+
+(times in turns, parent, change, change, parent, in one call).
 
 The script's own directory is first on ``sys.path``, so ``icl_torch``
 comes from ``PYTHONPATH``: run the script file by its path, not with
@@ -25,9 +34,136 @@ comes from ``PYTHONPATH``: run the script file by its path, not with
 
 from __future__ import annotations
 
+import json
 import sys
 
 import torch
+
+
+def one_cell_groups(G: int, A: int, B: int, gen: torch.Generator,
+                    device: torch.device) -> torch.Tensor:
+    """Weights [G, A, B]: zero but for one cell (row and column drawn from
+    ``gen``) in groups 0, 2, 4, ... of four rows, none in the others, so
+    the backward kernel's walk lists one cell in some groups and none in
+    the rest."""
+    groups = torch.arange(0, (A + 3) // 4, 2, device=device)
+    n = len(groups)
+    rows = (4 * groups + torch.randint(0, 4, (G, n), generator=gen,
+                                       device=device)).clamp(max=A - 1)
+    cols = torch.randint(0, B, (G, n), generator=gen, device=device)
+    w = torch.zeros(G, A, B, device=device)
+    w[torch.arange(G, device=device)[:, None], rows, cols] = 1.0
+    return w
+
+
+def device_rows(fn, iters: int) -> list:
+    """The profiler's rows (one per kernel name) of the GPU work of iters
+    calls of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.count > 0]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per fn() call of a kernel wrapper or its plain
+    version, without the host's share.  A profiler window now and then
+    loses records of a kernel, or catches one of the call before; so a
+    kernel's time per call is its mean recorded time times its launches
+    per call (the recorded count over iters, rounded), kernels seen in
+    fewer than half the calls are left out, and a window that kept none
+    is taken again."""
+    for _ in range(3):
+        rows = [e for e in device_rows(fn, iters) if 2 * e.count >= iters]
+        if rows:
+            return sum(e.self_device_time_total / e.count
+                       * round(e.count / iters) for e in rows) / 1e3
+    raise RuntimeError("the profiler recorded no kernel in three windows")
+
+
+def batch_shaped(G: int, A: int, B: int, rows: tuple, cols: tuple | None,
+                 gen: torch.Generator, device: torch.device) -> torch.Tensor:
+    """Weights [G, A, B] laid out as a real batch's: image g has m_a rows
+    and m_b columns that are not padding (m_a uniform on ``rows``, m_b on
+    ``cols``), and its live cells are those (a < m_a, b < m_b); with
+    ``cols`` None, relation's pairs: m_b = m_a and no cell (a, a)."""
+    def count(lo_hi):
+        return torch.randint(lo_hi[0], lo_hi[1] + 1, (G, 1, 1), generator=gen,
+                             device=device)
+
+    ma = count(rows)
+    mb = ma if cols is None else count(cols)
+    a = torch.arange(A, device=device)[:, None]
+    b = torch.arange(B, device=device)
+    live = (a < ma) & (b < mb) & ((a != b) if cols is None else True)
+    return live * torch.where(torch.rand(G, A, B, generator=gen,
+                                         device=device) > 0.5, 1.0, 0.3)
+
+
+def times(seed: int = 0, rate: float = 0.5) -> dict:
+    """{case: device ms} of K5-K8 in both modes at chip_smoke.py's timed
+    shapes: R (G=64 A=B=16 K=800 O=4) and A (G=64 A=16 B=32 K=1024 O=2).
+    K5 and K6 (a dense cotangent) at weight density 0.75; K6-K8 at the
+    densities 0.75, 0.19 (R) and 0.42 (A) drawn cell by cell, as
+    chip_smoke.py's trained rows are, at density 0, and laid out as real
+    batches (:func:`batch_shaped`, about 0.19 at R and 0.43 at A), K6 with
+    a cotangent zero on the cells of weight 0."""
+    from icl_torch.ops import grid_head_train as ght
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for tag, (G, A, B, K, O), dens, shaped in (
+            ("R", (64, 16, 16, 800, 4), (0.75, 0.19, 0.0), ((1, 12), None)),
+            ("A", (64, 16, 32, 1024, 2), (0.75, 0.42, 0.0),
+             ((4, 16), (12, 32)))):
+        X, Y, W2 = (torch.randn(G, A, K, generator=gen, device=dev),
+                    torch.randn(G, B, K, generator=gen, device=dev),
+                    torch.randn(K, O, generator=gen, device=dev) / K ** 0.5)
+        b1 = torch.randn(K, generator=gen, device=dev)
+        b2 = torch.randn(O, generator=gen, device=dev)
+        seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
+                               dtype=torch.int32)
+        gl = torch.ones((), device=dev)
+        for density in (*dens, "batch-shaped"):
+            if density == "batch-shaped":
+                weights = batch_shaped(G, A, B, *shaped, gen, dev)
+                density = f"batch-shaped {float((weights > 0).float().mean()):.2f}"
+            else:
+                weights = ((torch.rand(G, A, B, generator=gen, device=dev)
+                            < density)
+                           * torch.where(torch.rand(G, A, B, generator=gen,
+                                                    device=dev) > 0.5, 1.0,
+                                         0.3))
+            cot = (torch.randn(G, A, B, O, generator=gen, device=dev)
+                   * (weights > 0)[..., None])
+            calls = {
+                "K6": lambda e: ght.grid_head_train_bwd(
+                    X, Y, b1, W2, seeds, cot, rate, e),
+                "K7": lambda e: ght.grid_head_train_loss_fwd(
+                    X, Y, b1, W2, b2, seeds, labels, weights, rate, e),
+                "K8": lambda e: ght.grid_head_train_loss_bwd(
+                    X, Y, b1, W2, b2, seeds, labels, weights, gl, rate, e)}
+            if density == dens[0]:
+                calls["K5"] = lambda e: ght.grid_head_train_fwd(
+                    X, Y, b1, W2, b2, seeds, rate, e)
+                cot.normal_(generator=gen)      # every cell: K6 as before
+            for name in sorted(calls):
+                for exact in (True, False):
+                    case = (f"{name} {'f32' if exact else 'onepass'} {tag} "
+                            f"density {density}")
+                    out[case] = device_ms(
+                        lambda f=calls[name], e=exact: f(e))
+    return out
 
 
 def outputs(seed: int = 0) -> dict:
@@ -105,6 +241,31 @@ def outputs(seed: int = 0) -> dict:
         out[f"affinity_rank {G}"] = (affinity_rank(*args, valid),)
         out[f"affinity_rank bf16dot {G}"] = (affinity_rank(
             *args, valid, fast_dot=True),)
+    # cells without a cotangent, which the backward kernel does not walk:
+    # K8 with weights zero but for one cell in every other group of four
+    # rows, K6 with a cotangent zero on the cells of weight 0
+    for G, A, B, K, O in ((2, 17, 20, 1024, 2), (2, 17, 20, 800, 4),
+                          (64, 16, 16, 800, 4)):
+        args = head(G, A, B, K, O)
+        X, Y, b1, W2, b2 = args
+        seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
+                               dtype=torch.int32)
+        sparse = one_cell_groups(G, A, B, gen, dev)
+        weights = (rnd(G, A, B) > 0.6).float()
+        cot = rnd(G, A, B, O) * (weights > 0)[..., None]
+        gl = torch.ones((), device=dev)
+        for rate in (0.0, 0.5):
+            for mode in (("", True), (" onepass", False))[:1 + onepass]:
+                tag = f"{mode[0]} {G} {A} {B} {K} {O} rate {rate}"
+                out[f"K8 one cell a group{tag}"] = ght.grid_head_train_loss_bwd(
+                    *args, seeds, labels, sparse, gl, rate, mode[1])
+                out[f"K8 density 0.27{tag}"] = ght.grid_head_train_loss_bwd(
+                    *args, seeds, labels, weights, gl, rate, mode[1])
+                out[f"K6 zero cotangent at weight 0{tag}"] = \
+                    ght.grid_head_train_bwd(X, Y, b1, W2, seeds, cot, rate,
+                                            mode[1])
     torch.cuda.synchronize()
     return {k: tuple(t.cpu() for t in v) for k, v in out.items()}
 
@@ -120,6 +281,10 @@ def main(argv=None) -> int:
               f"bit-equal; differ: {differ}; {len(new)} cases only in the "
               f"second file: {new}")
         return 1 if differ else 0
+    if argv[:1] == ["--times"]:
+        for case, ms in times().items():
+            print(json.dumps({"tree": argv[1], "case": case, "device_ms": ms}))
+        return 0
     torch.save(outputs(), argv[0])
     return 0
 
