@@ -250,6 +250,15 @@ def parse_task_args(p: argparse.ArgumentParser, argv, task: str):
     return args
 
 
+def note_compilation_cache_dir(path: str | None) -> None:
+    """``--compilation_cache_dir``, the reference's XLA cache, is taken and
+    logged: PyTorch runs eagerly and has nothing to cache."""
+    if path:
+        LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
+                 "runs eagerly (the kernels' libraries are kept under "
+                 "icl_torch/_build)", path)
+
+
 def refuse_unported(args, task: str | None = None) -> None:
     """Raise :class:`RefusedFlagError` for a value the port cannot honour;
     log the flags that have no effect in ``task``'s entry point (the
@@ -261,10 +270,7 @@ def refuse_unported(args, task: str | None = None) -> None:
             raise RefusedFlagError(flag, "the Keras oracle is not ported; "
                                    "parity with the reference is held by "
                                    "the tests")
-    if args.compilation_cache_dir:
-        LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
-                 "runs eagerly (the kernels' libraries are kept under "
-                 "icl_torch/_build)", args.compilation_cache_dir)
+    note_compilation_cache_dir(args.compilation_cache_dir)
     if task not in IMAGE_TASKS:
         return
     if args.hidden_width is not None:

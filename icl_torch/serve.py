@@ -51,6 +51,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from icl_torch.cli._common import note_compilation_cache_dir
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.util.log import LOG
@@ -679,7 +680,9 @@ def serve(data_dir: str, port: int, embeddings_file: str | None = None,
     return httpd
 
 
-def _parser() -> argparse.ArgumentParser:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's flags; logs ``--compilation_cache_dir`` as the task
+    CLIs do."""
     p = argparse.ArgumentParser(
         prog="icl-torch-serve",
         description="HTTP scoring of the four tasks on PyTorch (CUDA "
@@ -718,16 +721,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--compilation_cache_dir", default=None,
                    help="accepted for the reference's command lines; "
                         "PyTorch runs eagerly, nothing is cached")
-    return p
-
-
-def parse_args(argv=None) -> argparse.Namespace:
-    """The server's flags; logs the ones that have no effect here."""
-    args = _parser().parse_args(argv)
-    if args.compilation_cache_dir:
-        LOG.info("--compilation_cache_dir %s: nothing to cache, PyTorch "
-                 "runs eagerly (the kernels' libraries are kept under "
-                 "icl_torch/_build)", args.compilation_cache_dir)
+    args = p.parse_args(argv)
+    note_compilation_cache_dir(args.compilation_cache_dir)
     return args
 
 
