@@ -78,6 +78,16 @@
 //    store nothing; a half whose tile lies beyond B leaves after the
 //    cluster barrier.
 //
+// Wider LSTMs (256 < H <= 512): the same kernel over a cluster of
+// kWideCluster = 16 blocks (a non-portable cluster size, which the H100
+// takes), so a block still owns at most 32 units, one a lane.  Up to H =
+// 368 a block's slice of R (91 KB at H = 300) still fits its shared memory
+// beside the h buffers and the partial tiles.  Above, it does not (262 KB
+// at 512), and phase A reads R from device memory instead, four coalesced
+// loads a k (the unit's i, f, c~, o weights), every step, from L2: a step
+// takes several times as long as with R on chip.  Everything else, the
+// order of every sum included, is the narrow kernel's.
+//
 // The bf16 mode (icl_lstm_recurrence_bf16): x_proj, R, hs, h_final and the
 // residuals are __nv_bfloat16 in device memory, half the bytes; the
 // semantics are the reference's lax.scan at compute_dtype=bf16
@@ -117,6 +127,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kCluster = 8;  // blocks per cluster: each owns ceil(H/8) units
+constexpr int kWideCluster = 16;  // above kMaxNarrowH: R read from memory
+constexpr int kMaxNarrowH = kCluster * 32;       // a unit a lane: 256
+constexpr int kMaxH = kWideCluster * 32;         // 512
 constexpr int kSplit = 8;    // warps per half block, splitting the k reduction
 constexpr int kTile = 8;     // batch rows per tile: one per warp in phase B
 constexpr int kHalf = kSplit * 32;   // threads per half block (one tile)
@@ -223,8 +236,10 @@ __device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
 }
 
 // E: the element type of device memory, float or __nv_bfloat16 (the bf16
-// mode); everything on chip is f32.
-template <typename E>
+// mode); everything on chip is f32.  NC: blocks a cluster, kCluster or
+// kWideCluster.  kResident: R in shared memory, else read from device
+// memory every step.
+template <typename E, int NC, bool kResident>
 __global__ void __launch_bounds__(2 * kHalf)
 lstm_cluster_kernel(const E* __restrict__ xp,
                     const uint8_t* __restrict__ mask,
@@ -232,24 +247,24 @@ lstm_cluster_kernel(const E* __restrict__ xp,
                     E* __restrict__ h_final, E* __restrict__ gates,
                     E* __restrict__ cs, int L, int B, int H) {
   constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
+  // the push's 16-byte vectors a thread sends: 2 (NC = 8) or 4 (NC = 16)
+  constexpr int kPush = ((NC - 1) * 64 + kHalf - 1) / kHalf;
   constexpr int T = kTile;
   extern __shared__ float4 smem4[];
   __shared__ __align__(8) uint64_t full[2][2];  // [half][buffer]: h is whole
-  const int Hc = (H + kCluster - 1) / kCluster;
+  const int Hc = (H + NC - 1) / NC;
   const int half = threadIdx.x / kHalf;
   const int ht = threadIdx.x - half * kHalf;
   float4* Rs = smem4;                                   // [H][Hc] x (i,f,c~,o)
-  float* hbuf = reinterpret_cast<float*>(Rs + (size_t)H * Hc)
-                + half * 2 * H * T;                     // [2][H][T], this half's
-  float4* part = reinterpret_cast<float4*>(
-                     reinterpret_cast<float*>(Rs + (size_t)H * Hc)
-                     + 4 * H * T)
+  float* h0 = reinterpret_cast<float*>(Rs + (kResident ? (size_t)H * Hc : 0));
+  float* hbuf = h0 + half * 2 * H * T;                  // [2][H][T], this half's
+  float4* part = reinterpret_cast<float4*>(h0 + 4 * H * T)
                  + half * kSplit * T * Hc;              // [kSplit][T][Hc]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int g = blockIdx.y;
-  const int b0 = ((blockIdx.x / kCluster) * 2 + half) * T;  // the tile's row 0
+  const int b0 = ((blockIdx.x / NC) * 2 + half) * T;   // the tile's row 0
   const int s = ht >> 5;
   const int ul = ht & 31;
   const int u = rank * Hc + ul;                 // the hidden unit of this lane
@@ -261,7 +276,7 @@ lstm_cluster_kernel(const E* __restrict__ xp,
 
   // once: this block's columns of R[g], h = 0, and the barriers
   const E* Rg = R + (size_t)g * H * H4;
-  for (int i = threadIdx.x; i < H * Hc; i += blockDim.x) {
+  for (int i = threadIdx.x; kResident && i < H * Hc; i += blockDim.x) {
     const int k = i / Hc;
     const int uu = rank * Hc + (i - k * Hc);
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -308,18 +323,18 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   load_step(0);
 
   // The push's addresses do not change from step to step: this thread
-  // sends vector i = ht, and ht + kHalf where the 7 peers' share of the
-  // block's units has that many 16-byte vectors (at most 7 * 64), of the
-  // block's units of h to peer i / nvec.  Kept for buffer 0; buffer 1 lies
-  // H * T floats further in every block.
+  // sends vector i = ht + j * kHalf, where the NC - 1 peers' share of the
+  // block's units has that many 16-byte vectors (at most (NC - 1) * 64),
+  // of the block's units of h to peer i / nvec.  Kept for buffer 0;
+  // buffer 1 lies H * T floats further in every block.
   const int nvec = own * (T / 4);
-  uint32_t push_src[2], push_dst[2], push_bar[2];
+  uint32_t push_src[kPush], push_dst[kPush], push_bar[kPush];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < kPush; ++j) {
     const int i = ht + j * kHalf;
-    const bool sends = i < (kCluster - 1) * nvec;
+    const bool sends = i < (NC - 1) * nvec;
     const int peer = sends ? i / nvec : 0;
-    const int dst = (rank + 1 + peer) % kCluster;
+    const int dst = (rank + 1 + peer) % NC;
     push_src[j] = (uint32_t)sizeof(float) * (rank * Hc * T)
                   + 16u * (i - peer * nvec);
     push_dst[j] = sends ? peer_addr(smem_addr(hbuf) + push_src[j], dst) : 0u;
@@ -346,19 +361,29 @@ lstm_cluster_kernel(const E* __restrict__ xp,
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
       const float4* h4 = reinterpret_cast<const float4*>(hbuf + cur * H * T);
+      // the unit's (i, f, c~, o) weights of row k of R[g]
+      auto weights = [&](int k) {
+        if constexpr (kResident) {
+          return Rs[k * Hc + ul];
+        } else {
+          const E* p = Rg + (size_t)k * H4 + u;
+          return make_float4(load_f32(p), load_f32(p + H),
+                             load_f32(p + 2 * H), load_f32(p + 3 * H));
+        }
+      };
       // the operands of k + 1 are loaded into their own registers before
       // the FMAs of k, so no FMA waits on shared memory (the last k
       // reloads itself)
       float4 w = make_float4(0.f, 0.f, 0.f, 0.f), ha = w, hb = w;
       if (k0 < k1) {
-        w = Rs[k0 * Hc + ul];
+        w = weights(k0);
         ha = h4[k0 * 2];
         hb = h4[k0 * 2 + 1];
       }
 #pragma unroll 5
       for (int k = k0; k < k1; ++k) {
         const int kn = min(k + 1, k1 - 1);
-        const float4 wn = Rs[kn * Hc + ul];
+        const float4 wn = weights(kn);
         const float4 han = h4[kn * 2];
         const float4 hbn = h4[kn * 2 + 1];
         const float hv[T] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
@@ -420,11 +445,12 @@ lstm_cluster_kernel(const E* __restrict__ xp,
     TICK(3)
     if (t + 1 < L) {
       // this block's units of the new h, 16 bytes a thread, to the same
-      // place in the 7 peers' other buffer: first, the peers wait for it
+      // place in the NC - 1 peers' other buffer: first, the peers wait
+      // for it
       half_sync(half);
       TICK(4)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < kPush; ++j)
         if (push_dst[j] != 0u)
           send4(push_dst[j] + (cur ^ 1) * buf_bytes,
                 push_bar[j] + 8 * (cur ^ 1),
@@ -450,12 +476,42 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   if (stores) store(h_final + ((size_t)g * B + b) * H + u, h);
 }
 
-size_t smem_bytes(int H) {
-  const int Hc = (H + kCluster - 1) / kCluster;
-  // the slice of R; per half two h buffers and the warps' partial tiles
-  return ((size_t)4 * H * Hc + 2 * (2 * (size_t)H * kTile
-                                    + (size_t)4 * kSplit * kTile * Hc))
+size_t smem_bytes(int H, int NC, bool resident) {
+  const int Hc = (H + NC - 1) / NC;
+  // the slice of R when resident; per half two h buffers and the warps'
+  // partial tiles
+  return ((resident ? (size_t)4 * H * Hc : 0)
+          + 2 * (2 * (size_t)H * kTile + (size_t)4 * kSplit * kTile * Hc))
          * sizeof(float);
+}
+
+template <typename E, int NC, bool kResident>
+int launch_nc(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
+              E* h_final, E* gates, E* cs, int G, int L, int B, int H,
+              void* stream) {
+  const auto kernel = lstm_cluster_kernel<E, NC, kResident>;
+  const size_t smem = smem_bytes(H, NC, kResident);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && NC > kCluster)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (B + kTile - 1) / kTile;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NC * ((tiles + 1) / 2), G);
+  cfg.blockDim = dim3(2 * kHalf);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, x_proj, mask, R, hs, h_final,
+                                 gates, cs, L, B, H);
 }
 
 template <typename E>
@@ -463,30 +519,24 @@ int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
            E* h_final, E* gates, E* cs, int G, int L, int B, int H,
            int device, void* stream) {
   if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
-  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || H > 256 || G > 65535)
+  if (G <= 0 || L <= 0 || B <= 0 || H <= 0 || H > kMaxH || G > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(H);
-  err = cudaFuncSetAttribute(lstm_cluster_kernel<E>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (H <= kMaxNarrowH)
+    return launch_nc<E, kCluster, true>(x_proj, mask, R, hs, h_final, gates,
+                                        cs, G, L, B, H, stream);
+  // the wide cluster keeps R on chip while it fits beside the kernel's
+  // static shared memory (the barriers) and a margin
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (B + kTile - 1) / kTile;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * ((tiles + 1) / 2), G);
-  cfg.blockDim = dim3(2 * kHalf);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, lstm_cluster_kernel<E>, x_proj, mask,
-                                 R, hs, h_final, gates, cs, L, B, H);
+  if (smem_bytes(H, kWideCluster, true) + 1024 <= (size_t)optin)
+    return launch_nc<E, kWideCluster, true>(x_proj, mask, R, hs, h_final,
+                                            gates, cs, G, L, B, H, stream);
+  return launch_nc<E, kWideCluster, false>(x_proj, mask, R, hs, h_final,
+                                           gates, cs, G, L, B, H, stream);
 }
 
 }  // namespace
@@ -511,8 +561,9 @@ extern "C" int icl_lstm_recurrence_clocks(long long* out, int reset) {
 // except the mask.  Launches on `stream` (a cudaStream_t from the caller)
 // on `device` and returns the cudaError_t of the launch: 0 on success.  G,
 // L and B must be positive (the caller handles empty inputs without a
-// launch), and 1 <= H <= 256 (a lane per unit of a block's eighth of H, and
-// at H=256 the block's slice of R takes 128 KB of shared memory).
+// launch), and 1 <= H <= 512 (a lane per unit of a block's share of H: an
+// eighth up to 256, at which the block's slice of R takes 128 KB of shared
+// memory, a sixteenth above).
 extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
                                        const uint8_t* mask, const float* R,
                                        float* hs, float* h_final,
@@ -524,7 +575,7 @@ extern "C" int icl_lstm_recurrence_f32(const float* x_proj,
 }
 
 // The same call in the bf16 mode (the header's note): every tensor but the
-// mask is contiguous bf16.  Any H in 1..256, odd ones too: the kernel reads
+// mask is contiguous bf16.  Any H in 1..512, odd ones too: the kernel reads
 // and writes device memory one element at a time.
 extern "C" int icl_lstm_recurrence_bf16(const __nv_bfloat16* x_proj,
                                         const uint8_t* mask,

@@ -9,10 +9,9 @@ BiLSTM, both directions); the recurrence goes to
 :func:`icl_torch.ops.lstm_recurrence` (the hand-written kernel on CUDA, and
 the reference's residual-set backward) when ``use_kernel`` is set, else to
 its plain version (differentiated by autograd step by step).  The kernel
-takes at most ``MAX_H`` units: a wider LSTM on CUDA runs the plain
-recurrence, decided once when the layer is built and logged at WARNING
-(:func:`check_lstm_width`), as the reference trains any width through its
-``lax.scan``.
+takes at most ``MAX_H`` (512) units: a wider LSTM on CUDA is refused when
+the layer is built (:func:`check_lstm_width`), naming ``--fused off``, the
+explicit way to the plain recurrence.
 
 ``compute_dtype`` (float32 or bfloat16, as the reference's): the inputs and
 the kernel, bias and recurrent kernel are cast to it before the input
@@ -31,7 +30,6 @@ from torch import nn
 
 from icl_torch.ops.lstm_recurrence import (MAX_H, lstm_recurrence,
                                            lstm_recurrence_reference)
-from icl_torch.util.log import LOG
 
 
 class LSTMParams(nn.Module):
@@ -48,25 +46,22 @@ class LSTMParams(nn.Module):
 
 
 def check_lstm_width(hidden: int, use_kernel: bool,
-                     device: torch.device | str | None) -> bool:
-    """Whether an LSTM of ``hidden`` units runs the recurrence kernel:
-    ``use_kernel``, but not on CUDA above the kernel's ``MAX_H`` units,
-    where the plain recurrence runs instead (with a warning; the grid-head
-    kernels stay on).  A stated limit of the kernel, settled at build time:
-    a kernel that fails to build or launch still raises."""
+                     device: torch.device | str | None) -> None:
+    """Refuse, when the layer is built, an LSTM the recurrence kernel
+    cannot run: ``use_kernel`` on CUDA with more than ``MAX_H`` units.
+    There is no quiet plain-loop fallback on the card; ``--fused off``
+    asks for the plain recurrence."""
     if use_kernel and torch.device(device or "cpu").type == "cuda" \
             and hidden > MAX_H:
-        LOG.warning("--lstm_hidden_width %d: the recurrence kernel takes at "
-                    "most MAX_H = %d units; this LSTM runs the plain "
-                    "recurrence (lstm_recurrence_reference), the grid-head "
-                    "kernels stay on", hidden, MAX_H)
-        return False
-    return use_kernel
+        raise ValueError(
+            f"--lstm_hidden_width {hidden}: the recurrence kernel takes at "
+            f"most {MAX_H} units on CUDA; use a narrower LSTM, or --fused "
+            f"off for the plain PyTorch path")
 
 
 def _recurrence(hidden: int, use_kernel: bool, device):
-    return (lstm_recurrence if check_lstm_width(hidden, use_kernel, device)
-            else lstm_recurrence_reference)
+    check_lstm_width(hidden, use_kernel, device)
+    return lstm_recurrence if use_kernel else lstm_recurrence_reference
 
 
 class LSTM(LSTMParams):

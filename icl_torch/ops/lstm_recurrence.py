@@ -20,8 +20,9 @@ Layout, direction-major as the Pallas kernels had it::
 * :func:`lstm_recurrence` is a ``torch.autograd.Function``.  Its forward
   launches the hand-written kernel ``icl_torch/csrc/lstm_recurrence.cu``
   (all L steps in one launch, R resident in the shared memory of a
-  thread-block cluster) for CUDA tensors and runs the plain version
-  for CPU tensors.  When a gradient is needed, the forward also keeps the
+  thread-block cluster: 8 blocks up to H = 256, 16 up to 368; above, up to
+  ``MAX_H`` = 512, the 16 blocks read R from device memory every step) for
+  CUDA tensors and runs the plain version for CPU tensors.  When a gradient is needed, the forward also keeps the
   reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
   post-activation gates (not masked), c after the mask, and hs.  The
   backward is a plain reverse loop mirroring ``_lstm_recurrence_bwd_impl``
@@ -48,7 +49,7 @@ import torch
 from icl_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-MAX_H = 256   # a block's eighth of R must fit its shared memory (csrc/lstm_recurrence.cu)
+MAX_H = 512   # a unit a lane of a 16-block cluster (csrc/lstm_recurrence.cu)
 
 
 def lstm_recurrence_reference(x_proj: torch.Tensor, mask: torch.Tensor,

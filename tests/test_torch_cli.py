@@ -326,22 +326,21 @@ def test_the_default_device_is_the_card_and_raises_without_one(runs, task):
         CLIS[task][1].main(["--predict", "--data_dir", runs["dir"]])
 
 
-def test_fused_auto_and_the_lstm_width_check(monkeypatch):
-    """Above the recurrence kernel's MAX_H units on CUDA the LSTM runs the
-    plain recurrence with a warning, as the reference trains any width;
-    nothing raises."""
+def test_fused_auto_and_the_lstm_width_check():
+    """The recurrence kernel takes up to MAX_H = 512 units on CUDA; a wider
+    LSTM with the kernel is refused when it is built, naming ``--fused
+    off`` (there is no quiet plain-loop fallback on the card)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     for fused, dev, want in (("auto", cpu, False), ("auto", cuda, True),
                              ("on", cpu, True), ("off", cuda, False)):
         assert tcommon.use_fused(_parse(["--fused", fused]), dev) is want
-    said = _Said(monkeypatch)
-    assert rnn.check_lstm_width(256, True, cuda) is True
-    assert rnn.check_lstm_width(300, True, cpu) is True   # its plain version
-    assert rnn.check_lstm_width(300, False, cuda) is False
-    assert not said.lines
-    assert rnn.check_lstm_width(300, True, cuda) is False
-    assert len(said.lines) == 1 and "--lstm_hidden_width 300" in said
-    assert "MAX_H = 256" in said and "lstm_recurrence_reference" in said
+    for hidden, use_kernel, dev in ((256, True, cuda), (300, True, cuda),
+                                    (512, True, cuda), (600, True, cpu),
+                                    (600, False, cuda)):
+        rnn.check_lstm_width(hidden, use_kernel, dev)
+    with pytest.raises(ValueError, match="--lstm_hidden_width 513.*512.*"
+                                         "--fused off"):
+        rnn.check_lstm_width(513, True, cuda)
     assert tcommon.parity_gate() == 1e-5
     assert tcommon.default_scores_path(_parse([]), "relation") == os.path.join(
         "x", "train.relation.scores")
@@ -350,30 +349,35 @@ def test_fused_auto_and_the_lstm_width_check(monkeypatch):
 
 
 @pytest.mark.parametrize("task", sorted(CLIS))
-def test_a_wide_lstm_on_cuda_takes_the_plain_recurrence_and_keeps_the_head(
-        monkeypatch, task):
-    """A model built for the card at H = 300 (past the kernel's 256) chose
-    the plain recurrence, once, with one warning, and kept ``fused`` for
-    the grid-head kernels.  Fake tensors stand for the card's."""
+def test_a_wide_lstm_on_cuda_takes_the_recurrence_kernel_and_keeps_the_head(
+        task):
+    """A model built for the card at H = 300 (past the 8-block cluster's
+    256 units, within the 16-block one's 512) runs the recurrence kernel
+    and keeps ``fused`` for the grid-head kernels; at H = 513 building it
+    is refused, naming ``--fused off``, and with ``fused`` off it takes the
+    plain recurrence.  Fake tensors stand for the card's."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    said = _Said(monkeypatch)
     kw = dict(emb_dim=8, lstm_hidden=300, head_hidden=16, fused=True,
               device=torch.device("cuda"))
-    with FakeTensorMode():
-        model = (RelationModel(**kw) if task == "relation"
-                 else AffinityModel(box_dim=12, **kw))
-    lstm = model.caption_bilstm if task == "relation" else model.phrase_lstm
-    assert lstm.recurrence is lstm_recurrence_reference
+
+    def build(**over):
+        with FakeTensorMode():
+            return (RelationModel(**{**kw, **over}) if task == "relation"
+                    else AffinityModel(box_dim=12, **{**kw, **over}))
+
+    def lstm(model):
+        return (model.caption_bilstm if task == "relation"
+                else model.phrase_lstm)
+
+    model = build()
+    assert lstm(model).recurrence is lstm_recurrence
     assert model.fused and model.head_out.bias.device.type == "cuda"
-    assert len(said.lines) == 1 and "--lstm_hidden_width 300" in said
-    with FakeTensorMode():
-        narrow = (RelationModel(**{**kw, "lstm_hidden": 256})
-                  if task == "relation" else
-                  AffinityModel(box_dim=12, **{**kw, "lstm_hidden": 256}))
-    lstm = (narrow.caption_bilstm if task == "relation"
-            else narrow.phrase_lstm)
-    assert lstm.recurrence is lstm_recurrence and len(said.lines) == 1
+    with pytest.raises(ValueError, match="--lstm_hidden_width 513.*"
+                                         "--fused off"):
+        build(lstm_hidden=513)
+    assert lstm(build(lstm_hidden=513, fused=False)).recurrence is \
+        lstm_recurrence_reference
 
 
 def test_split_vocab_matches_the_reference(runs):

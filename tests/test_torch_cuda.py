@@ -124,7 +124,11 @@ def _rec_inputs(G, L, B, H, dev, seed=0):
     # no multiple of the kernel's 8-row tile; a lone second tile; the widest
     # and a narrow H; the affinity batch; two steps (one hand-over of h)
     (2, 32, 61, 200), (2, 32, 9, 200), (2, 16, 61, 256), (2, 16, 61, 64),
-    (1, 16, 1024, 200), (2, 2, 17, 200), (2, 3, 9, 1)])
+    (1, 16, 1024, 200), (2, 2, 17, 200), (2, 3, 9, 1),
+    # past 256 units, the 16-block cluster: R on chip up to 368, read from
+    # device memory above
+    (2, 16, 61, 300), (1, 5, 9, 257), (2, 8, 17, 512), (2, 2, 64, 300),
+    (1, 4, 9, 368), (2, 4, 9, 369)])
 def test_recurrence_kernel_matches_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     n0 = lstm_recurrence.launches
@@ -145,8 +149,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         lstm_recurrence(x_proj.double(), mask, R.double())
     with pytest.raises(ValueError, match="contiguous"):
         lstm_recurrence(x_proj.transpose(1, 2), mask.transpose(1, 2), R)
-    with pytest.raises(ValueError, match="H=257"):
-        lstm_recurrence(*_rec_inputs(2, 4, 8, 257, dev))
+    with pytest.raises(ValueError, match="H=513"):
+        lstm_recurrence(*_rec_inputs(2, 4, 8, 513, dev))
     X, Y, b1, W2, b2 = _head_inputs(1, 4, 4, 32, 4, dev)
     with pytest.raises(ValueError, match="shape"):
         grid_head(X, Y, b1, W2[:16], b2)
@@ -342,7 +346,8 @@ def test_grid_head_train_zero_weight_cells_are_inert(dev):
 
 @pytest.mark.parametrize("G,L,B,H", [
     (2, 32, 512, 200), (2, 16, 8, 200), (2, 9, 13, 40), (1, 7, 5, 256),
-    (2, 32, 61, 200), (1, 16, 1024, 200), (2, 16, 61, 64)])
+    (2, 32, 61, 200), (1, 16, 1024, 200), (2, 16, 61, 64),
+    (2, 16, 61, 300), (1, 7, 5, 512)])
 def test_recurrence_residuals_match_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     hs0, fin0 = lstm_recurrence(*args)
@@ -558,7 +563,8 @@ def test_affinity_rank_fast_dot_matches_plain(dev, G, moved):
 
 @pytest.mark.parametrize("G,L,B,H", [
     (2, 32, 64, 200), (2, 32, 320, 200), (1, 16, 1024, 200),
-    (2, 16, 61, 63), (1, 8, 9, 255), (2, 3, 9, 1)])
+    (2, 16, 61, 63), (1, 8, 9, 255), (2, 3, 9, 1), (2, 16, 61, 300),
+    (1, 8, 9, 511)])
 def test_bf16_recurrence_matches_plain(dev, G, L, B, H):
     """The bf16 mode against the plain version's eager bf16 ops: within 4
     bf16 units of max |plain| (the order of the h . R sum moves a rounded
