@@ -180,11 +180,18 @@ head_fwd_kernel(const HeadArgs p) {
 }
 
 // The one-pass mode's roundings take more registers than the f32 kernels
-// get: at kO = 4 (177-180) one block an SM; at kO = 2 two, which caps a
-// thread at 128, so four blocks of four warps fit an SM (one, at 132-142,
-// left three, and the affinity batch's 512 blocks two waves).
+// get: 177-180 at kO = 4, 132-142 at kO = 2, so one block an SM is asked
+// for and three blocks of four warps fit an SM at kO = 2.  K5 (kLogits,
+// every cell) at kO = 2 asks for two, which caps a thread at 128
+// registers: four blocks fit, and the affinity batch's 512 blocks run in
+// one wave instead of two (0.038 -> 0.034 ms on the H100).  The weighted
+// modes keep one: on a real affinity batch, whose live cells fill the
+// first rows and columns of each image, two blocks an SM made K7 and K8's
+// forward half 13-21 % slower (why is open; a spread block order did not
+// help).
 template <int kMode, int kO, bool kExactO, int kV>
-__global__ void __launch_bounds__(kMaxWarps * 32, kO <= 2 ? 2 : 1)
+__global__ void __launch_bounds__(kMaxWarps * 32,
+                                  kMode == kLogits && kO <= 2 ? 2 : 1)
 head_fwd_onepass_kernel(const HeadArgs p) {
   head_fwd<kMode, kO, kExactO, kV, true>(p);
 }
@@ -222,7 +229,9 @@ __device__ __forceinline__ bool cell_live(const float* gc, int O) {
 // is -0 only when both are), so adding +0 leaves it as it was, and with
 // each sum still taken in its order (dX over b, dY over the rows and then
 // the slices, dW2 in its even and odd accumulators) the results keep their
-// bits.  A cell is warp-uniform (the lanes are columns k), so a skip costs
+// bits.  That holds for finite X, Y, b1 and W2: with an Inf h or an Inf or
+// NaN W2 entry a skipped cell's h * 0 or (0 * W2) * scale would have been
+// NaN, and the walk leaves it out.  A cell is warp-uniform (the lanes are columns k), so a skip costs
 // no divergence.
 template <int kO, bool kOnePass>
 __global__ void __launch_bounds__(kBwdCols * kBwdSlices, kO <= 4 ? 8 : 4)

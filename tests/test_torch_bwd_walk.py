@@ -4,6 +4,9 @@
 second half of K8) walks only the cells whose cotangent g3 has a non-zero
 entry.  A skipped cell would add dz = +0 to dX and dY and h * (+0) to dW2;
 every sum starts at +0 and is never -0, so the skip leaves each as it was.
+That holds for finite X, Y, b1 and W2, as here: an Inf h or an Inf or NaN
+W2 entry makes a skipped cell's h * 0 or 0 * W2 a NaN that the walk leaves
+out.
 Here :func:`_walk` takes the kernel's sums in the kernel's order (thread
 (k, s) over its groups of four rows, b in order, the rows of a group in
 order; dW2 in even and odd accumulators; the slices' partials in the order
