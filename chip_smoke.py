@@ -33,7 +33,9 @@ command lines as two data-parallel ranks on the one card:
    K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
    in {16, 1024} (hs, final and the residuals); the recurrence also with a
    batch that is no multiple of its row tile (B=61) and at H in {64, 200,
-   256}, twice with equal bits; the forward grid-head kernels (K1, K5, K7,
+   256} (the 8-block cluster) and {257, 300, 512} (the 16-block one, which
+   holds R on chip up to 368 and reads it from device memory above), twice
+   with equal bits; the forward grid-head kernels (K1, K5, K7,
    K8) also at ragged register tiles (A, B in {5, 7, 9, 17, 20, 33, 130}),
    K in {30, 50} (no multiple of 4), O in {1, 2, 3, 4, 8}, with an operand
    that is only 4-byte aligned, at weight densities 0, 0.19 and 1, each
@@ -50,7 +52,13 @@ command lines as two data-parallel ranks on the one card:
    bit once, in K8 too) over the integer pipe's 16.7 T/s (the hash alone
    and an empty kernel are timed beside them), where the work is what
    this run's data needs (valid steps of the recurrence, cells of weight
-   > 0 for K7/K8, cells with a cotangent for K6, valid boxes for K9);
+   > 0 for K7/K8, cells with a cotangent for K6, valid boxes for K9).
+   K5-K8 are timed on kernel_bits.timed_cases' inputs: the relation and
+   affinity batch shapes at weight density 0.75, and K7/K8 on the labels
+   and weights of the fullest batch of phase 9's train split as the CLIs
+   batch it (kernel_bits.trained_batches: 64 images, about 20 % of the
+   cells weighted in relation and 42 % in affinity, the live cells in the
+   first rows and columns of each image);
 4. relation serving: writes a data dir (synthetic 300-d word vectors,
    seeded relation and affinity weights as icl-export archives), serves it
    with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
@@ -132,8 +140,8 @@ command lines as two data-parallel ranks on the one card:
    unaligned operands, gate 1e-5 * max(1, max |plain|) (both round the
    same values to bf16 and sum in f32); the box ranking over the fast-dot
    logits (K9) at G in {4, 64} with ragged validity; the bf16 recurrence
-   at G=2 L=32 B in {64, 320}, G=1 L=16 B=1024, H=200 and the odd widths
-   63 and 255, with its residuals, gate BF16_REC_ULPS bf16 units of
+   at G=2 L=32 B in {64, 320}, G=1 L=16 B=1024, H=200, the odd widths
+   63 and 255 and the 16-block cluster's 300 and 511, with its residuals, gate BF16_REC_ULPS bf16 units of
    max |plain| (the order of the h . R sum moves a rounded value by a unit
    now and then, and the unit travels down the steps).  Then on phase 9's
    split, at full width: ``--train --compute_dtype bf16`` of relation and
@@ -174,9 +182,9 @@ command lines as two data-parallel ranks on the one card:
    recording the mode; relation ``--train --null_weight 0`` (the pair
    form), which must launch the one-pass K5/K6 and nothing else of the
    training head; relation ``--train --lstm_hidden_width 300``, wider than
-   the recurrence kernel takes, which must warn once, run the plain
-   recurrence (no recurrence kernel launched) and launch the one-pass
-   K7/K8; the planted gate (tests/integration/
+   the 8-block cluster takes, which must run the recurrence kernel's
+   16-block cluster at least once a step, warn nothing and launch the
+   one-pass K7/K8; the planted gate (tests/integration/
    test_convergence.py, >= PLANTED_GATE %) in ``default`` on phase 10b's
    vocabulary-16 split.  The one-pass modes are timed beside the f32 ones
    (phase 12), their products of bf16 values rated at BF16_RATE;
@@ -299,6 +307,7 @@ from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
 from icl_torch.tools.head_probes import (HASH_INT_OPS, empty_launch,
                                          hash_kept)
+from icl_torch.tools import kernel_bits
 from icl_torch.tools.kernel_bits import (device_ms, device_rows,
                                          one_cell_groups)
 from icl_torch.train.checkpoint import Checkpointer
@@ -475,24 +484,8 @@ def main() -> int:
     def train_inputs(G, A, B=None, K=DIMS["head_hidden"], O=4, density=None):
         """The arguments of K5-K8, rate aside, over one random problem;
         `density`: the share of cells of weight > 0 (0.75 if not given)."""
-        B = A if B is None else B
-        X, Y, b1, W2, b2 = head_inputs(G, A, B, K, O)
-        seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
-                              device=dev, dtype=torch.int32)
-        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
-                               dtype=torch.int32)
-        draw = torch.rand(G, A, B, generator=gen, device=dev)
-        weights = ((draw > 0.25 if density is None else draw < density)
-                   * torch.where(torch.rand(G, A, B, generator=gen,
-                                            device=dev) > 0.5, 1.0, 0.3))
-        cot = torch.randn(G, A, B, O, generator=gen, device=dev)
-        gl = torch.rand((), generator=gen, device=dev)
-        return {"grid_head_train_fwd": (X, Y, b1, W2, b2, seeds),
-                "grid_head_train_bwd": (X, Y, b1, W2, seeds, cot),
-                "grid_head_train_loss_fwd": (X, Y, b1, W2, b2, seeds, labels,
-                                             weights),
-                "grid_head_train_loss_bwd": (X, Y, b1, W2, b2, seeds, labels,
-                                             weights, gl)}
+        return kernel_bits.train_inputs(gen, dev, G, A, A if B is None else B,
+                                        K, O, density)
 
     def rec_inputs(L, B, G=2, H=DIMS["lstm_hidden"]):
         """G=2: a BiLSTM's two directions; G=1: the phrase LSTM."""
@@ -638,9 +631,12 @@ def main() -> int:
             check(f"lstm_recurrence G=1 L={L} B={B} H=200 (hs, final, gates, "
                   f"c)", got, lstm_recurrence_reference(*args, True))
     # a batch that is no multiple of the kernel's 8-row tile, and other
-    # widths than the models' 200 (256 is the widest the kernel takes)
+    # widths than the models' 200: 256 is the widest the 8-block cluster
+    # takes, above it the 16-block one (R on chip up to 368, read from
+    # device memory above, up to 512)
     for G, L, B, H in ((2, 32, 61, 200), (2, 16, 61, 64), (2, 16, 61, 256),
-                       (1, 16, 9, 256), (2, 8, 5, 64)):
+                       (1, 16, 9, 256), (2, 8, 5, 64), (2, 16, 61, 300),
+                       (1, 8, 9, 257), (2, 8, 17, 512)):
         args = rec_inputs(L, B, G, H)
         got = lstm_recurrence_fwd(*args, residuals=True)
         again = lstm_recurrence_fwd(*args, residuals=True)
@@ -817,10 +813,17 @@ def main() -> int:
                        "inputs": inputs, "shape": shape, "ops": ops,
                        "replaces": replaces or REPLACES[kernel][1]}
 
-    def add_train_cases(suffix, G, A, B, K, O, density=None, exact=True):
-        """K5-K8 at one shape; with `density`, only the weighted kernels
-        (K7, K8) at that share of cells of weight > 0; `exact` False: their
-        one-pass bf16 mode, whose products of bf16 values (the logit dot
+    # the timed K5-K8 inputs (kernel_bits.timed_cases, which kernel_bits.py
+    # --times also times): the relation and affinity batch shapes at density
+    # 0.75, and K7/K8 on the weights and labels of a real batch of phase 9's
+    # split as the CLIs batch it (64 images)
+    train_timed = kernel_bits.timed_cases(
+        gen, dev, kernel_bits.trained_batches(SEED), DIMS["head_hidden"],
+        K_AFF)
+
+    def add_train_cases(suffix, exact=True):
+        """The timed K5-K8 cases of `suffix` (the kernels of
+        `train_timed[suffix]`); `exact` False: their one-pass bf16 mode, whose products of bf16 values (the logit dot
         forward, g . W2 and hd . g backward: 2 O and 4 O operations an
         element) are rated at BF16_RATE, and each rounded activation adds
         an operation an element."""
@@ -829,10 +832,9 @@ def main() -> int:
                  "grid_head_train_loss_bwd": "loss_bwd"}
         dots = {"fwd": (2, 1), "bwd": (4, 1), "loss_fwd": (2, 1),
                 "loss_bwd": (6, 2)}   # bf16 products / O, roundings
-        for name, a in train_inputs(G, A, B, K, O, density).items():
+        (G, A, B, K, O), inputs = train_timed[suffix]
+        for name, a in inputs.items():
             weighted = "loss" in name     # weight-0 cells need no work
-            if density is not None and not weighted:
-                continue
             # K6 walks the cells with a non-zero cotangent, K7/K8 those of
             # weight > 0
             cells = (int((a[7] > 0).sum()) if weighted else
@@ -868,15 +870,18 @@ def main() -> int:
              lambda: lstm_recurrence_reference(*rec_args), rec_args,
              "G=2 L=32 B=64 H=200", rec_ops(rec_args),
              "icl/ops/lstm_kernel.py:282")      # both directions, full batch
+    wide_rec = rec_inputs(32, 64, H=300)     # --lstm_hidden_width 300
+    add_case("lstm_recurrence H=300", "lstm_recurrence",
+             lambda: lstm_recurrence(*wide_rec),
+             lambda: lstm_recurrence_reference(*wide_rec), wide_rec,
+             "G=2 L=32 B=64 H=300, the 16-block cluster", rec_ops(wide_rec))
     big_rec = rec_inputs(32, 512)
     add_case("lstm_recurrence with residuals", "lstm_recurrence",
              lambda: lstm_recurrence_fwd(*big_rec, residuals=True),
              lambda: lstm_recurrence_reference(*big_rec, residuals=True),
              big_rec, "G=2 L=32 B=512 H=200", rec_ops(big_rec))
-    add_train_cases("", 64, 16, 16, DIMS["head_hidden"], 4)
-    # K7 and K8 at the share of weighted cells the trained batches have
-    add_train_cases(" at the trained density", 64, 16, 16,
-                    DIMS["head_hidden"], 4, density=0.19)
+    add_train_cases("")
+    add_train_cases(" on a trained batch")
     # the affinity shapes: batch predict and training (64 images, 16
     # phrases, 32 boxes), the served 4-image request, the phrase LSTM over
     # 64 x 16 phrases
@@ -895,9 +900,8 @@ def main() -> int:
              f"G=64 A=16 B=32 K={K_AFF} O=2",
              head_ops("fwd", 64, 16, 32, K_AFF, 2),
              "icl/ops/grid_head.py:173")        # the tiled kernel's size
-    add_train_cases(" affinity", 64, 16, 32, K_AFF, 2)
-    add_train_cases(" affinity at the trained density", 64, 16, 32, K_AFF, 2,
-                    density=0.42)
+    add_train_cases(" affinity")
+    add_train_cases(" affinity on a trained batch")
     phrase_rec = rec_inputs(16, 1024, G=1)
     add_case("lstm_recurrence G=1", "lstm_recurrence",
              lambda: lstm_recurrence(*phrase_rec),
@@ -951,16 +955,10 @@ def main() -> int:
                  (lambda a=a, r=res: lstm_recurrence_fwd(*a, residuals=r)),
                  (lambda a=a, r=res: lstm_recurrence_reference(*a, r)), a,
                  shape, rec_ops(a), "icl/ops/lstm_kernel.py:282")
-    # the one-pass bf16 mode of K5-K8 (--matmul_precision default|high) at
-    # the same shapes and densities
-    for suffix, shape, density in (
-            ("", (64, 16, 16, DIMS["head_hidden"], 4), None),
-            (" at the trained density", (64, 16, 16, DIMS["head_hidden"], 4),
-             0.19),
-            (" affinity", (64, 16, 32, K_AFF, 2), None),
-            (" affinity at the trained density", (64, 16, 32, K_AFF, 2),
-             0.42)):
-        add_train_cases(suffix, *shape, density=density, exact=False)
+    # the one-pass bf16 mode of K5-K8 (--matmul_precision default|high) on
+    # the same inputs
+    for suffix in train_timed:
+        add_train_cases(suffix, exact=False)
     timing = {}
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
@@ -1790,12 +1788,13 @@ def _cli(d: str) -> dict:
     accuracy = {}       # task -> dev accuracy of the f32 model, percent
     _reset(kernels)
     try:
-        kw = dict(planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
-                  max_caption_len=32, max_mentions_per_caption=3,
-                  max_boxes_per_image=20)
-        for split, n in (("train", 128), ("dev", 32)):
+        # the split that kernel_bits.trained_batches batches for the
+        # trained rows of phase 12
+        for split, n in (("train", kernel_bits.PHASE9_TRAIN_IMAGES),
+                         ("dev", 32)):
             generate_dataset(d, split, SynthConfig(
-                num_images=n, seed=SEED + (split == "dev"), **kw))
+                num_images=n, seed=SEED + (split == "dev"),
+                **kernel_bits.PHASE9_SPLIT))
             _widen_boxes(f"{d}/{split}.boxes.npz", AFF_DIMS["box_dim"],
                          SEED)
         emb = EmbeddingStore.load(f"{d}/embeddings.txt")
@@ -2042,7 +2041,8 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
     # 320), the phrase LSTM (G = 1, B = 1024), odd widths; hs and h_final,
     # and with the residuals (which must not change hs)
     for G, L, B, H in ((2, 32, 64, 200), (2, 32, 320, 200),
-                       (1, 16, 1024, 200), (2, 16, 61, 63), (1, 8, 9, 255)):
+                       (1, 16, 1024, 200), (2, 16, 61, 63), (1, 8, 9, 255),
+                       (2, 16, 61, 300), (1, 8, 9, 511)):
         args = rec(G, L, B, H)
         what = f"lstm_recurrence bf16 G={G} L={L} B={B} H={H}"
         got = twice(what, lambda *a: lstm_recurrence_fwd(*a, residuals=True),
@@ -2491,8 +2491,8 @@ def _onepass(dev, check, cli_dir: str, f32_units: dict) -> dict:
                      f"precision [2 epochs of 128 images, the pair form]: "
                      f"the command {wall:.2f} s")
 
-        # an LSTM wider than the recurrence kernel takes (MAX_H = 256): the
-        # plain recurrence, one warning, the grid-head kernels launched
+        # an LSTM wider than the 8-block cluster takes (256 units): the
+        # recurrence kernel's 16-block cluster, and the grid-head kernels
         before = {k: fn.launches for k, fn in kernels.items()}
         rec0 = (lstm_recurrence.launches, lstm_recurrence.bf16.launches)
         said.lines.clear()
@@ -2508,16 +2508,16 @@ def _onepass(dev, check, cli_dir: str, f32_units: dict) -> dict:
         warned = [ln for ln in said.lines if "--lstm_hidden_width 300" in ln]
         rows = [json.loads(ln) for ln in open(f"{d}/relation.wide.jsonl")]
         steps = n["grid_head_train_loss_bwd_onepass"]
-        ok = (len(warned) == 1 and steps > 0
+        ok = (not warned and steps > 0
               and n["grid_head_train_loss_fwd_onepass"] == steps
-              and rec0 == (lstm_recurrence.launches,
-                           lstm_recurrence.bf16.launches)
+              and lstm_recurrence.launches - rec0[0] >= steps
+              and lstm_recurrence.bf16.launches == rec0[1]
               and all(np.isfinite(r["loss"]) for r in rows if "loss" in r))
         print(f"check icl-torch-relation --train --lstm_hidden_width 300 on "
-              f"the card: warned {len(warned)} time(s) ({warned[:1]}), the "
-              f"recurrence kernel launched "
-              f"{lstm_recurrence.launches - rec0[0]} times, the training "
-              f"grid head {n}, losses finite: {'ok' if ok else 'FAIL'}")
+              f"the card: warned {len(warned)} time(s), the recurrence "
+              f"kernel launched {lstm_recurrence.launches - rec0[0]} times "
+              f"for {steps} steps, the training grid head {n}, losses "
+              f"finite: {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"--lstm_hidden_width 300: {warned}, {n}")
 

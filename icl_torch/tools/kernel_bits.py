@@ -1,23 +1,26 @@
 """Every kernel entry point's output at chip_smoke.py's phase 3 shapes,
-saved for a bitwise comparison between two trees of the repository, and
-the device times of the training grid-head kernels for comparing them.
+saved for a bitwise comparison between two trees of the repository; the
+device times of the training grid-head kernels for comparing them; and
+the inputs that chip_smoke.py times those kernels on.
 
 A GPU tool.  One process imports one tree's ``icl_torch`` (the one first
 on ``PYTHONPATH``), feeds each entry point seeded inputs and saves the
 outputs: the f32 modes (K1/K2, the recurrence with and without its
-residuals, K5-K8 at rate 0 and 0.5, K9), the bf16 modes (the fast dot of
-K1/K2 and K9, the bf16 recurrence) and, where the tree has it, the
-one-pass bf16 mode of K5-K8 (``exact=False``), on the same inputs: a tree
-without a mode draws the same random numbers for the others.
-Since K8 and K6 walk only the cells with a cotangent, K8 also runs with
-weights zero but for one cell in every other group of four rows and K6
-with a cotangent zero on the cells of weight 0.  ``--compare`` loads two
-such files and says, case by case, whether the bits are equal; it fails on
-a case of the first file that the second lacks or computes otherwise, and
-lists the second's new cases.  ``--times <label>`` prints, one JSON line a
-case, the device ms (profiler) of K5-K8 in both modes at chip_smoke.py's
-timed shapes.  On one card, from the repository's root, with the other
-tree unpacked under ``_archive/parent``::
+residuals, at H up to 512, K5-K8 at rate 0 and 0.5, K9), the bf16 modes
+(the fast dot of K1/K2 and K9, the bf16 recurrence) and, where the tree
+has it, the one-pass bf16 mode of K5-K8 (``exact=False``), on the same
+inputs: a tree without a mode draws the same random numbers for the
+others.  Since K8 and K6 walk only the cells with a cotangent, K8 also
+runs with weights zero but for one cell in every other group of four rows
+and K6 with a cotangent zero on the cells of weight 0.  ``--compare``
+loads two such files and says, case by case, whether the bits are equal;
+it fails on a case of the first file that the second lacks or computes
+otherwise, and lists the second's new cases.  ``--times <label>`` prints,
+one JSON line a case and kernel, the device ms (profiler) of K5-K8 in
+both modes on chip_smoke.py's timed inputs (:func:`timed_cases`): the
+default density 0.75, and the weights and labels of a real training batch
+(:func:`trained_batches`).  On one card, from the repository's root, with
+the other tree unpacked under ``_archive/parent``::
 
     PYTHONPATH=_archive/parent python icl_torch/tools/kernel_bits.py p.pt
     PYTHONPATH=. python icl_torch/tools/kernel_bits.py c.pt
@@ -25,7 +28,8 @@ tree unpacked under ``_archive/parent``::
     PYTHONPATH=_archive/parent python icl_torch/tools/kernel_bits.py --times parent
     PYTHONPATH=. python icl_torch/tools/kernel_bits.py --times change
 
-(times in turns, parent, change, change, parent, in one call).
+(times in turns, parent, change, change, parent, in one call; both
+trees' times come from this file's inputs).
 
 The script's own directory is first on ``sys.path``, so ``icl_torch``
 comes from ``PYTHONPATH``: run the script file by its path, not with
@@ -36,8 +40,19 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 
+import numpy as np
 import torch
+
+# phase 9's split (chip_smoke.py): the planted synthetic data at 300-d word
+# vectors, trained by the relation and affinity CLIs 64 images a batch
+PHASE9_SPLIT = dict(planted=True, emb_dim=300, vocab_size=2000,
+                    max_caption_len=32, max_mentions_per_caption=3,
+                    max_boxes_per_image=20)
+PHASE9_TRAIN_IMAGES = 128
+IMAGES_PER_BATCH = 64
+NULL_WEIGHT = 0.3            # icl-torch-relation's --null_weight default
 
 
 def one_cell_groups(G: int, A: int, B: int, gen: torch.Generator,
@@ -87,82 +102,123 @@ def device_ms(fn, iters: int = 20) -> float:
     raise RuntimeError("the profiler recorded no kernel in three windows")
 
 
-def batch_shaped(G: int, A: int, B: int, rows: tuple, cols: tuple | None,
-                 gen: torch.Generator, device: torch.device) -> torch.Tensor:
-    """Weights [G, A, B] laid out as a real batch's: image g has m_a rows
-    and m_b columns that are not padding (m_a uniform on ``rows``, m_b on
-    ``cols``), and its live cells are those (a < m_a, b < m_b); with
-    ``cols`` None, relation's pairs: m_b = m_a and no cell (a, a)."""
-    def count(lo_hi):
-        return torch.randint(lo_hi[0], lo_hi[1] + 1, (G, 1, 1), generator=gen,
-                             device=device)
+def trained_batches(seed: int = 0) -> dict:
+    """{"R": (labels, weights), "A": (labels, weights)}: the grid labels
+    (int32 [64, M, N]) and cell weights (f32) of the fullest batch of one
+    epoch of phase 9's train split, as the relation and affinity CLIs
+    batch it (64 images, their default buckets; relation's weights are
+    ``valid * [null_weight, 1, 1, 1][label]``, affinity's ``valid``).  On
+    the CPU: the split is written to a temporary directory and read back
+    (about 2 s)."""
+    from icl_torch.data.embeddings import EmbeddingStore
+    from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
+    from icl_torch.data.pipeline import (load_affinity_dataset,
+                                         load_relation_dataset)
+    from icl_torch.testing.synth import SynthConfig, generate_dataset
 
-    ma = count(rows)
-    mb = ma if cols is None else count(cols)
-    a = torch.arange(A, device=device)[:, None]
-    b = torch.arange(B, device=device)
-    live = (a < ma) & (b < mb) & ((a != b) if cols is None else True)
-    return live * torch.where(torch.rand(G, A, B, generator=gen,
-                                         device=device) > 0.5, 1.0, 0.3)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="icl_kernel_bits_") as d:
+        generate_dataset(d, "train", SynthConfig(
+            num_images=PHASE9_TRAIN_IMAGES, seed=seed, **PHASE9_SPLIT))
+        emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+        for tag, ds, batcher, cw in (
+                ("R", load_relation_dataset(d, "train", emb),
+                 RelationBatcher(images_per_batch=IMAGES_PER_BATCH,
+                                 build_grid=True, with_ids=False),
+                 np.array([NULL_WEIGHT, 1.0, 1.0, 1.0], np.float32)),
+                ("A", load_affinity_dataset(d, "train", emb),
+                 AffinityBatcher(images_per_batch=IMAGES_PER_BATCH,
+                                 with_ids=False), None)):
+            full = max(batcher.batches(ds, rng=np.random.default_rng(seed)),
+                       key=lambda b: int(b.arrays["img_valid"].sum()))
+            labels = full.arrays["grid_label"].astype(np.int32)
+            weights = full.arrays["grid_valid"].astype(np.float32)
+            if cw is not None:
+                weights = weights * cw[labels]
+            out[tag] = (torch.from_numpy(labels), torch.from_numpy(weights))
+    return out
 
 
-def times(seed: int = 0, rate: float = 0.5) -> dict:
-    """{case: device ms} of K5-K8 in both modes at chip_smoke.py's timed
-    shapes: R (G=64 A=B=16 K=800 O=4) and A (G=64 A=16 B=32 K=1024 O=2).
-    K5 and K6 (a dense cotangent) at weight density 0.75; K6-K8 at the
-    densities 0.75, 0.19 (R) and 0.42 (A) drawn cell by cell, as
-    chip_smoke.py's trained rows are, at density 0, and laid out as real
-    batches (:func:`batch_shaped`, about 0.19 at R and 0.43 at A), K6 with
-    a cotangent zero on the cells of weight 0."""
+def train_inputs(gen: torch.Generator, dev: torch.device, G: int, A: int,
+                 B: int, K: int, O: int, density: float | None = None,
+                 batch: tuple | None = None) -> dict:
+    """The arguments of K5-K8, rate aside, over one random problem drawn
+    from ``gen``: weights at ``density`` (the share of cells of weight >
+    0; 0.75 if not given) drawn cell by cell, or, with ``batch`` (labels,
+    weights of a real batch, :func:`trained_batches`), that batch's labels
+    and weights."""
+    X = torch.randn(G, A, K, generator=gen, device=dev)
+    Y = torch.randn(G, B, K, generator=gen, device=dev)
+    b1 = torch.randn(K, generator=gen, device=dev)
+    W2 = torch.randn(K, O, generator=gen, device=dev) / K ** 0.5
+    b2 = torch.randn(O, generator=gen, device=dev)
+    seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
+                           dtype=torch.int32)
+    draw = torch.rand(G, A, B, generator=gen, device=dev)
+    weights = ((draw > 0.25 if density is None else draw < density)
+               * torch.where(torch.rand(G, A, B, generator=gen,
+                                        device=dev) > 0.5, 1.0, 0.3))
+    if batch is not None:
+        labels, weights = (t.to(dev).contiguous() for t in batch)
+    cot = torch.randn(G, A, B, O, generator=gen, device=dev)
+    gl = torch.rand((), generator=gen, device=dev)
+    return {"grid_head_train_fwd": (X, Y, b1, W2, b2, seeds),
+            "grid_head_train_bwd": (X, Y, b1, W2, seeds, cot),
+            "grid_head_train_loss_fwd": (X, Y, b1, W2, b2, seeds, labels,
+                                         weights),
+            "grid_head_train_loss_bwd": (X, Y, b1, W2, b2, seeds, labels,
+                                         weights, gl)}
+
+
+def timed_cases(gen: torch.Generator, dev: torch.device, batches: dict,
+                k_rel: int = 800, k_aff: int = 1024) -> dict:
+    """{suffix: (shape, inputs)} of chip_smoke.py's timed K5-K8 cases: the
+    relation (R: G=64 A=B=16 K=800 O=4) and affinity (A: G=64 A=16 B=32
+    K=1024 O=2) batch shapes at density 0.75 (all four kernels), and on a
+    trained batch (``batches``, :func:`trained_batches`; K7 and K8, which
+    weight the cells)."""
+    cases = {}
+    for suffix, tag, (A, B, K, O) in (
+            ("", "R", (16, 16, k_rel, 4)),
+            (" affinity", "A", (16, 32, k_aff, 2))):
+        shape = (IMAGES_PER_BATCH, A, B, K, O)
+        cases[suffix] = (shape, train_inputs(gen, dev, *shape))
+        got = tuple(batches[tag][1].shape)
+        if got != (IMAGES_PER_BATCH, A, B):
+            raise RuntimeError(f"the trained {tag} batch is {got}, not "
+                               f"{(IMAGES_PER_BATCH, A, B)}")
+        inputs = train_inputs(gen, dev, *shape, batch=batches[tag])
+        cases[suffix + " on a trained batch"] = (shape, {
+            k: v for k, v in inputs.items() if "loss" in k})
+    return cases
+
+
+def times(seed: int = 0, rate: float = 0.5) -> list:
+    """[(case, kernel, device ms a call)] of K5-K8 in both modes on
+    :func:`timed_cases`' inputs, each call's time and, beside it, each of
+    the kernels it launches (K8 launches its forward half, the backward
+    and a row sum)."""
     from icl_torch.ops import grid_head_train as ght
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
-    out = {}
-    for tag, (G, A, B, K, O), dens, shaped in (
-            ("R", (64, 16, 16, 800, 4), (0.75, 0.19, 0.0), ((1, 12), None)),
-            ("A", (64, 16, 32, 1024, 2), (0.75, 0.42, 0.0),
-             ((4, 16), (12, 32)))):
-        X, Y, W2 = (torch.randn(G, A, K, generator=gen, device=dev),
-                    torch.randn(G, B, K, generator=gen, device=dev),
-                    torch.randn(K, O, generator=gen, device=dev) / K ** 0.5)
-        b1 = torch.randn(K, generator=gen, device=dev)
-        b2 = torch.randn(O, generator=gen, device=dev)
-        seeds = torch.randint(0, 2 ** 31 - 1, (G,), generator=gen,
-                              device=dev, dtype=torch.int32)
-        labels = torch.randint(0, O, (G, A, B), generator=gen, device=dev,
-                               dtype=torch.int32)
-        gl = torch.ones((), device=dev)
-        for density in (*dens, "batch-shaped"):
-            if density == "batch-shaped":
-                weights = batch_shaped(G, A, B, *shaped, gen, dev)
-                density = f"batch-shaped {float((weights > 0).float().mean()):.2f}"
-            else:
-                weights = ((torch.rand(G, A, B, generator=gen, device=dev)
-                            < density)
-                           * torch.where(torch.rand(G, A, B, generator=gen,
-                                                    device=dev) > 0.5, 1.0,
-                                         0.3))
-            cot = (torch.randn(G, A, B, O, generator=gen, device=dev)
-                   * (weights > 0)[..., None])
-            calls = {
-                "K6": lambda e: ght.grid_head_train_bwd(
-                    X, Y, b1, W2, seeds, cot, rate, e),
-                "K7": lambda e: ght.grid_head_train_loss_fwd(
-                    X, Y, b1, W2, b2, seeds, labels, weights, rate, e),
-                "K8": lambda e: ght.grid_head_train_loss_bwd(
-                    X, Y, b1, W2, b2, seeds, labels, weights, gl, rate, e)}
-            if density == dens[0]:
-                calls["K5"] = lambda e: ght.grid_head_train_fwd(
-                    X, Y, b1, W2, b2, seeds, rate, e)
-                cot.normal_(generator=gen)      # every cell: K6 as before
-            for name in sorted(calls):
-                for exact in (True, False):
-                    case = (f"{name} {'f32' if exact else 'onepass'} {tag} "
-                            f"density {density}")
-                    out[case] = device_ms(
-                        lambda f=calls[name], e=exact: f(e))
+    calls = {"grid_head_train_fwd": ght.grid_head_train_fwd,
+             "grid_head_train_bwd": ght.grid_head_train_bwd,
+             "grid_head_train_loss_fwd": ght.grid_head_train_loss_fwd,
+             "grid_head_train_loss_bwd": ght.grid_head_train_loss_bwd}
+    out = []
+    for suffix, (_, inputs) in timed_cases(gen, dev,
+                                           trained_batches(seed)).items():
+        for name, args in inputs.items():
+            for exact in (True, False):
+                case = f"{name}{'' if exact else '_onepass'}{suffix}"
+                fn = (lambda f=calls[name], a=args, e=exact: f(*a, rate, e))
+                out.append((case, "call", device_ms(fn)))
+                out.extend((case, e.key, e.self_device_time_total / e.count
+                            / 1e3) for e in device_rows(fn, 20))
     return out
 
 
@@ -266,6 +322,22 @@ def outputs(seed: int = 0) -> dict:
                 out[f"K6 zero cotangent at weight 0{tag}"] = \
                     ght.grid_head_train_bwd(X, Y, b1, W2, seeds, cot, rate,
                                             mode[1])
+    # the recurrence past 256 units (the 16-block cluster), where the tree
+    # takes it
+    from icl_torch.ops.lstm_recurrence import MAX_H
+    for G, L, B, H in ((2, 32, 64, 300), (2, 8, 17, 512)):
+        if H > MAX_H:
+            continue
+        lengths = torch.randint(0, L + 1, (B,), generator=gen, device=dev)
+        t = torch.arange(L, device=dev)[:, None]
+        mask = torch.stack([t < lengths, (L - 1 - t) < lengths])[:G]
+        args = (rnd(G, L, B, 4 * H), mask.contiguous(),
+                rnd(G, H, 4 * H) / H ** 0.5)
+        out[f"recurrence {G} {L} {B} {H} residuals"] = lstm_recurrence_fwd(
+            *args, residuals=True)
+        out[f"recurrence bf16 {G} {L} {B} {H} residuals"] = \
+            lstm_recurrence_fwd(args[0].bfloat16(), args[1],
+                                args[2].bfloat16(), residuals=True)
     torch.cuda.synchronize()
     return {k: tuple(t.cpu() for t in v) for k, v in out.items()}
 
@@ -282,8 +354,9 @@ def main(argv=None) -> int:
               f"second file: {new}")
         return 1 if differ else 0
     if argv[:1] == ["--times"]:
-        for case, ms in times().items():
-            print(json.dumps({"tree": argv[1], "case": case, "device_ms": ms}))
+        for case, kernel, ms in times():
+            print(json.dumps({"tree": argv[1], "case": case,
+                              "kernel": kernel, "device_ms": ms}))
         return 0
     torch.save(outputs(), argv[0])
     return 0
