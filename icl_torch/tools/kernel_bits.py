@@ -91,14 +91,16 @@ def device_ms(fn, iters: int = 20) -> float:
     version, without the host's share.  A profiler window now and then
     loses records of a kernel, or catches one of the call before; so a
     kernel's time per call is its mean recorded time times its launches
-    per call (the recorded count over iters, rounded), kernels seen in
-    fewer than half the calls are left out, and a window that kept none
-    is taken again."""
+    per call (the recorded count over iters, rounded, and at least one:
+    a window that kept half the records of a kernel launched once a call
+    rounds 0.5 down), kernels seen in fewer than half the calls are left
+    out, and a window that kept none is taken again."""
     for _ in range(3):
         rows = [e for e in device_rows(fn, iters) if 2 * e.count >= iters]
-        if rows:
-            return sum(e.self_device_time_total / e.count
-                       * round(e.count / iters) for e in rows) / 1e3
+        ms = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / iters)) for e in rows) / 1e3
+        if ms > 0:
+            return ms
     raise RuntimeError("the profiler recorded no kernel in three windows")
 
 
