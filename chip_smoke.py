@@ -264,6 +264,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -380,6 +381,13 @@ BF16_KERNELS = {       # name -> the launch count of a kernel's bf16 mode
 ONEPASS_KERNELS = {    # the one-pass bf16 mode (exact=False) of K5-K8
     f"{name}_onepass": fn.onepass for name, fn in TRAIN_KERNELS.items()}
 BF16_REC_ULPS = 4      # bf16 recurrence vs its plain version, bf16 units
+BF16_REC_TIMED = {     # timed bf16 recurrence case -> f32 one, same shape
+    "lstm_recurrence_bf16": "lstm_recurrence",
+    "lstm_recurrence_bf16 with residuals": "lstm_recurrence with residuals",
+    "lstm_recurrence_bf16 G=1": "lstm_recurrence G=1",
+    "lstm_recurrence_bf16 H=300": "lstm_recurrence H=300",
+    "lstm_recurrence_bf16 H=512": "lstm_recurrence H=512",
+}
 BF16_DRIFT = 0.05      # bf16 vs f32 probabilities of one checkpoint
 BF16_LOSS_CURVE = 0.02  # bf16 vs f32 dev loss at each eval, relative
 DEFAULT_LOSS_CURVE = 0.02  # --matmul_precision default vs highest, the same
@@ -451,11 +459,24 @@ def main() -> int:
                 if m:
                     entry = m.group(1)
                 if "registers" in line or "spill" in line:
-                    print(f"  {line.strip()}")
+                    print(f"  {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line):
                     spilled.append(f"{name} {entry}")
     if spilled:
         raise RuntimeError(f"ptxas reports register spills in {spilled}")
+    # the bf16 recurrence's h . R on the tensor cores: HMMA in each of its
+    # instantiations (both cluster sizes, one and two blocks an SM), none in
+    # the f32 ones
+    mma = _recurrence_mma(built[SOURCES.index("lstm_recurrence")][0])
+    for (dtype, nc, resident, blocks), n in sorted(mma.items()):
+        print(f"sass lstm_cluster_kernel<{dtype}, {nc} blocks, R "
+              f"{'on chip' if resident else 'from memory'}, {blocks} an "
+              f"SM>: {n} HMMA")
+    bf16_mma = sorted(k[1:] for k, n in mma.items() if k[0] == "bf16" and n)
+    if (bf16_mma != [(8, True, 1), (8, True, 2), (16, True, 1),
+                     (16, True, 2)]
+            or any(n for k, n in mma.items() if k[0] == "f32")):
+        raise RuntimeError(f"the recurrence's HMMA per instantiation: {mma}")
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -959,6 +980,21 @@ def main() -> int:
     # the same inputs
     for suffix in train_timed:
         add_train_cases(suffix, exact=False)
+    # the recurrence past 256 units in both modes: H = 300 (R on chip in
+    # both) and 512 (f32 reads R from device memory, bf16 keeps it on chip)
+    widest_rec = rec_inputs(32, 64, H=512)
+    add_case("lstm_recurrence H=512", "lstm_recurrence",
+             lambda: lstm_recurrence(*widest_rec),
+             lambda: lstm_recurrence_reference(*widest_rec), widest_rec,
+             "G=2 L=32 B=64 H=512, the 16-block cluster",
+             rec_ops(widest_rec))
+    for H, f32_args in ((300, wide_rec), (512, widest_rec)):
+        a = (f32_args[0].bfloat16(), f32_args[1], f32_args[2].bfloat16())
+        add_case(f"lstm_recurrence_bf16 H={H}", "lstm_recurrence_bf16",
+                 (lambda a=a: lstm_recurrence_fwd(*a)),
+                 (lambda a=a: lstm_recurrence_reference(*a)), a,
+                 f"G=2 L=32 B=64 H={H}, the 16-block cluster", rec_ops(a),
+                 "icl/ops/lstm_kernel.py:282")
     timing = {}
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
@@ -1108,6 +1144,12 @@ def main() -> int:
               f"{t['device_ms'] / t['bound_ms']:.1f} x the bound, share "
               f"{t['bound_ms'] / t['device_ms']:.3f}; one PyTorch call: none "
               f"({NO_LIBRARY_CALL[t['kernel']]}) ({card})")
+    for bf, f32 in BF16_REC_TIMED.items():
+        t, f = timing[bf], timing[f32]
+        print(f"time bf16 recurrence [{t['shape']}]: device "
+              f"{t['device_ms']:.4f} ms, the f32 mode {f['device_ms']:.4f} "
+              f"ms at that shape ({f32}), bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']} ({card})")
     print(f"probe empty kernel: device {probes['empty_ms']:.4f} ms a launch, "
           f"the floor under the served shapes' bounds ({card})")
     for name in ("R", "A"):
@@ -1176,6 +1218,34 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _recurrence_mma(lib) -> dict:
+    """{(dtype, blocks a cluster, R on chip, blocks an SM): HMMA
+    instructions} of each lstm_cluster_kernel instantiation in the built
+    library's SASS (cuobjdump beside nvcc)."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for line in sass.splitlines():
+        # the mangled name, or the demangled one
+        m = (re.search(r"Function : \S*lstm_cluster_kernelI(13__nv_bfloat16"
+                       r"|f)Li(\d+)ELb([01])ELi(\d)E", line)
+             or re.search(r"Function : .*lstm_cluster_kernel<(__nv_bfloat16|"
+                          r"float), (\d+), (true|false), (\d+)>", line))
+        if m:
+            key = ("f32" if m.group(1) in ("f", "float") else "bf16",
+                   int(m.group(2)), m.group(3) in ("1", "true"),
+                   int(m.group(4)))
+            out[key] = 0
+        elif "Function :" in line:
+            key = None
+        elif key is not None and "HMMA" in line:
+            out[key] += 1
+    if not out:
+        raise RuntimeError(f"no lstm_cluster_kernel in the SASS of {lib}")
+    return out
 
 
 def _tuple(x):
@@ -2038,11 +2108,15 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
         if got[~valid[:, None, :].expand_as(got)].any():
             failures.append(f"{what}: an invalid box not 0")
     # the bf16 recurrence: the relation batch (both directions, B = 64 and
-    # 320), the phrase LSTM (G = 1, B = 1024), odd widths; hs and h_final,
-    # and with the residuals (which must not change hs)
+    # 320), the phrase LSTM (G = 1, B = 1024), odd widths, one k-step (H =
+    # 16), both sides of 368 (where the f32 mode's 16-block layout stops
+    # holding R on chip) and 512, one row, one step; hs and h_final, and
+    # with the residuals (which must not change hs)
     for G, L, B, H in ((2, 32, 64, 200), (2, 32, 320, 200),
                        (1, 16, 1024, 200), (2, 16, 61, 63), (1, 8, 9, 255),
-                       (2, 16, 61, 300), (1, 8, 9, 511)):
+                       (2, 16, 61, 300), (1, 8, 9, 511), (2, 8, 9, 16),
+                       (2, 16, 17, 368), (2, 16, 17, 369), (2, 16, 61, 512),
+                       (2, 8, 1, 200), (2, 1, 64, 200)):
         args = rec(G, L, B, H)
         what = f"lstm_recurrence bf16 G={G} L={L} B={B} H={H}"
         got = twice(what, lambda *a: lstm_recurrence_fwd(*a, residuals=True),

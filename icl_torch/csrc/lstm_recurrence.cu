@@ -1,4 +1,4 @@
-// Masked Keras LSTM recurrence, forward, f32, for Hopper (sm_90a).
+// Masked Keras LSTM recurrence, forward, f32 and bf16, for Hopper (sm_90a).
 //
 // For each group g (a direction of a BiLSTM; direction 1 arrives already
 // time-reversed) and row b, over t = 0 .. L-1:
@@ -86,15 +86,16 @@
 // at 512), and phase A reads R from device memory instead, four coalesced
 // loads a k (the unit's i, f, c~, o weights), every step, from L2: a step
 // takes several times as long as with R on chip.  Everything else, the
-// order of every sum included, is the narrow kernel's.
+// order of every sum included, is the narrow kernel's.  That is the f32
+// mode's layout alone: the bf16 mode's R, half the bytes, stays on chip
+// at 512.
 //
 // The bf16 mode (icl_lstm_recurrence_bf16): x_proj, R, hs, h_final and the
 // residuals are __nv_bfloat16 in device memory, half the bytes; the
 // semantics are the reference's lax.scan at compute_dtype=bf16
 // (icl/models/rnn.py lstm_recurrence, whose TPU kernel is the bf16 mode of
-// _stream_kernel in icl/ops/lstm_kernel.py).  Inside, the kernel is the f32
-// one: R and h stay f32 in shared memory and registers, holding values
-// that bf16 represents exactly, so h . R is exact products summed in f32.
+// _stream_kernel in icl/ops/lstm_kernel.py: jnp.dot(h, R,
+// preferred_element_type=f32) on the MXU, bf16 products summed in f32).
 // The kernel rounds to bf16 where the plain version (eager PyTorch ops on
 // bf16 tensors, lstm_recurrence_reference) rounds, each op computed in f32
 // and rounded once:
@@ -103,13 +104,38 @@
 //   i, f, o = bf16(sigmoid(z)), c~ = bf16(tanh(z))
 //   c = bf16(bf16(f * c_prev) + bf16(i * c~))
 //   h = bf16(o * bf16(tanh(c)))
-// and the masked carry copies values.  Products of two bf16 values are
-// exact in f32.  The gates here are expf with an IEEE divide and tanhf,
-// the functions PyTorch's own bf16 sigmoid and tanh evaluate in f32: an
-// approximate gate would move a value across a bf16 rounding boundary now
-// and then.  What stays apart from the plain version is the order of the
-// h . R sum, which moves a rounded d by one bf16 unit where the sum lies
-// near a boundary, and that unit travels down the steps.
+// and the masked carry copies values.  The gates here are expf with an
+// IEEE divide and tanhf, the functions PyTorch's own bf16 sigmoid and tanh
+// evaluate in f32: an approximate gate would move a value across a bf16
+// rounding boundary now and then.
+//
+// Its phase A runs on the tensor cores: mma.sync m16n8k16 bf16 with f32
+// sums, the MXU's operation.  "Swap A and B": M = the block's 4 Hc
+// unit-gate columns (row m = unit m / 4, gate m % 4, so phase B reads a
+// unit's four sums as one float4), N = the tile's 8 rows, K = H padded to
+// 16.  R[g]'s slice is loaded once, as bf16, in the A fragments' register
+// order ([m-tile][k-step][lane] x 8 values, one 16-byte load a lane and
+// k-step, no bank conflict): 46 KB a block at H = 200, 128 KB at 512, so R
+// stays on chip at every width and the from-memory layout serves f32
+// alone.  Warp s of a half owns m-tile s (4 Hc <= 128: at most 8 tiles)
+// and walks all of K, so its sums are whole and go to one [T][M] tile
+// with no cross-warp sum.  h keeps the f32 hand-over; a lane reads its B
+// values from the f32 buffer (bf16 values, so the conversion is exact),
+// the k's of a lane's four slots taken as tig + {0, 4, 8, 12} of the chunk
+// so that each load is one bank a lane.  The order of the sum: each chunk
+// of 16 k's is one mma from a zero accumulator, and the chunks are added
+// in f32 in k order (the mma's own sum of 16 products is not an IEEE
+// sequence of additions; the chunked order keeps its effect inside one
+// chunk, and the chunks' mma's do not wait on each other).  Units beyond
+// H, rows beyond 4 Hc and k beyond H hold +0 in R and are read as +0 from
+// h (stale shared memory could hold a NaN, and NaN . 0 is NaN).  What stays
+// apart from the plain version is the order of the h . R sum, which moves
+// a rounded d by one bf16 unit where the sum lies near a boundary, and
+// that unit travels down the steps.  Where two blocks' shared memory fits
+// an SM (H = 200: 78 KB a block) the launch takes an instantiation capped
+// at 64 registers a thread, so two blocks of 512 threads share an SM and a
+// large batch needs half the waves; a build with
+// -DICL_LSTM_BF16_ONE_BLOCK keeps one (lstm_phase_clocks.py times both).
 //
 // Compiled with -DICL_LSTM_CLOCKS the kernel also adds up, for thread 0 of
 // block (0, 0), the cycles of each phase of a step (icl_torch/tools/
@@ -185,6 +211,54 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *reinterpret_cast<unsigned short*>(p) = bf16_bits(v);
 }
 
+// two f32 values that bf16 represents exactly, as one bf16x2 register: lo
+// in the low half, as an mma fragment holds the lower k
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d = A . B from a zero accumulator: one 16 x 8 x 16 bf16 product, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// The bf16 mode's tiles: m-tiles of 16 unit-gate columns (a block's 4 Hc),
+// k-steps of 16, and a row of the [T][M] tile of sums, padded by 4 floats
+// so that the fragments' stores hit 32 banks
+__host__ __device__ __forceinline__ int m_tiles(int Hc) {
+  return (4 * Hc + 15) / 16;
+}
+__host__ __device__ __forceinline__ int k_steps(int H) {
+  return (H + 15) / 16;
+}
+__host__ __device__ __forceinline__ int d_row(int Hc) {
+  return 16 * m_tiles(Hc) + 4;
+}
+
+// 16-byte vectors of R on chip a block: f32 [H][Hc] x (i, f, c~, o) when
+// resident; bf16 the mma A fragments [m-tile][k-step][lane] x 8 values
+__host__ __device__ __forceinline__ size_t r_vectors(bool bf16,
+                                                     bool resident, int H,
+                                                     int Hc) {
+  if (bf16) return (size_t)m_tiles(Hc) * k_steps(H) * 32;
+  return resident ? (size_t)H * Hc : 0;
+}
+
+// floats of a half's sums of h . R: f32 the kSplit warps' partial tiles
+// [kSplit][T][Hc] x 4; bf16 one [T][d_row] tile
+__host__ __device__ __forceinline__ size_t part_floats(bool bf16, int Hc) {
+  return bf16 ? (size_t)kTile * d_row(Hc)
+              : (size_t)4 * kSplit * kTile * Hc;
+}
+
 // barrier of one half block (ids 1 and 2; 0 is __syncthreads)
 __device__ __forceinline__ void half_sync(int half) {
   asm volatile("bar.sync %0, %1;" :: "r"(1 + half), "n"(kHalf) : "memory");
@@ -236,17 +310,20 @@ __device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
 }
 
 // E: the element type of device memory, float or __nv_bfloat16 (the bf16
-// mode); everything on chip is f32.  NC: blocks a cluster, kCluster or
-// kWideCluster.  kResident: R in shared memory, else read from device
-// memory every step.
-template <typename E, int NC, bool kResident>
-__global__ void __launch_bounds__(2 * kHalf)
+// mode); on chip everything is f32 but the bf16 mode's R.  NC: blocks a
+// cluster, kCluster or kWideCluster.  kResident: R in shared memory, else
+// read from device memory every step (f32 only).  kMinBlocks: blocks an SM
+// the registers are capped for (2: 64 a thread; the bf16 mode only).
+template <typename E, int NC, bool kResident, int kMinBlocks>
+__global__ void __launch_bounds__(2 * kHalf, kMinBlocks)
 lstm_cluster_kernel(const E* __restrict__ xp,
                     const uint8_t* __restrict__ mask,
                     const E* __restrict__ R, E* __restrict__ hs,
                     E* __restrict__ h_final, E* __restrict__ gates,
                     E* __restrict__ cs, int L, int B, int H) {
   constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
+  static_assert(kResident || !kBf16, "the bf16 mode keeps R on chip");
+  static_assert(kMinBlocks == 1 || kBf16, "f32 runs one block an SM");
   // the push's 16-byte vectors a thread sends: 2 (NC = 8) or 4 (NC = 16)
   constexpr int kPush = ((NC - 1) * 64 + kHalf - 1) / kHalf;
   constexpr int T = kTile;
@@ -256,10 +333,15 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   const int half = threadIdx.x / kHalf;
   const int ht = threadIdx.x - half * kHalf;
   float4* Rs = smem4;                                   // [H][Hc] x (i,f,c~,o)
-  float* h0 = reinterpret_cast<float*>(Rs + (kResident ? (size_t)H * Hc : 0));
+  float* h0 = reinterpret_cast<float*>(
+      Rs + r_vectors(kBf16, kResident, H, Hc));
   float* hbuf = h0 + half * 2 * H * T;                  // [2][H][T], this half's
-  float4* part = reinterpret_cast<float4*>(h0 + 4 * H * T)
-                 + half * kSplit * T * Hc;              // [kSplit][T][Hc]
+  float* sums = h0 + 4 * H * T + half * part_floats(kBf16, Hc);
+  float4* part = reinterpret_cast<float4*>(sums);       // f32: [kSplit][T][Hc]
+  // bf16: the A fragments of R (r_vectors) and the [T][Ms] tile of sums
+  const uint4* Rf = reinterpret_cast<const uint4*>(smem4);
+  const int nks = k_steps(H);
+  const int Ms = d_row(Hc);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -276,16 +358,45 @@ lstm_cluster_kernel(const E* __restrict__ xp,
 
   // once: this block's columns of R[g], h = 0, and the barriers
   const E* Rg = R + (size_t)g * H * H4;
-  for (int i = threadIdx.x; kResident && i < H * Hc; i += blockDim.x) {
-    const int k = i / Hc;
-    const int uu = rank * Hc + (i - k * Hc);
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (uu < H) {
-      const E* p = Rg + (size_t)k * H4 + uu;
-      w = make_float4(load_f32(p), load_f32(p + H), load_f32(p + 2 * H),
-                      load_f32(p + 3 * H));
+  if constexpr (kBf16) {
+    // A fragment of m-tile mt, k-step ks, lane: register j holds row
+    // gid + 8 (j & 1) and, low half then high, the k's tig + 8 (j >> 1)
+    // and that + 4 of the chunk (phase A reads h at the same k's); zero
+    // outside the block's units and beyond H
+    const unsigned short* Rb = reinterpret_cast<const unsigned short*>(Rg);
+    const int nv = (int)r_vectors(true, true, H, Hc);
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      const int lane = i & 31;
+      const int ks = (i >> 5) % nks;
+      const int mt = (i >> 5) / nks;
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = mt * 16 + (lane >> 2) + (j & 1) * 8;
+        const int uu = rank * Hc + (m >> 2);
+        const int k = ks * 16 + (lane & 3) + (j >> 1) * 8;
+        uint32_t lo = 0u, hi = 0u;
+        if ((m >> 2) < Hc && uu < H) {
+          const unsigned short* p = Rb + (size_t)(m & 3) * H + uu;
+          if (k < H) lo = __ldg(p + (size_t)k * H4);
+          if (k + 4 < H) hi = __ldg(p + (size_t)(k + 4) * H4);
+        }
+        w[j] = lo | (hi << 16);
+      }
+      reinterpret_cast<uint4*>(smem4)[i] = make_uint4(w[0], w[1], w[2], w[3]);
     }
-    Rs[i] = w;
+  } else {
+    for (int i = threadIdx.x; kResident && i < H * Hc; i += blockDim.x) {
+      const int k = i / Hc;
+      const int uu = rank * Hc + (i - k * Hc);
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (uu < H) {
+        const E* p = Rg + (size_t)k * H4 + uu;
+        w = make_float4(load_f32(p), load_f32(p + H), load_f32(p + 2 * H),
+                        load_f32(p + 3 * H));
+      }
+      Rs[i] = w;
+    }
   }
   for (int i = ht; i < H * T; i += kHalf) hbuf[i] = 0.f;
   const uint32_t bars = smem_addr(full[half]);
@@ -353,8 +464,45 @@ lstm_cluster_kernel(const E* __restrict__ xp,
       if (ht == 0 && t + 2 < L) mbar_expect(bars + 8 * cur, h_bytes);
     }
     TICK(0)
-    // phase A: partial h . R over this warp's k, for the lane's unit
-    if (active) {
+    if constexpr (kBf16) {
+      // phase A on the tensor cores: warp s, m-tile s, all of K; chunk
+      // ks's 16 products from a zero accumulator, the chunks added in k
+      // order.  Lane (gid, tig) holds h[row gid] at the chunk's k's tig +
+      // {0, 4, 8, 12}: 32 lanes, 32 banks a load.  Only the last chunk
+      // reaches past H, and reads +0 there.
+      if (s < m_tiles(Hc)) {
+        const int gid = ul >> 2;
+        const int tig = ul & 3;
+        const float* hp = hbuf + cur * H * T + tig * T + gid;
+        const uint4* a = Rf + (size_t)s * nks * 32 + ul;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        auto chunk = [&](int ks, float v0, float v4, float v8, float v12) {
+          float d[4];
+          mma_bf16(d, a[ks * 32], bf16x2(v0, v4), bf16x2(v8, v12));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[q] += d[q];
+        };
+        const int whole = H / 16;
+#pragma unroll 4
+        for (int ks = 0; ks < whole; ++ks) {
+          const float* p = hp + ks * 16 * T;
+          chunk(ks, p[0], p[4 * T], p[8 * T], p[12 * T]);
+        }
+        if (whole < nks) {
+          const float* p = hp + whole * 16 * T;
+          const int k = whole * 16 + tig;
+          chunk(whole, k < H ? p[0] : 0.f, k + 4 < H ? p[4 * T] : 0.f,
+                k + 8 < H ? p[8 * T] : 0.f, k + 12 < H ? p[12 * T] : 0.f);
+        }
+        // d[m][n] -> sums[n][m]: rows gid and gid + 8, columns 2 tig, + 1
+        float* st = sums + 2 * tig * Ms + s * 16 + gid;
+        st[0] = acc[0];
+        st[Ms] = acc[1];
+        st[8] = acc[2];
+        st[Ms + 8] = acc[3];
+      }
+    } else if (active) {
+      // phase A: partial h . R over this warp's k, for the lane's unit
       float acc[T][4];
 #pragma unroll
       for (int r = 0; r < T; ++r)
@@ -410,13 +558,17 @@ lstm_cluster_kernel(const E* __restrict__ xp,
     float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f;
     if (active) {
       float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kBf16) {
+        d = *reinterpret_cast<const float4*>(sums + s * Ms + 4 * ul);
+      } else {
 #pragma unroll
-      for (int p = 0; p < kSplit; ++p) {
-        const float4 v = part[(p * T + s) * Hc + ul];
-        d.x += v.x;
-        d.y += v.y;
-        d.z += v.z;
-        d.w += v.w;
+        for (int p = 0; p < kSplit; ++p) {
+          const float4 v = part[(p * T + s) * Hc + ul];
+          d.x += v.x;
+          d.y += v.y;
+          d.z += v.z;
+          d.w += v.w;
+        }
       }
       if constexpr (kBf16) {   // the rounding points of the header's note
         ig = bf16r(sigmoid_ieee(bf16r(zx[0] + bf16r(d.x))));
@@ -476,21 +628,20 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   if (stores) store(h_final + ((size_t)g * B + b) * H + u, h);
 }
 
-size_t smem_bytes(int H, int NC, bool resident) {
+size_t smem_bytes(bool bf16, int H, int NC, bool resident) {
   const int Hc = (H + NC - 1) / NC;
-  // the slice of R when resident; per half two h buffers and the warps'
-  // partial tiles
-  return ((resident ? (size_t)4 * H * Hc : 0)
-          + 2 * (2 * (size_t)H * kTile + (size_t)4 * kSplit * kTile * Hc))
-         * sizeof(float);
+  // the slice of R when resident; per half two h buffers and the sums
+  return r_vectors(bf16, resident, H, Hc) * 16
+         + 2 * (2 * (size_t)H * kTile + part_floats(bf16, Hc)) * sizeof(float);
 }
 
-template <typename E, int NC, bool kResident>
+template <typename E, int NC, bool kResident, int kMinBlocks = 1>
 int launch_nc(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
               E* h_final, E* gates, E* cs, int G, int L, int B, int H,
               void* stream) {
-  const auto kernel = lstm_cluster_kernel<E, NC, kResident>;
-  const size_t smem = smem_bytes(H, NC, kResident);
+  const auto kernel = lstm_cluster_kernel<E, NC, kResident, kMinBlocks>;
+  const size_t smem = smem_bytes(std::is_same<E, __nv_bfloat16>::value, H,
+                                 NC, kResident);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && NC > kCluster)
@@ -523,20 +674,47 @@ int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H <= kMaxNarrowH)
-    return launch_nc<E, kCluster, true>(x_proj, mask, R, hs, h_final, gates,
-                                        cs, G, L, B, H, stream);
-  // the wide cluster keeps R on chip while it fits beside the kernel's
-  // static shared memory (the barriers) and a margin
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return (int)err;
-  if (smem_bytes(H, kWideCluster, true) + 1024 <= (size_t)optin)
-    return launch_nc<E, kWideCluster, true>(x_proj, mask, R, hs, h_final,
-                                            gates, cs, G, L, B, H, stream);
-  return launch_nc<E, kWideCluster, false>(x_proj, mask, R, hs, h_final,
-                                           gates, cs, G, L, B, H, stream);
+  if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+    // R on chip at every width; two blocks an SM where their shared
+    // memory fits, with the 1 KB the card reserves a block and the barriers
+    int per_sm = 0;
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    if (err != cudaSuccess) return (int)err;
+    const int NC = H <= kMaxNarrowH ? kCluster : kWideCluster;
+    bool two = 2 * (smem_bytes(true, H, NC, true) + 2048) <= (size_t)per_sm;
+#ifdef ICL_LSTM_BF16_ONE_BLOCK
+    two = false;
+#endif
+    if (NC == kCluster)
+      return two ? launch_nc<E, kCluster, true, 2>(x_proj, mask, R, hs,
+                                                   h_final, gates, cs, G, L,
+                                                   B, H, stream)
+                 : launch_nc<E, kCluster, true, 1>(x_proj, mask, R, hs,
+                                                   h_final, gates, cs, G, L,
+                                                   B, H, stream);
+    return two ? launch_nc<E, kWideCluster, true, 2>(x_proj, mask, R, hs,
+                                                     h_final, gates, cs, G,
+                                                     L, B, H, stream)
+               : launch_nc<E, kWideCluster, true, 1>(x_proj, mask, R, hs,
+                                                     h_final, gates, cs, G,
+                                                     L, B, H, stream);
+  } else {
+    if (H <= kMaxNarrowH)
+      return launch_nc<E, kCluster, true>(x_proj, mask, R, hs, h_final, gates,
+                                          cs, G, L, B, H, stream);
+    // the wide cluster keeps R on chip while it fits beside the kernel's
+    // static shared memory (the barriers) and a margin
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    if (smem_bytes(false, H, kWideCluster, true) + 1024 <= (size_t)optin)
+      return launch_nc<E, kWideCluster, true>(x_proj, mask, R, hs, h_final,
+                                              gates, cs, G, L, B, H, stream);
+    return launch_nc<E, kWideCluster, false>(x_proj, mask, R, hs, h_final,
+                                             gates, cs, G, L, B, H, stream);
+  }
 }
 
 }  // namespace

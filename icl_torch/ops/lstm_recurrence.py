@@ -21,8 +21,9 @@ Layout, direction-major as the Pallas kernels had it::
   launches the hand-written kernel ``icl_torch/csrc/lstm_recurrence.cu``
   (all L steps in one launch, R resident in the shared memory of a
   thread-block cluster: 8 blocks up to H = 256, 16 up to 368; above, up to
-  ``MAX_H`` = 512, the 16 blocks read R from device memory every step) for
-  CUDA tensors and runs the plain version for CPU tensors.  When a gradient is needed, the forward also keeps the
+  ``MAX_H`` = 512, the 16 blocks read R from device memory every step in
+  f32, while the bf16 mode keeps R on chip at every width) for CUDA
+  tensors and runs the plain version for CPU tensors.  When a gradient is needed, the forward also keeps the
   reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
   post-activation gates (not masked), c after the mask, and hs.  The
   backward is a plain reverse loop mirroring ``_lstm_recurrence_bwd_impl``
@@ -35,8 +36,10 @@ reference's lax.scan in bf16).  In bf16 x_proj, R, hs, h_final and the
 residuals are bf16; the plain version runs its eager ops on bf16 tensors,
 each computed in f32 and rounded once, and the kernel's bf16 entry point
 ``icl_lstm_recurrence_bf16`` rounds at the same points (the note in the
-source); its launches count in ``lstm_recurrence.bf16.launches``.  The
-backward runs in the residuals' dtype, as the reference's does.
+source), with h . R on the tensor cores (``mma.sync`` bf16, each chunk of
+16 products summed in f32, the chunks added in order); its launches count
+in ``lstm_recurrence.bf16.launches``.  The backward runs in the
+residuals' dtype, as the reference's does.
 """
 
 from __future__ import annotations

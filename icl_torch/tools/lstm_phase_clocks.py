@@ -12,14 +12,23 @@ time per call (CUDA events over back-to-back launches) of the plain build
 and the instrumented build's cycles per step and phase, with the card's
 name and power limit.
 
+With ``--bf16`` it does the same for the bf16 mode (``--compute_dtype
+bf16``; phase A is then its tensor-core product), holds it to the plain
+version within ``BF16_REC_ULPS`` bf16 units of max |plain|, and also times a
+build with ``-DICL_LSTM_BF16_ONE_BLOCK``, which keeps one block an SM where
+the plain build runs two, beside the plain build (their bits must agree).
+Run with ``PYTHONPATH`` at another tree (the script file by its path, as
+``kernel_bits.py``), it measures that tree's kernel on the same inputs.
+
 Usage, on a machine with an NVIDIA GPU of compute capability 9.0::
 
-    python -m icl_torch.tools.lstm_phase_clocks [G,L,B,H ...]
+    python -m icl_torch.tools.lstm_phase_clocks [--bf16] [G,L,B,H ...]
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import subprocess
 import sys
 
@@ -29,10 +38,25 @@ from icl_torch.ops import _build
 from icl_torch.ops.lstm_recurrence import (_ARGTYPES, lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
 
-PHASES = ("loads, stores, wait", "A fma", "barrier", "B gates",
+PHASES = ("loads, stores, wait", "A h.R", "barrier", "B gates",
           "barrier 2", "push")
 SHAPES = ((2, 32, 8, 200), (2, 32, 64, 200), (2, 32, 320, 200),
           (2, 32, 512, 200), (1, 16, 1024, 200), (2, 8, 40, 256))
+BF16_SHAPES = ((2, 32, 64, 200), (2, 32, 320, 200), (2, 32, 512, 200),
+               (1, 16, 1024, 200), (2, 32, 64, 300), (2, 32, 64, 512))
+BF16_REC_ULPS = 4   # chip_smoke.py's gate of the bf16 mode, bf16 units
+
+
+def bf16_units(got, want) -> float:
+    """max |got - want| over the tensors, each in bf16 units of its max
+    |want| (a unit: 2 ** (floor(log2 max) - 7))."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        w = w.float()
+        top = max(w.abs().max().item(), 1e-30)
+        unit = 2.0 ** (math.floor(math.log2(top)) - 7)
+        worst = max(worst, (g.float() - w).abs().max().item() / unit)
+    return worst
 
 
 def inputs(G, L, B, H, gen, dev):
@@ -59,45 +83,72 @@ def event_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def library(flag: str, entry: str) -> ctypes.CDLL:
+    """The recurrence source built with ``flag``, ``entry`` bound."""
+    path, _ = _build.build("lstm_recurrence", (flag,))
+    lib = ctypes.CDLL(str(path))
+    getattr(lib, entry).argtypes = _ARGTYPES
+    return lib
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("lstm_phase_clocks: no CUDA device", file=sys.stderr)
         return 2
-    shapes = [tuple(int(v) for v in a.split(",")) for a in argv] or SHAPES
+    bf16 = argv[:1] == ["--bf16"]
+    argv = argv[1:] if bf16 else argv
+    shapes = [tuple(int(v) for v in a.split(",")) for a in argv] or (
+        BF16_SHAPES if bf16 else SHAPES)
+    entry = "icl_lstm_recurrence_bf16" if bf16 else "icl_lstm_recurrence_f32"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    path, _ = _build.build("lstm_recurrence", ("-DICL_LSTM_CLOCKS",))
-    lib = ctypes.CDLL(str(path))
-    lib.icl_lstm_recurrence_f32.argtypes = _ARGTYPES
+    lib = library("-DICL_LSTM_CLOCKS", entry)
     lib.icl_lstm_recurrence_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    one = library("-DICL_LSTM_BF16_ONE_BLOCK", entry) if bf16 else None
     clocks = (ctypes.c_longlong * 8)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bad = 0
     for G, L, B, H in shapes:
         x, m, R = inputs(G, L, B, H, gen, dev)
+        if bf16:
+            x, R = x.bfloat16(), R.bfloat16()
         want = lstm_recurrence_reference(x, m, R, True)
         got = lstm_recurrence_fwd(x, m, R, residuals=True)
         outs = [torch.empty_like(t) for t in want]
+        outs1 = [torch.empty_like(t) for t in want]
 
-        def probe():
-            err = lib.icl_lstm_recurrence_f32(
+        def call(lib, outs, what):
+            err = getattr(lib, entry)(
                 x.data_ptr(), m.data_ptr(), R.data_ptr(), outs[0].data_ptr(),
                 outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
                 G, L, B, H, dev.index or 0, stream)
-            _build.check(err, "lstm_recurrence (clocks build)")
+            _build.check(err, f"lstm_recurrence ({what} build)")
+
+        def probe():
+            call(lib, outs, "clocks")
 
         probe()
+        if bf16:
+            call(one, outs1, "one block an SM")
         torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        same = all(torch.equal(a, b) for a, b in zip(got, outs))
-        bad += not (err <= 1e-5 and same)
+        if bf16:
+            err = bf16_units(got, want)
+            same = all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got, outs, outs1))
+            bad += not (err <= BF16_REC_ULPS and same)
+        else:
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, outs))
+            bad += not (err <= 1e-5 and same)
         ms = event_ms(lambda: lstm_recurrence_fwd(x, m, R))
         ms_res = event_ms(lambda: lstm_recurrence_fwd(x, m, R, residuals=True))
         ms_probe = event_ms(probe)
+        ms_one = (event_ms(lambda: call(one, outs1, "one block an SM"))
+                  if bf16 else None)
         lib.icl_lstm_recurrence_clocks(clocks, 1)
         iters = 20
         for _ in range(iters):
@@ -105,10 +156,16 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         lib.icl_lstm_recurrence_clocks(clocks, 1)
         per = [clocks[i] / iters / L for i in range(len(PHASES))]
-        print(f"G={G} L={L} B={B} H={H}: max|kernel - plain| {err:.2e}, "
-              f"clocks build bitwise equal {same}; {ms:.4f} ms a call, "
+        print(f"{'bf16' if bf16 else 'f32'} G={G} L={L} B={B} H={H}: "
+              + (f"max|kernel - plain| {err:.2f} bf16 units of max|plain| "
+                 f"(gate {BF16_REC_ULPS}), clocks and one-block builds "
+                 if bf16 else f"max|kernel - plain| {err:.2e}, clocks build ")
+              + f"bitwise equal {same}; {ms:.4f} ms a call, "
               f"{ms_res:.4f} ms with residuals ({ms_probe:.4f} ms in the "
-              f"clocks build); cycles a step "
+              f"clocks build"
+              + (f", {ms_one:.4f} ms with residuals in the one-block build"
+                 if bf16 else "")
+              + "); cycles a step "
               f"{sum(per):.0f}: "
               + ", ".join(f"{n} {c:.0f}" for n, c in zip(PHASES, per))
               + f" ({card})")

@@ -15,6 +15,10 @@ interpret mode, as tests/test_torch_grid_head.py runs them.  The gates:
   the two cannot agree bit for bit, and a unit's difference in a rounded
   value travels down the steps (measured: up to 2.5 units forward at
   L = 32, 3.8 backward).
+* the bf16 recurrence kernel's order of the h . R sum (chunks of 16 k's,
+  one f32 sum each, the chunks added in k order: its tensor-core phase A),
+  emulated in a copy of the plain step: 4 bf16 units of max |plain|, the
+  card's gate (chip_smoke.py BF16_REC_ULPS).
 * whole models and one train step: the port's distance to the JAX bf16
   result is at most twice the JAX package's own bf16-vs-f32 distance on the
   same batch, plus the f32 gate (probabilities, the loss) or one bf16 unit
@@ -213,6 +217,73 @@ def test_bf16_backward_casts_f32_cotangents():
                              *(torch.from_numpy(a).bfloat16() for a in cot))
     assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
                for a, b in zip(f32, bf))
+
+
+def _chunked_product(h, R):
+    """bf16(h . R) in the order of the recurrence kernel's tensor-core
+    phase A: each chunk of 16 k's one f32 sum of exact products (one mma
+    from a zero accumulator), the chunks added in f32 in k order, the sum
+    rounded to bf16 once."""
+    acc = torch.zeros(h.shape[0], h.shape[1], R.shape[2])
+    for k in range(0, R.shape[1], 16):
+        acc = acc + torch.bmm(h[..., k:k + 16].float(),
+                              R[:, k:k + 16].float())
+    return acc.bfloat16()
+
+
+def _recurrence_in_chunk_order(x_proj, mask, R):
+    """lstm_recurrence_reference(..., residuals=True) in bf16 with its
+    product in the kernel's order (:func:`_chunked_product`); every other
+    op the plain version's eager bf16 op."""
+    G, L, B, H4 = x_proj.shape
+    H = H4 // 4
+    h = x_proj.new_zeros((G, B, H))
+    c = x_proj.new_zeros((G, B, H))
+    hs, gates, cs = [], [], []
+    for t in range(L):
+        z = x_proj[:, t] + _chunked_product(h, R)
+        i = torch.sigmoid(z[..., :H])
+        f = torch.sigmoid(z[..., H:2 * H])
+        g = torch.tanh(z[..., 2 * H:3 * H])
+        o = torch.sigmoid(z[..., 3 * H:])
+        c_t = f * c + i * g
+        h_t = o * torch.tanh(c_t)
+        m = mask[:, t, :, None]
+        h = torch.where(m, h_t, h)
+        c = torch.where(m, c_t, c)
+        hs.append(h)
+        gates.append(torch.cat([i, f, g, o], dim=-1))
+        cs.append(c)
+    return (torch.stack(hs, 1), h, torch.stack(gates, 1),
+            torch.stack(cs, 1))
+
+
+@pytest.mark.parametrize("B,H", [(9, 63), (17, 200), (61, 300), (9, 511)])
+def test_the_kernels_chunked_sum_order_stays_within_the_bf16_gate(B, H):
+    """The bf16 recurrence kernel sums h . R in chunks of 16 products on
+    the tensor cores; that order alone, in a copy of the plain step, keeps
+    hs, h_final and the residuals within 4 bf16 units of max |plain| of the
+    plain version (the card's gate, BF16_REC_ULPS), at G = 2, L = 8, odd
+    widths and both cluster sizes' widths."""
+    from icl_torch.ops.lstm_recurrence import lstm_recurrence_reference
+
+    G, L = 2, 8
+    rng = np.random.default_rng(B * 1000 + H)
+    x = torch.from_numpy(rng.normal(size=(G, L, B, 4 * H)).astype(
+        np.float32)).bfloat16()
+    R = torch.from_numpy((rng.normal(size=(G, H, 4 * H)) / np.sqrt(H))
+                         .astype(np.float32)).bfloat16()
+    lengths = rng.integers(0, L + 1, size=B)
+    lengths[0], lengths[-1] = 0, L
+    t = np.arange(L)[:, None]
+    mask = torch.from_numpy(np.stack([t < lengths, (L - 1 - t) < lengths]))
+    got = _recurrence_in_chunk_order(x, mask, R)
+    want = lstm_recurrence_reference(x, mask, R, True)
+    for name, g, w in zip(("hs", "h_final", "gates", "c"), got, want,
+                          strict=True):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 4 * _ulp(_np(w)), (name, err / _ulp(_np(w)))
 
 
 # --- (d) whole models --------------------------------------------------------

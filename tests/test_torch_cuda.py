@@ -564,11 +564,13 @@ def test_affinity_rank_fast_dot_matches_plain(dev, G, moved):
 @pytest.mark.parametrize("G,L,B,H", [
     (2, 32, 64, 200), (2, 32, 320, 200), (1, 16, 1024, 200),
     (2, 16, 61, 63), (1, 8, 9, 255), (2, 3, 9, 1), (2, 16, 61, 300),
-    (1, 8, 9, 511)])
+    (1, 8, 9, 511), (2, 8, 9, 16), (2, 16, 17, 368), (2, 16, 17, 369),
+    (2, 16, 61, 512), (2, 8, 1, 200), (2, 1, 64, 200)])
 def test_bf16_recurrence_matches_plain(dev, G, L, B, H):
-    """The bf16 mode against the plain version's eager bf16 ops: within 4
-    bf16 units of max |plain| (the order of the h . R sum moves a rounded
-    value by a unit now and then); odd widths too."""
+    """The bf16 mode (h . R on the tensor cores) against the plain
+    version's eager bf16 ops: within 4 bf16 units of max |plain| (the order
+    of the h . R sum moves a rounded value by a unit now and then); odd
+    widths, one k-step, both sides of 368, 512, one row and one step."""
     x_proj, mask, R = _rec_inputs(G, L, B, H, dev)
     args = (x_proj.bfloat16(), mask, R.bfloat16())
     n0, n1 = lstm_recurrence.launches, lstm_recurrence.bf16.launches
