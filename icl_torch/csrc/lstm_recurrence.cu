@@ -132,10 +132,12 @@
 // apart from the plain version is the order of the h . R sum, which moves
 // a rounded d by one bf16 unit where the sum lies near a boundary, and
 // that unit travels down the steps.  Where two blocks' shared memory fits
-// an SM (H = 200: 78 KB a block) the launch takes an instantiation capped
-// at 64 registers a thread, so two blocks of 512 threads share an SM and a
-// large batch needs half the waves; a build with
-// -DICL_LSTM_BF16_ONE_BLOCK keeps one (lstm_phase_clocks.py times both).
+// an SM (H = 200: 78 KB a block) and the grid is larger than one wave of
+// one block an SM, or the cluster is 16 blocks, the launch takes an
+// instantiation capped at 64 registers a thread, so two blocks of 512
+// threads share an SM and a large batch needs half the waves; a build
+// with -DICL_LSTM_BF16_BLOCKS=1 or =2 takes one or two wherever two fit
+// (lstm_phase_clocks.py --bf16 times both beside the rule).
 //
 // Compiled with -DICL_LSTM_CLOCKS the kernel also adds up, for thread 0 of
 // block (0, 0), the cycles of each phase of a step (icl_torch/tools/
@@ -675,16 +677,28 @@ int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if constexpr (std::is_same<E, __nv_bfloat16>::value) {
-    // R on chip at every width; two blocks an SM where their shared
-    // memory fits, with the 1 KB the card reserves a block and the barriers
-    int per_sm = 0;
+    // R on chip at every width.  Two blocks an SM where their shared
+    // memory fits (with the 1 KB the card reserves a block, and the
+    // barriers), and the grid would take more than one wave of one block
+    // an SM or the cluster is 16 blocks (it then spans 8 SMs).  Else one:
+    // a block alone has the SM's shared memory, which phase A's fragment
+    // loads are bound by, and 128 registers.
+    int per_sm = 0, sms = 0;
     err = cudaDeviceGetAttribute(
         &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
     if (err != cudaSuccess) return (int)err;
     const int NC = H <= kMaxNarrowH ? kCluster : kWideCluster;
-    bool two = 2 * (smem_bytes(true, H, NC, true) + 2048) <= (size_t)per_sm;
-#ifdef ICL_LSTM_BF16_ONE_BLOCK
-    two = false;
+    const bool fits =
+        2 * (smem_bytes(true, H, NC, true) + 2048) <= (size_t)per_sm;
+    const long long blocks =
+        (long long)G * NC * (((B + kTile - 1) / kTile + 1) / 2);
+#ifdef ICL_LSTM_BF16_BLOCKS   // a measuring build: 1 or 2 wherever 2 fit
+    const bool two = fits && ICL_LSTM_BF16_BLOCKS == 2;
+#else
+    const bool two = fits && (NC == kWideCluster || blocks > sms);
 #endif
     if (NC == kCluster)
       return two ? launch_nc<E, kCluster, true, 2>(x_proj, mask, R, hs,

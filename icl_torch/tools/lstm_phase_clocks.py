@@ -14,9 +14,10 @@ name and power limit.
 
 With ``--bf16`` it does the same for the bf16 mode (``--compute_dtype
 bf16``; phase A is then its tensor-core product), holds it to the plain
-version within ``BF16_REC_ULPS`` bf16 units of max |plain|, and also times a
-build with ``-DICL_LSTM_BF16_ONE_BLOCK``, which keeps one block an SM where
-the plain build runs two, beside the plain build (their bits must agree).
+version within ``BF16_REC_ULPS`` bf16 units of max |plain|, and also times
+builds with ``-DICL_LSTM_BF16_BLOCKS=1`` and ``=2``, which run one or two
+blocks an SM wherever two fit, beside the plain build, which chooses by
+the grid (their bits must agree).
 Run with ``PYTHONPATH`` at another tree (the script file by its path, as
 ``kernel_bits.py``), it measures that tree's kernel on the same inputs.
 
@@ -108,7 +109,8 @@ def main(argv: list[str]) -> int:
         check=True).stdout.strip().splitlines()[0]
     lib = library("-DICL_LSTM_CLOCKS", entry)
     lib.icl_lstm_recurrence_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    one = library("-DICL_LSTM_BF16_ONE_BLOCK", entry) if bf16 else None
+    per_sm = {n: library(f"-DICL_LSTM_BF16_BLOCKS={n}", entry)
+              for n in ((1, 2) if bf16 else ())}
     clocks = (ctypes.c_longlong * 8)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bad = 0
@@ -119,7 +121,7 @@ def main(argv: list[str]) -> int:
         want = lstm_recurrence_reference(x, m, R, True)
         got = lstm_recurrence_fwd(x, m, R, residuals=True)
         outs = [torch.empty_like(t) for t in want]
-        outs1 = [torch.empty_like(t) for t in want]
+        forced = {n: [torch.empty_like(t) for t in want] for n in per_sm}
 
         def call(lib, outs, what):
             err = getattr(lib, entry)(
@@ -132,13 +134,13 @@ def main(argv: list[str]) -> int:
             call(lib, outs, "clocks")
 
         probe()
-        if bf16:
-            call(one, outs1, "one block an SM")
+        for n, lib_n in per_sm.items():
+            call(lib_n, forced[n], f"{n} blocks an SM")
         torch.cuda.synchronize()
         if bf16:
             err = bf16_units(got, want)
-            same = all(torch.equal(a, b) and torch.equal(a, c)
-                       for a, b, c in zip(got, outs, outs1))
+            same = all(torch.equal(a, b) for o in (outs, *forced.values())
+                       for a, b in zip(got, o))
             bad += not (err <= BF16_REC_ULPS and same)
         else:
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
@@ -147,8 +149,9 @@ def main(argv: list[str]) -> int:
         ms = event_ms(lambda: lstm_recurrence_fwd(x, m, R))
         ms_res = event_ms(lambda: lstm_recurrence_fwd(x, m, R, residuals=True))
         ms_probe = event_ms(probe)
-        ms_one = (event_ms(lambda: call(one, outs1, "one block an SM"))
-                  if bf16 else None)
+        ms_forced = {n: event_ms(lambda n=n: call(per_sm[n], forced[n],
+                                                  f"{n} blocks an SM"))
+                     for n in per_sm}
         lib.icl_lstm_recurrence_clocks(clocks, 1)
         iters = 20
         for _ in range(iters):
@@ -158,13 +161,13 @@ def main(argv: list[str]) -> int:
         per = [clocks[i] / iters / L for i in range(len(PHASES))]
         print(f"{'bf16' if bf16 else 'f32'} G={G} L={L} B={B} H={H}: "
               + (f"max|kernel - plain| {err:.2f} bf16 units of max|plain| "
-                 f"(gate {BF16_REC_ULPS}), clocks and one-block builds "
+                 f"(gate {BF16_REC_ULPS}), clocks and 1/2-block builds "
                  if bf16 else f"max|kernel - plain| {err:.2e}, clocks build ")
               + f"bitwise equal {same}; {ms:.4f} ms a call, "
               f"{ms_res:.4f} ms with residuals ({ms_probe:.4f} ms in the "
               f"clocks build"
-              + (f", {ms_one:.4f} ms with residuals in the one-block build"
-                 if bf16 else "")
+              + "".join(f", {ms:.4f} ms with residuals at {n} block(s) an SM"
+                        for n, ms in ms_forced.items())
               + "); cycles a step "
               f"{sum(per):.0f}: "
               + ", ".join(f"{n} {c:.0f}" for n, c in zip(PHASES, per))
