@@ -17,7 +17,10 @@ command lines as two data-parallel ranks on the one card:
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written CUDA sources from icl_torch/csrc (the four
    kernel sources and the two measuring kernels of head_probes.cu), one
-   nvcc each, side by side, and prints ptxas's registers and spills;
+   nvcc each, side by side, and prints ptxas's registers and spills
+   (failing on a spill); reads the recurrence library's SASS (cuobjdump):
+   HMMA in each bf16 instantiation (h . R on the tensor cores) and none in
+   the f32 ones;
 3. checks each kernel against its plain PyTorch version on the card (gate:
    max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
    and the recurrence at the served relation shapes, the recurrence's
@@ -141,7 +144,9 @@ command lines as two data-parallel ranks on the one card:
    same values to bf16 and sum in f32); the box ranking over the fast-dot
    logits (K9) at G in {4, 64} with ragged validity; the bf16 recurrence
    at G=2 L=32 B in {64, 320}, G=1 L=16 B=1024, H=200, the odd widths
-   63 and 255 and the 16-block cluster's 300 and 511, with its residuals, gate BF16_REC_ULPS bf16 units of
+   63 and 255, the 16-block cluster's 300 and 511, one k-step (H = 16),
+   368, 369 and 512, one row (B = 1) and one step (L = 1), with its
+   residuals, gate BF16_REC_ULPS bf16 units of
    max |plain| (the order of the h . R sum moves a rounded value by a unit
    now and then, and the unit travels down the steps).  Then on phase 9's
    split, at full width: ``--train --compute_dtype bf16`` of relation and
@@ -164,8 +169,9 @@ command lines as two data-parallel ranks on the one card:
    files the f32 run's bytes, relation, affinity and the ranking within
    BF16_DRIFT of it, the bf16 modes launched and no f32 one.  Each bf16
    mode is also timed beside its f32 mode at the same shape (phase 12),
-   with its bound on bf16 bytes, and affinity ranked predict gets a
-   profile line in bf16 beside the f32 one;
+   with its bound on bf16 bytes (the recurrence also at H = 300 and 512,
+   a line each beside the f32 mode's time), and affinity ranked predict
+   gets a profile line in bf16 beside the f32 one;
 10c. ``--matmul_precision default``, the reference's training precision.
    The one-pass bf16 mode of K5-K8 (``exact=False``: both operands of each
    head contraction rounded to bf16, f32 sums) against its plain versions,
@@ -456,8 +462,9 @@ def main() -> int:
             entry = ""
             for line in log.read_text().splitlines():
                 m = re.search(r"Compiling entry function '(\S+)'", line)
-                if m:
-                    entry = m.group(1)
+                if m:   # the mangled name, its file's namespace cut
+                    entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}"
+                                   r"\d+", "", m.group(1)).split("EEv")[0]
                 if "registers" in line or "spill" in line:
                     print(f"  {entry}: {line.strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line):
@@ -2050,12 +2057,7 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
     def check_ulps(what, got, want):
         """max |kernel - plain| of each tensor within BF16_REC_ULPS bf16
         units of its max |plain|; returns the worst in units."""
-        worst = 0.0
-        for g, w in zip(got, want):
-            w = w.float()
-            unit = 2.0 ** (math.floor(math.log2(max(_max_abs(w), 1e-30)))
-                           - 7)
-            worst = max(worst, _max_err(g.float(), w) / unit)
+        worst = kernel_bits.bf16_units(want, got)
         ok = worst <= BF16_REC_ULPS and all(bool(torch.isfinite(g).all())
                                             for g in got)
         print(f"check {what}: max|d| {worst:.2f} bf16 units of max|plain| "

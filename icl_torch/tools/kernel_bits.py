@@ -65,14 +65,17 @@ BF16_RECURRENCE = "recurrence bf16 "   # the cases of the bf16 recurrence
 
 def bf16_units(first: tuple, second: tuple) -> float:
     """The largest max |first - second| over the tensors, each in bf16
-    units of its max |first| (a unit: 2 ** (floor(log2 max) - 7))."""
+    units of its max |first| (a unit: 2 ** (floor(log2 max) - 7)); a NaN
+    counts as infinitely far."""
     worst = 0.0
     for x, y in zip(first, second):
+        if not x.numel():
+            continue
         x, y = x.float(), y.float()
-        top = float(x.abs().max()) if x.numel() else 0.0
-        unit = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
-        worst = max(worst, float((x - y).abs().max()) / unit
-                    if x.numel() else 0.0)
+        unit = 2.0 ** (np.floor(np.log2(max(float(x.abs().max()), 1e-30)))
+                       - 7)
+        d = (x - y).abs().max().nan_to_num(float("inf"))
+        worst = max(worst, float(d) / unit)
     return worst
 
 

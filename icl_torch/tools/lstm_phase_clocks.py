@@ -50,7 +50,9 @@ BF16_REC_ULPS = 4   # chip_smoke.py's gate of the bf16 mode, bf16 units
 
 def bf16_units(got, want) -> float:
     """max |got - want| over the tensors, each in bf16 units of its max
-    |want| (a unit: 2 ** (floor(log2 max) - 7))."""
+    |want| (a unit: 2 ** (floor(log2 max) - 7)): kernel_bits.bf16_units,
+    kept here because this script also runs on another tree's icl_torch,
+    which may lack it."""
     worst = 0.0
     for g, w in zip(got, want):
         w = w.float()

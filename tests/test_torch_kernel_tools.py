@@ -1,0 +1,64 @@
+"""The measuring and gating helpers around the recurrence kernel, on the
+CPU: ``kernel_bits.py --compare`` reports the bf16 recurrence's cases as
+changed (their sum order moved to the tensor cores) and fails on any other
+difference, and ``chip_smoke.py``'s SASS reader counts the HMMA
+instructions of each ``lstm_cluster_kernel`` instantiation."""
+
+import types
+
+import pytest
+import torch
+
+import chip_smoke
+from icl_torch.tools import kernel_bits
+
+BF16_CASE = "recurrence bf16 2 32 64 200 residuals"
+
+
+@pytest.mark.parametrize("moved,rc", [
+    (BF16_CASE, 0), ("recurrence 2 32 64 200 residuals", 1), ("K5 x", 1)])
+def test_compare_holds_all_but_the_bf16_recurrence_to_equal_bits(
+        tmp_path, capsys, moved, rc):
+    one = torch.ones(4)
+    first = {BF16_CASE: (one.bfloat16(),), moved: (one,), "K5 x": (one,)}
+    second = dict(first)
+    bumped = one.clone()
+    bumped[0] = 1.0078125                 # one bf16 unit of 1 above
+    second[moved] = (bumped.to(first[moved][0].dtype),)
+    torch.save(first, tmp_path / "p.pt")
+    torch.save(second, tmp_path / "c.pt")
+    assert kernel_bits.main(["--compare", str(tmp_path / "p.pt"),
+                             str(tmp_path / "c.pt")]) == rc
+    out = capsys.readouterr().out
+    if rc == 0:
+        assert "differ: []" in out
+        assert (f"{BF16_CASE}: changed, held to BF16_REC_ULPS "
+                f"(chip_smoke.py); 1.00 bf16 units") in out
+    else:
+        assert f"differ: ['{moved}']" in out
+
+
+def test_the_sass_reader_counts_hmma_per_instantiation(monkeypatch):
+    sass = """
+        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelI13__nv_bfloat16Li8ELb1ELi2EEEvPKT_PKhS4_PS2_S7_S7_S7_iii
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
+        /*0a20*/  HMMA.16816.F32.BF16 R20, R24, R28, RZ ;
+        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelIfLi16ELb0ELi1EEEvPKT_PKhS3_PS1_S6_S6_S6_iii
+        /*0a10*/  FFMA R1, R2, R3, R4 ;
+        Function : lstm_cluster_kernel<__nv_bfloat16, 16, true, 1>(...)
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
+        Function : _ZN12_GLOBAL__N_111some_kernelEv
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
+"""
+    monkeypatch.setattr(chip_smoke._build, "nvcc", lambda: "/cuda/bin/nvcc")
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(stdout=sass)
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    assert chip_smoke._recurrence_mma("lib.so") == {
+        ("bf16", 8, True, 2): 2, ("f32", 16, False, 1): 0,
+        ("bf16", 16, True, 1): 1}
+    assert seen == [["/cuda/bin/cuobjdump", "-sass", "lib.so"]]
