@@ -265,9 +265,19 @@ def test_the_kernels_chunked_sum_order_stays_within_the_bf16_gate(B, H):
     hs, h_final and the residuals within 4 bf16 units of max |plain| of the
     plain version (the card's gate, BF16_REC_ULPS), at G = 2, L = 8, odd
     widths and both cluster sizes' widths."""
+    # one intra-op thread: beside the other test workers' load, a thread
+    # pool makes these many small ops take 10-90 s instead of one
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _hold_the_chunked_order_to_plain(2, 8, B, H)
+    finally:
+        torch.set_num_threads(before)
+
+
+def _hold_the_chunked_order_to_plain(G, L, B, H):
     from icl_torch.ops.lstm_recurrence import lstm_recurrence_reference
 
-    G, L = 2, 8
     rng = np.random.default_rng(B * 1000 + H)
     x = torch.from_numpy(rng.normal(size=(G, L, B, 4 * H)).astype(
         np.float32)).bfloat16()
