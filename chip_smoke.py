@@ -20,7 +20,7 @@ command lines as two data-parallel ranks on the one card:
    nvcc each, side by side, and prints ptxas's registers and spills
    (failing on a spill); reads the recurrence library's SASS (cuobjdump):
    HMMA in each bf16 instantiation (h . R on the tensor cores) and none in
-   the f32 ones;
+   the f32 ones (h . R in FMAs, R on chip or read from device memory);
 3. checks each kernel against its plain PyTorch version on the card (gate:
    max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
    and the recurrence at the served relation shapes, the recurrence's
@@ -35,10 +35,11 @@ command lines as two data-parallel ranks on the one card:
    column of a wider W2, each twice with equal bits, K1 and K5-K8 (rate 0 and 0.5) at A=16, B in {20, 32},
    K=1024, O=2, and the one-direction recurrence (G=1) at L in {8, 16}, B
    in {16, 1024} (hs, final and the residuals); the recurrence also with a
-   batch that is no multiple of its row tile (B=61) and at H in {64, 200,
-   256} (the 8-block cluster) and {257, 300, 512} (the 16-block one, which
-   holds R on chip up to 368 and reads it from device memory above), twice
-   with equal bits; the forward grid-head kernels (K1, K5, K7,
+   batch that is no multiple of its row tile (B=61), one row (B=1), one
+   step (L=1), and at H in {8, 9, 64, 200, 201, 256} (the 8-block
+   cluster) and {257, 300, 368, 369, 512} (the 16-block one, which holds R
+   on chip up to 368 and reads it from device memory above), twice with
+   equal bits; the forward grid-head kernels (K1, K5, K7,
    K8) also at ragged register tiles (A, B in {5, 7, 9, 17, 20, 33, 130}),
    K in {30, 50} (no multiple of 4), O in {1, 2, 3, 4, 8}, with an operand
    that is only 4-byte aligned, at weight densities 0, 0.19 and 1, each
@@ -61,7 +62,15 @@ command lines as two data-parallel ranks on the one card:
    and weights of the fullest batch of phase 9's train split as the CLIs
    batch it (kernel_bits.trained_batches: 64 images, about 20 % of the
    cells weighted in relation and 42 % in affinity, the live cells in the
-   first rows and columns of each image);
+   first rows and columns of each image); then the library yardstick of the
+   f32 recurrence (icl_torch/tools/lstm_library.py): one call of
+   torch.nn.LSTM (cuDNN, TF32 off) over a packed batch beside the port's
+   LSTM layer (its input GEMM plus the kernel) with the same weights, at the
+   timed recurrence shapes (a BiLSTM at L=32 B=64 H in {200, 300, 512} and
+   B=512, the one-direction LSTM at L=16 B=1024, the two larger with the
+   weights requiring grad: cuDNN's reserve beside the kernel's residuals),
+   lengths in 1..L, the two held to each other within 1e-5 at the valid
+   positions and the final states;
 4. relation serving: writes a data dir (synthetic 300-d word vectors,
    seeded relation and affinity weights as icl-export archives), serves it
    with icl_torch.serve on 127.0.0.1 and sends Flickr30k-shaped requests (8
@@ -244,8 +253,9 @@ command lines as two data-parallel ranks on the one card:
     TPU kernels among them, the three bf16 modes and the one-pass mode of
     K5-K8 as kernels of their own): launches over the driven paths, error,
     times,
-    bound, and the time of one PyTorch call for the same function (null:
-    there is none for any of them, NO_LIBRARY_CALL says why), then, last,
+    bound, and the time of one PyTorch call for the same function: cuDNN's
+    LSTM for the f32 recurrence (with the port's layer time beside it),
+    null for the others, whose reasons NO_LIBRARY_CALL gives), then, last,
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase exits non-zero before the last line; without a CUDA
@@ -314,7 +324,7 @@ from icl_torch.params import init_params, init_relation_params, save_npz
 from icl_torch.serve import serve
 from icl_torch.tools.head_probes import (HASH_INT_OPS, empty_launch,
                                          hash_kept)
-from icl_torch.tools import kernel_bits
+from icl_torch.tools import kernel_bits, lstm_library
 from icl_torch.tools.kernel_bits import (device_ms, device_rows,
                                          one_cell_groups)
 from icl_torch.train.checkpoint import Checkpointer
@@ -401,13 +411,12 @@ PLANTED_GATE = 93.0    # tests/integration/test_convergence.py, dev accuracy %
 HIGHEST = ["--matmul_precision", "highest"]   # the f32 phases' parity runs
 F32_RATE = 67e12       # H100 SXM, f32 outside the tensor cores, operations/s
 BF16_RATE = 989e12     # H100 SXM, dense bf16 on the tensor cores, operations/s
+TF32_RATE = 494.7e12   # H100 SXM, dense TF32 on the tensor cores, operations/s
 INT32_RATE = 16.7e12   # H100 SXM, 32-bit integer: 64 lanes x 132 SMs x 1.98 GHz
 HBM_RATE = 3.35e12     # H100 SXM, bytes/s
 NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
     "grid_head": "fuses broadcast add, ReLU and a narrow dot; the [A,B,K] "
                  "activation never exists",
-    "lstm_recurrence": "pre-projected inputs and carry-through masked "
-                       "steps; torch.nn.LSTM (cuDNN) takes neither",
     "grid_head_train_fwd": "as grid_head, plus the hash dropout",
     "grid_head_train_bwd": "recompute backward with the hash dropout",
     "grid_head_train_loss_fwd": "as grid_head_train_fwd, plus masked "
@@ -416,8 +425,8 @@ NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
     "affinity_rank": "grid head column plus a masked softmax over boxes",
     "grid_head_bf16dot": "as grid_head; a bf16 matmul would need the "
                          "[A,B,K] activation materialised",
-    "lstm_recurrence_bf16": "as lstm_recurrence; cuDNN's bf16 LSTM rounds "
-                            "elsewhere and takes no masks",
+    "lstm_recurrence_bf16": "cuDNN's bf16 LSTM rounds elsewhere: its gates "
+                            "and state stay f32, the eager ops round each",
     "affinity_rank_bf16dot": "as affinity_rank, over the fast-dot column",
     "grid_head_train_fwd_onepass": "as grid_head_train_fwd, operands of the "
                                    "dot rounded to bf16",
@@ -428,6 +437,30 @@ NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
     "grid_head_train_loss_bwd_onepass": "as grid_head_train_loss_bwd, one "
                                         "bf16 pass",
 }
+# the one PyTorch call that computes a kernel's function: cuDNN's LSTM over a
+# packed batch is the f32 recurrence at every valid position and the final
+# state (the layers' masks are prefixes), with the input GEMM; timed case ->
+# the lstm_library shape at that case's G, L, B, H (and grad: residuals)
+LIBRARY_CALL = {"lstm_recurrence": "torch.nn.LSTM over a packed batch "
+                                   "(cuDNN): the input GEMM and the "
+                                   "recurrence"}
+LIBRARY_ROWS = {
+    "lstm_recurrence": "BiLSTM L=32 B=64 H=200",
+    "lstm_recurrence H=300": "BiLSTM L=32 B=64 H=300",
+    "lstm_recurrence H=512": "BiLSTM L=32 B=64 H=512",
+    "lstm_recurrence with residuals": "BiLSTM L=32 B=512 H=200, grad",
+    "lstm_recurrence G=1": "LSTM L=16 B=1024 H=200",
+    "lstm_recurrence G=1 with residuals": "LSTM L=16 B=1024 H=200, grad",
+}
+# HMMA in the recurrence's instantiations, (dtype, blocks a cluster, where
+# R lies, blocks an SM): h . R on the tensor cores in the bf16 mode, in f32
+# FMAs in the f32 mode, R on chip or read from device memory (the three
+# TF32 passes are a measuring build's, -DICL_LSTM_F32_TF32)
+RECURRENCE_MMA = {("bf16", 8, "chip", 1): True, ("bf16", 8, "chip", 2): True,
+                  ("bf16", 16, "chip", 1): True,
+                  ("bf16", 16, "chip", 2): True,
+                  ("f32", 8, "chip", 1): False, ("f32", 16, "chip", 1): False,
+                  ("f32", 16, "memory", 1): False}
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
@@ -471,19 +504,16 @@ def main() -> int:
                     spilled.append(f"{name} {entry}")
     if spilled:
         raise RuntimeError(f"ptxas reports register spills in {spilled}")
-    # the bf16 recurrence's h . R on the tensor cores: HMMA in each of its
-    # instantiations (both cluster sizes, one and two blocks an SM), none in
-    # the f32 ones
+    # h . R on the tensor cores in the bf16 mode: HMMA in each bf16
+    # instantiation (both cluster sizes, one and two blocks an SM), none in
+    # the f32 ones (RECURRENCE_MMA)
     mma = _recurrence_mma(built[SOURCES.index("lstm_recurrence")][0])
-    for (dtype, nc, resident, blocks), n in sorted(mma.items()):
-        print(f"sass lstm_cluster_kernel<{dtype}, {nc} blocks, R "
-              f"{'on chip' if resident else 'from memory'}, {blocks} an "
-              f"SM>: {n} HMMA")
-    bf16_mma = sorted(k[1:] for k, n in mma.items() if k[0] == "bf16" and n)
-    if (bf16_mma != [(8, True, 1), (8, True, 2), (16, True, 1),
-                     (16, True, 2)]
-            or any(n for k, n in mma.items() if k[0] == "f32")):
-        raise RuntimeError(f"the recurrence's HMMA per instantiation: {mma}")
+    for (dtype, nc, where, blocks), n in sorted(mma.items()):
+        print(f"sass lstm_cluster_kernel<{dtype}, {nc} blocks, R {where}, "
+              f"{blocks} an SM>: {n} HMMA")
+    if not _mma_as_expected(mma):
+        raise RuntimeError(f"the recurrence's HMMA per instantiation: {mma}, "
+                           f"expected HMMA where RECURRENCE_MMA is True")
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -658,13 +688,16 @@ def main() -> int:
                                 f"residuals changed hs")
             check(f"lstm_recurrence G=1 L={L} B={B} H=200 (hs, final, gates, "
                   f"c)", got, lstm_recurrence_reference(*args, True))
-    # a batch that is no multiple of the kernel's 8-row tile, and other
-    # widths than the models' 200: 256 is the widest the 8-block cluster
+    # a batch that is no multiple of the kernel's 8-row tile, one row, one
+    # step, and other widths than the models' 200: one unit a block (8), a
+    # ragged last block (9, 201); 256 is the widest the 8-block cluster
     # takes, above it the 16-block one (R on chip up to 368, read from
     # device memory above, up to 512)
     for G, L, B, H in ((2, 32, 61, 200), (2, 16, 61, 64), (2, 16, 61, 256),
                        (1, 16, 9, 256), (2, 8, 5, 64), (2, 16, 61, 300),
-                       (1, 8, 9, 257), (2, 8, 17, 512)):
+                       (1, 8, 9, 257), (2, 8, 17, 512), (2, 8, 13, 8),
+                       (2, 8, 13, 9), (2, 16, 13, 201), (1, 8, 9, 368),
+                       (1, 8, 9, 369), (2, 16, 1, 200), (2, 1, 13, 200)):
         args = rec_inputs(L, B, G, H)
         got = lstm_recurrence_fwd(*args, residuals=True)
         again = lstm_recurrence_fwd(*args, residuals=True)
@@ -826,19 +859,27 @@ def main() -> int:
 
     def rec_ops(args):
         """2 H 4H per valid (row, step) for h . R, and about 10 per unit
-        for the gates.  In bf16, h . R is a product of bf16 values summed in
-        f32: tensor-core work, rated at BF16_RATE."""
+        for the gates, as (float, integer, bf16 tensor-core, TF32
+        tensor-core operations).  In bf16, h . R is a product of bf16
+        values summed in f32: tensor-core work, rated at BF16_RATE.  In
+        f32, the least time the card could take for f32-grade products is
+        three TF32 passes on the tensor cores (3xTF32 holds the 1e-5 gate:
+        tests/test_torch_tf32x3.py), rated at TF32_RATE, whatever the
+        kernel takes (f32 FMAs)."""
         H = args[2].shape[1]
         rows = int(args[1].sum())
         if args[2].dtype == torch.bfloat16:
-            return rows * 10 * H, 0, rows * 8 * H * H
-        return rows * (8 * H * H + 10 * H), 0, 0
+            return rows * 10 * H, 0, rows * 8 * H * H, 0
+        return rows * 10 * H, 0, 0, 3 * rows * 8 * H * H
 
     cases = {}
 
     def add_case(name, kernel, fn, plain, inputs, shape, ops, replaces=None):
+        """`ops`: (float, integer, bf16 tensor-core[, TF32 tensor-core])
+        operations."""
         cases[name] = {"kernel": kernel, "fn": fn, "plain": plain,
-                       "inputs": inputs, "shape": shape, "ops": ops,
+                       "inputs": inputs, "shape": shape,
+                       "ops": (*ops, 0, 0)[:4],
                        "replaces": replaces or REPLACES[kernel][1]}
 
     # the timed K5-K8 inputs (kernel_bits.timed_cases, which kernel_bits.py
@@ -1006,9 +1047,9 @@ def main() -> int:
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
         nbytes = _nbytes(c["inputs"]) + _nbytes(_tuple(got))
-        f_ops, i_ops, b_ops = c["ops"]
+        f_ops, i_ops, b_ops, x_ops = c["ops"]
         t_ops = max(f_ops / F32_RATE, i_ops / INT32_RATE,
-                    b_ops / BF16_RATE) * 1e3
+                    b_ops / BF16_RATE, x_ops / TF32_RATE) * 1e3
         t_bytes = nbytes / HBM_RATE * 1e3
         timing[name] = {"shape": c["shape"], "kernel": c["kernel"],
                         "replaces": c["replaces"],
@@ -1018,6 +1059,7 @@ def main() -> int:
                         "device_ms": device_ms(c["fn"]),
                         "plain_device_ms": device_ms(c["plain"]),
                         "ops": f_ops, "int_ops": i_ops, "bf16_ops": b_ops,
+                        "tf32_ops": x_ops,
                         "bytes": nbytes,
                         "bound_ms": max(t_ops, t_bytes),
                         "bound_by": ("operations" if t_ops >= t_bytes
@@ -1036,6 +1078,21 @@ def main() -> int:
         ms = device_ms(lambda: hash_kept(seeds, A, B, K, RATE))
         probes[name] = (f"G={G} A={A} B={B} K={K}", ms,
                         G * A * B * K * HASH_INT_OPS / ms / 1e9)
+    # the library yardstick: cuDNN's LSTM beside the port's layer at the
+    # timed f32 recurrence shapes, the two held to each other
+    library = {r["shape"]: r for r in lstm_library.measure(dev, SEED)}
+    for name, shape in LIBRARY_ROWS.items():
+        r = library[shape]
+        timing[name]["library_ms"] = r["library_ms"]
+        timing[name]["layer_ms"] = r["layer_ms"]
+        ok = r["max_abs_diff"] <= KERNEL_GATE
+        print(f"check cuDNN LSTM vs the port's layer [{shape}], valid "
+              f"positions and final states: max|d| {r['max_abs_diff']:.3e} "
+              f"(gate {KERNEL_GATE:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"cuDNN LSTM vs the port's layer [{shape}]")
+    if failures:
+        raise RuntimeError(f"library yardstick disagrees: {failures}")
 
     # 4. serving
     with tempfile.TemporaryDirectory(prefix="icl_chip_smoke_") as d:
@@ -1145,12 +1202,17 @@ def main() -> int:
               f"({card})")
         print(f"bound {name} [{t['shape']}]: {t['ops'] / 1e9:.4f} G float, "
               f"{t['int_ops'] / 1e9:.4f} G integer and "
-              f"{t['bf16_ops'] / 1e9:.4f} G bf16 tensor-core operations, "
+              f"{t['bf16_ops'] / 1e9:.4f} G bf16 and "
+              f"{t['tf32_ops'] / 1e9:.4f} G TF32 tensor-core operations, "
               f"{t['bytes'] / 1e6:.3f} MB -> {t['bound_ms']:.4f} "
               f"ms by {t['bound_by']}; device {t['device_ms']:.4f} ms = "
               f"{t['device_ms'] / t['bound_ms']:.1f} x the bound, share "
-              f"{t['bound_ms'] / t['device_ms']:.3f}; one PyTorch call: none "
-              f"({NO_LIBRARY_CALL[t['kernel']]}) ({card})")
+              f"{t['bound_ms'] / t['device_ms']:.3f}; one PyTorch call: "
+              + (f"{LIBRARY_CALL[t['kernel']]} {t['library_ms']:.4f} ms, "
+                 f"the port's layer (input GEMM + kernel) "
+                 f"{t['layer_ms']:.4f} ms [{LIBRARY_ROWS[name]}]"
+                 if "library_ms" in t else
+                 f"none ({NO_LIBRARY_CALL[t['kernel']]})") + f" ({card})")
     for bf, f32 in BF16_REC_TIMED.items():
         t, f = timing[bf], timing[f32]
         print(f"time bf16 recurrence [{t['shape']}]: device "
@@ -1218,7 +1280,8 @@ def main() -> int:
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": None}
+                "library_ms": t.get("library_ms"),
+                **({"layer_ms": t["layer_ms"]} if "layer_ms" in t else {})}
                for name, t in timing.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1228,9 +1291,9 @@ def main() -> int:
 
 
 def _recurrence_mma(lib) -> dict:
-    """{(dtype, blocks a cluster, R on chip, blocks an SM): HMMA
-    instructions} of each lstm_cluster_kernel instantiation in the built
-    library's SASS (cuobjdump beside nvcc)."""
+    """{(dtype, blocks a cluster, where R lies: "memory", "chip" or
+    "split", blocks an SM): HMMA instructions} of each lstm_cluster_kernel
+    instantiation in the built library's SASS (cuobjdump beside nvcc)."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -1238,13 +1301,13 @@ def _recurrence_mma(lib) -> dict:
     for line in sass.splitlines():
         # the mangled name, or the demangled one
         m = (re.search(r"Function : \S*lstm_cluster_kernelI(13__nv_bfloat16"
-                       r"|f)Li(\d+)ELb([01])ELi(\d)E", line)
+                       r"|f)Li(\d+)ELi(\d)ELi(\d)E", line)
              or re.search(r"Function : .*lstm_cluster_kernel<(__nv_bfloat16|"
-                          r"float), (\d+), (true|false), (\d+)>", line))
+                          r"float), (\d+), (\d), (\d+)>", line))
         if m:
             key = ("f32" if m.group(1) in ("f", "float") else "bf16",
-                   int(m.group(2)), m.group(3) in ("1", "true"),
-                   int(m.group(4)))
+                   int(m.group(2)), ("memory", "chip", "split")[
+                       int(m.group(3))], int(m.group(4)))
             out[key] = 0
         elif "Function :" in line:
             key = None
@@ -1253,6 +1316,13 @@ def _recurrence_mma(lib) -> dict:
     if not out:
         raise RuntimeError(f"no lstm_cluster_kernel in the SASS of {lib}")
     return out
+
+
+def _mma_as_expected(mma: dict) -> bool:
+    """Whether the SASS has exactly RECURRENCE_MMA's instantiations, with
+    HMMA in those it marks True and none in the others."""
+    return (set(mma) == set(RECURRENCE_MMA)
+            and all(bool(mma[k]) == want for k, want in RECURRENCE_MMA.items()))
 
 
 def _tuple(x):

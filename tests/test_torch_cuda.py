@@ -128,7 +128,10 @@ def _rec_inputs(G, L, B, H, dev, seed=0):
     # past 256 units, the 16-block cluster: R on chip up to 368, read from
     # device memory above
     (2, 16, 61, 300), (1, 5, 9, 257), (2, 8, 17, 512), (2, 2, 64, 300),
-    (1, 4, 9, 368), (2, 4, 9, 369)])
+    (1, 4, 9, 368), (2, 4, 9, 369),
+    # one unit a block, a ragged last block; one row; one step
+    (2, 8, 13, 8), (2, 8, 13, 9), (2, 16, 13, 201), (2, 16, 1, 200),
+    (2, 1, 13, 200)])
 def test_recurrence_kernel_matches_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     n0 = lstm_recurrence.launches
@@ -138,7 +141,8 @@ def test_recurrence_kernel_matches_plain(dev, G, L, B, H):
     hs_ref, fin_ref = lstm_recurrence_reference(*args)
     _assert_close(hs, hs_ref)
     _assert_close(fin, fin_ref)
-    assert not hs[:, :, 0].any()                    # the length-0 row
+    if B > 1:      # _rec_inputs gives row 0 length 0, the last row L
+        assert not hs[:, :, 0].any()                # the length-0 row
     hs2, _ = lstm_recurrence(*args)
     assert torch.equal(hs, hs2)                     # bitwise repeatable
 
@@ -347,7 +351,9 @@ def test_grid_head_train_zero_weight_cells_are_inert(dev):
 @pytest.mark.parametrize("G,L,B,H", [
     (2, 32, 512, 200), (2, 16, 8, 200), (2, 9, 13, 40), (1, 7, 5, 256),
     (2, 32, 61, 200), (1, 16, 1024, 200), (2, 16, 61, 64),
-    (2, 16, 61, 300), (1, 7, 5, 512)])
+    (2, 16, 61, 300), (1, 7, 5, 512),
+    (2, 8, 13, 8), (2, 8, 13, 9), (2, 16, 13, 201), (1, 5, 9, 257),
+    (1, 4, 9, 368), (1, 4, 9, 369), (2, 16, 1, 200), (2, 1, 13, 200)])
 def test_recurrence_residuals_match_plain(dev, G, L, B, H):
     args = _rec_inputs(G, L, B, H, dev)
     hs0, fin0 = lstm_recurrence(*args)
@@ -359,6 +365,39 @@ def test_recurrence_residuals_match_plain(dev, G, L, B, H):
         assert torch.equal(a, b)
     want = lstm_recurrence_reference(*args, residuals=True)
     for got, ref in zip((hs, fin, gates, c), want, strict=True):
+        _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("G,L,B,H", [
+    (2, 32, 64, 200), (1, 16, 1024, 200), (2, 8, 13, 8), (2, 8, 13, 9),
+    (2, 16, 13, 201), (2, 8, 17, 216), (2, 8, 17, 217), (2, 16, 1, 200),
+    (2, 1, 13, 200)])
+def test_the_three_tf32_pass_build_matches_plain(dev, G, L, B, H):
+    """The measuring build -DICL_LSTM_F32_TF32 (h . R on the tensor cores
+    in three TF32 passes where R fits split on chip, H <= 216: k-steps of 8
+    whole and cut, one row, one step; FMAs at 217) holds the f32 gate
+    against the plain version, residuals included, twice with equal
+    bits."""
+    import ctypes
+
+    from icl_torch.ops import _build
+    from icl_torch.ops.lstm_recurrence import _ARGTYPES
+
+    path, _ = _build.build("lstm_recurrence", ("-DICL_LSTM_F32_TF32",))
+    fn = ctypes.CDLL(str(path)).icl_lstm_recurrence_f32
+    fn.argtypes = _ARGTYPES
+    args = _rec_inputs(G, L, B, H, dev)
+    want = lstm_recurrence_reference(*args, residuals=True)
+    runs = []
+    for _ in range(2):
+        outs = [torch.empty_like(t) for t in want]
+        assert fn(*(a.data_ptr() for a in args),
+                  *(o.data_ptr() for o in outs), G, L, B, H, dev.index or 0,
+                  torch.cuda.current_stream(dev).cuda_stream) == 0
+        runs.append(outs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for got, ref in zip(runs[0], want, strict=True):
         _assert_close(got, ref)
 
 
