@@ -452,15 +452,13 @@ LIBRARY_ROWS = {
     "lstm_recurrence G=1": "LSTM L=16 B=1024 H=200",
     "lstm_recurrence G=1 with residuals": "LSTM L=16 B=1024 H=200, grad",
 }
-# HMMA in the recurrence's instantiations, (dtype, blocks a cluster, where
-# R lies, blocks an SM): h . R on the tensor cores in the bf16 mode, in f32
-# FMAs in the f32 mode, R on chip or read from device memory (the three
-# TF32 passes are a measuring build's, -DICL_LSTM_F32_TF32)
-RECURRENCE_MMA = {("bf16", 8, "chip", 1): True, ("bf16", 8, "chip", 2): True,
-                  ("bf16", 16, "chip", 1): True,
-                  ("bf16", 16, "chip", 2): True,
-                  ("f32", 8, "chip", 1): False, ("f32", 16, "chip", 1): False,
-                  ("f32", 16, "memory", 1): False}
+# HMMA in the recurrence's instantiations, (dtype, blocks a cluster, R on
+# chip, blocks an SM): h . R on the tensor cores in the bf16 mode, in f32
+# FMAs in the f32 mode, R on chip or read from device memory
+RECURRENCE_MMA = {("bf16", 8, True, 1): True, ("bf16", 8, True, 2): True,
+                  ("bf16", 16, True, 1): True, ("bf16", 16, True, 2): True,
+                  ("f32", 8, True, 1): False, ("f32", 16, True, 1): False,
+                  ("f32", 16, False, 1): False}
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
@@ -508,9 +506,10 @@ def main() -> int:
     # instantiation (both cluster sizes, one and two blocks an SM), none in
     # the f32 ones (RECURRENCE_MMA)
     mma = _recurrence_mma(built[SOURCES.index("lstm_recurrence")][0])
-    for (dtype, nc, where, blocks), n in sorted(mma.items()):
-        print(f"sass lstm_cluster_kernel<{dtype}, {nc} blocks, R {where}, "
-              f"{blocks} an SM>: {n} HMMA")
+    for (dtype, nc, resident, blocks), n in sorted(mma.items()):
+        print(f"sass lstm_cluster_kernel<{dtype}, {nc} blocks, R "
+              f"{'on chip' if resident else 'from memory'}, {blocks} an "
+              f"SM>: {n} HMMA")
     if not _mma_as_expected(mma):
         raise RuntimeError(f"the recurrence's HMMA per instantiation: {mma}, "
                            f"expected HMMA where RECURRENCE_MMA is True")
@@ -863,9 +862,9 @@ def main() -> int:
         tensor-core operations).  In bf16, h . R is a product of bf16
         values summed in f32: tensor-core work, rated at BF16_RATE.  In
         f32, the least time the card could take for f32-grade products is
-        three TF32 passes on the tensor cores (3xTF32 holds the 1e-5 gate:
-        tests/test_torch_tf32x3.py), rated at TF32_RATE, whatever the
-        kernel takes (f32 FMAs)."""
+        three TF32 passes on the tensor cores (3xTF32 holds the 1e-5 gate,
+        as a build of the kernel showed on the card), rated at TF32_RATE,
+        whatever the kernel takes (f32 FMAs)."""
         H = args[2].shape[1]
         rows = int(args[1].sum())
         if args[2].dtype == torch.bfloat16:
@@ -1291,9 +1290,9 @@ def main() -> int:
 
 
 def _recurrence_mma(lib) -> dict:
-    """{(dtype, blocks a cluster, where R lies: "memory", "chip" or
-    "split", blocks an SM): HMMA instructions} of each lstm_cluster_kernel
-    instantiation in the built library's SASS (cuobjdump beside nvcc)."""
+    """{(dtype, blocks a cluster, R on chip, blocks an SM): HMMA
+    instructions} of each lstm_cluster_kernel instantiation in the built
+    library's SASS (cuobjdump beside nvcc)."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -1301,13 +1300,13 @@ def _recurrence_mma(lib) -> dict:
     for line in sass.splitlines():
         # the mangled name, or the demangled one
         m = (re.search(r"Function : \S*lstm_cluster_kernelI(13__nv_bfloat16"
-                       r"|f)Li(\d+)ELi(\d)ELi(\d)E", line)
+                       r"|f)Li(\d+)ELb([01])ELi(\d)E", line)
              or re.search(r"Function : .*lstm_cluster_kernel<(__nv_bfloat16|"
-                          r"float), (\d+), (\d), (\d+)>", line))
+                          r"float), (\d+), (true|false), (\d+)>", line))
         if m:
             key = ("f32" if m.group(1) in ("f", "float") else "bf16",
-                   int(m.group(2)), ("memory", "chip", "split")[
-                       int(m.group(3))], int(m.group(4)))
+                   int(m.group(2)), m.group(3) in ("1", "true"),
+                   int(m.group(4)))
             out[key] = 0
         elif "Function :" in line:
             key = None

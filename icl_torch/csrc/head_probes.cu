@@ -1,7 +1,6 @@
-// Three measuring kernels, f32/int32, for Hopper (sm_90a).  They replace
-// no TPU kernel and no path runs them: the first two give the grid-head
-// kernels' bounds their two yardsticks on the card at hand, the third the
-// rates of the recurrence's two ways to h . R.
+// Two measuring kernels beside the grid head, f32/int32, for Hopper
+// (sm_90a).  They replace no TPU kernel and no path runs them: they give
+// the grid-head kernels' bounds their two yardsticks on the card at hand.
 //
 //  * icl_probe_empty: a kernel of one thread that does nothing.  Its device
 //    time is the floor under any launch: the served grid-head calls, whose
@@ -14,11 +13,6 @@
 //    (xor, two rounds of shift-xor-multiply, shift-xor, compare), and so
 //    the rate at which the integer pipe runs them.  The forward kernels
 //    (K5, K7, K8) run exactly this hash per element.
-//  * icl_probe_mma_rate: each warp of a block issues `iters` rounds of 8
-//    independent instructions of one kind: mma.sync m16n8k8 TF32 (the
-//    f32 recurrence's three-pass build), m16n8k16 bf16 (the bf16 mode), or
-//    four FFMAs (the f32 mode), and thread 0 reports the block's clock64()
-//    cycles: instructions a cycle an SM at a given number of warps.
 #include "grid_head_tile.cuh"
 
 namespace {
@@ -53,52 +47,6 @@ hash_kernel(const int* __restrict__ seeds, int* __restrict__ kept,
   if (lane == 0) kept[cell] = total;
 }
 
-template <int kKind>
-__global__ void __launch_bounds__(1024)
-mma_rate_kernel(float* out, long long* cycles, int iters) {
-  uint32_t a[4], b[2];
-  for (int j = 0; j < 4; ++j) a[j] = 0x3f800000u + threadIdx.x * 8 + j;
-  for (int j = 0; j < 2; ++j) b[j] = 0x3c000000u + threadIdx.x * 4 + j;
-  float d[8][4] = {};
-  __syncthreads();
-  const long long t0 = clock64();
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if constexpr (kKind == 0) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};"
-            : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-              "r"(b[1]));
-      } else if constexpr (kKind == 1) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};"
-            : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-              "r"(b[1]));
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          asm volatile("fma.rn.f32 %0, %1, %2, %0;"
-                       : "+f"(d[i][q])
-                       : "f"(__uint_as_float(a[q])),
-                         "f"(__uint_as_float(b[q & 1])));
-      }
-    }
-  }
-  const long long t1 = clock64();
-  float s = 0.f;
-  for (int i = 0; i < 8; ++i)
-    for (int q = 0; q < 4; ++q) s += d[i][q];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
-}
-
 }  // namespace
 
 // Both launch on `stream` (a cudaStream_t from the caller) on `device` and
@@ -123,24 +71,5 @@ extern "C" int icl_probe_hash_u32(const int* seeds, int* kept, int G, int A,
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   hash_kernel<<<(unsigned)blocks, kHashWarps * 32, 0, (cudaStream_t)stream>>>(
       seeds, kept, cells, A, B, K, thr);
-  return (int)cudaGetLastError();
-}
-
-// `blocks` blocks of `warps` warps (1..32), each warp `iters` rounds of 8
-// instructions of `kind` (0: mma m16n8k8 TF32, 1: mma m16n8k16 bf16, 2:
-// four FFMAs); out [blocks * warps * 32] f32 (the sums, so that nothing is
-// dropped), cycles [blocks] int64.
-extern "C" int icl_probe_mma_rate(int kind, int blocks, int warps, int iters,
-                                  float* out, long long* cycles, int device,
-                                  void* stream) {
-  if (kind < 0 || kind > 2 || blocks <= 0 || warps <= 0 || warps > 32 ||
-      iters <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const auto kernel = kind == 0   ? mma_rate_kernel<0>
-                      : kind == 1 ? mma_rate_kernel<1>
-                                  : mma_rate_kernel<2>;
-  kernel<<<blocks, warps * 32, 0, (cudaStream_t)stream>>>(out, cycles, iters);
   return (int)cudaGetLastError();
 }

@@ -24,16 +24,17 @@
 //
 // What bounds it on the H100: operations.  The L steps are a sequential
 // chain of [rows, H] x [H, 4H] products in f32 FMAs; the bytes (x_proj in,
-// hs out) take a tenth of that time.  One pass of TF32 on the tensor cores
-// keeps an 11-bit significand, 2^-11 of each product, and breaks the 1e-5
-// gate; three passes ("3xTF32": hi = tf32(x), lo = tf32(x - hi), a . b as
-// a_lo . b_hi + a_hi . b_lo + a_hi . b_hi) lose about 2^-22 of a product,
-// beside f32's own 2^-24, and hold it (tests/test_torch_tf32x3.py emulates
-// both).  The measuring build below takes that path; on this card it is
-// no faster, so the FMAs stay.  What stands in the way of the bound is
-// R[g]: H x 4H f32 is 640 KB at H=200, and a block has 227 KB of shared
-// memory.  A first design streamed R from L2 in every step of every block,
-// which cost one SM's L2 bandwidth (about 10 us a step) whatever the batch.
+// hs out) take a tenth of that time.  One TF32 pass on the tensor cores
+// keeps an 11-bit significand and breaks the 1e-5 gate.  Three passes
+// (hi = tf32(x), lo = tf32(x - hi), a . b as a_lo . b_hi + a_hi . b_lo +
+// a_hi . b_hi a chunk of 8 k's, the chunks added in k order) lose about
+// 2^-22 of a product and hold it, but on the H100 such a phase A was no
+// faster than these FMAs: the SM clock falls while the tensor cores run,
+// and the split R fragments double phase A's shared-memory reads (PERF.md,
+// PR 14).  What stands in the way of the bound is R[g]: H x 4H f32 is
+// 640 KB at H=200, and a block has 227 KB of shared memory.  A first design
+// streamed R from L2 in every step of every block, which cost one SM's L2
+// bandwidth (about 10 us a step) whatever the batch.
 //
 // Design: R stays on chip for all L steps, split over a thread-block
 // cluster with distributed shared memory.
@@ -144,27 +145,6 @@
 // with -DICL_LSTM_BF16_BLOCKS=1 or =2 takes one or two wherever two fit
 // (lstm_phase_clocks.py --bf16 times both beside the rule).
 //
-// Compiled with -DICL_LSTM_F32_TF32, a measuring build, the f32 mode takes
-// h . R on the tensor cores in three TF32 passes where R fits on chip split
-// into its hi and lo parts (H <= 216, the 8-block cluster: 179 KB at H =
-// 200), and keeps the FMAs elsewhere.  hi = tf32(x) is cvt.rna's rounding
-// (nearest, ties away), done as an integer add and mask; lo = tf32(x - hi),
-// x - hi exact in f32.  Phase A is the bf16 mode's "swap A and B" on
-// mma.sync m16n8k8 TF32: warp s of a half owns m-tile s and walks all of
-// K; chunk ks is mma(R_lo, h_hi) from a zero accumulator, + mma(R_hi,
-// h_lo), + mma(R_hi, h_hi), the small terms first, and the chunks are
-// added in f32 in k order, so the sums are whole, go to one [T][d_row]
-// tile, and phase B adds no partial tiles.  R's fragments are split once,
-// at the load; each lane splits its h values (k = tig and tig + 4 of the
-// chunk, one bank a lane) every chunk; k past H reads h as +0 in the last
-// chunk only.  Why it does not pay (lstm_phase_clocks.py times it beside
-// the plain build, head_probes.py the mma's rate): the mma's would take
-// about 1600 cycles a step at H = 200, but the phase is bound by the R
-// fragments both halves read from shared memory every step (twice the
-// f32 bytes, split); the step takes fewer cycles than the FMAs' (no
-// partial tiles to add) but runs at a lower SM clock, and splitting R
-// lengthens the set-up, so a call takes about as long.
-//
 // Compiled with -DICL_LSTM_CLOCKS the kernel also adds up, for thread 0 of
 // block (0, 0), the cycles of each phase of a step (icl_torch/tools/
 // lstm_phase_clocks.py reads them): the machine this runs on has no
@@ -258,94 +238,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
         "f"(0.f));
 }
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (nearest, ties away from
-// zero), as f32 bits with the low 13 bits zero: half a unit of the 10-bit
-// significand added to the magnitude's bits, the low 13 bits cleared.  Two
-// integer instructions, where cvt.rna takes more; the same value for
-// every finite x
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi), where
-// x - hi is exact in f32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// d = A . B (+ d when kAcc): one 16 x 8 x 8 product of TF32 values, f32
-// sums
-template <bool kAcc>
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  if constexpr (kAcc) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%10, %10, %10, %10};"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-          "f"(0.f));
-  }
-}
-
-// The tensor-core tiles of phase A: m-tiles of 16 unit-gate columns (a
-// block's 4 Hc), k-steps of 16 (bf16) or 8 (f32, TF32 passes), and a row
-// of the [T][M] tile of sums, padded by 4 floats so that the fragments'
-// stores hit 32 banks
+// The bf16 mode's tiles: m-tiles of 16 unit-gate columns (a block's 4 Hc),
+// k-steps of 16, and a row of the [T][M] tile of sums, padded by 4 floats
+// so that the fragments' stores hit 32 banks
 __host__ __device__ __forceinline__ int m_tiles(int Hc) {
   return (4 * Hc + 15) / 16;
 }
-__host__ __device__ __forceinline__ int k_steps(int H, bool bf16) {
-  return bf16 ? (H + 15) / 16 : (H + 7) / 8;
+__host__ __device__ __forceinline__ int k_steps(int H) {
+  return (H + 15) / 16;
 }
 __host__ __device__ __forceinline__ int d_row(int Hc) {
   return 16 * m_tiles(Hc) + 4;
 }
 
-// Where a launch keeps R, and how phase A takes h . R: read from device
-// memory every step, in f32 FMAs; on chip, the bf16 mode's as the mma's A
-// fragments (tensor cores), the f32 mode's as [k][unit] float4 (f32 FMAs);
-// or, f32 in the -DICL_LSTM_F32_TF32 build, on chip as the A fragments
-// split into their TF32 hi and lo parts (tensor cores), where twice the
-// bytes fit: up to H = 216 in the 8-block cluster
-enum RLayout : int { kRMemory = 0, kRChip = 1, kRSplit = 2 };
-
-// 16-byte vectors of R on chip a block: the bf16 mode's A fragments
-// [m-tile][k-step][lane] x 8 values; f32 [H][Hc] x (i, f, c~, o); split,
-// [m-tile][k-step][hi, lo][lane] x 4 TF32 values
-__host__ __device__ __forceinline__ size_t r_vectors(bool bf16, int layout,
-                                                     int H, int Hc) {
-  if (layout == kRMemory) return 0;
-  if (layout == kRSplit)
-    return (size_t)2 * m_tiles(Hc) * k_steps(H, false) * 32;
-  return bf16 ? (size_t)m_tiles(Hc) * k_steps(H, true) * 32 : (size_t)H * Hc;
+// 16-byte vectors of R on chip a block: f32 [H][Hc] x (i, f, c~, o) when
+// resident; bf16 the mma A fragments [m-tile][k-step][lane] x 8 values
+__host__ __device__ __forceinline__ size_t r_vectors(bool bf16,
+                                                     bool resident, int H,
+                                                     int Hc) {
+  if (bf16) return (size_t)m_tiles(Hc) * k_steps(H) * 32;
+  return resident ? (size_t)H * Hc : 0;
 }
 
-// floats of a half's sums of h . R: on the tensor cores one [T][d_row] tile
-// of whole sums; in FMAs the kSplit warps' partial tiles [kSplit][T][Hc] x
-// 4
-__host__ __device__ __forceinline__ size_t part_floats(bool whole, int Hc) {
-  return whole ? (size_t)kTile * d_row(Hc) : (size_t)4 * kSplit * kTile * Hc;
-}
-
-// d[m][n] of a warp's m-tile s -> sums[n][m]: rows gid and gid + 8,
-// columns 2 tig and 2 tig + 1 (the C fragment of m16n8k16 and m16n8k8)
-__device__ __forceinline__ void store_sums(float* sums, int Ms, int s,
-                                           int gid, int tig,
-                                           const float (&acc)[4]) {
-  float* st = sums + 2 * tig * Ms + s * 16 + gid;
-  st[0] = acc[0];
-  st[Ms] = acc[1];
-  st[8] = acc[2];
-  st[Ms + 8] = acc[3];
+// floats of a half's sums of h . R: f32 the kSplit warps' partial tiles
+// [kSplit][T][Hc] x 4; bf16 one [T][d_row] tile
+__host__ __device__ __forceinline__ size_t part_floats(bool bf16, int Hc) {
+  return bf16 ? (size_t)kTile * d_row(Hc)
+              : (size_t)4 * kSplit * kTile * Hc;
 }
 
 // barrier of one half block (ids 1 and 2; 0 is __syncthreads)
@@ -400,11 +319,10 @@ __device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
 
 // E: the element type of device memory, float or __nv_bfloat16 (the bf16
 // mode); on chip everything is f32 but the bf16 mode's R.  NC: blocks a
-// cluster, kCluster or kWideCluster.  kR: the RLayout; h . R runs on the
-// tensor cores in the bf16 mode and, f32, where R is kept split, else in
-// f32 FMAs.  kMinBlocks: blocks an SM the registers are capped for (2: 64
-// a thread; the bf16 mode only).
-template <typename E, int NC, int kR, int kMinBlocks>
+// cluster, kCluster or kWideCluster.  kResident: R in shared memory, else
+// read from device memory every step (f32 only).  kMinBlocks: blocks an SM
+// the registers are capped for (2: 64 a thread; the bf16 mode only).
+template <typename E, int NC, bool kResident, int kMinBlocks>
 __global__ void __launch_bounds__(2 * kHalf, kMinBlocks)
 lstm_cluster_kernel(const E* __restrict__ xp,
                     const uint8_t* __restrict__ mask,
@@ -412,9 +330,7 @@ lstm_cluster_kernel(const E* __restrict__ xp,
                     E* __restrict__ h_final, E* __restrict__ gates,
                     E* __restrict__ cs, int L, int B, int H) {
   constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
-  static_assert(kR == kRChip || !kBf16, "the bf16 mode keeps R on chip");
-  constexpr bool kResident = kR != kRMemory;
-  constexpr bool kWhole = kBf16 || kR == kRSplit;   // h . R on the tensor cores
+  static_assert(kResident || !kBf16, "the bf16 mode keeps R on chip");
   static_assert(kMinBlocks == 1 || kBf16, "f32 runs one block an SM");
   // the push's 16-byte vectors a thread sends: 2 (NC = 8) or 4 (NC = 16)
   constexpr int kPush = ((NC - 1) * 64 + kHalf - 1) / kHalf;
@@ -425,14 +341,14 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   const int half = threadIdx.x / kHalf;
   const int ht = threadIdx.x - half * kHalf;
   float4* Rs = smem4;                                   // [H][Hc] x (i,f,c~,o)
-  float* h0 = reinterpret_cast<float*>(Rs + r_vectors(kBf16, kR, H, Hc));
+  float* h0 = reinterpret_cast<float*>(
+      Rs + r_vectors(kBf16, kResident, H, Hc));
   float* hbuf = h0 + half * 2 * H * T;                  // [2][H][T], this half's
-  float* sums = h0 + 4 * H * T + half * part_floats(kWhole, Hc);
-  float4* part = reinterpret_cast<float4*>(sums);       // FMAs: [kSplit][T][Hc]
-  // on the tensor cores: the A fragments of R (r_vectors) and the [T][Ms]
-  // tile of sums
+  float* sums = h0 + 4 * H * T + half * part_floats(kBf16, Hc);
+  float4* part = reinterpret_cast<float4*>(sums);       // f32: [kSplit][T][Hc]
+  // bf16: the A fragments of R (r_vectors) and the [T][Ms] tile of sums
   const uint4* Rf = reinterpret_cast<const uint4*>(smem4);
-  const int nks = k_steps(H, kBf16);
+  const int nks = k_steps(H);
   const int Ms = d_row(Hc);
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -456,7 +372,7 @@ lstm_cluster_kernel(const E* __restrict__ xp,
     // and that + 4 of the chunk (phase A reads h at the same k's); zero
     // outside the block's units and beyond H
     const unsigned short* Rb = reinterpret_cast<const unsigned short*>(Rg);
-    const int nv = (int)r_vectors(true, kRChip, H, Hc);
+    const int nv = (int)r_vectors(true, true, H, Hc);
     for (int i = threadIdx.x; i < nv; i += blockDim.x) {
       const int lane = i & 31;
       const int ks = (i >> 5) % nks;
@@ -476,32 +392,6 @@ lstm_cluster_kernel(const E* __restrict__ xp,
         w[j] = lo | (hi << 16);
       }
       reinterpret_cast<uint4*>(smem4)[i] = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  } else if constexpr (kR == kRSplit) {
-    // A fragment of m-tile mt, k-step ks, lane (m16n8k8, TF32): register j
-    // holds row gid + 8 (j & 1) at the chunk's k tig + 4 (j >> 1) (phase A
-    // reads h at the same k's), split: hi's 16 bytes, then, 32 lanes on,
-    // lo's; zero outside the block's units and beyond H
-    const int nv = m_tiles(Hc) * nks * 32;
-    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
-      const int lane = i & 31;
-      const int ks = (i >> 5) % nks;
-      const int mt = (i >> 5) / nks;
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = mt * 16 + (lane >> 2) + (j & 1) * 8;
-        const int uu = rank * Hc + (m >> 2);
-        const int k = ks * 8 + (lane & 3) + (j >> 1) * 4;
-        split_tf32((m >> 2) < Hc && uu < H && k < H
-                       ? load_f32(Rg + (size_t)k * H4 + (size_t)(m & 3) * H
-                                  + uu)
-                       : 0.f,
-                   hi[j], lo[j]);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(smem4) + (i - lane) * 2 + lane;
-      dst[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      dst[32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   } else {
     for (int i = threadIdx.x; kResident && i < H * Hc; i += blockDim.x) {
@@ -612,47 +502,12 @@ lstm_cluster_kernel(const E* __restrict__ xp,
           chunk(whole, k < H ? p[0] : 0.f, k + 4 < H ? p[4 * T] : 0.f,
                 k + 8 < H ? p[8 * T] : 0.f, k + 12 < H ? p[12 * T] : 0.f);
         }
-        store_sums(sums, Ms, s, gid, tig, acc);
-      }
-    } else if constexpr (kR == kRSplit) {
-      // phase A, f32, on the tensor cores in three TF32 passes: warp s,
-      // m-tile s, all of K; chunk ks's mma(R_lo, h_hi) from a zero
-      // accumulator, + mma(R_hi, h_lo), + mma(R_hi, h_hi), the chunks added
-      // in k order.  R's fragments come split; lane (gid, tig) splits h[row
-      // gid] at the chunk's k's tig and tig + 4 (32 lanes, 32 banks a
-      // load).  Only the last chunk reaches past H, and reads +0 there.
-      if (s < m_tiles(Hc)) {
-        const int gid = ul >> 2;
-        const int tig = ul & 3;
-        const float* hp = hbuf + cur * H * T + tig * T + gid;
-        const uint4* a = Rf + (size_t)s * nks * 64 + ul;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        auto chunk = [&](int ks, float v0, float v4) {
-          const uint4 rh = a[ks * 64], rl = a[ks * 64 + 32];
-          const uint32_t hi[4] = {rh.x, rh.y, rh.z, rh.w};
-          const uint32_t lo[4] = {rl.x, rl.y, rl.z, rl.w};
-          uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
-          split_tf32(v0, b_hi0, b_lo0);
-          split_tf32(v4, b_hi1, b_lo1);
-          float d[4];
-          mma_tf32<false>(d, lo, b_hi0, b_hi1);
-          mma_tf32<true>(d, hi, b_lo0, b_lo1);
-          mma_tf32<true>(d, hi, b_hi0, b_hi1);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[q] += d[q];
-        };
-        const int whole = H / 8;
-#pragma unroll 4
-        for (int ks = 0; ks < whole; ++ks) {
-          const float* p = hp + ks * 8 * T;
-          chunk(ks, p[0], p[4 * T]);
-        }
-        if (whole < nks) {
-          const float* p = hp + whole * 8 * T;
-          const int k = whole * 8 + tig;
-          chunk(whole, k < H ? p[0] : 0.f, k + 4 < H ? p[4 * T] : 0.f);
-        }
-        store_sums(sums, Ms, s, gid, tig, acc);
+        // d[m][n] -> sums[n][m]: rows gid and gid + 8, columns 2 tig, + 1
+        float* st = sums + 2 * tig * Ms + s * 16 + gid;
+        st[0] = acc[0];
+        st[Ms] = acc[1];
+        st[8] = acc[2];
+        st[Ms + 8] = acc[3];
       }
     } else if (active) {
       // phase A: partial h . R over this warp's k, for the lane's unit
@@ -711,7 +566,7 @@ lstm_cluster_kernel(const E* __restrict__ xp,
     float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f;
     if (active) {
       float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (kWhole) {
+      if constexpr (kBf16) {
         d = *reinterpret_cast<const float4*>(sums + s * Ms + 4 * ul);
       } else {
 #pragma unroll
@@ -781,45 +636,20 @@ lstm_cluster_kernel(const E* __restrict__ xp,
   if (stores) store(h_final + ((size_t)g * B + b) * H + u, h);
 }
 
-size_t smem_bytes(bool bf16, int H, int NC, int layout) {
+size_t smem_bytes(bool bf16, int H, int NC, bool resident) {
   const int Hc = (H + NC - 1) / NC;
-  // the slice of R when on chip; per half the h buffers and the sums
-  return r_vectors(bf16, layout, H, Hc) * 16
-         + 2 * (2 * (size_t)H * kTile
-                + part_floats(bf16 || layout == kRSplit, Hc)) * sizeof(float);
+  // the slice of R when resident; per half two h buffers and the sums
+  return r_vectors(bf16, resident, H, Hc) * 16
+         + 2 * (2 * (size_t)H * kTile + part_floats(bf16, Hc)) * sizeof(float);
 }
 
-// The f32 mode's layout of R at H units (RLayout), each where it fits
-// beside the kernel's static shared memory (the barriers) and a margin: on
-// chip as [k][unit], h . R in FMAs (up to 256 in the 8-block cluster, 368
-// in the 16-block one), else from device memory.  The measuring build
-// with -DICL_LSTM_F32_TF32 keeps R split on chip, h . R on the tensor
-// cores, where that fits in the 8-block cluster (H <= 216).
-cudaError_t f32_layout(int H, int device, int* layout) {
-  int optin = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  const int NC = H <= kMaxNarrowH ? kCluster : kWideCluster;
-  auto fits = [&](int l) {
-    return smem_bytes(false, H, NC, l) + 1024 <= (size_t)optin;
-  };
-#ifdef ICL_LSTM_F32_TF32
-  const bool split = NC == kCluster && fits(kRSplit);
-#else
-  const bool split = false;
-#endif
-  *layout = split ? kRSplit
-            : NC == kCluster || fits(kRChip) ? kRChip : kRMemory;
-  return err;
-}
-
-template <typename E, int NC, int kR, int kMinBlocks = 1>
+template <typename E, int NC, bool kResident, int kMinBlocks = 1>
 int launch_nc(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
               E* h_final, E* gates, E* cs, int G, int L, int B, int H,
               void* stream) {
-  const auto kernel = lstm_cluster_kernel<E, NC, kR, kMinBlocks>;
+  const auto kernel = lstm_cluster_kernel<E, NC, kResident, kMinBlocks>;
   const size_t smem = smem_bytes(std::is_same<E, __nv_bfloat16>::value, H,
-                                 NC, kR);
+                                 NC, kResident);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && NC > kCluster)
@@ -868,7 +698,7 @@ int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
     if (err != cudaSuccess) return (int)err;
     const int NC = H <= kMaxNarrowH ? kCluster : kWideCluster;
     const bool fits =
-        2 * (smem_bytes(true, H, NC, kRChip) + 2048) <= (size_t)per_sm;
+        2 * (smem_bytes(true, H, NC, true) + 2048) <= (size_t)per_sm;
     const long long blocks =
         (long long)G * NC * (((B + kTile - 1) / kTile + 1) / 2);
 #ifdef ICL_LSTM_BF16_BLOCKS   // a measuring build: 1 or 2 wherever 2 fit
@@ -877,37 +707,33 @@ int launch(const E* x_proj, const uint8_t* mask, const E* R, E* hs,
     const bool two = fits && (NC == kWideCluster || blocks > sms);
 #endif
     if (NC == kCluster)
-      return two ? launch_nc<E, kCluster, kRChip, 2>(x_proj, mask, R, hs,
-                                                     h_final, gates, cs, G, L,
-                                                     B, H, stream)
-                 : launch_nc<E, kCluster, kRChip, 1>(x_proj, mask, R, hs,
-                                                     h_final, gates, cs, G, L,
-                                                     B, H, stream);
-    return two ? launch_nc<E, kWideCluster, kRChip, 2>(x_proj, mask, R, hs,
-                                                       h_final, gates, cs, G,
-                                                       L, B, H, stream)
-               : launch_nc<E, kWideCluster, kRChip, 1>(x_proj, mask, R, hs,
-                                                       h_final, gates, cs, G,
-                                                       L, B, H, stream);
+      return two ? launch_nc<E, kCluster, true, 2>(x_proj, mask, R, hs,
+                                                   h_final, gates, cs, G, L,
+                                                   B, H, stream)
+                 : launch_nc<E, kCluster, true, 1>(x_proj, mask, R, hs,
+                                                   h_final, gates, cs, G, L,
+                                                   B, H, stream);
+    return two ? launch_nc<E, kWideCluster, true, 2>(x_proj, mask, R, hs,
+                                                     h_final, gates, cs, G,
+                                                     L, B, H, stream)
+               : launch_nc<E, kWideCluster, true, 1>(x_proj, mask, R, hs,
+                                                     h_final, gates, cs, G,
+                                                     L, B, H, stream);
   } else {
-    int layout = kRMemory;
-    err = f32_layout(H, device, &layout);
-    if (err != cudaSuccess) return (int)err;
-#ifdef ICL_LSTM_F32_TF32
-    if (layout == kRSplit)
-      return launch_nc<E, kCluster, kRSplit>(x_proj, mask, R, hs, h_final,
-                                             gates, cs, G, L, B, H, stream);
-#endif
     if (H <= kMaxNarrowH)
-      return launch_nc<E, kCluster, kRChip>(x_proj, mask, R, hs, h_final,
-                                            gates, cs, G, L, B, H, stream);
-    return layout == kRChip
-               ? launch_nc<E, kWideCluster, kRChip>(x_proj, mask, R, hs,
-                                                    h_final, gates, cs, G, L,
-                                                    B, H, stream)
-               : launch_nc<E, kWideCluster, kRMemory>(x_proj, mask, R, hs,
-                                                      h_final, gates, cs, G,
-                                                      L, B, H, stream);
+      return launch_nc<E, kCluster, true>(x_proj, mask, R, hs, h_final, gates,
+                                          cs, G, L, B, H, stream);
+    // the wide cluster keeps R on chip while it fits beside the kernel's
+    // static shared memory (the barriers) and a margin
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    if (smem_bytes(false, H, kWideCluster, true) + 1024 <= (size_t)optin)
+      return launch_nc<E, kWideCluster, true>(x_proj, mask, R, hs, h_final,
+                                              gates, cs, G, L, B, H, stream);
+    return launch_nc<E, kWideCluster, false>(x_proj, mask, R, hs, h_final,
+                                             gates, cs, G, L, B, H, stream);
   }
 }
 

@@ -23,9 +23,7 @@ Layout, direction-major as the Pallas kernels had it::
   thread-block cluster: 8 blocks up to H = 256, 16 up to 368; above, up to
   ``MAX_H`` = 512, the 16 blocks read R from device memory every step in
   f32, while the bf16 mode keeps R on chip at every width) for CUDA
-  tensors and runs the plain version for CPU tensors.  The f32 mode takes
-  h . R in f32 FMAs; three TF32 passes on the tensor cores (a measuring
-  build of the source) hold its gate but are no faster on the H100.  When a gradient is needed, the forward also keeps the
+  tensors and runs the plain version for CPU tensors.  When a gradient is needed, the forward also keeps the
   reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
   post-activation gates (not masked), c after the mask, and hs.  The
   backward is a plain reverse loop mirroring ``_lstm_recurrence_bwd_impl``

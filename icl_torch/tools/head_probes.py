@@ -1,4 +1,4 @@
-"""Three measuring kernels (``csrc/head_probes.cu``).
+"""Two measuring kernels beside the grid head (``csrc/head_probes.cu``).
 
 * :func:`empty_launch` launches a kernel that does nothing: its device time
   is the floor under every launch, against which the served grid-head calls
@@ -11,14 +11,8 @@
   equal ``dropout_keep_mask(...).sum(-1)``, which is how the probe is held
   to the mask the kernels and the plain versions share.
 
-* :func:`mma_rate` issues one kind of instruction, 8 independent ones a
-  round, from every warp of one block an SM: ``mma.sync`` m16n8k8 TF32
-  (what the f32 recurrence's three-pass build issues three of a chunk),
-  m16n8k16 bf16 (the bf16 mode's) or FFMA (the f32 mode's), and returns
-  instructions and multiply-adds a cycle an SM.
-
-No path of the port calls any of them.  Usage, on a machine with an NVIDIA
-GPU of compute capability 9.0::
+No path of the port calls either.  Usage, on a machine with an NVIDIA GPU
+of compute capability 9.0::
 
     python -m icl_torch.tools.head_probes
 """
@@ -63,39 +57,6 @@ def hash_kept(seeds: torch.Tensor, A: int, B: int, K: int,
     return kept
 
 
-MMA_KINDS = {"mma m16n8k8 TF32": (0, 16 * 8 * 8),
-             "mma m16n8k16 bf16": (1, 16 * 8 * 16),
-             "FFMA": (2, 32)}   # name -> (kind, multiply-adds an instruction)
-
-
-def mma_rate(name: str, warps: int, device: torch.device,
-             iters: int = 100_000) -> tuple[float, float, float]:
-    """(instructions, multiply-adds) a cycle an SM when every SM runs one
-    block of ``warps`` warps issuing ``name`` (a key of MMA_KINDS), and the
-    SM clock in MHz meanwhile: the blocks' mean clock64() cycles over the
-    launch's time by CUDA events (which holds the launch too, so a floor)."""
-    kind, macs = MMA_KINDS[name]
-    per_instr = 4 if kind == 2 else 1      # FFMAs in one of the 8 a round
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    out = torch.empty(sms * warps * 32, device=device)
-    cycles = torch.empty(sms, dtype=torch.int64, device=device)
-    lib = _build.load("head_probes", "icl_probe_mma_rate",
-                      [_I, _I, _I, _I, _P, _P, _I, _P])
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for n in (10, iters):     # a warm-up launch, then the measured one
-        start.record()
-        err = lib.icl_probe_mma_rate(
-            kind, sms, warps, n, out.data_ptr(), cycles.data_ptr(),
-            device.index or 0, torch.cuda.current_stream(device).cuda_stream)
-        _build.check(err, "head_probes.mma_rate")
-        end.record()
-        torch.cuda.synchronize(device)
-    mean = cycles.double().mean().item()
-    rate = warps * iters * 8 * per_instr / mean
-    return rate, rate * macs, mean / start.elapsed_time(end) / 1e3
-
-
 def event_ms(fn, iters: int = 200) -> float:
     """Mean time of fn() over back-to-back calls, by CUDA events."""
     for _ in range(3):
@@ -135,12 +96,6 @@ def main() -> int:
         print(f"hash only G={G} A={A} B={B} K={K}: {ms:.4f} ms per call, "
               f"{n * HASH_INT_OPS / ms / 1e9:.2f} T integer operations/s "
               f"({card})")
-    for name in MMA_KINDS:
-        for warps in (8, 16):
-            rate, macs, mhz = mma_rate(name, warps, dev)
-            print(f"{name}, {warps} warps an SM: {rate:.3f} instructions a "
-                  f"cycle an SM, {macs:.0f} multiply-adds a cycle an SM, the "
-                  f"SM clock at {mhz:.0f} MHz or more ({card})")
     return 0
 
 

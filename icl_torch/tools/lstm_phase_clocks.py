@@ -4,18 +4,13 @@ The recurrence (``icl_torch/csrc/lstm_recurrence.cu``) is one launch of L
 dependent steps, and a profiler that sees inside a kernel is not always at
 hand.  Built with ``-DICL_LSTM_CLOCKS`` the kernel adds up ``clock64()``
 differences per phase for thread 0 of block (0, 0): the next step's loads,
-this step's stores and the wait for the peers' h; phase A (h . R); the
-half block's barrier; phase B (the partial sums of the f32 FMAs, the
-gates); the second barrier; and the push of the new h to the peers.  This
-script builds that variant beside the plain one, checks both against the
-plain PyTorch version, and prints per shape the time per call
-(CUDA events over back-to-back launches) of the plain build and the
-instrumented build's cycles per step and phase, and the SM clock they
-imply, with the card's name and power limit.  In f32 it also builds the
-source with ``-DICL_LSTM_F32_TF32``, which takes h . R on the tensor cores
-in three TF32 passes where R fits on chip split into its hi and lo parts
-(H <= 216), and prints its time and phases beside the plain build's, held
-to the plain version too.
+this step's stores and the wait for the peers' h; phase A (the FMAs); the
+half block's barrier; phase B (partial sums, gates); the second barrier;
+and the push of the new h to the peers.  This script builds that variant beside the plain
+one, checks both against the plain PyTorch version, and prints per shape the
+time per call (CUDA events over back-to-back launches) of the plain build
+and the instrumented build's cycles per step and phase, with the card's
+name and power limit.
 
 With ``--bf16`` it does the same for the bf16 mode (``--compute_dtype
 bf16``; phase A is then its tensor-core product), holds it to the plain
@@ -47,8 +42,7 @@ from icl_torch.ops.lstm_recurrence import (_ARGTYPES, lstm_recurrence_fwd,
 PHASES = ("loads, stores, wait", "A h.R", "barrier", "B gates",
           "barrier 2", "push")
 SHAPES = ((2, 32, 8, 200), (2, 32, 64, 200), (2, 32, 320, 200),
-          (2, 32, 512, 200), (1, 16, 1024, 200), (2, 8, 40, 256),
-          (2, 32, 64, 216), (2, 32, 64, 300), (2, 32, 64, 512))
+          (2, 32, 512, 200), (1, 16, 1024, 200), (2, 8, 40, 256))
 BF16_SHAPES = ((2, 32, 64, 200), (2, 32, 320, 200), (2, 32, 512, 200),
                (1, 16, 1024, 200), (2, 32, 64, 300), (2, 32, 64, 512))
 BF16_REC_ULPS = 4   # chip_smoke.py's gate of the bf16 mode, bf16 units
@@ -92,35 +86,12 @@ def event_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def library(flags: tuple, entry: str) -> ctypes.CDLL:
-    """The recurrence source built with ``flags``, ``entry`` bound (and
-    the clocks entry of a -DICL_LSTM_CLOCKS build)."""
-    path, _ = _build.build("lstm_recurrence", flags)
+def library(flag: str, entry: str) -> ctypes.CDLL:
+    """The recurrence source built with ``flag``, ``entry`` bound."""
+    path, _ = _build.build("lstm_recurrence", (flag,))
     lib = ctypes.CDLL(str(path))
     getattr(lib, entry).argtypes = _ARGTYPES
-    if "-DICL_LSTM_CLOCKS" in flags:
-        lib.icl_lstm_recurrence_clocks.argtypes = [ctypes.c_void_p,
-                                                   ctypes.c_int]
     return lib
-
-
-def phases(lib: ctypes.CDLL, call, L: int, ms: float, one_wave: bool) -> str:
-    """Cycles a step and phase of thread 0 of block (0, 0) in a clocks
-    build, over 20 calls, and, where the grid is one wave of blocks, the SM
-    clock they imply: cycles a step x L over the build's ms a call (a lower
-    bound: a call's ms holds its set-up too)."""
-    clocks = (ctypes.c_longlong * 8)()
-    lib.icl_lstm_recurrence_clocks(clocks, 1)
-    iters = 20
-    for _ in range(iters):
-        call()
-    torch.cuda.synchronize()
-    lib.icl_lstm_recurrence_clocks(clocks, 1)
-    per = [clocks[i] / iters / L for i in range(len(PHASES))]
-    clock = (f" (at {sum(per) * L / ms / 1e3:.0f} MHz or more)" if one_wave
-             else "")
-    return (f"cycles a step {sum(per):.0f}{clock}: "
-            + ", ".join(f"{n} {c:.0f}" for n, c in zip(PHASES, per)))
 
 
 def main(argv: list[str]) -> int:
@@ -138,28 +109,21 @@ def main(argv: list[str]) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    clk = ("-DICL_LSTM_CLOCKS",)
-    lib = library(clk, entry)
-    # the measuring builds timed beside the plain one: (build, its clocks
-    # build or None)
-    tf32 = ("-DICL_LSTM_F32_TF32",)
-    variants = ({f"{n} block(s) an SM": (library(
-        (f"-DICL_LSTM_BF16_BLOCKS={n}",), entry), None) for n in (1, 2)}
-        if bf16 else {"3xTF32": (library(tf32, entry),
-                                 library(tf32 + clk, entry))})
+    lib = library("-DICL_LSTM_CLOCKS", entry)
+    lib.icl_lstm_recurrence_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    per_sm = {n: library(f"-DICL_LSTM_BF16_BLOCKS={n}", entry)
+              for n in ((1, 2) if bf16 else ())}
+    clocks = (ctypes.c_longlong * 8)()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bad = 0
     for G, L, B, H in shapes:
-        # 8-block clusters two row tiles each, all on the card at once
-        one_wave = H <= 256 and G * 8 * ((B + 15) // 16) <= sms
         x, m, R = inputs(G, L, B, H, gen, dev)
         if bf16:
             x, R = x.bfloat16(), R.bfloat16()
         want = lstm_recurrence_reference(x, m, R, True)
         got = lstm_recurrence_fwd(x, m, R, residuals=True)
         outs = [torch.empty_like(t) for t in want]
-        forced = {n: [torch.empty_like(t) for t in want] for n in variants}
+        forced = {n: [torch.empty_like(t) for t in want] for n in per_sm}
 
         def call(lib, outs, what):
             err = getattr(lib, entry)(
@@ -172,40 +136,44 @@ def main(argv: list[str]) -> int:
             call(lib, outs, "clocks")
 
         probe()
-        for n, (lib_n, _) in variants.items():
-            call(lib_n, forced[n], n)
+        for n, lib_n in per_sm.items():
+            call(lib_n, forced[n], f"{n} blocks an SM")
         torch.cuda.synchronize()
-        # the bf16 builds must give the plain build's bits; the f32 3xTF32
-        # build is held to the plain version, as the plain build is
         if bf16:
             err = bf16_units(got, want)
-            bad += err > BF16_REC_ULPS
-            equal = (outs, *forced.values())
+            same = all(torch.equal(a, b) for o in (outs, *forced.values())
+                       for a, b in zip(got, o))
+            bad += not (err <= BF16_REC_ULPS and same)
         else:
-            err = max(max((a - b).abs().max().item() for a, b in zip(o, want))
-                      for o in (got, *forced.values()))
-            bad += err > 1e-5
-            equal = (outs,)
-        same = all(torch.equal(a, b) for o in equal for a, b in zip(got, o))
-        bad += not same
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, outs))
+            bad += not (err <= 1e-5 and same)
         ms = event_ms(lambda: lstm_recurrence_fwd(x, m, R))
         ms_res = event_ms(lambda: lstm_recurrence_fwd(x, m, R, residuals=True))
         ms_probe = event_ms(probe)
-        line = (f"{'bf16' if bf16 else 'f32'} G={G} L={L} B={B} H={H}: "
-                + (f"max|kernel - plain| {err:.2f} bf16 units of max|plain| "
-                   f"(gate {BF16_REC_ULPS}), clocks and 1/2-block builds "
-                   if bf16 else f"max|kernel - plain| {err:.2e} (3xTF32 "
-                   f"build too), clocks build ")
-                + f"bitwise equal {same}; {ms:.4f} ms a call, "
-                f"{ms_res:.4f} ms with residuals ({ms_probe:.4f} ms in the "
-                f"clocks build); " + phases(lib, probe, L, ms_probe, one_wave))
-        for n, (lib_n, lib_clk) in variants.items():
-            ms_n = event_ms(lambda: call(lib_n, forced[n], n))
-            line += f"; {n}: {ms_n:.4f} ms with residuals"
-            if lib_clk is not None:
-                run = (lambda: call(lib_clk, forced[n], f"{n} clocks"))
-                line += ", " + phases(lib_clk, run, L, event_ms(run), one_wave)
-        print(line + f" ({card})")
+        ms_forced = {n: event_ms(lambda n=n: call(per_sm[n], forced[n],
+                                                  f"{n} blocks an SM"))
+                     for n in per_sm}
+        lib.icl_lstm_recurrence_clocks(clocks, 1)
+        iters = 20
+        for _ in range(iters):
+            probe()
+        torch.cuda.synchronize()
+        lib.icl_lstm_recurrence_clocks(clocks, 1)
+        per = [clocks[i] / iters / L for i in range(len(PHASES))]
+        print(f"{'bf16' if bf16 else 'f32'} G={G} L={L} B={B} H={H}: "
+              + (f"max|kernel - plain| {err:.2f} bf16 units of max|plain| "
+                 f"(gate {BF16_REC_ULPS}), clocks and 1/2-block builds "
+                 if bf16 else f"max|kernel - plain| {err:.2e}, clocks build ")
+              + f"bitwise equal {same}; {ms:.4f} ms a call, "
+              f"{ms_res:.4f} ms with residuals ({ms_probe:.4f} ms in the "
+              f"clocks build"
+              + "".join(f", {ms:.4f} ms with residuals at {n} block(s) an SM"
+                        for n, ms in ms_forced.items())
+              + "); cycles a step "
+              f"{sum(per):.0f}: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in zip(PHASES, per))
+              + f" ({card})")
     return 1 if bad else 0
 
 

@@ -368,39 +368,6 @@ def test_recurrence_residuals_match_plain(dev, G, L, B, H):
         _assert_close(got, ref)
 
 
-@pytest.mark.parametrize("G,L,B,H", [
-    (2, 32, 64, 200), (1, 16, 1024, 200), (2, 8, 13, 8), (2, 8, 13, 9),
-    (2, 16, 13, 201), (2, 8, 17, 216), (2, 8, 17, 217), (2, 16, 1, 200),
-    (2, 1, 13, 200)])
-def test_the_three_tf32_pass_build_matches_plain(dev, G, L, B, H):
-    """The measuring build -DICL_LSTM_F32_TF32 (h . R on the tensor cores
-    in three TF32 passes where R fits split on chip, H <= 216: k-steps of 8
-    whole and cut, one row, one step; FMAs at 217) holds the f32 gate
-    against the plain version, residuals included, twice with equal
-    bits."""
-    import ctypes
-
-    from icl_torch.ops import _build
-    from icl_torch.ops.lstm_recurrence import _ARGTYPES
-
-    path, _ = _build.build("lstm_recurrence", ("-DICL_LSTM_F32_TF32",))
-    fn = ctypes.CDLL(str(path)).icl_lstm_recurrence_f32
-    fn.argtypes = _ARGTYPES
-    args = _rec_inputs(G, L, B, H, dev)
-    want = lstm_recurrence_reference(*args, residuals=True)
-    runs = []
-    for _ in range(2):
-        outs = [torch.empty_like(t) for t in want]
-        assert fn(*(a.data_ptr() for a in args),
-                  *(o.data_ptr() for o in outs), G, L, B, H, dev.index or 0,
-                  torch.cuda.current_stream(dev).cuda_stream) == 0
-        runs.append(outs)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(*runs))
-    for got, ref in zip(runs[0], want, strict=True):
-        _assert_close(got, ref)
-
-
 @pytest.mark.parametrize("grid_loss", [True, False])
 def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
     dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}

@@ -1,10 +1,9 @@
 """The measuring and gating helpers around the recurrence kernel, on the
-CPU: ``kernel_bits.py --compare`` reports the recurrence's cases, bf16 and
-f32, as changed (their sum order moved to the tensor cores), the f32 ones
-in multiples of the f32 gate, and fails on any other difference;
-``chip_smoke.py``'s SASS reader counts the HMMA instructions of each
-``lstm_cluster_kernel`` instantiation, and its gate wants them in the bf16
-ones and nowhere else."""
+CPU: ``kernel_bits.py --compare`` reports the bf16 recurrence's cases as
+changed (their sum order moved to the tensor cores) and fails on any other
+difference, and ``chip_smoke.py``'s SASS reader counts the HMMA
+instructions of each ``lstm_cluster_kernel`` instantiation, and its gate
+wants them in the bf16 ones and nowhere else."""
 
 import types
 
@@ -15,16 +14,13 @@ import chip_smoke
 from icl_torch.tools import kernel_bits
 
 BF16_CASE = "recurrence bf16 2 32 64 200 residuals"
-F32_CASE = "recurrence 2 32 64 200 residuals"
 
 
 @pytest.mark.parametrize("moved,rc", [
-    (BF16_CASE, 0), (F32_CASE, 0), ("K5 x", 1), ("grid_head 8 16 16 800 4", 1)])
+    (BF16_CASE, 0), ("recurrence 2 32 64 200 residuals", 1), ("K5 x", 1),
+    ("grid_head 8 16 16 800 4", 1)])
 def test_compare_holds_all_but_the_bf16_recurrence_to_equal_bits(
         tmp_path, capsys, moved, rc):
-    """Every case but the recurrence's must keep its bits; the bf16 and
-    the f32 recurrence's are reported as changed (their h . R runs on the
-    tensor cores in another order of the sum)."""
     one = torch.ones(4)
     first = {BF16_CASE: (one.bfloat16(),), moved: (one,), "K5 x": (one,)}
     second = dict(first)
@@ -36,44 +32,25 @@ def test_compare_holds_all_but_the_bf16_recurrence_to_equal_bits(
     assert kernel_bits.main(["--compare", str(tmp_path / "p.pt"),
                              str(tmp_path / "c.pt")]) == rc
     out = capsys.readouterr().out
-    if moved == BF16_CASE:
+    if rc == 0:
         assert "differ: []" in out
         assert (f"{BF16_CASE}: changed, held to BF16_REC_ULPS "
                 f"(chip_smoke.py); 1.00 bf16 units") in out
-    elif moved == F32_CASE:
-        assert "differ: []" in out
-        assert (f"{F32_CASE}: changed, held to KERNEL_GATE (chip_smoke.py); "
-                f"781.250 x KERNEL_GATE x max(1, max |first|) apart") in out
     else:
         assert f"differ: ['{moved}']" in out
 
 
-@pytest.mark.parametrize("first,second,gates", [
-    # max |first| 1: the gate 1e-5; max |first| 4: 4e-5; below 1: 1e-5
-    ((1.0, 0.5), (1.0 + 2 ** -16, 0.5), 2 ** -16 / 1e-5),
-    ((4.0, 0.5), (4.0, 0.5 - 2 ** -15), 2 ** -15 / 4e-5),
-    ((0.25, 0.5), (0.25, 0.5 + 2 ** -20), 2 ** -20 / 1e-5),
-    ((0.25, 0.5), (0.25, 0.5), 0.0),
-    ((0.25, 0.5), (float("nan"), 0.5), float("inf"))])
-def test_gate_multiples_are_the_f32_gate_of_the_first_file(first, second,
-                                                            gates):
-    got = kernel_bits.gate_multiples(
-        (torch.tensor(first, dtype=torch.float64), torch.empty(0)),
-        (torch.tensor(second, dtype=torch.float64), torch.empty(0)))
-    assert got == pytest.approx(gates, rel=1e-6)
-
-
 def test_the_sass_reader_counts_hmma_per_instantiation(monkeypatch):
     sass = """
-        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelI13__nv_bfloat16Li8ELi1ELi2EEEvPKT_PKhS4_PS2_S7_S7_S7_iii
+        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelI13__nv_bfloat16Li8ELb1ELi2EEEvPKT_PKhS4_PS2_S7_S7_S7_iii
         /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
         /*0a20*/  HMMA.16816.F32.BF16 R20, R24, R28, RZ ;
-        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelIfLi16ELi0ELi1EEEvPKT_PKhS3_PS1_S6_S6_S6_iii
+        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelIfLi16ELb0ELi1EEEvPKT_PKhS3_PS1_S6_S6_S6_iii
         /*0a10*/  FFMA R1, R2, R3, R4 ;
-        Function : lstm_cluster_kernel<__nv_bfloat16, 16, 1, 1>(...)
+        Function : lstm_cluster_kernel<__nv_bfloat16, 16, true, 1>(...)
         /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
-        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelIfLi8ELi2ELi1EEEvPKT_PKhS3_PS1_S6_S6_S6_iii
-        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
+        Function : _ZN51_GLOBAL__N__0c0b0325_18_lstm_recurrence_cu_a657387219lstm_cluster_kernelIfLi8ELb1ELi1EEEvPKT_PKhS3_PS1_S6_S6_S6_iii
+        /*0a10*/  HMMA.1688.F32.TF32 R8, R12, R16, RZ ;
         Function : _ZN12_GLOBAL__N_111some_kernelEv
         /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, RZ ;
 """
@@ -86,20 +63,20 @@ def test_the_sass_reader_counts_hmma_per_instantiation(monkeypatch):
 
     monkeypatch.setattr(chip_smoke.subprocess, "run", run)
     assert chip_smoke._recurrence_mma("lib.so") == {
-        ("bf16", 8, "chip", 2): 2, ("f32", 16, "memory", 1): 0,
-        ("bf16", 16, "chip", 1): 1, ("f32", 8, "split", 1): 1}
+        ("bf16", 8, True, 2): 2, ("f32", 16, False, 1): 0,
+        ("bf16", 16, True, 1): 1, ("f32", 8, True, 1): 1}
     assert seen == [["/cuda/bin/cuobjdump", "-sass", "lib.so"]]
 
 
 @pytest.mark.parametrize("change,ok", [
     ({}, True),
-    ({("f32", 8, "chip", 1): 4}, False),    # an f32 instantiation on mma
-    ({("f32", 16, "chip", 1): 4}, False),
-    ({("f32", 16, "memory", 1): 4}, False),
-    ({("f32", 8, "split", 1): 24}, False),  # the measuring build's
-    ({("bf16", 16, "chip", 2): 0}, False),
-    ({("f32", 8, "memory", 1): 0}, False),  # an instantiation not expected
-    ({("bf16", 8, "chip", 1): None}, False)])  # one missing
+    ({("f32", 8, True, 1): 4}, False),      # an f32 instantiation on mma
+    ({("f32", 16, True, 1): 4}, False),
+    ({("f32", 16, False, 1): 4}, False),
+    ({("bf16", 8, True, 1): 0}, False),     # a bf16 one without
+    ({("bf16", 16, True, 2): 0}, False),
+    ({("f32", 8, False, 1): 0}, False),     # an instantiation not expected
+    ({("bf16", 8, True, 1): None}, False)])  # one missing
 def test_the_sass_gate_wants_hmma_in_the_bf16_mode_alone(change, ok):
     mma = {k: (8 if want else 0)
            for k, want in chip_smoke.RECURRENCE_MMA.items()}
