@@ -20,7 +20,11 @@ command lines as two data-parallel ranks on the one card:
    nvcc each, side by side, and prints ptxas's registers and spills
    (failing on a spill); reads the recurrence library's SASS (cuobjdump):
    HMMA in each bf16 instantiation (h . R on the tensor cores) and none in
-   the f32 ones (h . R in FMAs, R on chip or read from device memory);
+   the f32 ones (h . R in FMAs, R on chip or read from device memory); and
+   the grid-head libraries' (HEAD_MMA): HMMA in each instantiation of the
+   fast dot's tensor-core kernels (grid_head_bf16dot_kernel,
+   affinity_rank_bf16dot_kernel) and in no other kernel of grid_head.cu,
+   affinity_rank.cu or grid_head_train.cu;
 3. checks each kernel against its plain PyTorch version on the card (gate:
    max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
    and the recurrence at the served relation shapes, the recurrence's
@@ -150,7 +154,10 @@ command lines as two data-parallel ranks on the one card:
    dot (K1/K2) at the relation and affinity batch shapes (G=64, A=B=16,
    K=800, O=4; A=16, B=32, K=1024, O=2), ragged tiles, K % 4 != 0, O=8 and
    unaligned operands, gate 1e-5 * max(1, max |plain|) (both round the
-   same values to bf16 and sum in f32); the box ranking over the fast-dot
+   same values to bf16 and sum in f32), and each of its two forms forced
+   where the wrapper would take the other (the tensor cores at K % 16 !=
+   0, B <= 8, more box tiles than a block's 8, an unaligned operand; the
+   FMA form at a batch); the box ranking over the fast-dot
    logits (K9) at G in {4, 64} with ragged validity; the bf16 recurrence
    at G=2 L=32 B in {64, 320}, G=1 L=16 B=1024, H=200, the odd widths
    63 and 255, the 16-block cluster's 300 and 511, one k-step (H = 16),
@@ -162,7 +169,9 @@ command lines as two data-parallel ranks on the one card:
    affinity (10 epochs, eval every 5 steps), which must launch the bf16
    recurrence, K7/K8 in f32 and, in the dev eval, the fast-dot grid head,
    and no f32 recurrence; ``--predict --eval`` of that checkpoint in bf16
-   (only the bf16 modes launch) and in f32 (only the f32 kernels); dev
+   (only the bf16 modes launch) and in f32 (only the f32 kernels);
+   ``--predict`` in bf16 over the 128 train images, 64 a batch, whose fast
+   dot (and ranking) must take the tensor cores (``mma_launches``); dev
    accuracy in bf16 within 4 points of phase 9's f32 run, printed beside
    the dev split's majority-class rate (both models sit near it: 128
    images at vocabulary 2000 teach neither rule), so the bf16 run's dev
@@ -241,7 +250,9 @@ command lines as two data-parallel ranks on the one card:
    every image-task training run, the grid head (and the box ranking for
    affinity) on both ranks of every predict; then 20 epochs of relation
    training as two ranks and as one process started the same way: steps
-   per second of both, ms and bytes a step in the all-reduces;
+   per second of both, ms and bytes a step in the all-reduces; every
+   two-rank run from a fresh state must have started bit-equal on both
+   ranks (each rank's replicate line);
 12. prints the times beside the card, each kernel's bound and share, the
    launches of each kernel per request, predict call and train step, and
    per path (served relation predict, relation train step and predict,
@@ -314,6 +325,7 @@ from icl_torch.models.cardinality import CardinalityModel
 from icl_torch.models.nonvisual import NonvisualModel
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops import _build
+from icl_torch.ops import grid_head as gh_ops
 from icl_torch.ops import grid_head_train as ght
 from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
@@ -459,6 +471,13 @@ RECURRENCE_MMA = {("bf16", 8, True, 1): True, ("bf16", 8, True, 2): True,
                   ("bf16", 16, True, 1): True, ("bf16", 16, True, 2): True,
                   ("f32", 8, True, 1): False, ("f32", 16, True, 1): False,
                   ("f32", 16, False, 1): False}
+# HMMA in the grid head's sources: the fast dot of K1/K2 and K9 on the
+# tensor cores in each of its 4 instantiations (8 or 16 boxes an m-tile,
+# 16- or 4-byte loads), and none in any other kernel there: the f32 modes
+# and every training kernel, their one-pass mode included
+HEAD_MMA = {"grid_head": ("grid_head_bf16dot_kernel", 4),
+            "affinity_rank": ("affinity_rank_bf16dot_kernel", 4),
+            "grid_head_train": (None, 0)}
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
 
 
@@ -513,6 +532,14 @@ def main() -> int:
     if not _mma_as_expected(mma):
         raise RuntimeError(f"the recurrence's HMMA per instantiation: {mma}, "
                            f"expected HMMA where RECURRENCE_MMA is True")
+    # the fast dot on the tensor cores, nothing else of the head (HEAD_MMA)
+    for source in HEAD_MMA:
+        hmma = _sass_hmma(built[SOURCES.index(source)][0])
+        for name, n in sorted(hmma.items()):
+            print(f"sass {source} {name}: {n} HMMA")
+        if not _head_mma_as_expected(source, hmma):
+            raise RuntimeError(f"{source}: HMMA per kernel {hmma}, expected "
+                               f"as HEAD_MMA says")
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1042,6 +1069,24 @@ def main() -> int:
                  (lambda a=a: lstm_recurrence_reference(*a)), a,
                  f"G=2 L=32 B=64 H={H}, the 16-block cluster", rec_ops(a),
                  "icl/ops/lstm_kernel.py:282")
+    # the fast dot at a served relation request (G = 8: too little work
+    # for the tensor cores, the FMA form) and at a K no multiple of 16 (the
+    # tensor cores' last chunk read +0 past K), the f32 mode beside it
+    for G, K in ((8, 800), (64, 792)):
+        a = head_inputs(G, 16, K=K)
+        add_case(f"grid_head_bf16dot G={G}" + (f" K={K}" if K != 800 else ""),
+                 "grid_head_bf16dot",
+                 (lambda a=a: grid_head(*a, fast_dot=True)),
+                 (lambda a=a: grid_head_reference(*a, fast_dot=True)), a,
+                 f"G={G} A=B=16 K={K} O=4",
+                 fast(head_ops("fwd", G, 16, 16, K, 4), G * 16 * 16, K,
+                      2 * 4))
+        if K != 800:
+            add_case(f"grid_head G={G} K={K}", "grid_head",
+                     (lambda a=a: grid_head(*a)),
+                     (lambda a=a: grid_head_reference(*a)), a,
+                     f"G={G} A=B=16 K={K} O=4",
+                     head_ops("fwd", G, 16, 16, K, 4))
     timing = {}
     for name, c in cases.items():
         got, want = c["fn"](), c["plain"]()
@@ -1289,13 +1334,44 @@ def main() -> int:
     return 0
 
 
+def _sass(lib) -> str:
+    """The built library's SASS (cuobjdump beside nvcc)."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def _sass_hmma(lib) -> dict:
+    """{kernel: HMMA instructions} of every function in the built
+    library's SASS; a mangled name is cut to the kernel and its template
+    arguments, as the build lines print it."""
+    out, key = {}, None
+    for line in _sass(lib).splitlines():
+        m = re.search(r"Function : (.+?)\s*$", line)
+        if m:
+            key = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                         m.group(1)).split("EEv")[0]
+            out[key] = 0
+        elif key is not None and "HMMA" in line:
+            out[key] += 1
+    return out
+
+
+def _head_mma_as_expected(source: str, hmma: dict) -> bool:
+    """Whether a grid-head source's SASS has HMMA in each of HEAD_MMA's
+    instantiations of its fast-dot kernel, as many as it says, and none
+    in its other kernels (at least one of those)."""
+    kernel, n = HEAD_MMA[source]
+    mine = {k: v for k, v in hmma.items() if kernel and kernel in k}
+    return (len(mine) == n and all(mine.values()) and len(hmma) > n
+            and not any(v for k, v in hmma.items() if k not in mine))
+
+
 def _recurrence_mma(lib) -> dict:
     """{(dtype, blocks a cluster, R on chip, blocks an SM): HMMA
     instructions} of each lstm_cluster_kernel instantiation in the built
     library's SASS (cuobjdump beside nvcc)."""
-    tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = _sass(lib)
     out, key = {}, None
     for line in sass.splitlines():
         # the mangled name, or the demangled one
@@ -2161,6 +2237,29 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
                    else "") + ", twice")
         check(what, twice(what, lambda *a: grid_head(*a, fast_dot=True),
                           args), want)
+    # each form of the fast dot forced where dot_plan would pick the other:
+    # the tensor cores at small grids and their edges (K % 16 != 0, B <= 8,
+    # O odd, unaligned, more box tiles than a block's 8), the FMA form at a
+    # batch
+    for G, A, B, K, O, moved, mma in ((64, 16, 16, 792, 4, None, True),
+                                      (3, 9, 6, 72, 3, None, True),
+                                      (2, 20, 140, 50, 8, None, True),
+                                      (8, 16, 16, 800, 4, 1, True),
+                                      (64, 16, 16, 800, 4, None, False)):
+        args = list(head(G, A, B, K, O))
+        want = grid_head_reference(*args, fast_dot=True)
+        if moved is not None:
+            args[moved] = _offset_view(args[moved])
+
+        def forced(*a, mma=mma, shape=(G, A, B, O)):
+            out = torch.empty(shape, device=dev)
+            gh_ops._fast_dot(*a, out, mma)
+            return out
+        what = (f"grid_head bf16 fast dot, {'tensor cores' if mma else 'FMA'}"
+                f" form forced, G={G} A={A} B={B} K={K} O={O}"
+                + (f", operand {moved} unaligned" if moved is not None
+                   else "") + ", twice")
+        check(what, twice(what, forced, args), want)
     # the box ranking (K9) over the fast-dot logits, ragged validity
     for G, moved in ((4, None), (64, None), (4, 1)):
         valid = torch.rand(G, 32, generator=gen, device=dev) < 0.7
@@ -2304,6 +2403,31 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
                     if off > 2e-5 or rids != ids:
                         raise RuntimeError(f"bf16 phase: bad rank file "
                                            f"({dtype}): {off}")
+            # the fast dot at the batch users predict (the train split, 64
+            # images a batch): its tensor-core entry points must take it
+            fast = [grid_head.bf16dot] + (
+                [affinity_rank.bf16dot] if task == "affinity" else [])
+            before = [(f.launches, f.mma_launches) for f in fast]
+            argv = ["--predict", "--data_split", "train", *common,
+                    "--model_file", model_dir, "--scores_file",
+                    f"{d}/{task}.bf16.train.scores", "--compute_dtype", "bf16"]
+            if task == "affinity":
+                argv += ["--rank_file", f"{d}/{task}.bf16.train.rank"]
+            run("--predict --compute_dtype bf16 on the train split", argv,
+                bf16_ids, f32_ids)
+            took = [(f.launches - n, f.mma_launches - m)
+                    for f, (n, m) in zip(fast, before)]
+            names = ["icl_grid_head_bf16dot", "icl_affinity_rank_bf16dot"]
+            ok = all(m > 0 for _, m in took)
+            print(f"check icl-torch-{task} --predict --compute_dtype bf16 "
+                  f"over 128 images, 64 a batch, at full width: " + ", ".join(
+                      f"{name} on the tensor cores {m} of {n} launches"
+                      for name, (n, m) in zip(names, took)) +
+                  f": {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"icl-torch-{task} bf16 batch predict: "
+                                   f"the fast dot never took the tensor "
+                                   f"cores {took}")
             drift = float(np.abs(probs["bf16"] - probs["f32"]).max())
             gap = abs(acc["bf16"] - f32_accuracy[task])
             # the dev loss of the bf16 run at each eval against phase 9's
@@ -3363,6 +3487,17 @@ def _rank_steps(cli_dir: str, scratch: str, emb, trained, per_unit) -> None:
                                f"one process over the same half batches")
 
 
+def _replicated(r) -> str | None:
+    """None if both ranks of a run logged their fresh train state equal on
+    all ranks, else what replicate said (the tensors apart, by name)."""
+    lines = [ln for k in range(2) for ln in r.said(k).splitlines()
+             if "replicate: the train state" in ln]
+    if all("replicate: the train state equal on all 2 ranks" in r.said(k)
+           for k in range(2)):
+        return None
+    return " | ".join(lines) or "no replicate line"
+
+
 def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
     """Data parallelism on the one card: a world of one over NCCL in this
     process, then the command lines as two ranks that share the card (gloo
@@ -3458,6 +3593,7 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
                                "--model_file", f"{scratch}/affinity.one"])
             nonvisual_cli.main(["--train", *men, "--epochs", "1",
                                 "--model_file", f"{scratch}/nonvisual.one"])
+        fresh = {}   # two-rank runs from a fresh state -> what replicate said
         for task, r in runs.items():
             r.wait()
             for k in range(2):
@@ -3466,6 +3602,7 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
                                        f"gloo:\n{r.said(k)[-2000:]}")
             if task != "nonvisual":
                 r.need(trained, per_unit)
+            fresh[r.what] = _replicated(r)
         # the earliest step both runs still hold (a model dir keeps its
         # three newest checkpoints: step 1 where the epoch has three steps)
         early = {}
@@ -3622,10 +3759,21 @@ def _dist(cli_dir: str, men_dir: str, card: str) -> dict:
             n_steps = int(r.number(r"training loop: (\d+) steps"))
             if world == 2:
                 r.need(trained, per_unit)
+                fresh[r.what] = _replicated(r)
                 reduce_ms = [r.number(r"all-reduce \(gloo\): \d+ calls, "
                                       r"(\S+) ms", k) for k in range(2)]
                 reduce_bytes = r.number(r"all-reduce \(gloo\): .* ms and "
                                         r"(\d+) bytes a step")
+        # the fresh train states of every two-rank run, bit for bit: each
+        # rank draws them from the seed (icl_torch/params.py), and
+        # replicate holds them to rank 0's (REPLICA_NOISE is for rounding
+        # of a restore, not of a fresh draw)
+        equal = all(said is None for said in fresh.values())
+        print(f"check two ranks: fresh train states bit-equal on both ranks "
+              f"in {len(fresh)} runs (worst gap 0): "
+              + ("ok" if equal else f"FAIL {fresh}"))
+        if not equal:
+            raise RuntimeError(f"two ranks: fresh train states apart {fresh}")
         times.append(
             f"two ranks on one card, icl-torch-relation --train [{n_steps} "
             f"steps of 64 images, 32 a rank, no eval, no periodic save]: "

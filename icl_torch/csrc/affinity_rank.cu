@@ -37,10 +37,19 @@
 // order: repeated calls give the same bits.  Operands that are not 16-byte
 // aligned, or K % 4 != 0, take the same routine with 4-byte loads.
 //
-// The bf16 mode (icl_affinity_rank_bf16dot) takes the tile routine's fast
-// dot (the activation and the W2 column rounded to bf16, f32 sums): under
-// --compute_dtype bf16 the reference ranks the fast-dot logits it also
-// writes as probabilities, so the ranking follows the same logits here.
+// The bf16 mode (icl_affinity_rank_bf16dot, affinity_rank_bf16dot_kernel)
+// ranks the fast-dot logits (the activation and the W2 column rounded to
+// bf16, f32 sums): under --compute_dtype bf16 the reference ranks the
+// fast-dot logits it also writes as probabilities.  On large grids its
+// scores come from the tensor cores (affinity_rank_bf16dot_kernel): the
+// grid head's mma.sync routine of grid_head_tile.cuh (dot_block) in its
+// column form, B one real column of eight (one mma still stands for 16 x
+// 16 FMAs).  A block owns one group of 8 mentions and all the image's
+// boxes; its warps take the tiles of 16 (8) boxes side by side, up to 8,
+// times the K split; the scores meet in shared memory and the masked
+// softmax below is the f32 mode's.  On small grids
+// (icl_affinity_rank_bf16fma) the f32 kernel takes the tile routine's
+// kFastDot; icl_torch/ops/grid_head.py dot_plan picks the form.
 //
 // Shared memory a block: 2 KB of K-split partials and 16 x B bytes of
 // scores.  Registers a thread (ptxas, sm_90a, no spill; chip_smoke.py
@@ -71,10 +80,40 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The masked softmax over each row r < rows (a0 + r < A) of the block's
+// scores sc[r][B], a warp a row: the max and the sum of expf over the
+// image's valid boxes (a strided pass a lane in index order, then a fixed
+// butterfly), e / max(sum, 1e-30) to out[g, a0 + r, :], invalid boxes 0.
+// Every thread of the block calls it after the scores' barrier.
+__device__ __forceinline__ void masked_softmax(float* sc, int rows, int g,
+                                               int a0, int A, int B,
+                                               const uint8_t* box_valid,
+                                               float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint8_t* valid = box_valid + (size_t)g * B;
+  for (int r = warp; r < rows && a0 + r < A; r += blockDim.x >> 5) {
+    float* s = sc + r * B;
+    float m = -FLT_MAX;
+    for (int b = lane; b < B; b += 32)
+      if (valid[b]) m = fmaxf(m, s[b]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int b = lane; b < B; b += 32) {
+      const float e = valid[b] ? expf(s[b] - m) : 0.f;
+      s[b] = e;
+      sum += e;
+    }
+    sum = fmaxf(warp_sum(sum), 1e-30f);
+    float* o = out + ((size_t)g * A + a0 + r) * B;
+    for (int b = lane; b < B; b += 32) o[b] = s[b] / sum;
+  }
+}
+
 // Block b is (image g, row tile): rows a0 .. a0 + 3.  Warp w is column
 // tile w % col_warps of each group of col_warps tiles and k slice
 // w / col_warps.  kExactO: W2 is [K, 2]; kV: 4 (16-byte loads) or 1;
-// kFastDot: the tile routine's bf16 fast dot.
+// kFastDot: the tile routine's bf16 fast dot (the FMA form of the bf16
+// mode, for small grids).
 template <bool kExactO, int kV, bool kFastDot>
 __global__ void __launch_bounds__(kRankWarps * 32)
 affinity_rank_kernel(const HeadArgs p, const uint8_t* __restrict__ box_valid) {
@@ -103,30 +142,47 @@ affinity_rank_kernel(const HeadArgs p, const uint8_t* __restrict__ box_valid) {
   }
   __syncthreads();
 
-  const uint8_t* valid = box_valid + (size_t)t.g * B;
-  for (int r = warp; r < T::kRows && t.a0 + r < p.A; r += blockDim.x >> 5) {
-    float* s = sc + r * B;
-    float m = -FLT_MAX;
-    for (int b = lane; b < B; b += 32)
-      if (valid[b]) m = fmaxf(m, s[b]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int b = lane; b < B; b += 32) {
-      const float e = valid[b] ? expf(s[b] - m) : 0.f;
-      s[b] = e;
-      sum += e;
+  masked_softmax(sc, T::kRows, t.g, t.a0, p.A, B, box_valid, p.out);
+}
+
+// The bf16 mode: the header's dot_block (block b: image g, group of
+// mentions, all its boxes); slice 0's lanes l % 4 == 0 hold column 0 of
+// rows l / 4 and l / 4 + 8 and leave the scores in shared memory, then
+// the masked softmax.
+template <int kBT, bool kVec>
+__global__ void __launch_bounds__(kDotWarps * 32, 2)
+affinity_rank_bf16dot_kernel(const DotArgs p,
+                             const uint8_t* __restrict__ box_valid) {
+  using T = DotTile<kBT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(
+      smem + dot_smem(kBT, p.chunks, blockDim.x >> 5, 0, false));
+  const int lane = threadIdx.x & 31;
+  const float bias = __ldg(p.b2 + p.col);
+  dot_block<kBT, kVec>(p, smem, [&](const DotAcc<kBT>& acc, int,
+                                    int a0, int b0) {
+    if ((lane & 3) != 0) return;
+#pragma unroll
+    for (int i = 0; i < DotTile<kBT>::kTiles; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = kBT == 16 ? a0 + i : a0 + 2 * i + h;
+        const int b = b0 + (lane >> 2) + (kBT == 16 ? 8 * h : 0);
+        if (a < p.A && b < p.B) sc[(a - a0) * p.B + b] = acc[i][2 * h] + bias;
+      }
     }
-    sum = fmaxf(warp_sum(sum), 1e-30f);
-    float* o = p.out + ((size_t)t.g * p.A + t.a0 + r) * B;
-    for (int b = lane; b < B; b += 32) o[b] = s[b] / sum;
-  }
+  });
+  __syncthreads();
+  const int g = blockIdx.x / p.row_groups;
+  masked_softmax(sc, T::kMentions, g, (blockIdx.x % p.row_groups) *
+                 T::kMentions, p.A, p.B, box_valid, p.out);
 }
 
 template <bool kFastDot>
-int launch(const float* X, const float* Y, const float* b1, const float* W2,
-           const float* b2, const uint8_t* box_valid, float* out, int G,
-           int A, int B, int K, int O, int col, int ksplit, int device,
-           void* stream) {
+int launch_tile(const float* X, const float* Y, const float* b1,
+                const float* W2, const float* b2, const uint8_t* box_valid,
+                float* out, int G, int A, int B, int K, int O, int col,
+                int ksplit, int device, void* stream) {
   if (G <= 0 || A <= 0 || B <= 0 || K <= 0 || col < 0 || col >= O)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -171,6 +227,43 @@ int launch(const float* X, const float* Y, const float* b1, const float* W2,
   return (int)cudaGetLastError();
 }
 
+int launch_bf16dot(const float* X, const float* Y, const float* b1,
+                   const float* W2, const float* b2,
+                   const uint8_t* box_valid, float* out, int G, int A, int B,
+                   int K, int O, int col, int ksplit, int device,
+                   void* stream) {
+  if (G <= 0 || A <= 0 || B <= 0 || K <= 0 || col < 0 || col >= O)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  DotArgs p = {};
+  p.X = X, p.Y = Y, p.b1 = b1, p.W2 = W2, p.b2 = b2, p.out = out;
+  p.G = G, p.A = A, p.B = B, p.K = K, p.O = O, p.col = col;
+  int vec, bt;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_dot(p, ksplit, true, &vec, &bt, &blocks, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+#define ICL_CALL(kBT, kVec)                                                  \
+  do {                                                                       \
+    if (smem > 48 * 1024) {                                                  \
+      err = cudaFuncSetAttribute(affinity_rank_bf16dot_kernel<kBT, kVec>,    \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                 (int)smem);                                 \
+      if (err != cudaSuccess) return (int)err;                               \
+    }                                                                        \
+    affinity_rank_bf16dot_kernel<kBT, kVec>                                  \
+        <<<blocks, threads, smem, (cudaStream_t)stream>>>(p, box_valid);     \
+  } while (0)
+  if (bt == 16) {
+    if (vec) ICL_CALL(16, true); else ICL_CALL(16, false);
+  } else {
+    if (vec) ICL_CALL(8, true); else ICL_CALL(8, false);
+  }
+#undef ICL_CALL
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t from the caller) on `device`.
@@ -188,12 +281,29 @@ extern "C" int icl_affinity_rank_f32(const float* X, const float* Y,
                                      int G, int A, int B, int K, int O,
                                      int col, int ksplit, int device,
                                      void* stream) {
-  return launch<false>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O, col,
-                       ksplit, device, stream);
+  return launch_tile<false>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O,
+                            col, ksplit, device, stream);
+}
+
+// The same call in the bf16 fast-dot mode's FMA form, for small grids
+// (icl_torch/ops/affinity_rank.py takes it below the fast dot's work
+// threshold): the f32 launch shape, the tile routine's kFastDot.
+extern "C" int icl_affinity_rank_bf16fma(const float* X, const float* Y,
+                                         const float* b1, const float* W2,
+                                         const float* b2,
+                                         const uint8_t* box_valid,
+                                         float* out, int G, int A, int B,
+                                         int K, int O, int col, int ksplit,
+                                         int device, void* stream) {
+  return launch_tile<true>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O,
+                           col, ksplit, device, stream);
 }
 
 // The same call in the bf16 fast-dot mode: the scores are the fast-dot
-// grid head's column, as the reference ranks the fast-dot logits it writes.
+// grid head's column, as the reference ranks the fast-dot logits it writes,
+// from the tensor cores.  A block is one group of mentions with all its
+// boxes, min(box tiles, 8) x ksplit warps, at most 8 (icl_torch/ops/
+// grid_head.py dot_plan picks ksplit); W2 is read in any alignment.
 extern "C" int icl_affinity_rank_bf16dot(const float* X, const float* Y,
                                          const float* b1, const float* W2,
                                          const float* b2,
@@ -201,6 +311,6 @@ extern "C" int icl_affinity_rank_bf16dot(const float* X, const float* Y,
                                          float* out, int G, int A, int B,
                                          int K, int O, int col, int ksplit,
                                          int device, void* stream) {
-  return launch<true>(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O, col,
-                      ksplit, device, stream);
+  return launch_bf16dot(X, Y, b1, W2, b2, box_valid, out, G, A, B, K, O,
+                        col, ksplit, device, stream);
 }

@@ -22,12 +22,19 @@
 // here without dropout; each cell's owner lane stores its O logits in one
 // 16- or 8-byte store.  No atomics: a response is bitwise repeatable.
 //
-// The bf16 mode (icl_grid_head_bf16dot, grid_head_bf16dot_kernel): the
-// tile routine's fast dot, the reference's fast_dot of both Pallas bodies
-// (the activation and W2 rounded to bf16, f32 sums); f32 in and out, the
-// same launch shape.  It runs the f32 mode's FMAs, so it is no faster; a
-// tensor-core design (mma.sync bf16, N padded from O = 2 or 4 to 8) is
-// later work.
+// The bf16 mode, the reference's fast_dot of both Pallas bodies (the
+// activation and W2 rounded to bf16, f32 sums), f32 in and out, in two
+// forms that icl_torch/ops/grid_head.py dot_plan picks between by the
+// grid's work.  On large grids (icl_grid_head_bf16dot,
+// grid_head_bf16dot_kernel) it runs on the tensor cores: the header's
+// mma.sync routine (dot_block), a block a group of 8 mentions with its
+// boxes, X + b1 and W2's bf16 fragments staged once a block in shared
+// memory, Y through a cp.async ring a warp, K split over the warps of a
+// block; per element 1.5 instructions where the FMA form runs 2 + O and
+// two conversions.  On small grids, where that block's set-up costs more
+// than the whole call, the FMA form (icl_grid_head_bf16fma,
+// grid_head_bf16fma_kernel): the tile routine's kFastDot in the f32
+// kernel's launch shape.
 #include "grid_head_tile.cuh"
 
 namespace {
@@ -44,20 +51,90 @@ grid_head_kernel(const HeadArgs p) {
   if (t.owner) store_cell<kO, kExactO>(p.out + t.cell * p.O, logit, p.O);
 }
 
-// The bf16 mode, a kernel of its own with one block an SM in its launch
-// bounds: under the f32 kernel's bounds ptxas held the scalar generic form
-// (kO = 8, kV = 1) to 64 registers and spilled 12 bytes; told that one
-// block an SM is enough, it takes the 90 it needs (122-156 in the other
-// forms), and the f32 kernel stays as it was.
+// The bf16 mode on small grids (the FMA form, icl_grid_head_bf16fma): the
+// tile routine's fast dot (kFastDot: the activation and W2 rounded to bf16
+// an element, f32 FMAs) in the f32 kernel's launch shape, a kernel of its
+// own with one block an SM in its launch bounds (under the f32 kernel's,
+// ptxas held the scalar generic form to 64 registers and spilled).
 template <int kO, bool kExactO, int kV>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
-grid_head_bf16dot_kernel(const HeadArgs p) {
+grid_head_bf16fma_kernel(const HeadArgs p) {
   __shared__ float red[kRedFloats];
   float logit[kO];
   const TileCoords t = tile_coords<kO>(p);
   head_tile_logits<kO, kExactO, kV, false, false, false, true>(p, t, red,
                                                               logit);
   if (t.owner) store_cell<kO, kExactO>(p.out + t.cell * p.O, logit, p.O);
+}
+
+// The bf16 mode: the header's dot_block (block b: image g, group of
+// mentions), then each lane of slice 0 stores columns 2 (l % 4) + {0, 1}
+// of rows l / 4 and l / 4 + 8 of each m-tile, those below O of the cells
+// inside the grid.
+template <int kBT, bool kVec>
+__global__ void __launch_bounds__(kDotWarps * 32, 2)
+grid_head_bf16dot_kernel(const DotArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, n = 2 * (lane & 3);
+  dot_block<kBT, kVec>(p, smem, [&](const DotAcc<kBT>& acc, int g,
+                                    int a0, int b0) {
+    if (n >= p.O) return;
+    const float c0 = __ldg(p.b2 + n);
+    const float c1 = n + 1 < p.O ? __ldg(p.b2 + n + 1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < DotTile<kBT>::kTiles; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = kBT == 16 ? a0 + i : a0 + 2 * i + h;
+        const int b = b0 + (lane >> 2) + (kBT == 16 ? 8 * h : 0);
+        if (a < p.A && b < p.B) {
+          float* dst = p.out + (((size_t)g * p.A + a) * p.B + b) * p.O + n;
+          const float v0 = acc[i][2 * h] + c0, v1 = acc[i][2 * h + 1] + c1;
+          if (p.O % 2 == 0) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (n + 1 < p.O) dst[1] = v1;
+          }
+        }
+      }
+    }
+  });
+}
+
+int launch_bf16dot(const float* X, const float* Y, const float* b1,
+                   const float* W2, const float* b2, float* out, int G, int A,
+                   int B, int K, int O, int ksplit, int device, void* stream) {
+  if (G <= 0 || A <= 0 || B <= 0 || K <= 0 || O <= 0 || O > kMaxO)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  DotArgs p = {};
+  p.X = X, p.Y = Y, p.b1 = b1, p.W2 = W2, p.b2 = b2, p.out = out;
+  p.G = G, p.A = A, p.B = B, p.K = K, p.O = O, p.col = -1;
+  int vec, bt;
+  unsigned blocks, threads;
+  size_t smem;
+  if (!plan_dot(p, ksplit, false, &vec, &bt, &blocks, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+#define ICL_CALL(kBT, kVec)                                                  \
+  do {                                                                       \
+    if (smem > 48 * 1024) {                                                  \
+      err = cudaFuncSetAttribute(grid_head_bf16dot_kernel<kBT, kVec>,        \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                 (int)smem);                                 \
+      if (err != cudaSuccess) return (int)err;                               \
+    }                                                                        \
+    grid_head_bf16dot_kernel<kBT, kVec>                                      \
+        <<<blocks, threads, smem, (cudaStream_t)stream>>>(p);                \
+  } while (0)
+  if (bt == 16) {
+    if (vec) ICL_CALL(16, true); else ICL_CALL(16, false);
+  } else {
+    if (vec) ICL_CALL(8, true); else ICL_CALL(8, false);
+  }
+#undef ICL_CALL
+  return (int)cudaGetLastError();
 }
 
 template <bool kFastDot>
@@ -78,7 +155,7 @@ int launch(const float* X, const float* Y, const float* b1, const float* W2,
 #define ICL_CALL(kO, kExactO, kV)                          \
   do {                                                     \
     if constexpr (kFastDot)                                \
-      grid_head_bf16dot_kernel<kO, kExactO, kV>            \
+      grid_head_bf16fma_kernel<kO, kExactO, kV>            \
           <<<blocks, threads, 0, (cudaStream_t)stream>>>(p); \
     else                                                   \
       grid_head_kernel<kO, kExactO, kV>                    \
@@ -106,12 +183,27 @@ extern "C" int icl_grid_head_f32(const float* X, const float* Y,
                        stream);
 }
 
-// The same call in the bf16 fast-dot mode.
-extern "C" int icl_grid_head_bf16dot(const float* X, const float* Y,
+// The same call in the bf16 fast-dot mode's FMA form, for small grids
+// (icl_torch/ops/grid_head.py takes it below its work threshold): the f32
+// launch shape and form rules, launch_plan's ksplit.
+extern "C" int icl_grid_head_bf16fma(const float* X, const float* Y,
                                      const float* b1, const float* W2,
                                      const float* b2, float* out, int G,
                                      int A, int B, int K, int O, int ksplit,
                                      int device, void* stream) {
   return launch<true>(X, Y, b1, W2, b2, out, G, A, B, K, O, ksplit, device,
                       stream);
+}
+
+// The same call in the bf16 fast-dot mode, on the tensor cores.  ksplit
+// warps of a block split K (1 <= ksplit <= 8; icl_torch/ops/grid_head.py
+// dot_plan picks it); the 16-byte loads are taken when X, Y and b1 are
+// 16-byte aligned and K % 4 == 0 (plan_dot).  W2 is read in any alignment.
+extern "C" int icl_grid_head_bf16dot(const float* X, const float* Y,
+                                     const float* b1, const float* W2,
+                                     const float* b2, float* out, int G,
+                                     int A, int B, int K, int O, int ksplit,
+                                     int device, void* stream) {
+  return launch_bf16dot(X, Y, b1, W2, b2, out, G, A, B, K, O, ksplit, device,
+                        stream);
 }

@@ -7,13 +7,15 @@
 // rounded after the dropout scale) and every W2 entry, are rounded to bf16
 // (round to nearest even).  A product of two bf16 values is exact in f32,
 // so the FMAs and the sums stay f32: what a one-pass bf16 dot with f32
-// accumulation computes.  Inputs and outputs stay f32.  It is the bf16
-// mode of K1/K2 and K9 without dropout (the reference's fast_dot in
-// icl/ops/grid_head.py _kernel and _flat_kernel) and the exact=False mode
-// of the training forward family with it (Precision.DEFAULT in
-// icl/ops/grid_head_train.py).  It runs the same FMAs as the f32 mode,
-// plus two conversions an element; the f32 mode is another instantiation
-// and keeps its bits.
+// accumulation computes.  Inputs and outputs stay f32.  It is the
+// exact=False mode of the training forward family, with dropout
+// (Precision.DEFAULT in icl/ops/grid_head_train.py).  It runs the same
+// FMAs as the f32 mode, plus two conversions an element; the f32 mode is
+// another instantiation and keeps its bits.  The bf16 mode of K1/K2 and K9
+// without dropout (the reference's fast_dot in icl/ops/grid_head.py
+// _kernel and _flat_kernel) takes this form on small grids and the second
+// routine of this header, on the tensor cores (at its end), on large
+// ones.
 //
 // One source for every forward kernel of the grid head: grid_head.cu (the
 // Pallas kernels K1 _flat_kernel and K2 _kernel of icl/ops/grid_head.py)
@@ -441,6 +443,449 @@ inline bool plan_launch(HeadArgs& p, int G, int ksplit, int* vec,
   *blocks = (unsigned)n;
   *threads = 32u * p.ksplit * p.col_warps;
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// The fast dot on the tensor cores: the bf16 mode of K1/K2 (grid_head.cu
+// grid_head_bf16dot_kernel) and of K9 (affinity_rank.cu
+// affinity_rank_bf16dot_kernel).
+//
+// It computes what the fast dot above computes without dropout: h =
+// relu((X + b1) + Y), added in f32 in that order and rounded to bf16
+// (nearest even); W2 rounded to bf16; the exact products summed in f32;
+// + b2.  The dot is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+// A is 16 cells x 16 k of h, built in registers: one f32 add an element,
+// then one cvt.rn.relu.bf16x2.f32 takes the max with 0 and rounds two
+// values into a fragment register.  B is 16 k x 8 of W2: its O columns
+// (K9: the one column ranked) and zeros up to 8.  Per element of [cells,
+// K] that is 1.5 instructions and 1/256 of an mma, where the FMA form
+// ran 2 + O float instructions and two conversions (at 16 a clock an SM,
+// the conversions alone made the FMA form's fast dot slower than f32).
+//
+// What bounds it then is the operands' way in, not the arithmetic: the
+// bytes each SM pulls from L2 (Y above all, read again by every group of
+// mentions of its image) and the round trips before a warp's first chunk.
+// So:
+//  * A block is one group of 8 mentions of an image and all its boxes, in
+//    warp tiles of 16 boxes (8 where B <= 8): up to 8 tiles side by side,
+//    the rest in turns, times the K split.  An m-tile's 16 rows are 16
+//    boxes of one mention (kBT = 16: 8 m-tiles a warp) or 8 boxes of two
+//    (kBT = 8: 4 m-tiles).  Lane l holds rows l / 4 and l / 4 + 8 of each.
+//  * The 16 k's of a chunk are dealt to the fragment's slots so that a
+//    lane's four are consecutive: slots 2t, 2t + 1 (registers a0, a1 and
+//    b0) take k0 + 4t + {0, 1}, slots 8 + 2t, 9 + 2t (a2, a3, b1) take
+//    k0 + 4t + {2, 3}, t = l % 4.  A and B agree on it, so the sum is the
+//    same, and every operand of a lane is one 16-byte load a row.
+//  * Once a block, into shared memory (stage_block, every load of a round
+//    issued before its first store): X + b1 of its mentions (f32, the
+//    reference's first add; K padded to a multiple of 16 with zeros) and
+//    W2's B fragments rounded to bf16, in the order the lanes read them
+//    (zero past O and past K).  Y goes through a ring of kDotStages
+//    chunks a warp (cp.async, 16 bytes a lane; +0 past K), its first
+//    chunks in flight while the block stages the rest.  A chunk costs a
+//    lane (kBT = 16) 2 copies and 2 shared loads of Y, 8 broadcast loads
+//    of X + b1 and one 8-byte load of B for 64 elements of h: 64 adds, 32
+//    cvt and 8 mma.  Nothing past K is read from stale shared memory,
+//    which may hold a NaN.
+//  * The sum's order: each m-tile's accumulator runs through the chunks
+//    of the warp's k slice in k order (D = A B + D).  Small grids split K
+//    over ksplit warps (slice s takes chunks s, s + ksplit, ...); the
+//    slices meet in shared memory and are added in the order s = 0, 1, ...
+//    No atomics, no data-dependent order: two calls give equal bits.
+//  * Rows beyond the grid's edge read clamped rows and are not written.
+//    Operands not 16-byte aligned, or K % 4 != 0, take 4-byte loads
+//    (kVec false), the same routine.
+//  * A block's set-up (a round of loads for X + b1 and W2, then the
+//    ring's) costs about as much as the FMA form's whole call on a small
+//    grid, so the callers (icl_torch/ops/grid_head.py dot_plan) give this
+//    routine the grids with work enough and the FMA form the rest.
+
+constexpr int kDotMentions = 8;    // mentions a warp tile and a block
+constexpr int kDotWarps = 8;       // warps a block at most
+constexpr int kDotK = 16;          // k a chunk
+constexpr int kDotStages = 4;      // chunks in a warp's ring (3 in flight)
+constexpr int kDotSmem = 227 * 1024;                // a block's shared memory
+
+struct DotArgs {
+  const float* X;        // [G, A, K]
+  const float* Y;        // [G, B, K]
+  const float* b1;       // [K]
+  const float* W2;       // [K, O]
+  const float* b2;       // [O]
+  float* out;
+  int G, A, B, K, O;
+  int col;               // the column form: the column of W2 and b2 taken
+  int ksplit;            // warps splitting K (the caller's choice)
+  int tasks;             // warp tiles side by side in a block } set by
+  int row_groups;        // groups of mentions of an image    } plan_dot
+  int col_tiles;         // tiles of kBT boxes of an image    }
+  int chunks;            // ceil(K / 16)                      }
+};
+
+template <int kBT>
+struct DotTile {
+  static constexpr int kTiles = kBT == 16 ? 8 : 4;   // m-tiles a warp
+  static constexpr int kMentions = kDotMentions;
+  static constexpr int kYRows = kBT / 8;         // Y rows a lane copies
+  static constexpr int kRed = kTiles * 4 * 32;   // a warp's K-split sums
+  // floats a warp: the ring, room for the K split's sums that reuse it
+  static constexpr int kRing = kDotStages * kBT * kDotK > kRed
+                                   ? kDotStages * kBT * kDotK
+                                   : kRed;
+};
+
+// a lane's accumulators: 4 floats of each m-tile
+template <int kBT>
+using DotAcc = float[DotTile<kBT>::kTiles][4];
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;   // lo in the low half, as a fragment holds the lower k
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t r;   // max(v, 0) rounded to bf16, both values
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += A . B: one 16 x 8 x 16 bf16 product, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// k .. k + 3 of a row into shared memory, +0 past K, without waiting: one
+// 16-byte cp.async (kVec: K % 4 == 0 and the row 16-byte aligned) or four
+// 4-byte ones; a copy past K reads nothing and fills zeros.
+template <bool kVec>
+__device__ __forceinline__ void copy_k4(float* dst,
+                                        const float* __restrict__ row, int k,
+                                        int K) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (kVec) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(d), "l"(k < K ? row + k : row), "r"(k < K ? 16 : 0)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                   :: "r"(d + 4 * j), "l"(k + j < K ? row + k + j : row),
+                      "r"(k + j < K ? 4 : 0)
+                   : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// The lane's rows of Y in a warp tile whose first box is b0, as offsets in
+// the image, clamped to the grid: l / 4 (and l / 4 + 8 at kBT = 16).
+template <int kBT>
+struct DotRows {
+  int yo[DotTile<kBT>::kYRows];
+  bool live;             // the tile has a box inside the grid (warp-uniform)
+};
+
+template <int kBT>
+__device__ __forceinline__ DotRows<kBT> dot_rows(const DotArgs& p, int b0) {
+  const int r = (threadIdx.x & 31) >> 2;
+  DotRows<kBT> w;
+#pragma unroll
+  for (int i = 0; i < DotTile<kBT>::kYRows; ++i)
+    w.yo[i] = min(b0 + r + 8 * i, p.B - 1) * p.K;
+  w.live = b0 < p.B;
+  return w;
+}
+
+// Copies chunk c of the tile's Y rows into a ring stage [kBT][16]: lane l
+// takes k = 16 c + 4 (l % 4) .. + 3 of its rows.
+template <int kBT, bool kVec>
+__device__ __forceinline__ void dot_copy(const DotArgs& p, const float* yg,
+                                         const DotRows<kBT>& w, int c,
+                                         float* stage) {
+  const int lane = threadIdx.x & 31, r = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < DotTile<kBT>::kYRows; ++i)
+    copy_k4<kVec>(stage + (r + 8 * i) * kDotK + t * 4, yg + w.yo[i],
+                  c * kDotK + t * 4, p.K);
+}
+
+// The first kDotStages - 1 chunks of the warp's k slice s into its ring
+// (one commit group each, empty ones too).
+template <int kBT, bool kVec>
+__device__ __forceinline__ void dot_start(const DotArgs& p, const float* yg,
+                                          const DotRows<kBT>& w, int s,
+                                          float* ring) {
+#pragma unroll
+  for (int j = 0; j < kDotStages - 1; ++j) {
+    const int c = s + j * p.ksplit;
+    if (w.live && c < p.chunks)
+      dot_copy<kBT, kVec>(p, yg, w, c, ring + j * kBT * kDotK);
+    copy_commit();
+  }
+}
+
+// The block's operands into shared memory, once:
+//  * W2's B fragments rounded to bf16: entry c * 32 + l is lane l's {b0,
+//    b1} of chunk c: column n = l / 4 of W2 (the column form: n = 0 is
+//    p.col), k = 16 c + 4 (l % 4) + {0, 1} and + {2, 3}; zero for n past
+//    O (column form: past 0) and k past K.  Warp w takes chunks w, w +
+//    warps, ...
+//  * X + b1 of the mentions a0 .. a0 + kMentions - 1 (clamped to the
+//    grid): row m at xb + m * 16 chunks, zero past K; thread i takes k's
+//    4 i .. 4 i + 3 of every row.
+// A round issues all its loads (kStageChunks chunks of W2 a warp, 4 k's
+// of b1 and of each X row a thread) before its first store, so the block
+// waits about one latency a round.  Every thread of the block calls it.
+constexpr int kStageChunks = 4;
+
+template <int kBT, bool kVec>
+__device__ __forceinline__ void stage_block(const DotArgs& p, int g, int a0,
+                                            uint2* frag, float* xb) {
+  constexpr int kM = DotTile<kBT>::kMentions;
+  const int lane = threadIdx.x & 31, nc = lane >> 2;
+  const int warps = blockDim.x >> 5;
+  const int col = p.col >= 0 ? p.col : nc;
+  const bool live = p.col >= 0 ? nc == 0 : nc < p.O;
+  const int kp = p.chunks * kDotK;
+  const float* xg = p.X + (size_t)g * p.A * p.K;
+  for (int r = 0; r * kStageChunks * warps < p.chunks ||
+                  r * 4 * (int)blockDim.x < kp; ++r) {
+    float w[kStageChunks][4];
+#pragma unroll
+    for (int u = 0; u < kStageChunks; ++u) {
+      const int c = (threadIdx.x >> 5) + (r * kStageChunks + u) * warps;
+      const int k = c * kDotK + (lane & 3) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[u][j] = live && c < p.chunks && k + j < p.K
+                      ? __ldg(p.W2 + (k + j) * p.O + col)
+                      : 0.f;
+    }
+    const int k = 4 * (threadIdx.x + r * blockDim.x);
+    float4 xv[kM], bv = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) xv[m] = bv;
+    if constexpr (kVec) {
+      if (k < p.K) {
+        bv = __ldg(reinterpret_cast<const float4*>(p.b1 + k));
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+          xv[m] = __ldg(reinterpret_cast<const float4*>(
+              xg + min(a0 + m, p.A - 1) * p.K + k));
+      }
+    } else {
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = k + j < p.K ? __ldg(p.b1 + k + j) : 0.f;
+      bv = make_float4(f[0], f[1], f[2], f[3]);
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const float* x = xg + min(a0 + m, p.A - 1) * p.K;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f[j] = k + j < p.K ? __ldg(x + k + j) : 0.f;
+        xv[m] = make_float4(f[0], f[1], f[2], f[3]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageChunks; ++u) {
+      const int c = (threadIdx.x >> 5) + (r * kStageChunks + u) * warps;
+      if (c < p.chunks)
+        frag[c * 32 + lane] =
+            make_uint2(bf16x2(w[u][0], w[u][1]), bf16x2(w[u][2], w[u][3]));
+    }
+    if (k < kp) {   // X + b1 in f32, the reference's first add
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+        *reinterpret_cast<float4*>(xb + m * kp + k) =
+            make_float4(xv[m].x + bv.x, xv[m].y + bv.y, xv[m].z + bv.z,
+                        xv[m].w + bv.w);
+    }
+  }
+}
+
+// The m-tiles' products of chunk c: Y from the ring stage, X + b1 from the
+// block's rows, B the chunk's fragment of W2.
+template <int kBT>
+__device__ __forceinline__ void dot_chunk(const float* stage, const float* xb,
+                                          int kp, int c, uint2 bf,
+                                          DotAcc<kBT>& acc) {
+  const int lane = threadIdx.x & 31, r = lane >> 2, t = lane & 3;
+  const float4 y0 = lds4(stage + r * kDotK + t * 4);
+  const float4 y1 = kBT == 16 ? lds4(stage + (r + 8) * kDotK + t * 4) : y0;
+  const float* xc = xb + c * kDotK + t * 4;
+#pragma unroll
+  for (int i = 0; i < DotTile<kBT>::kTiles; ++i) {
+    // (X + b1) + Y in f32, rows l / 4 (x0, y0) and l / 4 + 8 (x1, y1)
+    const float4 x0 = lds4(xc + (kBT == 16 ? i : 2 * i) * kp);
+    const float4 x1 = kBT == 16 ? x0 : lds4(xc + (2 * i + 1) * kp);
+    uint32_t a[4];
+    a[0] = relu_bf16x2(x0.x + y0.x, x0.y + y0.y);
+    a[1] = relu_bf16x2(x1.x + y1.x, x1.y + y1.y);
+    a[2] = relu_bf16x2(x0.z + y0.z, x0.w + y0.w);
+    a[3] = relu_bf16x2(x1.z + y1.z, x1.w + y1.w);
+    mma_bf16(acc[i], a, bf);
+  }
+}
+
+// The warp's k slice s, after dot_start: acc (zeroed here) ends as the sums
+// over the slice's chunks, in k order.  Each turn copies the chunk
+// kDotStages - 1 ahead, waits for this one's group, and computes.
+template <int kBT, bool kVec>
+__device__ __forceinline__ void dot_slice(const DotArgs& p, const float* yg,
+                                          const DotRows<kBT>& w,
+                                          const uint2* frag, const float* xb,
+                                          int s, float* ring,
+                                          DotAcc<kBT>& acc) {
+  constexpr int kStage = kBT * kDotK;
+#pragma unroll
+  for (int i = 0; i < DotTile<kBT>::kTiles; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  const int lane = threadIdx.x & 31, kp = p.chunks * kDotK;
+  if (w.live) {
+    for (int it = 0, c = s; c < p.chunks; ++it, c += p.ksplit) {
+      const int ahead = c + (kDotStages - 1) * p.ksplit;
+      if (ahead < p.chunks)
+        dot_copy<kBT, kVec>(
+            p, yg, w, ahead,
+            ring + ((it + kDotStages - 1) % kDotStages) * kStage);
+      copy_commit();
+      copy_wait<kDotStages - 1>();
+      __syncwarp();
+      dot_chunk<kBT>(ring + (it % kDotStages) * kStage, xb, kp, c,
+                     frag[c * 32 + lane], acc);
+      __syncwarp();
+    }
+  }
+  copy_wait<0>();
+  __syncwarp();
+}
+
+// The K split's meeting: the warps of slices 1 .. ksplit - 1 leave their
+// sums in their own rings, and the warp of slice 0 of each tile adds them
+// to its own in the order s = 1, 2, ...  Every thread of the block calls
+// it; warp w is tile slot w % tasks of slice w / tasks, its ring at
+// rings + w * kRing.
+template <int kBT>
+__device__ __forceinline__ void dot_reduce(const DotArgs& p, float* rings,
+                                           DotAcc<kBT>& acc) {
+  constexpr int kRing = DotTile<kBT>::kRing;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = warp % p.tasks, s = warp / p.tasks;
+  if (s > 0) {
+#pragma unroll
+    for (int i = 0; i < DotTile<kBT>::kTiles; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        rings[warp * kRing + (i * 4 + q) * 32 + lane] = acc[i][q];
+  }
+  __syncthreads();
+  if (s == 0) {
+    for (int t = 1; t < p.ksplit; ++t) {
+      const float* r = rings + (t * p.tasks + slot) * kRing;
+#pragma unroll
+      for (int i = 0; i < DotTile<kBT>::kTiles; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] += r[(i * 4 + q) * 32 + lane];
+    }
+  }
+}
+
+// A fast-dot block's shared memory: W2's fragments (chunks x 32 x 8
+// bytes), X + b1 of its mentions (mentions x chunks x 64 bytes), a ring a
+// warp, then (ranking) the scores.
+__host__ __device__ __forceinline__ size_t dot_smem(int bt, int chunks,
+                                                    int warps, int B,
+                                                    bool whole_rows) {
+  const int mentions = kDotMentions;
+  const int ring = bt == 16 ? DotTile<16>::kRing : DotTile<8>::kRing;
+  return (size_t)chunks * 32 * 8 + (size_t)mentions * chunks * kDotK * 4 +
+         (size_t)warps * ring * 4 + (whole_rows ? (size_t)mentions * B * 4 : 0);
+}
+
+// Block b of a fast-dot kernel: image g and group of mentions rg (b = g x
+// row_groups + rg).  Stages the block's operands, then in turns of p.tasks
+// box tiles runs each warp's slice of its tile, meets the K split, and
+// hands slice 0's sums to epi(acc, g, a0, b0).  Every thread of the block
+// calls it; epi is called by the warps of slice 0.
+template <int kBT, bool kVec, class Epilogue>
+__device__ __forceinline__ void dot_block(const DotArgs& p,
+                                          unsigned char* smem,
+                                          Epilogue&& epi) {
+  using T = DotTile<kBT>;
+  uint2* frag = reinterpret_cast<uint2*>(smem);
+  float* xb = reinterpret_cast<float*>(frag + p.chunks * 32);
+  float* rings = xb + T::kMentions * p.chunks * kDotK;
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp % p.tasks, s = warp / p.tasks;
+  const int g = blockIdx.x / p.row_groups;
+  const int a0 = (blockIdx.x % p.row_groups) * T::kMentions;
+  const float* yg = p.Y + (size_t)g * p.B * p.K;
+  float* ring = rings + warp * T::kRing;
+  DotRows<kBT> w = dot_rows<kBT>(p, slot * kBT);
+  dot_start<kBT, kVec>(p, yg, w, s, ring);   // in flight while staging
+  stage_block<kBT, kVec>(p, g, a0, frag, xb);
+  __syncthreads();
+  for (int ct0 = 0; ct0 < p.col_tiles; ct0 += p.tasks) {
+    const int b0 = (ct0 + slot) * kBT;
+    if (ct0 > 0) {   // the last turn's sums are read: the rings are free
+      __syncthreads();
+      w = dot_rows<kBT>(p, b0);
+      dot_start<kBT, kVec>(p, yg, w, s, ring);
+    }
+    DotAcc<kBT> acc;
+    dot_slice<kBT, kVec>(p, yg, w, frag, xb, s, ring, acc);
+    if (p.ksplit > 1) dot_reduce<kBT>(p, rings, acc);
+    if (s == 0 && w.live) epi(acc, g, a0, b0);
+  }
+}
+
+// Settles the launch of the fast dot; ksplit, the number of warps that
+// split K, is the caller's one choice (icl_torch/ops/grid_head.py dot_plan
+// computes the same).  kBT is 8 where B <= 8, else 16.  A block is one
+// group of mentions of an image with all its boxes: min(box tiles, 8)
+// tiles side by side (the rest in turns) times the split, at most 8
+// warps.  Shared memory: dot_smem (whole_rows: the ranking's scores too).
+// Returns false on a call the kernels do not take.
+inline bool plan_dot(DotArgs& p, int ksplit, bool whole_rows, int* vec,
+                     int* bt, unsigned* blocks, unsigned* threads,
+                     size_t* smem) {
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(p.X) | reinterpret_cast<uintptr_t>(p.Y) |
+      reinterpret_cast<uintptr_t>(p.b1);
+  *vec = p.K % 4 == 0 && bits % 16 == 0;
+  *bt = p.B <= 8 ? 8 : 16;
+  const int mentions = kDotMentions;
+  p.row_groups = (p.A + mentions - 1) / mentions;
+  p.col_tiles = (p.B + *bt - 1) / *bt;
+  p.chunks = (p.K + kDotK - 1) / kDotK;
+  p.ksplit = ksplit;
+  p.tasks = p.col_tiles < kDotWarps ? p.col_tiles : kDotWarps;
+  const long long n = (long long)p.G * p.row_groups;
+  if (ksplit < 1 || p.tasks * ksplit > kDotWarps || n >= (1ll << 31) ||
+      (long long)p.K * p.O >= (1ll << 31))
+    return false;
+  *blocks = (unsigned)n;
+  *threads = 32u * p.tasks * ksplit;
+  *smem = dot_smem(*bt, p.chunks, p.tasks * ksplit, p.B, whole_rows);
+  return *smem <= (size_t)kDotSmem;
 }
 
 }  // namespace icl_head

@@ -28,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -179,8 +179,8 @@ def shard_batch(batch: Any, mesh: Mesh, device: torch.device) -> Any:
 REPLICA_NOISE = 1e-6
 
 
-def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh,
-              what: str = "state") -> None:
+def replicate(tensors: Sequence[torch.Tensor] | Mapping[str, torch.Tensor],
+              mesh: Mesh, what: str = "state") -> None:
     """Hold every rank to rank 0's tensors (parameters, Adam state).
 
     Every rank makes them from the same seed, or restores them from the
@@ -190,30 +190,50 @@ def replicate(tensors: Sequence[torch.Tensor], mesh: Mesh,
     rounding alone (``REPLICA_NOISE``) take rank 0's values, in place, and
     every rank warns with the numbers; if any rank differs by more, every
     rank raises: a restore from a half-synced directory, or another seed,
-    cannot go unnoticed.  Single-process: nothing to do."""
+    cannot go unnoticed.  Both name each tensor that differs, with its
+    largest gap and how many of its values differ (``tensors`` given as a
+    name -> tensor mapping, else by position).  Single-process: nothing
+    to do."""
     if process_count() == 1 or not tensors:
         return
+    if isinstance(tensors, Mapping):
+        names, tensors = list(tensors), list(tensors.values())
+    else:
+        names = [f"tensor {i}" for i in range(len(tensors))]
     mine = torch.cat([t.detach().to("cpu", torch.float64).reshape(-1)
                       for t in tensors])
     ref = mine.clone()
     dist.broadcast(ref, src=0)
-    gaps = [None] * process_count()
-    dist.all_gather_object(gaps, float((mine - ref).abs().max()))
-    worst = max(gaps)
+    gap = (mine - ref).abs()
+    apart, at = {}, 0
+    for name, t in zip(names, tensors):
+        part = gap[at:at + t.numel()]
+        at += t.numel()
+        if part.numel() and not bool((part == 0).all()):   # NaN included
+            apart[name] = (float(part.max()), int((part != 0).sum()))
+    every = [None] * process_count()
+    dist.all_gather_object(every, (float(gap.max()), apart))
+    worst = float(torch.tensor([w for w, _ in every]).max())  # NaN wins
     if worst == 0.0:
         LOG.info("replicate: %s equal on all %d ranks (%d values)", what,
                  process_count(), mine.numel())
         return
-    bad = [k for k, gap in enumerate(gaps) if gap > 0.0]
+    bad = [k for k, (_, named) in enumerate(every) if named]
+    said = "; ".join(
+        f"rank {k}: " + ", ".join(f"{n} {g:.3e} ({c} values)"
+                                  for n, (g, c) in every[k][1].items())
+        for k in bad)
     scale = max(1.0, float(ref.abs().max()))
     if not worst <= REPLICA_NOISE * scale:          # NaN fails too
         raise RuntimeError(
             f"{what} differs from rank 0's on rank(s) {bad} by up to "
-            f"{worst:.3e}: the ranks must start from one seed and restore "
-            f"one checkpoint (a model dir on storage every rank sees)")
+            f"{worst:.3e} ({said}): the ranks must start from one seed and "
+            f"restore one checkpoint (a model dir on storage every rank "
+            f"sees)")
     LOG.warning("replicate: %s differs from rank 0's on rank(s) %s by up to "
-                "%.3e (rounding: under %.0e of %.3g); every rank takes rank "
-                "0's values", what, bad, worst, REPLICA_NOISE, scale)
+                "%.3e (rounding: under %.0e of %.3g; %s); every rank takes "
+                "rank 0's values", what, bad, worst, REPLICA_NOISE, scale,
+                said)
     at = 0
     for t in tensors:
         n = t.numel()

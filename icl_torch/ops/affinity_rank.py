@@ -23,8 +23,12 @@ Invalid boxes get exactly 0; an image with no valid box gets zeros.
   head's fast-dot logits (:func:`~icl_torch.ops.grid_head.
   grid_head_reference`), which the reference both writes and ranks under
   ``--compute_dtype bf16``; the CUDA entry point is
-  ``icl_affinity_rank_bf16dot``, its launches count in
-  ``affinity_rank.bf16dot.launches``.
+  ``icl_affinity_rank_bf16dot`` on the tensor cores (the grid head's
+  ``mma.sync`` routine in its column form) where
+  :func:`~icl_torch.ops.grid_head.dot_plan` says so, else
+  ``icl_affinity_rank_bf16fma`` (the FMA form in the f32 kernel's launch
+  shape); both count in ``affinity_rank.bf16dot.launches``, those on the
+  tensor cores also in ``affinity_rank.bf16dot.mma_launches``.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ import torch
 
 from icl_torch.ops import _build
 from icl_torch.ops.grid_head import (aligned16, check_grid_size,
-                                     check_no_grad, grid_head_reference,
-                                     launch_plan)
+                                     check_no_grad, dot_plan,
+                                     grid_head_reference, launch_plan)
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _SMEM = 227 * 1024   # a block's shared memory
@@ -72,23 +76,38 @@ def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((G, A, B), dtype=torch.float32, device=X.device)
     if out.numel() == 0:
         return out
-    plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2),
-                       whole_rows=True)
-    entry = ("icl_affinity_rank_bf16dot" if fast_dot
-             else "icl_affinity_rank_f32")
-    fn = getattr(_build.load("affinity_rank", entry, _ARGTYPES), entry)
-    dev = X.device
-    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
-             b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K,
-             O, affinity_col, plan.ksplit, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "affinity_rank")
+    mma = fast_dot and dot_plan(G, A, B, K, O, aligned16(X, Y, b1),
+                                whole_rows=True).mma
+    _launch(X, Y, b1, W2, b2, box_valid, out, affinity_col,
+            "mma" if mma else "fma" if fast_dot else "f32")
     (affinity_rank.bf16dot if fast_dot else affinity_rank).launches += 1
+    affinity_rank.bf16dot.mma_launches += mma
     return out
 
 
+def _launch(X, Y, b1, W2, b2, box_valid, out, col, form: str) -> None:
+    """One launch of the form given: ``f32``, or the fast dot's ``mma``
+    (the tensor cores, :func:`~icl_torch.ops.grid_head.dot_plan`'s split)
+    or ``fma`` (the f32 kernel's launch shape)."""
+    (G, A, K), B, O = X.shape, Y.shape[1], W2.shape[1]
+    if form == "mma":
+        ksplit = dot_plan(G, A, B, K, O, aligned16(X, Y, b1), True).ksplit
+    else:
+        ksplit = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2),
+                             whole_rows=True).ksplit
+    entry = {"f32": "icl_affinity_rank_f32", "mma": "icl_affinity_rank_bf16dot",
+             "fma": "icl_affinity_rank_bf16fma"}[form]
+    fn = getattr(_build.load("affinity_rank", entry, _ARGTYPES), entry)
+    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
+             b2.data_ptr(), box_valid.data_ptr(), out.data_ptr(), G, A, B, K,
+             O, col, ksplit, X.device.index,
+             torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(err, "affinity_rank")
+
+
 affinity_rank.launches = 0   # kernel launches since the last reset
-affinity_rank.bf16dot = SimpleNamespace(launches=0)   # those of the bf16 mode
+# those of the bf16 mode, and of them those on the tensor cores
+affinity_rank.bf16dot = SimpleNamespace(launches=0, mma_launches=0)
 
 
 def _check(X, Y, b1, W2, b2, box_valid, col):

@@ -11,9 +11,13 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
 * ``fast_dot=True`` is the bf16 mode of both (the reference's ``fast_dot``
   under ``--compute_dtype bf16``): the activation ``relu((X + b1) + Y)``,
   added in f32 in that order, and W2 are rounded to bf16, and the dot
-  sums their exact products in f32.  Inputs and output stay f32.  The CUDA
-  entry point is ``icl_grid_head_bf16dot``; its launches count in
-  ``grid_head.bf16dot.launches``.
+  sums their exact products in f32.  Inputs and output stay f32.  On CUDA
+  it runs on the tensor cores (``icl_grid_head_bf16dot``, the ``mma.sync``
+  routine of ``csrc/grid_head_tile.cuh``, launched as :func:`dot_plan`
+  says) where the grid holds enough work, else in the FMA form the f32
+  kernel's launch shape takes (``icl_grid_head_bf16fma``): ``dot_plan``
+  says which.  Both count in ``grid_head.bf16dot.launches``, those on the
+  tensor cores also in ``grid_head.bf16dot.mma_launches``.
 * :func:`grid_head` is the wrapper: for CUDA tensors it launches the
   hand-written kernel ``icl_torch/csrc/grid_head.cu`` (the [A, B, K]
   activation never leaves the registers); for CPU tensors it runs the plain
@@ -23,7 +27,7 @@ mention pair ``relu([m_a; m_b] @ W1 + b1) @ W2 + b2`` equals
   loads) and the grid that follow from the operands.  The training forward
   kernels (``grid_head_train``) and the box ranking (``affinity_rank``)
   share the tile routine (``icl_torch/csrc/grid_head_tile.cuh``) and this
-  plan.
+  plan; the fast dot of both has its own, :func:`dot_plan`.
 * :func:`check_no_grad`: the predict kernels have no backward, so a CUDA
   call that autograd would record raises :class:`KernelNoGradError`.
 """
@@ -45,6 +49,15 @@ COL_TILES = 4       # kColTiles there: column tiles a block without a K split
 RANK_COL_WARPS = 8  # kRankColWarps in csrc/affinity_rank.cu
 RANK_WARPS = 16     # kRankWarps there: column tiles x k slices of a block
 _FILL_WARPS = 1056  # 8 warps on each of the H100's 132 SMs
+DOT_MENTIONS = 8    # kDotMentions in csrc/grid_head_tile.cuh: a warp tile's
+DOT_WARPS = 8       # kDotWarps there: warps a block of the fast dot
+DOT_K = 16          # kDotK there: k a chunk, one mma deep
+DOT_STAGES = 4      # kDotStages there: chunks in a warp's cp.async ring
+DOT_SMEM = 227 * 1024          # kDotSmem: a block's shared memory
+# the fast dot's work, G A B K (4 + O), from which the tensor cores take a
+# call (fastdot_times.py --sizes, H100: relation G=32 / G=48 and affinity
+# and ranking G=16 / G=32 lie on either side)
+DOT_WORK = 1 << 26
 
 
 class HeadPlan(NamedTuple):
@@ -118,6 +131,62 @@ def launch_plan(G: int, A: int, B: int, K: int, O: int, aligned: bool,
     return HeadPlan(vec, ksplit, G * row_tiles * -(-col_tiles // col_warps))
 
 
+class DotPlan(NamedTuple):
+    """How the fast dot (the bf16 mode of K1/K2 and K9) is launched (see
+    :func:`dot_plan`).  ``mma`` False: the FMA form, with
+    :func:`launch_plan`'s launch; else ``ksplit`` goes to the tensor-core
+    entry point and the rest is what ``plan_dot`` in the header derives."""
+    mma: bool        # the tensor cores (else the FMA form)
+    vec: int         # 1: 16-byte loads of X, Y and b1; 0: 4-byte loads
+    bt: int          # boxes an m-tile: 16, or 8 where B <= 8
+    ksplit: int      # warps of a block that split K between them
+    tasks: int       # warp tiles (of boxes) side by side in a block
+    blocks: int      # the launch grid
+    threads: int     # a block's threads
+    smem: int        # a block's shared memory, bytes
+
+
+def dot_plan(G: int, A: int, B: int, K: int, O: int, aligned: bool,
+             whole_rows: bool = False) -> DotPlan:
+    """The launch of the fast dot for a [G, A, B] grid of depth K.
+
+    On the tensor cores (``plan_dot`` in ``csrc/grid_head_tile.cuh``): a
+    warp tile is 8 mentions x 16 boxes (8 m-tiles), or 8 x 8 where B <= 8
+    (4 m-tiles of two mentions); its lanes take 16 k a chunk, one ``mma``
+    an m-tile.  A block is one group of 8 mentions of an image with all
+    its boxes: up to 8 tiles side by side, the rest in turns, times the K
+    split, at most 8 warps; a grid with fewer tiles than fill the card
+    splits K.  The 16-byte loads need ``aligned`` X, Y and b1 and K % 4 ==
+    0 (W2 is read once a block, in any alignment).  Shared memory: W2's
+    bf16 fragments, X + b1 of the group, a ring of 4 chunks of Y a warp
+    (the split's sums reuse it) and, for the box ranking (``whole_rows``),
+    the group's scores.
+
+    The tensor cores take a call whose work, G A B K (4 + O), reaches
+    ``DOT_WORK`` and whose block fits ``DOT_SMEM``; below it a block's
+    set-up (one round of loads for X + b1 and W2, then the ring's) costs
+    more than the FMA form's whole call, which takes the rest.
+    """
+    vec = int(aligned and K % 4 == 0)
+    bt = 8 if B <= 8 else 16
+    mentions = DOT_MENTIONS
+    row_groups, col_tiles = -(-A // mentions), -(-B // bt)
+    chunks = -(-K // DOT_K)
+    tiles = G * row_groups * col_tiles
+    tasks = min(col_tiles, DOT_WARPS)
+    ksplit = 1      # from half the fill on, a split only adds reductions
+    if 2 * tiles < _FILL_WARPS:
+        ksplit = min(chunks, DOT_WARPS // tasks, -(-_FILL_WARPS // tiles))
+    warps = tasks * ksplit
+    ring = DOT_STAGES * bt * DOT_K           # floats a warp; the split's
+    ring = max(ring, (8 if bt == 16 else 4) * 4 * 32)   # sums reuse it
+    smem = (chunks * 32 * 8 + mentions * chunks * DOT_K * 4
+            + warps * ring * 4 + (mentions * B * 4 if whole_rows else 0))
+    mma = G * A * B * K * (4 + O) >= DOT_WORK and smem <= DOT_SMEM
+    return DotPlan(mma, vec, bt, ksplit, tasks, G * row_groups, 32 * warps,
+                   smem)
+
+
 def grid_head_reference(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
                         W2: torch.Tensor, b2: torch.Tensor,
                         fast_dot: bool = False) -> torch.Tensor:
@@ -160,20 +229,42 @@ def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     out = torch.empty((G, A, B, O), dtype=torch.float32, device=X.device)
     if G == 0 or A == 0 or B == 0:
         return out.zero_()
+    if fast_dot:
+        mma = dot_plan(G, A, B, K, O, aligned16(X, Y, b1)).mma
+        _fast_dot(X, Y, b1, W2, b2, out, mma)
+        grid_head.bf16dot.launches += 1
+        grid_head.bf16dot.mma_launches += mma
+        return out
     plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
-    entry = "icl_grid_head_bf16dot" if fast_dot else "icl_grid_head_f32"
-    fn = getattr(_build.load("grid_head", entry, _ARGTYPES), entry)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
-             b2.data_ptr(), out.data_ptr(), G, A, B, K, O, plan.ksplit,
-             X.device.index, stream)
-    _build.check(err, "grid_head")
-    (grid_head.bf16dot if fast_dot else grid_head).launches += 1
+    _launch("icl_grid_head_f32", X, Y, b1, W2, b2, out, plan.ksplit)
+    grid_head.launches += 1
     return out
 
 
+def _fast_dot(X, Y, b1, W2, b2, out, mma: bool) -> None:
+    """The fast dot's launch in the form given: the tensor cores, or the
+    FMA form with :func:`launch_plan`'s split."""
+    (G, A, K), B, O = X.shape, Y.shape[1], W2.shape[1]
+    if mma:
+        plan = dot_plan(G, A, B, K, O, aligned16(X, Y, b1))
+        _launch("icl_grid_head_bf16dot", X, Y, b1, W2, b2, out, plan.ksplit)
+    else:
+        plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
+        _launch("icl_grid_head_bf16fma", X, Y, b1, W2, b2, out, plan.ksplit)
+
+
+def _launch(entry, X, Y, b1, W2, b2, out, ksplit) -> None:
+    (G, A, K), B, O = X.shape, Y.shape[1], W2.shape[1]
+    fn = getattr(_build.load("grid_head", entry, _ARGTYPES), entry)
+    err = fn(X.data_ptr(), Y.data_ptr(), b1.data_ptr(), W2.data_ptr(),
+             b2.data_ptr(), out.data_ptr(), G, A, B, K, O, ksplit,
+             X.device.index, torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(err, "grid_head")
+
+
 grid_head.launches = 0   # kernel launches since the last reset
-grid_head.bf16dot = SimpleNamespace(launches=0)   # those of the bf16 mode
+# those of the bf16 mode, and of them those on the tensor cores
+grid_head.bf16dot = SimpleNamespace(launches=0, mma_launches=0)
 
 
 def _check(X, Y, b1, W2, b2, G, A, B, K, O) -> None:

@@ -150,15 +150,47 @@ def init_relation_params(seed: int, dims: dict,
 def _orthogonal(shape: tuple[int, int], gen: torch.Generator) -> torch.Tensor:
     """flax ``orthogonal()`` for a 2-D [rows, cols] kernel.
 
-    The factorisation runs in float64 and is rounded once: a threaded
-    LAPACK blocks by the threads it finds free, which moves a float32
-    factor by 1e-7 to 1e-5 from one call to the next, and two ranks that
-    start from one seed at one moment must draw the same bits."""
+    The factorisation runs in float64 and is rounded once, by
+    :func:`_householder_q`, whose every operation has one order wherever it
+    runs: a threaded LAPACK (``torch.linalg.qr``, float32 or float64)
+    blocks by the threads it finds free, which moved a float32 factor by
+    1e-7 to 1e-5 between two calls, and a float64 one in its last bits,
+    which still flips the float32 rounding of a value now and then; two
+    ranks that start from one seed must draw the same bits."""
     rows, cols = shape
     a = torch.randn((max(rows, cols), min(rows, cols)), generator=gen)
-    q, r = torch.linalg.qr(a.double())
-    q = (q * torch.sign(torch.diagonal(r))).float()
+    q = torch.from_numpy(_householder_q(a.double().numpy())).float()
     return (q.T if rows < cols else q).contiguous()
+
+
+def _householder_q(a: np.ndarray) -> np.ndarray:
+    """Q of a = Q R for an [m, n] float64 array (m >= n), R's diagonal
+    made positive, by Householder reflections: only elementwise products
+    and numpy's single-threaded sums (``einsum`` without ``optimize``
+    calls no BLAS), so the bits depend on the values alone, not on
+    threads or blocking."""
+    m, n = a.shape
+    r = a.copy()
+    vs, signs = [], np.ones(n)
+    for j in range(n):
+        x = r[j:, j]
+        norm = np.sqrt(np.sum(x * x))
+        alpha = -norm if x[0] >= 0 else norm     # R[j, j] after the step
+        v = x.copy()
+        v[0] -= alpha
+        vv = np.sum(v * v)
+        if vv > 0:
+            v /= np.sqrt(vv)
+            r[j:, j:] -= np.multiply.outer(2.0 * v,
+                                           np.einsum("i,ij->j", v, r[j:, j:]))
+        vs.append(v if vv > 0 else None)
+        signs[j] = -1.0 if alpha < 0 else 1.0
+    q = np.eye(m, n)
+    for j in reversed(range(n)):
+        v = vs[j]
+        if v is not None:
+            q[j:] -= np.multiply.outer(2.0 * v, np.einsum("i,ij->j", v, q[j:]))
+    return q * signs
 
 
 def load_npz(path: str) -> tuple[dict[str, torch.Tensor], dict]:

@@ -160,7 +160,7 @@ def run_training(state: TrainState, step_fn: Callable,
     if cfg.mesh is not None:
         # every rank starts from one state: equal seeds, or the one
         # checkpoint rank 0 named
-        replicate(state.tensors(), cfg.mesh, "the train state")
+        replicate(state.named_tensors(), cfg.mesh, "the train state")
 
     # artifact writes (the metrics JSONL here; checkpoint saves gate
     # themselves) happen on the main process only: N ranks sharing a model
@@ -299,7 +299,7 @@ def _run(state, step_fn, make_batches, cfg, eval_fn, ckpt, start_epoch,
     if cfg.mesh is not None and step > first_step:
         # before anything is saved as the run's result: the ranks ran the
         # same updates on the same sums, so their states are one state
-        replicate(state.tensors(), cfg.mesh, "the trained state")
+        replicate(state.named_tensors(), cfg.mesh, "the trained state")
     if n_saves:
         LOG.info("periodic checkpoint saves: %d, total loop-visible "
                  "stall %.2f s", n_saves, save_stall)

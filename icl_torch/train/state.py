@@ -47,10 +47,16 @@ class TrainState:
     def tensors(self) -> list[torch.Tensor]:
         """Every tensor of the state, in a fixed order: the model's
         ``state_dict``, then Adam's per-parameter state."""
-        out = list(self.model.state_dict().values())
-        for _, st in sorted(self.optimizer.state_dict()["state"].items()):
-            out += [v for _, v in sorted(st.items())
-                    if isinstance(v, torch.Tensor)]
+        return list(self.named_tensors().values())
+
+    def named_tensors(self) -> dict[str, torch.Tensor]:
+        """:meth:`tensors` by name: the ``state_dict`` keys, then
+        ``adam/<parameter>/<key>`` (``exp_avg``, ``exp_avg_sq``, ``step``)."""
+        out = dict(self.model.state_dict())
+        params = [n for n, _ in self.model.named_parameters()]
+        for i, st in sorted(self.optimizer.state_dict()["state"].items()):
+            out.update({f"adam/{params[i]}/{k}": v for k, v in
+                        sorted(st.items()) if isinstance(v, torch.Tensor)})
         return out
 
     def apply_gradients(self) -> None:

@@ -18,6 +18,8 @@ import torch
 
 from icl_torch.models.affinity import AffinityModel
 from icl_torch.models.relation import RelationModel
+from icl_torch.ops import affinity_rank as ar
+from icl_torch.ops import grid_head as gh
 from icl_torch.ops import grid_head_train as ght
 from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
@@ -535,22 +537,84 @@ def test_affinity_train_kernel_path_matches_plain(dev, grid_loss):
 
 # --- the bf16 modes (--compute_dtype bf16) ----------------------------------
 
-@pytest.mark.parametrize("G,A,B,K,O", [
+# the fast dot: the relation and affinity batches, ragged tiles, K % 4 != 0,
+# every O; and the tensor-core routine's edges: K no multiple of 16 (a last
+# chunk read +0 past K), K < 16, O from 1 to 8 (N padded to 8), A and B
+# off the 8 x 16 warp tile, B <= 8 (8 boxes of two mentions an m-tile),
+# the small grids that split K (G = 1 to 8) and the large ones that do
+# not, more box tiles than a block's 16, shared memory past 48 KB
+FAST_DOT_SHAPES = [
     (64, 16, 16, 800, 4), (64, 16, 32, 1024, 2), (8, 16, 16, 800, 4),
     (2, 9, 17, 800, 3), (2, 7, 9, 50, 2), (2, 20, 33, 50, 8),
-    (1, 5, 7, 30, 1)])
+    (1, 5, 7, 30, 1), (64, 16, 16, 792, 4), (3, 9, 17, 24, 1),
+    (2, 5, 8, 72, 3), (1, 17, 33, 72, 8), (4, 3, 3, 8, 2), (1, 1, 1, 1, 5),
+    (2, 12, 5, 40, 6), (5, 33, 19, 200, 7), (1, 16, 16, 800, 4),
+    (8, 16, 8, 800, 4), (64, 32, 32, 800, 4), (128, 16, 32, 1024, 2),
+    (2, 9, 300, 64, 4), (64, 16, 32, 2048, 2)]
+
+
+@pytest.mark.parametrize("G,A,B,K,O", FAST_DOT_SHAPES + [(1, 4, 100, 4100, 2)])
 def test_grid_head_fast_dot_matches_plain(dev, G, A, B, K, O):
     """The fast-dot mode against its plain version, the f32 gate: both
     round the same activation and W2 to bf16 and sum exact products in
     f32.  Its launches count apart from the f32 entry point's."""
     args = _head_inputs(G, A, B, K, O, dev)
     n0, n1 = grid_head.launches, grid_head.bf16dot.launches
+    m1 = grid_head.bf16dot.mma_launches
     out = grid_head(*args, fast_dot=True)
     torch.cuda.synchronize()
     assert (grid_head.launches, grid_head.bf16dot.launches) == (n0, n1 + 1)
+    mma = gh.dot_plan(G, A, B, K, O, gh.aligned16(*args[:3])).mma
+    assert grid_head.bf16dot.mma_launches == m1 + mma
     _assert_close(out, grid_head_reference(*args, fast_dot=True))
     assert torch.equal(out, grid_head(*args, fast_dot=True))
     assert not torch.equal(out, grid_head(*args))   # it is another mode
+
+
+@pytest.mark.parametrize("mma", [True, False])
+@pytest.mark.parametrize("G,A,B,K,O", FAST_DOT_SHAPES)
+def test_grid_head_fast_dot_forms_match_plain(dev, G, A, B, K, O, mma):
+    """Each form of the fast dot at every shape, whichever dot_plan would
+    pick there: the tensor cores (mma) and the FMA form.  The f32 gate,
+    two calls equal bits."""
+    args = _head_inputs(G, A, B, K, O, dev)
+    out, again = (torch.empty((G, A, B, O), device=dev) for _ in range(2))
+    gh._fast_dot(*args, out, mma)
+    gh._fast_dot(*args, again, mma)
+    torch.cuda.synchronize()
+    _assert_close(out, grid_head_reference(*args, fast_dot=True))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("mma", [True, False])
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("G,A,B,K,O", [(8, 16, 16, 800, 4),
+                                       (3, 9, 6, 72, 3)])
+def test_grid_head_fast_dot_takes_an_unaligned_view(dev, G, A, B, K, O,
+                                                    which, mma):
+    """One of X, Y, b1, W2 only 4-byte aligned, in each form: 4-byte
+    loads, same values."""
+    args = list(_head_inputs(G, A, B, K, O, dev))
+    want = grid_head_reference(*args, fast_dot=True)
+    args[which] = _offset_view(args[which])
+    out, again = (torch.empty((G, A, B, O), device=dev) for _ in range(2))
+    gh._fast_dot(*args, out, mma)
+    gh._fast_dot(*args, again, mma)
+    _assert_close(out, want)
+    assert torch.equal(out, again)
+
+
+def test_grid_head_fast_dot_reads_nothing_past_k(dev):
+    """K = 24 on the tensor cores: the last chunk's slots past K are +0 in
+    W2's fragments however W2 continues in memory; a NaN there stays
+    out."""
+    X, Y, b1, W2, b2 = _head_inputs(2, 9, 17, 24, 4, dev)
+    wide = torch.full((32, 4), float("nan"), device=dev)
+    wide[:24] = W2
+    out = torch.empty((2, 9, 17, 4), device=dev)
+    gh._fast_dot(X, Y, b1, wide[:24], b2, out, True)
+    assert torch.isfinite(out).all()
+    _assert_close(out, grid_head_reference(X, Y, b1, W2, b2, fast_dot=True))
 
 
 @pytest.mark.parametrize("G,moved", [(4, None), (64, None), (4, 1)])
@@ -560,11 +624,41 @@ def test_affinity_rank_fast_dot_matches_plain(dev, G, moved):
     if moved is not None:
         args[moved] = _offset_view(args[moved])
     n0 = affinity_rank.bf16dot.launches
+    m0 = affinity_rank.bf16dot.mma_launches
     out = affinity_rank(*args, fast_dot=True)
     torch.cuda.synchronize()
     assert affinity_rank.bf16dot.launches == n0 + 1
+    # the batch on the tensor cores, the served request in the FMA form
+    assert affinity_rank.bf16dot.mma_launches == m0 + (G == 64)
     _assert_close(out, want)
     assert torch.equal(out, affinity_rank(*args, fast_dot=True))
+
+
+@pytest.mark.parametrize("G,A,B,K,O,col", [
+    (1, 8, 8, 1024, 2, 1), (2, 7, 3, 16, 2, 1), (3, 5, 70, 33, 2, 1),
+    (2, 12, 1, 1024, 2, 1), (3, 1, 20, 1024, 2, 0), (2, 17, 33, 1024, 2, 1),
+    (2, 12, 100, 1024, 2, 1), (5, 16, 32, 1022, 2, 1), (2, 9, 20, 30, 3, 2),
+    (2, 7, 300, 800, 4, 3), (3, 9, 5, 72, 2, 1), (4, 3, 9, 24, 1, 0),
+    (2, 6, 200, 1024, 2, 1), (64, 16, 32, 1024, 2, 1), (32, 17, 20, 800, 2, 1)])
+@pytest.mark.parametrize("form", ["mma", "fma"])
+def test_affinity_rank_fast_dot_edges(dev, G, A, B, K, O, col, form):
+    """The ranking over the fast dot in each form at the tensor-core
+    routine's edges: B <= 8, B past 16 tiles of 16 boxes (turns), A off
+    the group of 8 mentions, K no multiple of 16, any column of any W2
+    width.  Invalid boxes exactly 0, an image with no valid box a row of
+    zeros, two calls equal bits."""
+    X, Y, b1, _, _, valid = _rank_inputs(G, A, B, K, dev)
+    _, _, _, W2, b2 = _head_inputs(G, A, B, K, O, dev, seed=5)
+    args = (X, Y, b1, W2, b2, valid)
+    out, again = (torch.empty((G, A, B), device=dev) for _ in range(2))
+    ar._launch(*args, out, col, form)
+    ar._launch(*args, again, col, form)
+    torch.cuda.synchronize()
+    _assert_close(out, affinity_rank_reference(*args, col, True))
+    assert not out[~valid[:, None, :].expand_as(out)].any()
+    if G > 1:
+        assert not out[-1].any()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("G,L,B,H", [
@@ -784,3 +878,16 @@ def test_onepass_train_step_launches_only_the_onepass_kernels(dev, grid_loss):
         assert f1 == f0
         assert o1 == o0 + (1 if i in used else 0)
     assert torch.isfinite(loss)
+
+
+def test_device_ms_times_by_cuda_events_when_the_profiler_traces_nothing(
+        dev, monkeypatch, capsys):
+    """chip_smoke.py's device times: three empty profiler windows (seen on
+    a fresh machine) fall back to CUDA events, and say so."""
+    from icl_torch.tools import kernel_bits
+
+    args = _head_inputs(8, 16, 16, 800, 4, dev)
+    monkeypatch.setattr(kernel_bits, "device_rows", lambda fn, iters: [])
+    ms = kernel_bits.device_ms(lambda: grid_head(*args))
+    assert 0 < ms < 10
+    assert "timed by CUDA events" in capsys.readouterr().err

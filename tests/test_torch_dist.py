@@ -215,6 +215,32 @@ def test_fresh_weights_do_not_depend_on_the_thread_count(task):
             assert torch.equal(value, other[key]), key
 
 
+@pytest.mark.parametrize("task", ["relation", "affinity"])
+def test_fresh_weights_do_not_depend_on_the_host_lapack(task, monkeypatch):
+    """The fresh state's one factorisation, the QR behind the orthogonal
+    recurrent kernels, goes through no host LAPACK: one whose float64
+    factor moves in its last bits from call to call, as a threaded
+    LAPACK's does with the blocking it picks from the threads it finds
+    (two ranks of one card once started 2.1e-06 apart), leaves the draws
+    bit for bit as they were."""
+    from icl_torch import params
+
+    dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 64,
+            "box_dim": 32}
+    want = params.init_params(task, 3, dims)
+    qr = torch.linalg.qr
+
+    def moved(a, *args, **kwargs):
+        q, r = qr(a, *args, **kwargs)
+        return q * (1.0 + 1e-9), r
+
+    monkeypatch.setattr(torch.linalg, "qr", moved)
+    monkeypatch.setattr(np.linalg, "qr", moved)
+    got = params.init_params(task, 3, dims)
+    for key, value in want.items():
+        assert torch.equal(value, got[key]), key
+
+
 # --- train steps: ranks against one process and against JAX ----------------
 
 def _relation_inputs(synth_dir, emb):

@@ -1,9 +1,12 @@
-"""The measuring and gating helpers around the recurrence kernel, on the
+"""The measuring and gating helpers around the tensor-core kernels, on the
 CPU: ``kernel_bits.py --compare`` reports the bf16 recurrence's cases as
-changed (their sum order moved to the tensor cores) and fails on any other
-difference, and ``chip_smoke.py``'s SASS reader counts the HMMA
-instructions of each ``lstm_cluster_kernel`` instantiation, and its gate
-wants them in the bf16 ones and nowhere else."""
+changed (their sum order moved to the tensor cores), the fast dot's as
+changed where they lie within the f32 gate of their plain version, and
+fails on any other difference; ``chip_smoke.py``'s SASS reader counts the
+HMMA instructions of each ``lstm_cluster_kernel`` instantiation, and of
+every kernel of the grid head's sources, and its gates want them in the
+bf16 recurrence and the fast dot's tensor-core kernels and nowhere
+else."""
 
 import types
 
@@ -86,3 +89,90 @@ def test_the_sass_gate_wants_hmma_in_the_bf16_mode_alone(change, ok):
         else:
             mma[k] = n
     assert chip_smoke._mma_as_expected(mma) is ok
+
+
+FAST_CASE = "grid_head bf16dot 64 16 16 800 4"
+
+
+@pytest.mark.parametrize("moved,plain,rc", [
+    (1e-6, True, 0),       # within 1e-5 * max(1, max |plain|) of its plain
+    (1e-3, True, 1),       # beyond it
+    (1e-6, False, 1)])     # no plain version to hold it to
+def test_compare_holds_a_changed_fast_dot_to_its_plain_version(
+        tmp_path, capsys, moved, plain, rc):
+    one = torch.ones(4)
+    first = {FAST_CASE: (one,), FAST_CASE + kernel_bits.PLAIN: (one,),
+             "K5 x": (one,)}
+    second = dict(first)
+    second[FAST_CASE] = (one + moved,)
+    if not plain:
+        del first[FAST_CASE + kernel_bits.PLAIN]
+        del second[FAST_CASE + kernel_bits.PLAIN]
+    torch.save(first, tmp_path / "p.pt")
+    torch.save(second, tmp_path / "c.pt")
+    assert kernel_bits.main(["--compare", str(tmp_path / "p.pt"),
+                             str(tmp_path / "c.pt")]) == rc
+    out = capsys.readouterr().out
+    if rc == 0:
+        assert "differ: []" in out
+        assert f"{FAST_CASE}: changed, max|d| 9.537e-07 from its plain " \
+               f"version (the f32 gate 1.000e-05)" in out
+    else:
+        assert f"differ: ['{FAST_CASE}']" in out
+
+
+HEAD_SASS = """
+        Function : _ZN37_GLOBAL__N__6f0b1c2d_12_grid_head_cu_9a8b7c6d24grid_head_bf16dot_kernelILi16ELb1EEEvN8icl_head7DotArgsE
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, R8 ;
+        Function : _ZN37_GLOBAL__N__6f0b1c2d_12_grid_head_cu_9a8b7c6d24grid_head_bf16dot_kernelILi16ELb0EEEvN8icl_head7DotArgsE
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, R8 ;
+        Function : grid_head_bf16dot_kernel<8, true>(icl_head::DotArgs)
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, R8 ;
+        Function : _ZN37_GLOBAL__N__6f0b1c2d_12_grid_head_cu_9a8b7c6d24grid_head_bf16dot_kernelILi8ELb0EEEvN8icl_head7DotArgsE
+        /*0a10*/  HMMA.16816.F32.BF16 R8, R12, R16, R8 ;
+        Function : _ZN37_GLOBAL__N__6f0b1c2d_12_grid_head_cu_9a8b7c6d24grid_head_bf16fma_kernelILi4ELb1ELi4EEEvN8icl_head8HeadArgsE
+        /*0a10*/  FFMA R1, R2, R3, R4 ;
+        Function : _ZN37_GLOBAL__N__6f0b1c2d_12_grid_head_cu_9a8b7c6d16grid_head_kernelILi4ELb1ELi4EEEvN8icl_head8HeadArgsE
+        /*0a10*/  FFMA R1, R2, R3, R4 ;
+"""
+
+
+def test_the_sass_reader_counts_hmma_per_kernel(monkeypatch):
+    monkeypatch.setattr(chip_smoke._build, "nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: types.SimpleNamespace(
+                            stdout=HEAD_SASS))
+    assert chip_smoke._sass_hmma("lib.so") == {
+        "grid_head_bf16dot_kernelILi16ELb1E": 1,
+        "grid_head_bf16dot_kernelILi16ELb0E": 1,
+        "grid_head_bf16dot_kernel<8, true>(icl_head::DotArgs)": 1,
+        "grid_head_bf16dot_kernelILi8ELb0E": 1,
+        "grid_head_bf16fma_kernelILi4ELb1ELi4E": 0,
+        "grid_head_kernelILi4ELb1ELi4E": 0}
+
+
+@pytest.mark.parametrize("source,change,ok", [
+    ("grid_head", {}, True),
+    ("grid_head", {"grid_head_bf16dot_kernelILi8ELb0E": 0}, False),
+    ("grid_head", {"grid_head_bf16fma_kernelILi4ELb1ELi4E": 2}, False),
+    ("grid_head", {"grid_head_kernelILi4ELb1ELi4E": 1}, False),
+    ("grid_head", {"grid_head_bf16dot_kernelILi8ELb0E": None}, False),
+    ("grid_head_train", {}, False),     # the training source has no HMMA
+    ("affinity_rank", {}, False)])      # another source's instantiations
+def test_the_head_sass_gate_wants_hmma_in_the_fast_dot_alone(
+        source, change, ok):
+    hmma = {"grid_head_bf16dot_kernelILi16ELb1E": 8,
+            "grid_head_bf16dot_kernelILi16ELb0E": 8,
+            "grid_head_bf16dot_kernelILi8ELb1E": 4,
+            "grid_head_bf16dot_kernelILi8ELb0E": 4,
+            "grid_head_bf16fma_kernelILi4ELb1ELi4E": 0,
+            "grid_head_kernelILi4ELb1ELi4E": 0}
+    for k, n in change.items():
+        if n is None:
+            del hmma[k]
+        else:
+            hmma[k] = n
+    if source == "grid_head_train":
+        hmma = {"head_fwd_kernelILi0ELi4ELb1ELi4ELb0EE": 0,
+                "head_bwd_kernelILi4ELb0EE": 3}
+    assert chip_smoke._head_mma_as_expected(source, hmma) is ok
