@@ -17,7 +17,8 @@ command lines as two data-parallel ranks on the one card:
 1. prints the card's name and power limit (nvidia-smi) and the versions;
 2. builds the hand-written CUDA sources from icl_torch/csrc (the four
    kernel sources and the two measuring kernels of head_probes.cu), one
-   nvcc each, side by side, and prints ptxas's registers and spills
+   nvcc each, side by side, with the host C++ I/O library of phase 10d
+   beside them, and prints ptxas's registers and spills
    (failing on a spill); reads the recurrence library's SASS (cuobjdump):
    HMMA in each bf16 instantiation (h . R on the tensor cores) and none in
    the f32 ones (h . R in FMAs, R on chip or read from device memory); and
@@ -212,6 +213,17 @@ command lines as two data-parallel ranks on the one card:
    test_convergence.py, >= PLANTED_GATE %) in ``default`` on phase 10b's
    vocabulary-16 split.  The one-pass modes are timed beside the f32 ones
    (phase 12), their products of bf16 values rated at BF16_RATE;
+10d. the port's C++ I/O library (``icl_torch/native``), which must build
+   with the host's C++ compiler or load from its cache (the compiler, its
+   version and the build's seconds are printed): a synthetic split of
+   Flickr30k's test size (1000 images, 5 captions each, up to 3 mentions a
+   caption) loads for relation, affinity and nonvisual on the native path
+   and on the Python path to equal datasets, ``split_vocab`` gives equal
+   words and the relation ``.scores`` write equal bytes, each timed both
+   ways on the host clock; relation ``--predict`` on phase 9's dev split
+   prints its command wall clock beside its sweep clock, with the native
+   and with the Python I/O; and ``--predict --oracle-parity`` must be
+   refused at start-up, naming Keras, where Keras cannot be imported;
 11. data parallelism (``icl_torch.dist``, ``icl_torch.runtime``).  A world
    of one: ``runtime.init(num_processes=1, process_id=0)`` on the card must
    choose NCCL, and one relation train step at full width through the
@@ -277,6 +289,7 @@ imports fail.  Usage, from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import logging
@@ -297,7 +310,8 @@ import numpy as np
 import torch
 
 from icl_torch.cli import affinity as affinity_cli
-from icl_torch.cli._common import precision_policy
+from icl_torch.cli._common import (RefusedFlagError, precision_policy,
+                                   split_vocab)
 from icl_torch.cli import cardinality as cardinality_cli
 from icl_torch.cli import check as check_cli
 from icl_torch.cli import evaluate as evaluate_cli
@@ -306,7 +320,7 @@ from icl_torch.cli import import_ as import_cli
 from icl_torch.cli import joint as joint_cli
 from icl_torch.cli import nonvisual as nonvisual_cli
 from icl_torch.cli import relation as relation_cli
-from icl_torch import runtime
+from icl_torch import native, runtime
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
@@ -317,7 +331,7 @@ from icl_torch.data.pipeline import (load_affinity_dataset,
 from icl_torch.io.boxes import read_box_feats, write_box_feats
 from icl_torch.io.captions import parse_mention_id
 from icl_torch.io.feats import read_feats_labels
-from icl_torch.io.scores import read_scores
+from icl_torch.io.scores import read_scores, write_scores
 from icl_torch.testing import dist_worker
 from icl_torch.testing.synth import SynthConfig, generate_dataset
 from icl_torch.models.affinity import AffinityModel
@@ -501,9 +515,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build, one nvcc per source, all at once
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    # 2. build, one nvcc per source, all at once, beside the host C++ I/O
+    # library (phase 10d)
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host_build = pool.submit(native.build)
         built = list(pool.map(_build.build, SOURCES))
+        native_built = host_build.result()
     spilled = []
     for name, (path, secs) in zip(SOURCES, built):
         print(f"build {name}: {secs:.1f} s -> {path.name}")
@@ -1232,6 +1249,10 @@ def main() -> int:
         # gate
         onepass = _onepass(dev, check, cli_dir, cli["per_unit"])
 
+        # 10d. the native I/O library: built, both paths equal and timed,
+        # --predict's clocks, the oracle flag refused without Keras
+        native_io = _native_io(cli_dir, native_built)
+
         # 11. a world of one over NCCL; two ranks on the one card
         ranks = _dist(cli_dir, men_dir, card)
 
@@ -1298,7 +1319,7 @@ def main() -> int:
           f"{aff['plain_step_ms']:.2f} ms per step ({card})")
 
     for line in (cli["times"] + mention["times"] + bf16["times"]
-                 + onepass["times"] + ranks["times"]):
+                 + onepass["times"] + native_io["times"] + ranks["times"]):
         print(f"time {line} ({card})")
     for line in (served_profiles + train["profiles"] + aff["profiles"]
                  + mention["profiles"] + onepass["profiles"]):
@@ -2856,6 +2877,163 @@ def _onepass(dev, check, cli_dir: str, f32_units: dict) -> dict:
                 lambda s=state: step(s, table, batch)))
     return {"launches": launches, "per_unit": per_unit, "times": times,
             "profiles": profiles}
+
+
+def _dataset_diff(a, b) -> list:
+    """Where two loads of one split differ (the relation, affinity or
+    mention dataset): field names, empty when equal in dtype and value."""
+    if hasattr(a, "ids"):                   # a mention dataset
+        out = [] if a.ids == b.ids else ["ids"]
+        return out + [f for f in ("token_ids", "lengths", "labels")
+                      if not _same_array(getattr(a, f), getattr(b, f))]
+    if len(a.images) != len(b.images):
+        return ["images"]
+    out = set()
+    for x, y in zip(a.images, b.images):
+        for f, v in vars(x).items():
+            w = getattr(y, f)
+            if v is None or isinstance(v, (str, list, dict)):
+                same = v == w
+            else:               # arrays, and lazy views of the box rows
+                same = _same_array(v, w)
+            if not same:
+                out.add(f)
+    return sorted(out)
+
+
+def _same_array(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+@contextlib.contextmanager
+def _python_io():
+    """The port's pure-Python I/O paths: its native library as if it had
+    not loaded."""
+    keep = native._lib, native._load_failed
+    native._lib, native._load_failed = None, True
+    try:
+        yield
+    finally:
+        native._lib, native._load_failed = keep
+
+
+def _native_io(cli_dir: str, built: tuple) -> dict:
+    """Phase 10d, the port's C++ I/O library (``icl_torch/native``): it
+    must build or load; a split of Flickr30k's test size loads for
+    relation, affinity and the mention tasks on the native path and on the
+    Python path to equal datasets, the relation ``.scores`` write gives
+    equal bytes both ways, each timed both ways (host clocks); relation
+    ``--predict`` on phase 9's split prints its command wall clock beside
+    its sweep clock both ways; ``--oracle-parity`` is refused at start-up
+    where Keras cannot be imported, naming it.  ``built``: phase 2's
+    (library, build seconds), 0.0 seconds when it came from the cache."""
+    times = []
+    cxx, version = native.compiler()
+    path, secs = built
+    print(f"native I/O library: {cxx} ({version or 'no version'}), "
+          + (f"built in {secs:.1f} s" if secs else "taken from the cache")
+          + f" -> {path.name}")
+    if not native.available():
+        raise RuntimeError("the native I/O library did not build or load")
+
+    def both(what, fn):
+        """fn() on the native path, then on the Python path: results and
+        seconds."""
+        t0 = time.perf_counter()
+        fast = fn()
+        t_native = time.perf_counter() - t0
+        with _python_io():
+            t0 = time.perf_counter()
+            slow = fn()
+            t_python = time.perf_counter() - t0
+        times.append(f"{what}: native {t_native:.3f} s, Python "
+                     f"{t_python:.3f} s ({t_python / t_native:.1f}x), "
+                     f"host clock")
+        return fast, slow
+
+    with tempfile.TemporaryDirectory(prefix="icl_chip_native_") as d:
+        # Flickr30k's test split: 1000 images, 5 captions each; the box
+        # features stay narrow (no loader of this phase reads them whole)
+        t0 = time.perf_counter()
+        counts = generate_dataset(d, "test", SynthConfig(
+            num_images=1000, captions_per_image=5, max_caption_len=32,
+            max_mentions_per_caption=3, vocab_size=VOCAB,
+            emb_dim=DIMS["emb_dim"], seed=SEED))
+        print(f"native I/O split: {counts} written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+        words, py_words = both("split_vocab [1000 images]",
+                               lambda: split_vocab(d, "test"))
+        loads = {"relation": lambda: load_relation_dataset(d, "test", emb),
+                 "affinity": lambda: load_affinity_dataset(d, "test", emb),
+                 "mention": lambda: load_mention_dataset(d, "test",
+                                                         "nonvisual", emb)}
+        bad = [] if words == py_words else ["split_vocab"]
+        rel = None
+        for task, load in loads.items():
+            fast, slow = both(f"load {task} dataset [1000 images]", load)
+            diff = _dataset_diff(fast, slow)
+            print(f"check load {task} dataset [1000 images]: native and "
+                  f"Python paths equal: {'ok' if not diff else diff}")
+            bad += [f"{task} {f}" for f in diff]
+            rel = fast if task == "relation" else rel
+        ids = [pid for im in rel.images for pid in im.pair_ids]
+        probs = np.random.default_rng(SEED).dirichlet(np.ones(4), len(ids))
+        out = [f"{d}/native.scores", f"{d}/python.scores"]
+        both(f"write relation .scores [{len(ids)} pairs]",
+             lambda: write_scores(out.pop(0), ids, probs))
+        same = (open(f"{d}/native.scores", "rb").read()
+                == open(f"{d}/python.scores", "rb").read())
+        print(f"check write relation .scores [{len(ids)} pairs]: native and "
+              f"Python bytes equal: {'ok' if same else 'FAIL'}")
+        if not same:
+            bad.append("scores bytes")
+        if bad:
+            raise RuntimeError(f"native and Python I/O differ: {bad}")
+
+    # --predict's wall clock beside its sweep clock, both ways
+    said = _Said()
+    logger = logging.getLogger("icl")
+    logger.addHandler(said)
+    try:
+        for way, ctx in (("native", contextlib.nullcontext),
+                         ("Python", _python_io)):
+            said.lines.clear()
+            with ctx():
+                t0 = time.perf_counter()
+                _captured(relation_cli.main, [
+                    "--predict", "--data_dir", cli_dir, "--data_split",
+                    "dev", "--device", "cuda", "--images_per_batch", "64",
+                    "--seed", str(SEED), *HIGHEST, "--model_file",
+                    f"{cli_dir}/relation.whole", "--scores_file",
+                    f"{cli_dir}/relation.io.scores"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            sweep = said.numbers(r"predict sweep: \d+ pairs in (\S+) s")
+            times.append(f"icl-torch-relation --predict [phase 9's dev "
+                         f"split, 32 images], {way} I/O: the command "
+                         f"{wall:.2f} s, its sweep {sweep[0]:.2f} s")
+    finally:
+        logger.removeHandler(said)
+
+    # --oracle-parity needs Keras: refused at start-up, before any data
+    if importlib.util.find_spec("keras") is None:
+        try:
+            relation_cli.main(["--predict", "--data_dir",
+                               f"{cli_dir}/absent", "--device", "cuda",
+                               "--oracle-parity"])
+            raise RuntimeError("--oracle-parity ran without Keras")
+        except RefusedFlagError as e:
+            ok = "Keras" in str(e) and "--oracle-parity" in str(e)
+            print(f"check --oracle-parity without Keras refused at "
+                  f"start-up: {e}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"bad refusal: {e}") from e
+    else:
+        print("keras is importable here: the start-up refusal is not "
+              "checked")
+    return {"times": times}
 
 
 @contextlib.contextmanager

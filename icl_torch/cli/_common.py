@@ -33,10 +33,14 @@ training precision), ``high`` full f32 products and that one-pass mode,
 ``highest`` full f32 and exact kernels; on the CPU every mode is exact
 f32, as XLA:CPU ignores the precision.
 
-A flag whose machinery the port does not have yet is accepted by name and
-refused by value with :class:`RefusedFlagError`, never ignored:
-``--oracle-parity`` and ``--oracle-parity-full`` (the Keras oracle is not
-ported).
+``--predict --oracle-parity`` (``--oracle-parity-full``) holds the port's
+probabilities to the Keras oracle (:mod:`icl_torch.eval.oracle`, on the
+CPU) on the valid cells of the first two batches (every batch), the mention
+tasks on the first 256 mentions (all), after the sweep and before the
+``.scores`` write, and prints ``oracle-parity PASS|FAIL`` against
+:data:`PARITY_GATE` (:func:`report_parity`).  Keras is imported at start-up,
+before any data is loaded: where it cannot be, the run is refused with
+:class:`RefusedFlagError`, naming Keras and the flag.
 
 ``--compilation_cache_dir`` is accepted and logged: PyTorch runs eagerly,
 there is no compiled program to cache (the kernels' libraries are kept
@@ -56,6 +60,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from icl_torch.data.buckets import BucketSpec
@@ -68,7 +73,7 @@ PARITY_GATE = 1e-5            # f32, TF32 off: on the CPU and on the card
 
 
 class RefusedFlagError(ValueError):
-    """A flag the port knows by name asked for something it cannot do."""
+    """A flag asked for something this machine cannot do."""
 
     def __init__(self, flag: str, why: str):
         super().__init__(f"{flag}: {why}")
@@ -181,10 +186,12 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
                    help="with --predict: print a ScoreDict table vs gold")
     p.add_argument("--oracle-parity", dest="oracle_parity",
                    action="store_true",
-                   help="refused: the Keras oracle is not ported")
+                   help="with --predict: compare the first two batches' "
+                        "probabilities with the Keras CPU oracle (gate "
+                        "1e-5, f32); needs Keras")
     p.add_argument("--oracle-parity-full", dest="oracle_parity_full",
                    action="store_true",
-                   help="refused: the Keras oracle is not ported")
+                   help="like --oracle-parity over every batch")
     p.add_argument("--device", default="cuda",
                    help="torch device; the default is the GPU, and the run "
                         "fails without one unless 'cpu' is given")
@@ -213,8 +220,8 @@ def parse_task_args(p: argparse.ArgumentParser, argv, task: str):
     The config file's keys become parser *defaults* before the real parse,
     so explicit CLI flags always override config values.  Unknown keys are
     a hard error.  Returns the namespace with an extra ``buckets`` attr
-    (dict or None).  Flags the port cannot honour raise
-    :class:`RefusedFlagError` (:func:`refuse_unported`).
+    (dict or None).  Flags this machine cannot honour raise
+    :class:`RefusedFlagError` (:func:`check_flags`).
     """
     cfg_path = _scan_flag(argv, "--config")
     buckets = None
@@ -246,7 +253,7 @@ def parse_task_args(p: argparse.ArgumentParser, argv, task: str):
     args.buckets = buckets
     if getattr(args, "early_stop", 0) and not getattr(args, "eval_every", 0):
         p.error("--early_stop monitors the dev eval — set --eval_every too")
-    refuse_unported(args, task)
+    check_flags(args, task)
     return args
 
 
@@ -259,17 +266,12 @@ def note_compilation_cache_dir(path: str | None) -> None:
                  "icl_torch/_build)", path)
 
 
-def refuse_unported(args, task: str | None = None) -> None:
-    """Raise :class:`RefusedFlagError` for a value the port cannot honour;
-    log the flags that have no effect in ``task``'s entry point (the
-    mention tasks read ``--hidden_width`` and ``--batch_size``; the image
-    tasks do not)."""
-    for flag, on in (("--oracle-parity", args.oracle_parity),
-                     ("--oracle-parity-full", args.oracle_parity_full)):
-        if on:
-            raise RefusedFlagError(flag, "the Keras oracle is not ported; "
-                                   "parity with the reference is held by "
-                                   "the tests")
+def check_flags(args, task: str | None = None) -> None:
+    """Raise :class:`RefusedFlagError` for a flag this machine cannot
+    honour (:func:`require_oracle`); log the flags that have no effect in
+    ``task``'s entry point (the mention tasks read ``--hidden_width`` and
+    ``--batch_size``; the image tasks do not)."""
+    require_oracle(args)
     note_compilation_cache_dir(args.compilation_cache_dir)
     if task not in IMAGE_TASKS:
         return
@@ -281,6 +283,26 @@ def refuse_unported(args, task: str | None = None) -> None:
         LOG.warning("--batch_size %d is the mention tasks' flag and is unused "
                     "here; this task batches by --images_per_batch",
                     args.batch_size)
+
+
+def require_oracle(args) -> None:
+    """``--predict`` with ``--oracle-parity`` (``-full``) imports Keras now,
+    at start-up: where it cannot be imported the run is refused before it
+    loads any data, not after its sweep.  Without ``--predict`` the flags
+    do nothing, as in the reference."""
+    flag = ("--oracle-parity-full" if args.oracle_parity_full else
+            "--oracle-parity" if args.oracle_parity else None)
+    if flag is None or not getattr(args, "predict", False):
+        return
+    from icl_torch.eval import oracle
+
+    try:
+        oracle._k()
+    except ImportError as e:
+        raise RefusedFlagError(flag, f"the oracle runs the model's layers "
+                               f"through Keras, which cannot be imported "
+                               f"here ({e}); install Keras 3 (torch "
+                               f"backend) or drop {flag}") from e
 
 
 def init_runtime(args):
@@ -412,22 +434,61 @@ def bucket_spec(args, key: str, default):
 
 
 def parity_gate() -> float:
-    """The port's parity gate against the reference, f32 with TF32 off:
-    1e-5 on the CPU and on the card."""
+    """The port's parity gate against the reference and the Keras oracle,
+    f32 with TF32 off: 1e-5 on the CPU and on the card."""
     return PARITY_GATE
 
 
-def report_parity(max_diff: float, gate: float | None = None) -> None:
-    gate = gate if gate is not None else parity_gate()
+def oracle_parity(args, batches, port_probs, oracle_probs,
+                  valid_key: str) -> None:
+    """``--oracle-parity`` of an image task: the port's probabilities
+    (``port_probs(batch)``, a tensor) against the oracle's
+    (``oracle_probs(arrays)``, numpy) on the ``valid_key`` cells of the
+    first two batches, or of every batch with ``--oracle-parity-full``."""
+    diffs = []     # np.max keeps a NaN, which then fails the gate
+    for b in batches:
+        # the oracle reads numpy: bf16 box features as the f32 values the
+        # device sees
+        arrays = {k: v.float().numpy() if torch.is_tensor(v) else v
+                  for k, v in b.arrays.items()}
+        p = port_probs(b).float().cpu().numpy()
+        q = oracle_probs(arrays)
+        valid = arrays[valid_key]
+        diffs.append(np.abs(p[valid] - q[valid]).max(initial=0.0))
+        if not args.oracle_parity_full and len(diffs) >= 2:
+            break
+    report_parity(float(np.max(diffs)) if diffs else None)
+
+
+def report_parity(max_diff: float | None) -> None:
+    """Print the oracle-parity verdict against :func:`parity_gate`;
+    ``max_diff`` None: nothing was compared (an empty sharded-predict
+    slice), which prints SKIPPED, not a PASS that verified nothing."""
+    if max_diff is None:
+        LOG.info("oracle parity skipped: empty predict slice")
+        print("oracle-parity SKIPPED: empty predict slice")
+        return
+    gate = parity_gate()
     verdict = "PASS" if max_diff <= gate else "FAIL"
-    LOG.info("parity: max|p - p_reference| = %.3e (gate %.0e): %s",
+    LOG.info("oracle parity: max|p - p_oracle| = %.3e (gate %.0e): %s",
              max_diff, gate, verdict)
-    print(f"parity {verdict}: max_abs_diff={max_diff:.3e} gate={gate:.0e}")
+    print(f"oracle-parity {verdict}: max_abs_diff={max_diff:.3e} "
+          f"gate={gate:.0e}")
 
 
 def split_vocab(data_dir: str, split: str) -> set[str]:
-    """All words of a split's captions (for embedding-table pruning)."""
+    """All words of a split's captions (for embedding-table pruning).
+
+    Native C++ scan when available (icl_torch/native/captions.py
+    caption_words); falls back to read_captions whole-file on any grammar
+    deviation so the Python reader's exact errors apply — set equality is
+    tested in tests/test_torch_native.py."""
+    from icl_torch.native.captions import caption_words
+
     path = os.path.join(data_dir, f"{split}.captions.txt")
+    words = caption_words(path)
+    if words is not None:
+        return words
     words = set()
     for cap in read_captions(path).values():
         words.update(cap.tokens)

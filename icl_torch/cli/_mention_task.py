@@ -43,8 +43,9 @@ from icl_torch.cli._common import (apply_precision, begin_predict,
                                    default_model_dir, default_scores_path,
                                    dump_run_config, init_runtime,
                                    load_embeddings, read_model_config,
-                                   restore_for_predict, round_to_data_axis,
-                                   to_device, weights_archive)
+                                   report_parity, restore_for_predict,
+                                   round_to_data_axis, to_device,
+                                   weights_archive)
 from icl_torch.data.buckets import Bucketizer, BucketSpec
 from icl_torch.data.pipeline import load_mention_dataset
 from icl_torch.dist.mesh import is_main_process, local_data_rows
@@ -159,6 +160,20 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     # ids in dataset order, not batch order
     probs = (np.stack([probs_by_id[eid] for eid in ds.ids]) if ds.ids
              else np.zeros((0, len(classes))))
+    if args.oracle_parity or args.oracle_parity_full:
+        from icl_torch.eval.oracle import oracle_ffnn
+        from icl_torch.models.nonvisual import mean_pool_tokens
+        from icl_torch.params import to_numpy
+
+        n = len(ds.ids) if args.oracle_parity_full else min(len(ds.ids), 256)
+        max_diff = None     # an empty sharded-predict slice: SKIPPED
+        if n:
+            tok, ln = to_device((ds.token_ids[:n], ds.lengths[:n]), device)
+            with torch.inference_mode():
+                pooled = mean_pool_tokens(table, tok, ln).cpu().numpy()
+            p_oracle = oracle_ffnn(to_numpy(model.flat_params()), pooled)
+            max_diff = float(np.abs(probs[:n] - p_oracle).max())
+        report_parity(max_diff)
     scores_path = default_scores_path(args, task)
     write_scores_sharded(scores_path, ds.ids, probs,
                          num_classes=len(classes),

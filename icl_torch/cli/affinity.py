@@ -39,8 +39,9 @@ from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    begin_predict, default_model_dir,
                                    default_scores_path,
                                    dump_run_config, init_runtime,
-                                   load_embeddings, parse_task_args,
-                                   read_model_config, resolve_compute_dtype,
+                                   load_embeddings, oracle_parity,
+                                   parse_task_args, read_model_config,
+                                   resolve_compute_dtype,
                                    restore_for_predict, round_to_data_axis,
                                    to_device, use_fused, weights_archive)
 from icl_torch.data.imagebatch import AffinityBatcher
@@ -214,6 +215,18 @@ def main(argv=None) -> None:
     LOG.info("predict sweep: %d cells in %.2f s (%.0f cells/s), batch "
              "assembly and host bookkeeping included", swept_cells, dt,
              swept_cells / dt)
+    if args.oracle_parity or args.oracle_parity_full:
+        from icl_torch.eval.oracle import oracle_affinity
+        from icl_torch.params import to_numpy
+
+        params = to_numpy(model.flat_params())
+        oracle_parity(
+            args, batcher.batches(ds),
+            lambda b: affinity_predict(model, table,
+                                       to_device(b.arrays, device)),
+            lambda arrays: oracle_affinity(params, emb.table, arrays,
+                                           phrase_enc=phrase_enc),
+            "grid_valid")
     # write in dataset order: per image, mention-major over valid cells
     order = []
     for im in ds.images:

@@ -201,12 +201,12 @@ def _check_feats(data_dir: str, split: str, task: str, mention_keys,
     if padded:
         rep.info(f"{path}: {padded} zero-padded id(s) (exact bytes are "
                  "preserved through .scores)")
-    # fast-path census: the JAX package's native C++ loader, which reads
-    # these same files, demotes the WHOLE load to its Python parsers for
-    # any line it cannot prove byte-equivalent to the Python grammar.
-    # Non-ASCII bytes are the trigger class — count them so a user with one
-    # stray byte in millions of rows sees it.  (The port's own loaders are
-    # pure Python; the finding and its text are the reference's.)
+    # fast-path census: any line the native C++ loader
+    # (icl_torch/native) cannot PROVE byte-equivalent to the Python grammar
+    # demotes the WHOLE load to the ~4x-slower Python parsers.  Non-ASCII
+    # bytes are the trigger class (grammar-violating ids are already errors
+    # above, and those demote too) — count them so a user with one stray
+    # byte in millions of rows has a route back to the fast path.
     nonascii = 0
     first_na = None
     lineno = 0

@@ -13,7 +13,8 @@ The multi-process flags (``--mesh``, ``--coordinator``, ``--num_processes``,
 ``--process_id``) are forwarded to every sub-run, so each runs its sharded
 predict: the first brings up the process group, the rest reuse it
 (:func:`icl_torch.runtime.init` is idempotent per topology).
-``--matmul_precision`` and ``--compute_dtype`` go to every sub-run too.
+``--matmul_precision``, ``--compute_dtype`` and the oracle flags
+(``--oracle-parity``, ``--oracle-parity-full``) go to every sub-run too.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from icl_torch.cli import affinity as aff_cli
 from icl_torch.cli import cardinality as card_cli
 from icl_torch.cli import nonvisual as nv_cli
 from icl_torch.cli import relation as rel_cli
-from icl_torch.cli._common import base_parser, refuse_unported
+from icl_torch.cli._common import base_parser, check_flags
 from icl_torch.util.log import LOG
 
 
@@ -58,9 +59,10 @@ def main(argv=None) -> None:
             ("--profile_dir", args.profile_dir, "train-only")):
         if val:
             p.error(f"{flag} is not supported by icl-torch-joint ({why})")
-    # the oracle flags: refused here, by name, before any sub-run starts
-    # (--compute_dtype and --matmul_precision go to every sub-run)
-    refuse_unported(args)
+    # the oracle flags need Keras: refused here, by name, before any
+    # sub-run starts where it cannot be imported (they go to every sub-run,
+    # as do --compute_dtype and --matmul_precision)
+    check_flags(args)
 
     common = ["--predict", "--data_dir", args.data_dir,
               "--data_split", args.data_split,
@@ -93,6 +95,10 @@ def main(argv=None) -> None:
         common += ["--no_prune_embeddings"]
     if args.eval:
         common += ["--eval"]
+    if args.oracle_parity:
+        common += ["--oracle-parity"]
+    if args.oracle_parity_full:
+        common += ["--oracle-parity-full"]
 
     # NOTE: no per-task width forwarding — each sub-CLI reads its own
     # <task>.model/model_config.json on predict and that wins over flags

@@ -45,8 +45,9 @@ from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    begin_predict, default_model_dir,
                                    default_scores_path,
                                    dump_run_config, init_runtime,
-                                   load_embeddings, parse_task_args,
-                                   read_model_config, resolve_compute_dtype,
+                                   load_embeddings, oracle_parity,
+                                   parse_task_args, read_model_config,
+                                   resolve_compute_dtype,
                                    restore_for_predict, round_to_data_axis,
                                    to_device, use_fused, weights_archive)
 from icl_torch.data.imagebatch import RelationBatcher
@@ -201,6 +202,17 @@ def main(argv=None) -> None:
     LOG.info("predict sweep: %d pairs in %.2f s (%.0f pairs/s), batch "
              "assembly and host bookkeeping included", swept_pairs, dt,
              swept_pairs / dt)
+    if args.oracle_parity or args.oracle_parity_full:
+        from icl_torch.eval.oracle import oracle_relation
+        from icl_torch.params import to_numpy
+
+        params = to_numpy(model.flat_params())
+        oracle_parity(
+            args, batcher.batches(ds),
+            lambda b: relation_predict(model, table,
+                                       to_device(b.arrays, device)),
+            lambda arrays: oracle_relation(params, emb.table, arrays),
+            "pair_valid")
     order = [pid for im in ds.images for pid in im.pair_ids]
     out = (np.stack([probs_by_id[pid] for pid in order]) if order
            else np.zeros((0, len(RELATION_CLASSES))))

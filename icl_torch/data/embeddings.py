@@ -67,6 +67,11 @@ class EmbeddingStore:
         with open(path, "rb") as f:
             head = f.read(1024)
         if path.endswith(".bin") or _looks_binary(head):
+            from icl_torch.native.w2v import load_binary
+
+            loaded = load_binary(path, restrict_to)
+            if loaded is not None:
+                return cls.from_arrays(*loaded)
             return cls._load_binary(path, restrict_to)
         return cls._load_text(path, restrict_to)
 
@@ -87,7 +92,7 @@ class EmbeddingStore:
     @classmethod
     def _load_text(cls, path: str, restrict_to=None) -> "EmbeddingStore":
         # filter DURING parse: the full GoogleNews-scale table must never be
-        # materialized
+        # materialized on the fallback path (the native loader filters too)
         words: list[str] = []
         rows: list[np.ndarray] = []
 
@@ -116,7 +121,8 @@ class EmbeddingStore:
 
         Streams record-by-record through a bounded window — a 3.4 GB
         GoogleNews file with restrict_to must never be materialized whole
-        (r3 review finding).  Peak memory ≈ kept rows + the 1 MiB window."""
+        on this fallback path (r3 review finding; the native loader
+        streams too).  Peak memory ≈ kept rows + the 1 MiB window."""
         words: list[str] = []
         rows: list[np.ndarray] = []
         with open(path, "rb") as f:
@@ -155,6 +161,15 @@ class EmbeddingStore:
             for w in words:
                 f.write(w.encode("utf-8") + b" ")
                 f.write(self.table[self.vocab[w]].astype("<f4").tobytes())
+
+    def words_by_row(self) -> list[str]:
+        """Vocabulary words in table-row order (row 1 first) — the layout
+        the native caption tokenizer consumes
+        (icl_torch/native/captions.py)."""
+        out = [""] * len(self.vocab)
+        for w, r in self.vocab.items():
+            out[r - 1] = w
+        return out
 
     # -- tokenization ----------------------------------------------------
     def lookup_id(self, word: str) -> int:

@@ -24,7 +24,7 @@ Data-dir layout (DECISION, SURVEY §0 — reference checkout empty):
 Affinity example-id scheme (DECISION):
 ``doc:<img>;caption:<ci>;mention:<mi>;box:<bi>`` — consistent with §6.1.
 
-The port's own copy of ``icl/data/pipeline.py`` without its optional C++ fast paths: ``icl_torch`` imports
+The port's own copy of ``icl/data/pipeline.py``: ``icl_torch`` imports
 nothing of the JAX package, and ``tests/test_torch_data.py`` holds the two
 copies to the same outputs.  Rationale below is the original's; where it
 names XLA or the TPU, read PyTorch and the GPU.
@@ -117,32 +117,47 @@ def load_mention_dataset(
 
     Labels-only `.feats` read: the sparse feature columns feed the sklearn
     baseline alone (SURVEY §4.4), so the loaders skip them entirely.
-    Mentions resolve by parsed (doc, caption, mention) ints over the
-    columnar mention table, so non-canonical (zero-padded) feats ids join correctly while
+    Same native fast path as the relation/affinity loaders (C++ id table +
+    columnar mentions); mentions resolve by parsed (doc, caption, mention)
+    ints, so non-canonical (zero-padded) feats ids join correctly while
     ``ids`` keeps the file's exact bytes for the `.scores` round-trip
     (§6.1 override discipline — the pre-r3 dict join crashed on them)."""
     from icl_torch.io.captions import parse_mention_id_padded
 
     feats_path = split_path(data_dir, split, f"{task}.feats")
+    from icl_torch.native import feats as _nat
+
+    fast = _nat.parse_feats_ids(feats_path, "mention")
     cap_ids = _load_caption_ids(
         split_path(data_dir, split, "captions.txt"), emb)
     cols = read_mention_columns(split_path(data_dir, split, "mentions.txt"))
     groups = _mention_groups(cols)
 
-    raw_ids, flabels = read_feats_labels(feats_path)
-    n = len(raw_ids)
-    labels = flabels.astype(np.int32)
-    ids = list(raw_ids)
-    row_doc, row_ci, row_mi = [None] * n, [0] * n, [0] * n
-    for r, eid in enumerate(raw_ids):
-        img, ci, mi, padded = parse_mention_id_padded(eid)
-        row_doc[r], row_ci[r], row_mi[r] = img, ci, mi
+    if fast is not None:
+        flabels, fields, doc_idx, docs, row_over = fast
+        n = len(flabels)
+        labels = flabels.astype(np.int32)
+        ids = [None] * n
+        row_doc = [docs[d] for d in doc_idx.tolist()]
+        row_ci = fields[:, 0].tolist()
+        row_mi = fields[:, 1].tolist()
+    else:
+        raw_ids, flabels = read_feats_labels(feats_path)
+        n = len(raw_ids)
+        labels = flabels.astype(np.int32)
+        ids = list(raw_ids)
+        row_doc, row_ci, row_mi, row_over = [None] * n, [0] * n, [0] * n, {}
+        for r, eid in enumerate(raw_ids):
+            img, ci, mi, padded = parse_mention_id_padded(eid)
+            row_doc[r], row_ci[r], row_mi[r] = img, ci, mi
 
     token_ids = np.zeros((n, max_len), dtype=np.int32)
     lengths = np.zeros(n, dtype=np.int32)
     cur_doc, sl, mkeys = None, None, None
     for r in range(n):
         img, ci, mi = row_doc[r], row_ci[r], row_mi[r]
+        if ids[r] is None:
+            ids[r] = row_over.get(r) or f"doc:{img};caption:{ci};mention:{mi}"
         if img != cur_doc:
             cur_doc = img
             sl = groups.get(img)
@@ -171,25 +186,42 @@ class _CaptionIds:
 
     The id arrays are exactly what ``emb.encode_tokens(cap.tokens, len)``
     would produce (exact match → ASCII/Unicode lowercase → PAD 0), built
-    by the Python reader; loaders slice/pad them instead of re-encoding
-    token strings per use."""
+    either by the C++ tokenizer or the Python reader; loaders slice/pad
+    them instead of re-encoding token strings per use."""
 
-    def __init__(self, lookup, flat, offsets):
+    def __init__(self, lookup, flat, offsets, patched):
         self._lookup = lookup       # img -> {cap_idx -> row}, last-wins
         self._flat = flat           # int32[T]
         self._off = offsets         # int64[rows+1]
+        self._patched = patched     # row -> int32[...] (non-ASCII rows)
 
     def ids(self, img: str, ci: int) -> np.ndarray:
         d = self._lookup.get(img)
         row = None if d is None else d.get(ci)
         if row is None:
             raise KeyError(f"{img}#{ci}")   # read_captions-dict parity
+        p = self._patched.get(row)
+        if p is not None:
+            return p
         return self._flat[self._off[row]:self._off[row + 1]]
 
 
 def _load_caption_ids(path: str, emb: EmbeddingStore) -> _CaptionIds:
+    from icl_torch.native import captions as _nat
+
+    fast = _nat.parse_captions(path, emb.words_by_row())
+    if fast is not None:
+        docs, doc_idx, cap_idx, offsets, ids, flagged = fast
+        lookup: dict[str, dict[int, int]] = {}
+        di, ci_l = doc_idx.tolist(), cap_idx.tolist()
+        for r in range(len(di)):
+            lookup.setdefault(docs[di[r]], {})[ci_l[r]] = r
+        patched = {r: np.fromiter((emb.lookup_id(t) for t in text.split()),
+                                  np.int32)
+                   for r, text in flagged.items()}
+        return _CaptionIds(lookup, ids, offsets, patched)
     caps = read_captions(path)
-    lookup: dict[str, dict[int, int]] = {}
+    lookup = {}
     chunks, offsets = [], [0]
     for r, cap in enumerate(caps.values()):
         lookup.setdefault(cap.img_id, {})[cap.cap_idx] = r
@@ -197,7 +229,7 @@ def _load_caption_ids(path: str, emb: EmbeddingStore) -> _CaptionIds:
                                   np.int32, len(cap.tokens)))
         offsets.append(offsets[-1] + len(cap.tokens))
     flat = (np.concatenate(chunks) if chunks else np.empty(0, np.int32))
-    return _CaptionIds(lookup, flat, np.asarray(offsets, np.int64))
+    return _CaptionIds(lookup, flat, np.asarray(offsets, np.int64), {})
 
 
 def _pad_id_rows(rows: list[np.ndarray], max_len: int | None = None
@@ -214,6 +246,58 @@ def _pad_id_rows(rows: list[np.ndarray], max_len: int | None = None
         out[i, :n] = r[:n]
         lens[i] = n
     return out, lens
+
+
+# ---------------------------------------------------------------------------
+# Native fast path: group feats rows by image without Python id strings
+# ---------------------------------------------------------------------------
+
+def _fast_grouped_rows(path: str, kind: str):
+    """C++-parsed (img_id, fields i32[P,k], labels i32[P], overrides) groups
+    in sorted-img order, rows in file order within each image — exactly the
+    grouping the pure-Python loaders build row-by-row (the id parse was
+    ~60% of a 50k-image load wall).  None → caller takes the Python path
+    (native unavailable, or any id/label deviates: grammar, int32 range,
+    non-finite labels — the slow path's exact error behavior applies)."""
+    from icl_torch.native import feats as _nat
+
+    fast = _nat.parse_feats_ids(path, kind)
+    if fast is None:
+        return None
+    flabels, fields, doc_idx, docs, row_overrides = fast
+    if len(flabels) == 0:
+        return []
+    if not np.isfinite(flabels).all() or np.abs(flabels).max() > 2**31 - 1:
+        # int(nan/inf) raises in the Python path, and an int32-overflowing
+        # label raises OverflowError at array('i') — astype would silently
+        # wrap; take the Python path for its exact behavior
+        return None
+    # rows sorted by doc STRING (the loaders' sorted(by_img) order) with a
+    # stable sort, so file order is preserved within each image
+    order_docs = sorted(range(len(docs)), key=docs.__getitem__)
+    rank = np.empty(len(docs), np.int64)
+    rank[order_docs] = np.arange(len(docs))
+    row_rank = rank[doc_idx]
+    order = np.argsort(row_rank, kind="stable")
+    sorted_rank = row_rank[order]
+    bounds = np.flatnonzero(np.diff(sorted_rank)) + 1
+    slices = np.split(order, bounds)
+    labels_i = flabels.astype(np.int32)   # truncation == Python int(lbl)
+    over_by_rank: dict[int, dict[int, str]] = {}
+    if row_overrides:
+        # slices hold ORIGINAL row indices (ascending within each group,
+        # since the stable sort keeps file order): index groups by the
+        # rank of their first ROW, i.e. row_rank[sl[0]] — NOT sorted_rank,
+        # which is positional (caught by test_native_ids out-of-order case)
+        slice_of_rank = {int(row_rank[s[0]]): s for s in slices}
+        for g, eid in row_overrides.items():
+            r = int(row_rank[g])
+            sl = slice_of_rank[r]
+            over_by_rank.setdefault(r, {})[int(np.searchsorted(sl, g))] = eid
+    return [(docs[order_docs[int(row_rank[sl[0]])]],
+             fields[sl], labels_i[sl],
+             over_by_rank.get(int(row_rank[sl[0]])))
+            for sl in slices]
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +349,8 @@ class RelationDataset:
 
 
 def _python_grouped_pair_rows(path: str):
-    """Group the feats rows by image: gold (ci, mi, cj, mj, label) rows accumulate per image into compact
+    """Pure-Python grouping (the pre-native structure): gold
+    (ci, mi, cj, mj, label) rows accumulate per image into compact
     ``array('i')`` buffers (20 bytes/pair instead of a tuple-of-ints per
     pair — the MSCOCO-scale memory posture, VERDICT r2 missing#2)."""
     ids, flabels = read_feats_labels(path)
@@ -335,9 +420,14 @@ def load_relation_dataset(
     Scale posture (VERDICT r2 missing#2): the `.feats` read is labels-only
     (no sparse-column materialization), pair rows are grouped per image as
     int32 tables (20 bytes/pair), and pair-id strings are never stored —
-    ``RelationImage.pair_ids`` derives them on demand."""
-    grouped = _python_grouped_pair_rows(
-        split_path(data_dir, split, "relation.feats"))
+    ``RelationImage.pair_ids`` derives them on demand.  When the native
+    library is available the parse+group runs entirely in C++/numpy
+    (``_fast_grouped_rows``); dataset equality between the two paths is
+    tested (tests/test_torch_native.py)."""
+    feats_path = split_path(data_dir, split, "relation.feats")
+    grouped = _fast_grouped_rows(feats_path, "pair")
+    if grouped is None:
+        grouped = _python_grouped_pair_rows(feats_path)
     cap_ids = _load_caption_ids(
         split_path(data_dir, split, "captions.txt"), emb)
     cols = read_mention_columns(split_path(data_dir, split, "mentions.txt"))
@@ -404,9 +494,9 @@ class AffinityDataset:
 
 
 def _python_grouped_affinity_rows(path: str):
-    """Group the affinity cells by image — same structure as
-    ``_python_grouped_pair_rows`` (overrides keyed by file-order position
-    within the image)."""
+    """Pure-Python grouping for affinity cells — same structure as
+    ``_fast_grouped_rows(path, "affinity")`` (overrides keyed by file-order
+    position within the image)."""
     ids, flabels = read_feats_labels(path)
     cells: dict[str, array] = {}
     overrides_by_img: dict[str, dict[int, str]] = {}
@@ -432,9 +522,12 @@ def load_affinity_dataset(
     data_dir: str, split: str, emb: EmbeddingStore, max_phrase_len: int = 16,
 ) -> AffinityDataset:
     """Labels-only `.feats` read + int-packed per-image cell buffers +
-    mmap'd lazy box views — same scale posture as load_relation_dataset."""
-    grouped = _python_grouped_affinity_rows(
-        split_path(data_dir, split, "affinity.feats"))
+    mmap'd lazy box views — same scale posture as load_relation_dataset
+    (incl. the C++ parse+group fast path, tests/test_torch_native.py)."""
+    feats_path = split_path(data_dir, split, "affinity.feats")
+    grouped = _fast_grouped_rows(feats_path, "affinity")
+    if grouped is None:
+        grouped = _python_grouped_affinity_rows(feats_path)
     cap_ids = _load_caption_ids(
         split_path(data_dir, split, "captions.txt"), emb)
     cols = read_mention_columns(split_path(data_dir, split, "mentions.txt"))

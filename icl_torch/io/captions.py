@@ -16,7 +16,7 @@ SURVEY.md §0 — the reference checkout was empty):
 token indices are 0-based and inclusive on both ends (a one-token mention has
 first == last).
 
-The port's own copy of ``icl/io/captions.py`` without its optional C++ fast path: ``icl_torch`` imports
+The port's own copy of ``icl/io/captions.py``: ``icl_torch`` imports
 nothing of the JAX package, and ``tests/test_torch_data.py`` holds the two
 copies to the same outputs.  Rationale below is the original's; where it
 names XLA or the TPU, read PyTorch and the GPU.
@@ -182,12 +182,21 @@ class MentionColumns:
     last: "np.ndarray"        # int32[N]
 
 
-def read_mention_columns(path: str) -> MentionColumns:
-    """Columnar :func:`read_mentions`, built from the Python reader (the
-    JAX package's optional C++ single-pass parse has no counterpart here
-    yet), so error behavior is that of read_mentions."""
+def read_mention_columns(path: str, use_native: bool = True) -> MentionColumns:
+    """Columnar :func:`read_mentions` — C++ single-pass parse when
+    available (icl_torch/native/icl_native.cpp mentions_parse), else built
+    from the Python reader.  The native path falls back WHOLE-FILE on any
+    line its strict grammar cannot prove equivalent, so error behavior
+    always matches read_mentions (equality tested in
+    tests/test_torch_native.py)."""
     import numpy as np
 
+    if use_native:
+        from icl_torch.native import mentions as _nat
+
+        cols = _nat.parse_mentions(path)
+        if cols is not None:
+            return MentionColumns(*cols)
     ms = read_mentions(path)
     n = len(ms)
     docs: list[str] = []

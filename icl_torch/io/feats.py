@@ -11,11 +11,11 @@ empty — see SURVEY.md §0).  Format, one example per line::
 * the trailing ``# <id>`` comment carries the example id the Java side uses
   (e.g. ``doc:123.jpg;caption:0;mention:2``).
 
-Pure Python: the JAX package's optional C++ parser has no counterpart here
-yet.  Line-keeping follows that parser's grammar all the same, so the two
-packages keep the same lines of the same file.
+A fast C++ parser (icl_torch.native) is used when available; the
+pure-Python path below is the always-available reference implementation and
+the two are tested for equality (tests/test_torch_native.py).
 
-The port's own copy of ``icl/io/feats.py`` without its optional C++ fast path: ``icl_torch`` imports
+The port's own copy of ``icl/io/feats.py``: ``icl_torch`` imports
 nothing of the JAX package, and ``tests/test_torch_data.py`` holds the two
 copies to the same outputs.  Rationale below is the original's; where it
 names XLA or the TPU, read PyTorch and the GPU.
@@ -99,15 +99,29 @@ def iter_feats(path: str) -> Iterator[FeatsExample]:
         LOG.warning("%s: skipped %d malformed line(s)", path, skipped)
 
 
-def read_feats(path: str) -> list[FeatsExample]:
-    """Read a whole `.feats` file."""
+def read_feats(path: str, use_native: bool = True) -> list[FeatsExample]:
+    """Read a whole `.feats` file.
+
+    Tries the C++ fast parser first (icl_torch.native.feats) and falls back
+    to the pure-Python implementation; results are identical by
+    construction and test.
+    """
+    if use_native:
+        from icl_torch.native import feats as _native
+
+        parsed = _native.parse_feats_file(path)
+        if parsed is not None:
+            return [
+                FeatsExample(example_id=eid, label=lbl, indices=idx, values=val)
+                for eid, lbl, idx, val in parsed
+            ]
     return list(iter_feats(path))
 
 
 def iter_feats_labels(path: str) -> Iterator[tuple[str, float]]:
     """Stream (example_id, label) pairs without parsing the idx:val columns.
 
-    The scan behind :func:`read_feats_labels`; same line semantics
+    Pure-Python fallback for :func:`read_feats_labels`; same line semantics
     as the native labels scan (blank/comment skip, `# id` comment, lines
     with an unparseable LABEL dropped whole with one warning per file —
     idx:val tokens are deliberately not validated on this path)."""
@@ -132,13 +146,21 @@ def iter_feats_labels(path: str) -> Iterator[tuple[str, float]]:
         LOG.warning("%s: skipped %d malformed line(s)", path, skipped)
 
 
-def read_feats_labels(path: str) -> tuple[list[str], np.ndarray]:
+def read_feats_labels(path: str, use_native: bool = True
+                      ) -> tuple[list[str], np.ndarray]:
     """(ids, float64 labels) for a `.feats` file, features skipped.
 
     The relation/affinity/mention dataset loaders consume only id+label
     (SURVEY §4.1–4.4 — the sparse columns feed the sklearn baseline alone);
     this path avoids materializing per-row index/value arrays, which is what
-    keeps a 50k-image split load bounded (VERDICT r2 missing#2)."""
+    keeps a 50k-image split load bounded (VERDICT r2 missing#2).  Native
+    C++ scan when available; equality with the Python path is tested."""
+    if use_native:
+        from icl_torch.native import feats as _native
+
+        parsed = _native.parse_feats_labels(path)
+        if parsed is not None:
+            return parsed
     ids: list[str] = []
     labels: list[float] = []
     for eid, lbl in iter_feats_labels(path):

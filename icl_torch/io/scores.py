@@ -1,7 +1,7 @@
 """.scores writer/reader: the output format the downstream ILP reads.
 
-The port's copy of ``icl/io/scores.py`` (pure Python: the optional C++ row
-writer is left out; the multi-process merge runs over
+The port's copy of ``icl/io/scores.py`` (the rows go through the port's
+C++ writer where it is built; the multi-process merge runs over
 ``torch.distributed``); ``tests/test_torch_data.py`` holds it to the original
 byte for byte.
 
@@ -53,7 +53,14 @@ def write_scores(
 
 
 def _write_rows(path: str, ids: Sequence[str], probs: np.ndarray) -> None:
-    """The §6.2 row bytes only (no meta sidecar), shared by both writers."""
+    """The §6.2 row bytes only (no meta sidecar), shared by both writers so
+    part files go through the identical formatting chain: the C++ writer
+    when the native library is available (byte-identical to the Python
+    loop; tests/test_torch_native.py), else the loop."""
+    from icl_torch.native.feats import write_scores_native
+
+    if write_scores_native(path, list(ids), probs):
+        return
     with open(path, "w", encoding="utf-8", newline="\n") as f:
         for eid, row in zip(ids, probs):
             f.write(eid + "," + ",".join(f"{p:.6f}" for p in row) + "\n")

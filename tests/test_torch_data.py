@@ -3,12 +3,14 @@
 ``icl_torch`` imports nothing of ``icl``; it keeps copies of the modules it
 needs (``icl_torch/util/log.py``, ``data/{buckets,embeddings,pairs,pipeline,
 imagebatch}.py``, ``io/{boxes,captions,feats,scores}.py``,
-``eval/scoredict.py``, ``testing/synth.py``), without the optional C++ fast
-paths and the multi-process branches.  File formats and batch layouts must
-not drift, so each copy is held to its original on the same seeded input:
-the same bytes written, the same arrays (dtype, shape, values) read and
-batched.  The originals may take their C++ paths here where the library is
-built; the results must agree all the same.
+``eval/scoredict.py``, ``testing/synth.py``) and of the C++ I/O library
+(``icl_torch/native``).  File formats and batch layouts must not drift, so
+each copy is held to its original on the same seeded input: the same bytes
+written, the same arrays (dtype, shape, values) read and batched.  Every
+reader and writer with a native fast path is held to the original on both
+of the port's paths (``port_io``): its C++ library and the pure Python it
+falls back to.  The originals may take their C++ paths here where their
+library is built; the results must agree all the same.
 """
 
 import filecmp
@@ -41,6 +43,7 @@ import icl_torch.io.captions as tcaps
 import icl_torch.eval.scoredict as tscoredict
 import icl_torch.io.feats as tfeats
 import icl_torch.io.scores as tscores
+import icl_torch.native as tnative
 import icl_torch.testing.synth as tsynth
 import icl_torch.util.log as tlog
 
@@ -52,6 +55,18 @@ CONFIGS = {
     "skewed": {"num_images": 5, "seed": 7, "planted": True,
                "planted_active_words": 3, "captions_per_image": 3},
 }
+
+
+@pytest.fixture(params=["native", "python"])
+def port_io(request, monkeypatch):
+    """The port's I/O path a test drives: its C++ library, which must
+    build here, or the pure-Python code it falls back to."""
+    if request.param == "native":
+        assert tnative.available(), "the port's native library did not build"
+    else:
+        monkeypatch.setattr(tnative, "_lib", None)
+        monkeypatch.setattr(tnative, "_load_failed", True)
+    return request.param
 
 
 def _same(a, b, what=""):
@@ -91,7 +106,8 @@ def test_synth_writes_the_same_bytes(name, datasets, tmp_path):
                          [(True, True, False), (False, False, True)])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_relation_dataset_and_batches_are_equal(name, datasets, build_grid,
-                                                with_ids, shuffle):
+                                                with_ids, shuffle,
+        port_io):
     d = datasets[name]
     path = os.path.join(d, "embeddings.txt")
     jds = jpipe.load_relation_dataset(d, "train", jemb.EmbeddingStore.load(path))
@@ -123,7 +139,8 @@ def test_relation_dataset_and_batches_are_equal(name, datasets, build_grid,
                          [(True, 16, (8, 16, 32)), (False, 8, (4, 8, 16))])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_affinity_dataset_and_batches_are_equal(name, datasets, with_ids,
-                                                phrase_len, buckets):
+                                                phrase_len, buckets,
+        port_io):
     d = datasets[name]
     path = os.path.join(d, "embeddings.txt")
     jds = jpipe.load_affinity_dataset(d, "train",
@@ -158,7 +175,7 @@ def test_affinity_dataset_and_batches_are_equal(name, datasets, with_ids,
 
 
 @pytest.mark.parametrize("task", ["nonvisual", "cardinality"])
-def test_mention_dataset_is_equal(task, datasets):
+def test_mention_dataset_is_equal(task, datasets, port_io):
     d = datasets["default"]
     path = os.path.join(d, "embeddings.txt")
     a = jpipe.load_mention_dataset(d, "train", task,
@@ -172,7 +189,7 @@ def test_mention_dataset_is_equal(task, datasets):
 
 @pytest.mark.parametrize("fmt", ["text", "text_header", "binary",
                                  "binary_restricted"])
-def test_embedding_store_loads_are_equal(fmt, tmp_path):
+def test_embedding_store_loads_are_equal(fmt, tmp_path, port_io):
     rng = np.random.default_rng(2)
     words = ["Dog", "dog", "cat", "Zebra", "ünï", "a-b"]
     vecs = rng.normal(size=(len(words), 5)).astype(np.float32)
@@ -265,7 +282,7 @@ def test_box_feats_round_trip_both_ways(mmap, tmp_path):
 
 @pytest.mark.parametrize("task", ["relation", "affinity", "nonvisual",
                                   "cardinality"])
-def test_feats_readers_are_equal(task, datasets, tmp_path):
+def test_feats_readers_are_equal(task, datasets, tmp_path, port_io):
     path = os.path.join(datasets["default"], f"train.{task}.feats")
     a, b = jfeats.read_feats(path), tfeats.read_feats(path)
     assert len(a) == len(b) > 0
@@ -285,7 +302,7 @@ def test_feats_readers_are_equal(task, datasets, tmp_path):
     assert filecmp.cmp(out_b, path, shallow=False)       # a round trip
 
 
-def test_malformed_feats_lines_are_dropped_alike(tmp_path):
+def test_malformed_feats_lines_are_dropped_alike(tmp_path, port_io):
     path = str(tmp_path / "bad.feats")
     with open(path, "w", encoding="utf-8") as f:
         f.write("1 1:0.5 3:2 # ok0\n\n# a comment\nx 1:1 # badlabel\n"
@@ -299,7 +316,7 @@ def test_malformed_feats_lines_are_dropped_alike(tmp_path):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_caption_and_mention_readers_are_equal(name, datasets):
+def test_caption_and_mention_readers_are_equal(name, datasets, port_io):
     d = datasets[name]
     ca = jcaps.read_captions(os.path.join(d, "train.captions.txt"))
     cb = tcaps.read_captions(os.path.join(d, "train.captions.txt"))
@@ -354,7 +371,7 @@ def _score_rows(n, c, seed):
 
 @pytest.mark.parametrize("writer", ["write_scores", "write_scores_sharded"])
 @pytest.mark.parametrize("n,c", [(7, 4), (5, 2), (3, 1), (0, 2)])
-def test_scores_writers_write_the_same_bytes(writer, n, c, tmp_path):
+def test_scores_writers_write_the_same_bytes(writer, n, c, tmp_path, port_io):
     ids, probs = _score_rows(n, c, seed=n + c)
     paths = {}
     for name, mod in (("j", jscores), ("t", tscores)):

@@ -3,7 +3,8 @@ package: icl_torch and chip_smoke.py import no JAX, flax, optax or orbax,
 and nothing of ``icl``, directly or through another module.  Nor do they
 need ``keras``, ``sklearn`` or ``ml_dtypes`` at import: the machine with
 the GPU has none of them (``sklearn`` is imported inside
-``icl-torch-baseline``'s ``main`` and nowhere else; bf16 conversions go
+``icl-torch-baseline``'s ``main`` and ``keras`` inside the oracle's loader
+``icl_torch/eval/oracle.py:_k``, and nowhere else; bf16 conversions go
 through torch)."""
 
 import os
@@ -12,9 +13,11 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NO_SOURCE_LINE = ("jax", "jaxlib", "flax", "optax", "orbax", "icl", "keras",
+NO_SOURCE_LINE = ("jax", "jaxlib", "flax", "optax", "orbax", "icl",
                   "ml_dtypes")
-BANNED = NO_SOURCE_LINE + ("sklearn",)      # not in sys.modules after import
+# not in sys.modules after import; the lazy imports of the last two are
+# test_sklearn_is_imported_only_inside_the_baseline_main's
+BANNED = NO_SOURCE_LINE + ("sklearn", "keras")
 # the modules of the CLI slice: the walk below must reach each of them
 CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
              "icl_torch.cli.affinity", "icl_torch.io.scores",
@@ -28,8 +31,12 @@ CLI_SLICE = ("icl_torch.cli._common", "icl_torch.cli.relation",
              "icl_torch.cli.evaluate", "icl_torch.cli.check",
              "icl_torch.cli.baseline", "icl_torch.serve",
              # data parallelism over torch.distributed
-             "icl_torch.dist.mesh", "icl_torch.testing.dist_worker")
-DIST_PACKAGES = ("icl_torch.dist", "icl_torch.runtime")
+             "icl_torch.dist.mesh", "icl_torch.testing.dist_worker",
+             # the native I/O library's bindings, the Keras oracle
+             "icl_torch.native.feats", "icl_torch.native.mentions",
+             "icl_torch.native.captions", "icl_torch.native.w2v",
+             "icl_torch.eval.oracle")
+DIST_PACKAGES = ("icl_torch.dist", "icl_torch.runtime", "icl_torch.native")
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -71,21 +78,30 @@ def test_no_source_line_imports_jax():
 
 
 def test_sklearn_is_imported_only_inside_the_baseline_main():
-    """One lazy import, inside ``icl_torch/cli/baseline.py``'s function;
-    ``keras`` nowhere, lazily or not."""
+    """One lazy import of ``sklearn``, inside
+    ``icl_torch/cli/baseline.py``'s function, and one of ``keras``, inside
+    the oracle's loader ``_k`` in ``icl_torch/eval/oracle.py``; nothing
+    else of the package imports either, lazily or not."""
     pat = re.compile(r"^(\s*)(import|from)\s+(sklearn|keras)(\.|\s|$)")
     hits = []
     for root, dirs, names in os.walk(os.path.join(REPO, "icl_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]
-        for n in names:
+        for n in sorted(names):
             if n.endswith(".py"):
                 path = os.path.join(root, n)
+                func = None
                 for line in open(path, encoding="utf-8"):
+                    d = re.match(r"def (\w+)", line)
+                    func = d.group(1) if d else func
                     m = pat.match(line)
                     if m:
                         hits.append((os.path.relpath(path, REPO),
-                                     m.group(3), len(m.group(1)) > 0))
+                                     m.group(3), len(m.group(1)) > 0,
+                                     func))
     for line in open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8"):
         assert not pat.match(line), line
-    assert hits == [(os.path.join("icl_torch", "cli", "baseline.py"),
-                     "sklearn", True)], hits
+    assert sorted(hits) == [
+        (os.path.join("icl_torch", "cli", "baseline.py"), "sklearn", True,
+         "main"),
+        (os.path.join("icl_torch", "eval", "oracle.py"), "keras", True,
+         "_k")], hits
