@@ -117,8 +117,11 @@ def base_parser(task: str, description: str) -> argparse.ArgumentParser:
                         "cover every rank. Default: all ranks on the data "
                         "axis")
     p.add_argument("--profile_dir", default=None,
-                   help="write a torch.profiler trace of the training loop "
-                        "(chrome trace JSON) into this directory")
+                   help="profile the training loop (--train) or the "
+                        "--predict sweep of relation and affinity: write "
+                        "its torch.profiler Chrome trace (trace_<pid>.json) "
+                        "and the program's own spans and counters "
+                        "(spans_<pid>.jsonl) into this directory")
     p.add_argument("--resume", default="none", choices=["none", "auto"])
     p.add_argument("--ckpt_every", type=int, default=200,
                    help="checkpoint every N steps (0: only at end)")

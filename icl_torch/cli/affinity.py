@@ -52,7 +52,8 @@ from icl_torch.io.captions import parse_mention_id
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
 from icl_torch.train.evalhook import build_eval_hook
-from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.loop import (LoopConfig, prefetch, profile_trace,
+                                  run_training)
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import affinity_predict, make_affinity_train_step
 from icl_torch.util.log import LOG
@@ -204,13 +205,14 @@ def main(argv=None) -> None:
     # oldest result is pulled to the host
     pending: collections.deque = collections.deque()
     t_sweep = time.perf_counter()
-    for b in prefetch(batcher.batches(ds), depth=4):
-        jb = to_device(b.arrays, device)
-        pending.append((b, packed_fn(jb)))
-        if len(pending) > 3:
+    with profile_trace(args.profile_dir):
+        for b in prefetch(batcher.batches(ds), depth=4):
+            jb = to_device(b.arrays, device)
+            pending.append((b, packed_fn(jb)))
+            if len(pending) > 3:
+                _consume(*pending.popleft())
+        while pending:
             _consume(*pending.popleft())
-    while pending:
-        _consume(*pending.popleft())
     dt = max(time.perf_counter() - t_sweep, 1e-9)
     LOG.info("predict sweep: %d cells in %.2f s (%.0f cells/s), batch "
              "assembly and host bookkeeping included", swept_cells, dt,

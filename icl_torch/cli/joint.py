@@ -56,7 +56,8 @@ def main(argv=None) -> None:
             ("--scores_file", args.scores_file,
              "per-task default .scores paths are used"),
             ("--metrics_file", args.metrics_file, "train-only"),
-            ("--profile_dir", args.profile_dir, "train-only")):
+            ("--profile_dir", args.profile_dir,
+             "profile the relation or affinity --predict on its own")):
         if val:
             p.error(f"{flag} is not supported by icl-torch-joint ({why})")
     # the oracle flags need Keras: refused here, by name, before any

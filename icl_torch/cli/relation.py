@@ -58,7 +58,8 @@ from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.models.relation import RelationModel
 from icl_torch.train.evalhook import build_eval_hook
-from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.loop import (LoopConfig, prefetch, profile_trace,
+                                  run_training)
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import make_relation_train_step, relation_predict
 from icl_torch.util.log import LOG
@@ -191,13 +192,14 @@ def main(argv=None) -> None:
     # device's work AND the host's padding instead of serialising with them
     pending: collections.deque = collections.deque()
     t_sweep = time.perf_counter()
-    for b in prefetch(batcher.batches(ds), depth=4):
-        jb = to_device(b.arrays, device)
-        pending.append((b, relation_predict(model, table, jb)))
-        if len(pending) > 3:
+    with profile_trace(args.profile_dir):
+        for b in prefetch(batcher.batches(ds), depth=4):
+            jb = to_device(b.arrays, device)
+            pending.append((b, relation_predict(model, table, jb)))
+            if len(pending) > 3:
+                _consume(*pending.popleft())
+        while pending:
             _consume(*pending.popleft())
-    while pending:
-        _consume(*pending.popleft())
     dt = max(time.perf_counter() - t_sweep, 1e-9)
     LOG.info("predict sweep: %d pairs in %.2f s (%.0f pairs/s), batch "
              "assembly and host bookkeeping included", swept_pairs, dt,

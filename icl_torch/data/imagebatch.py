@@ -44,6 +44,7 @@ import torch
 
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.pipeline import AffinityDataset, AffinityImage, RelationDataset, RelationImage
+from icl_torch.util import trace
 
 
 @dataclasses.dataclass
@@ -293,9 +294,11 @@ class AffinityBatcher:
         }
         id_index: list[tuple[int, int, str]] = []
         from icl_torch.io.captions import parse_mention_id
+        real = 0
         for s, im in enumerate(group):
             m = min(im.phrase_tokens.shape[0], M)
             b = min(im.box_feats.shape[0], B)
+            real += b
             a["phrase_tokens"][s, :m] = im.phrase_tokens[:m, :L]
             a["phrase_len"][s, :m] = np.minimum(im.phrase_len[:m], L)
             a["box_feats"][s, :b] = im.box_feats[:b]
@@ -311,6 +314,9 @@ class AffinityBatcher:
                             id_index.append(
                                 (s, r * B + c,
                                  im.cell_id(ci, mi, im.box_idx[c])))
+        # the box block's rows staged, and those that hold a box
+        trace.count("batch.box_rows", I * B)
+        trace.count("batch.box_rows_real", real)
         return ImageBatch(arrays=with_box_dtype(a, self.box_dtype),
                           id_index=id_index, shape_key=key)
 

@@ -50,6 +50,7 @@ from types import SimpleNamespace
 import torch
 
 from icl_torch.ops import _build
+from icl_torch.util import trace
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MAX_H = 512   # a unit a lane of a 16-block cluster (csrc/lstm_recurrence.cu)
@@ -156,7 +157,8 @@ def lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf):
 
 class LSTMRecurrence(torch.autograd.Function):
     """Kernel (or plain) forward with residuals; plain reverse-loop
-    backward (see the module docstring)."""
+    backward (see the module docstring), span ``lstm.backward``
+    (:mod:`icl_torch.util.trace`)."""
 
     @staticmethod
     def forward(ctx, x_proj, mask, R):
@@ -169,8 +171,11 @@ class LSTMRecurrence(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dhs, dhf):
-        gates, c, hs, R, mask = ctx.saved_tensors
-        dx_proj, dR = lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf)
+        # on CUDA this runs on autograd's device thread
+        with trace.span("lstm.backward"):
+            gates, c, hs, R, mask = ctx.saved_tensors
+            dx_proj, dR = lstm_recurrence_bwd(gates, c, hs, R, mask, dhs,
+                                              dhf)
         return dx_proj, None, dR
 
 

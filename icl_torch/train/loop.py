@@ -6,7 +6,8 @@ metrics`` that updates the state in place (``icl_torch.train.steps``) and a
 ``make_batches(epoch_rng, skip=0)`` factory yielding per-step argument
 tuples whose tensors already lie on the device.
 
-* ``profile_dir`` wraps the loop in a ``torch.profiler`` trace; step wall
+* ``profile_dir`` wraps the loop in a ``torch.profiler`` trace, and the
+  port's own spans and counters with it (:func:`profile_trace`); step wall
   clock and examples/sec are logged every ``log_every`` steps;
 * a checkpoint every ``ckpt_every`` steps and at the end;
   ``resume='auto'`` restores the latest before training;
@@ -45,6 +46,7 @@ from icl_torch.dist.mesh import Mesh, is_main_process, replicate
 from icl_torch.train.checkpoint import (Checkpointer, load_into, snapshot,
                                         to_host)
 from icl_torch.train.state import TrainState
+from icl_torch.util import trace
 from icl_torch.util.log import LOG
 
 
@@ -77,6 +79,12 @@ def prefetch(iterator, depth: int = 2):
     (step_fn raised, generator closed early) sets a stop event that the
     worker observes at its next queue interaction, so neither the thread
     nor its device-ready batches outlive the epoch that needed them.
+
+    Spans (:mod:`icl_torch.util.trace`): ``prefetch.wait``, the consumer's
+    wait for the next item; ``prefetch.produce``, the worker's
+    ``next(iterator)``, with the spans and counters made inside it.  The
+    worker cannot see whether a profile runs, so each item carries what
+    was made for it, and the consumer records that when it takes the item.
     """
     import queue as _queue
     import threading
@@ -95,9 +103,14 @@ def prefetch(iterator, depth: int = 2):
         return False
 
     def _worker():
+        it = iter(iterator)
         try:
-            for item in iterator:
-                if not _put(item):
+            while True:
+                try:
+                    got = trace.hold("prefetch.produce", it.__next__)
+                except StopIteration:
+                    break
+                if not _put(got):
                     return
             _put(_end)
         except BaseException as e:   # noqa: BLE001 — re-raised below
@@ -107,20 +120,26 @@ def prefetch(iterator, depth: int = 2):
                      name="icl-batch-prefetch").start()
     try:
         while True:
-            item = q.get()
-            if item is _end:
+            with trace.span("prefetch.wait"):
+                got = q.get()
+            if got is _end:
                 return
-            if isinstance(item, BaseException):
-                raise item
+            if isinstance(got, BaseException):
+                raise got
+            item, held = got
+            trace.take(held)
             yield item
     finally:
         stop.set()
 
 
 def profile_trace(profile_dir: str | None):
-    """A ``torch.profiler`` context that writes a chrome trace (CPU, and
-    CUDA where there is a card) into ``profile_dir`` when it closes; a null
-    context without a directory."""
+    """A ``torch.profiler`` context that, when it closes, writes into
+    ``profile_dir`` a Chrome trace (CPU, and CUDA where there is a card),
+    ``trace_<pid>.json``, and the port's spans and counters kept while it
+    ran, ``spans_<pid>.jsonl`` (:func:`icl_torch.util.trace.write_jsonl`;
+    the prefetch worker's spans are only there), then empties that log; a
+    null context without a directory."""
     if not profile_dir:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
@@ -133,6 +152,9 @@ def profile_trace(profile_dir: str | None):
     def write(prof):
         prof.export_chrome_trace(os.path.join(
             profile_dir, f"trace_{os.getpid()}.json"))
+        trace.write_jsonl(os.path.join(profile_dir,
+                                       f"spans_{os.getpid()}.jsonl"))
+        trace.reset()
 
     return profile(activities=activities, on_trace_ready=write)
 

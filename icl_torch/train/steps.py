@@ -48,6 +48,7 @@ from icl_torch.models.relation import RelationModel
 from icl_torch.ops.affinity_rank import affinity_rank
 from icl_torch.ops.ce import onehot_ce
 from icl_torch.train.state import TrainState
+from icl_torch.util import trace
 
 
 def masked_weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -255,6 +256,9 @@ def affinity_loss(model: AffinityModel, table: torch.Tensor, batch: dict,
 
 def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
                      other_form: str, mesh: Mesh | None = None) -> Callable:
+    """The image tasks' step; spans (:mod:`icl_torch.util.trace`)
+    ``train.step`` over ``train.forward`` (the loss), ``train.backward``
+    and ``train.optimizer`` (Adam)."""
     if grid_loss and class_weights is not None and any(
             w <= 0 for w in class_weights):
         LOG.warning("grid_loss disabled: a class weight <= 0 would drop "
@@ -276,17 +280,21 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
 
     def train_step(state: TrainState, table: torch.Tensor,
                    batch: dict) -> dict:
-        cw = class_weight_tensor(table.device)
-        dp = _active(mesh)
-        seeds = _seeds(state, batch[images_key].shape[0], dp)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
-                                grid_loss, dp)
-        loss.backward()
-        if dp is not None:
-            _sync_gradients(state, dp)
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        with trace.span("train.step"):
+            cw = class_weight_tensor(table.device)
+            dp = _active(mesh)
+            seeds = _seeds(state, batch[images_key].shape[0], dp)
+            state.optimizer.zero_grad(set_to_none=True)
+            with trace.span("train.forward"):
+                loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
+                                        grid_loss, dp)
+            with trace.span("train.backward"):
+                loss.backward()
+            if dp is not None:
+                _sync_gradients(state, dp)
+            with trace.span("train.optimizer"):
+                state.apply_gradients()
+            return {k: v.detach() for k, v in metrics.items()}
 
     train_step.grid_loss = grid_loss
     train_step.class_weight_tensor = class_weight_tensor
