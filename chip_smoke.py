@@ -15,7 +15,7 @@ vector) trained, predicted and served, the joint inference run, and the
 command lines as two data-parallel ranks on the one card:
 
 1. prints the card's name and power limit (nvidia-smi) and the versions;
-2. builds the hand-written CUDA sources from icl_torch/csrc (the four
+2. builds the hand-written CUDA sources from icl_torch/csrc (the five
    kernel sources and the two measuring kernels of head_probes.cu), one
    nvcc each, side by side, with the host C++ I/O library of phase 10d
    beside them, and prints ptxas's registers and spills
@@ -29,7 +29,9 @@ command lines as two data-parallel ranks on the one card:
 3. checks each kernel against its plain PyTorch version on the card (gate:
    max |kernel - plain| <= 1e-5 * max(1, max |plain|)): the grid head (K1)
    and the recurrence at the served relation shapes, the recurrence's
-   training residuals (gates, c) at L=32 B=512, and the four training
+   training residuals (gates, c) at L=32 B=512, its backward kernel (dx_proj,
+   dR against the plain reverse loop) at the relation and affinity train
+   shapes and at H in {300, 512}, and the four training
    grid-head kernels (K5 forward, K6 backward, K7 loss forward, K8 loss
    backward) at G in {1, 64}, A = B in {8, 16, 32}, K=800, O=4, dropout
    rate 0 and 0.5 (kernels and plain versions share one hash mask); then
@@ -165,11 +167,13 @@ command lines as two data-parallel ranks on the one card:
    368, 369 and 512, one row (B = 1) and one step (L = 1), with its
    residuals, gate BF16_REC_ULPS bf16 units of
    max |plain| (the order of the h . R sum moves a rounded value by a unit
-   now and then, and the unit travels down the steps).  Then on phase 9's
+   now and then, and the unit travels down the steps); the bf16 mode of its
+   backward on those residuals at the relation and affinity train shapes,
+   H in {300, 512} and H = 9, gate BF16_BWD_ULPS.  Then on phase 9's
    split, at full width: ``--train --compute_dtype bf16`` of relation and
    affinity (10 epochs, eval every 5 steps), which must launch the bf16
-   recurrence, K7/K8 in f32 and, in the dev eval, the fast-dot grid head,
-   and no f32 recurrence; ``--predict --eval`` of that checkpoint in bf16
+   recurrence and its backward, K7/K8 in f32 and, in the dev eval, the
+   fast-dot grid head, and no f32 recurrence; ``--predict --eval`` of that checkpoint in bf16
    (only the bf16 modes launch) and in f32 (only the f32 kernels);
    ``--predict`` in bf16 over the 128 train images, 64 a batch, whose fast
    dot (and ranking) must take the tensor cores (``mma_launches``); dev
@@ -344,6 +348,8 @@ from icl_torch.ops import grid_head_train as ght
 from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
 from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
+                                           lstm_recurrence_bwd,
+                                           lstm_recurrence_bwd_kernel,
                                            lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
 from icl_torch.params import init_params, init_relation_params, save_npz
@@ -374,7 +380,7 @@ MENTION_GATE = 0.98    # planted dev accuracy of a trained mention task
 SEED = 0
 RATE = 0.5             # dropout (the relation and affinity CLIs' default)
 SOURCES = ("grid_head", "lstm_recurrence", "grid_head_train",
-           "affinity_rank", "head_probes")
+           "affinity_rank", "head_probes", "lstm_recurrence_bwd")
 TRAIN_KERNELS = {      # name -> wrapper carrying the launch count
     "grid_head_train_fwd": ght.grid_head_train_fwd,
     "grid_head_train_bwd": ght.grid_head_train_bwd,
@@ -385,6 +391,9 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
     "grid_head": ("icl_torch/csrc/grid_head.cu", "icl/ops/grid_head.py:147"),
     "lstm_recurrence": ("icl_torch/csrc/lstm_recurrence.cu",
                         "icl/ops/lstm_kernel.py:109"),
+    # the recurrence's backward: no Pallas kernel, a reverse lax.scan
+    "lstm_recurrence_bwd": ("icl_torch/csrc/lstm_recurrence_bwd.cu",
+                            "none (icl/models/rnn.py:86, lax.scan)"),
     "grid_head_train_fwd": ("icl_torch/csrc/grid_head_train.cu",
                             "icl/ops/grid_head_train.py:266"),
     "grid_head_train_bwd": ("icl_torch/csrc/grid_head_train.cu",
@@ -402,6 +411,8 @@ REPLACES = {           # name -> (source, TPU kernel it replaces)
                           "icl/ops/grid_head.py:147"),
     "lstm_recurrence_bf16": ("icl_torch/csrc/lstm_recurrence.cu",
                              "icl/ops/lstm_kernel.py:282"),
+    "lstm_recurrence_bwd_bf16": ("icl_torch/csrc/lstm_recurrence_bwd.cu",
+                                 "none (icl/models/rnn.py:86, lax.scan)"),
     "affinity_rank_bf16dot": ("icl_torch/csrc/affinity_rank.cu",
                               "icl/ops/affinity_rank.py:90"),
     # the one-pass bf16 mode of K5-K8 (--matmul_precision default|high):
@@ -423,6 +434,7 @@ BF16_KERNELS = {       # name -> the launch count of a kernel's bf16 mode
 ONEPASS_KERNELS = {    # the one-pass bf16 mode (exact=False) of K5-K8
     f"{name}_onepass": fn.onepass for name, fn in TRAIN_KERNELS.items()}
 BF16_REC_ULPS = 4      # bf16 recurrence vs its plain version, bf16 units
+BF16_BWD_ULPS = 8      # its backward (dx_proj, dR) vs the plain loop
 BF16_REC_TIMED = {     # timed bf16 recurrence case -> f32 one, same shape
     "lstm_recurrence_bf16": "lstm_recurrence",
     "lstm_recurrence_bf16 with residuals": "lstm_recurrence with residuals",
@@ -449,6 +461,8 @@ NO_LIBRARY_CALL = {    # why no one PyTorch call computes the same function
                                 "weighted CE sums",
     "grid_head_train_loss_bwd": "backward of that, one call",
     "affinity_rank": "grid head column plus a masked softmax over boxes",
+    "lstm_recurrence_bwd": "cuDNN's LSTM backward takes its own forward's "
+                           "reserve space, not these residuals",
     "grid_head_bf16dot": "as grid_head; a bf16 matmul would need the "
                          "[A,B,K] activation materialised",
     "lstm_recurrence_bf16": "cuDNN's bf16 LSTM rounds elsewhere: its gates "
@@ -493,6 +507,8 @@ HEAD_MMA = {"grid_head": ("grid_head_bf16dot_kernel", 4),
             "affinity_rank": ("affinity_rank_bf16dot_kernel", 4),
             "grid_head_train": (None, 0)}
 PREDICT_KERNELS = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence}
+# the train steps' kernels beyond K5-K8: the recurrence's backward
+BWD_KERNELS = {"lstm_recurrence_bwd": lstm_recurrence.bwd}
 
 
 def main() -> int:
@@ -598,6 +614,16 @@ def main() -> int:
                 mask.contiguous(),
                 torch.randn(G, H, 4 * H, generator=gen, device=dev) / H ** .5)
 
+    def bwd_inputs(L, B, G=2, H=DIMS["lstm_hidden"]):
+        """The backward's arguments: the forward's residuals over
+        rec_inputs and random cotangents."""
+        x_proj, mask, R = rec_inputs(L, B, G, H)
+        hs, _, gates, c = lstm_recurrence_fwd(x_proj, mask, R,
+                                              residuals=True)
+        return (gates, c, hs, R, mask,
+                torch.randn(G, L, B, H, generator=gen, device=dev),
+                torch.randn(G, B, H, generator=gen, device=dev))
+
     def rank_inputs(G, A, B):
         """K9's arguments: ragged box validity, box 0 always valid, and
         the last image (G > 1) with no valid box."""
@@ -637,6 +663,14 @@ def main() -> int:
             failures.append(f"lstm_recurrence residuals L={L} B={B} changed hs")
         check(f"lstm_recurrence residuals L={L} B={B} H=200 (hs, final, "
               f"gates, c)", got, lstm_recurrence_reference(*args, True))
+    # the backward at the relation train step's shapes, the affinity one's
+    # and past 256 units, against its plain loop
+    for G, L, B, H in ((2, 32, 320, 200), (2, 16, 320, 200),
+                       (1, 16, 1024, 200), (2, 16, 61, 300),
+                       (2, 8, 61, 512)):
+        args = bwd_inputs(L, B, G, H)
+        check(f"lstm_recurrence_bwd G={G} L={L} B={B} H={H} (dx_proj, dR)",
+              lstm_recurrence_bwd_kernel(*args), lstm_recurrence_bwd(*args))
     for G in (1, 64):
         for M in (8, 16, 32):
             cases = train_inputs(G, M)
@@ -915,6 +949,15 @@ def main() -> int:
             return rows * 10 * H, 0, rows * 8 * H * H, 0
         return rows * 10 * H, 0, 0, 3 * rows * 8 * H * H
 
+    def bwd_ops(args):
+        """dgates . R^T and the dR GEMM's h . dgates at every valid (row,
+        step) but the first step's (2 4H H each), and about 20 operations
+        a unit for the gate cotangents, all f32 outside the tensor cores
+        (F32_RATE)."""
+        H, mask = args[0].shape[-1] // 4, args[4]
+        return (int(mask[:, 1:].sum()) * 16 * H * H
+                + int(mask.sum()) * 20 * H, 0, 0)
+
     cases = {}
 
     def add_case(name, kernel, fn, plain, inputs, shape, ops, replaces=None):
@@ -1023,6 +1066,16 @@ def main() -> int:
              lambda: lstm_recurrence_fwd(*phrase_rec, residuals=True),
              lambda: lstm_recurrence_reference(*phrase_rec, residuals=True),
              phrase_rec, "G=1 L=16 B=1024 H=200", rec_ops(phrase_rec))
+    # K3/K4 bwd: the relation train step's BiLSTM and the affinity one's
+    # phrase LSTM; the call (the kernel, R's transpose and the dR GEMM)
+    # against the plain loop
+    for (G, L, B), label in (((2, 32, 320), "lstm_recurrence_bwd"),
+                             ((1, 16, 1024), "lstm_recurrence_bwd G=1")):
+        a = bwd_inputs(L, B, G)
+        add_case(label, "lstm_recurrence_bwd",
+                 (lambda a=a: lstm_recurrence_bwd_kernel(*a)),
+                 (lambda a=a: lstm_recurrence_bwd(*a)), a,
+                 f"G={G} L={L} B={B} H=200", bwd_ops(a))
     # the bf16 modes, each at the shape of an f32 case above: the bound
     # counts their bytes (bf16 in and out for the recurrence) and rates
     # their products of bf16 values at BF16_RATE
@@ -1523,7 +1576,7 @@ def _train(dev, check) -> dict:
     state = create_train_state(model, seed=SEED)
     plain = RelationModel(**DIMS, fused=False, dropout=RATE, device=dev)
 
-    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS}
+    kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS, **BWD_KERNELS}
     _reset(kernels)
     losses = []
     for form, cw, n in (("grid", [0.3, 1.0, 1.0, 1.0], 5),
@@ -1893,7 +1946,8 @@ def _affinity(dev, check) -> dict:
 
     # 8. training: 5 grid-loss steps, 2 cell-form steps (weights [0, 1])
     state = create_train_state(model, seed=SEED, params=flat)
-    train_kernels = {"lstm_recurrence": lstm_recurrence, **TRAIN_KERNELS}
+    train_kernels = {"lstm_recurrence": lstm_recurrence, **TRAIN_KERNELS,
+                     **BWD_KERNELS}
     _reset(train_kernels)
     losses = []
     for form, cw, n in (("grid", None, 5), ("cell", [0.0, 1.0], 2)):
@@ -2220,14 +2274,14 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
         return (rnd(G, L, B, 4 * H).bfloat16(), mask.contiguous(),
                 (rnd(G, H, 4 * H) / H ** 0.5).bfloat16())
 
-    def check_ulps(what, got, want):
-        """max |kernel - plain| of each tensor within BF16_REC_ULPS bf16
-        units of its max |plain|; returns the worst in units."""
+    def check_ulps(what, got, want, gate=BF16_REC_ULPS):
+        """max |kernel - plain| of each tensor within `gate` bf16 units of
+        its max |plain|; returns the worst in units."""
         worst = kernel_bits.bf16_units(want, got)
-        ok = worst <= BF16_REC_ULPS and all(bool(torch.isfinite(g).all())
-                                            for g in got)
+        ok = worst <= gate and all(bool(torch.isfinite(g).all())
+                                   for g in got)
         print(f"check {what}: max|d| {worst:.2f} bf16 units of max|plain| "
-              f"(gate {BF16_REC_ULPS}) {'ok' if ok else 'FAIL'}")
+              f"(gate {gate}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(what)
 
@@ -2320,12 +2374,25 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
             failures.append(f"{what}: not bf16 out")
         check_ulps(f"{what} (hs, final, gates, c), twice", got,
                    lstm_recurrence_reference(*args, True))
+    # its backward's bf16 mode on those residuals: the relation and
+    # affinity train shapes, past 256 units, a narrow ragged H
+    for G, L, B, H in ((2, 32, 320, 200), (1, 16, 1024, 200),
+                       (2, 16, 61, 300), (2, 16, 61, 512), (2, 8, 13, 9)):
+        args = rec(G, L, B, H)
+        hs, _, gates, c = lstm_recurrence_fwd(*args, residuals=True)
+        bwd = (gates, c, hs, args[2], args[1], rnd(G, L, B, H).bfloat16(),
+               rnd(G, B, H).bfloat16())
+        what = f"lstm_recurrence_bwd bf16 G={G} L={L} B={B} H={H}"
+        got = twice(what, lstm_recurrence_bwd_kernel, bwd)
+        check_ulps(f"{what} (dx_proj, dR), twice", got,
+                   lstm_recurrence_bwd(*bwd), BF16_BWD_ULPS)
     if failures:
         raise RuntimeError(f"bf16 kernel checks failed: {failures}")
 
     # the command lines on phase 9's split
     kernels = {**PREDICT_KERNELS, **TRAIN_KERNELS,
-               "affinity_rank": affinity_rank, **BF16_KERNELS}
+               "affinity_rank": affinity_rank, **BF16_KERNELS,
+               "lstm_recurrence_bwd_bf16": lstm_recurrence.bwd_bf16}
     said = _Said()
     logger = logging.getLogger("icl")
     logger.addHandler(said)
@@ -2371,7 +2438,8 @@ def _bf16(dev, check, cli_dir: str, men_dir: str, f32_accuracy: dict) -> dict:
                  "--compute_dtype", "bf16", "--metrics_file",
                  f"{d}/{task}.bf16.jsonl"],
                 ("lstm_recurrence_bf16", "grid_head_train_loss_fwd",
-                 "grid_head_train_loss_bwd", "grid_head_bf16dot"),
+                 "grid_head_train_loss_bwd", "grid_head_bf16dot",
+                 "lstm_recurrence_bwd_bf16"),
                 ("lstm_recurrence", "grid_head"))
             steps_s = said.numbers(r"training loop: .*\((\S+) steps/s\)")
             rows = [json.loads(ln) for ln in open(f"{d}/{task}.bf16.jsonl")]

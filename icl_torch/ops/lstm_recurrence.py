@@ -25,11 +25,18 @@ Layout, direction-major as the Pallas kernels had it::
   f32, while the bf16 mode keeps R on chip at every width) for CUDA
   tensors and runs the plain version for CPU tensors.  When a gradient is needed, the forward also keeps the
   reference's residual set (``rnn.py: _lstm_recurrence_fwd_impl``): the
-  post-activation gates (not masked), c after the mask, and hs.  The
-  backward is a plain reverse loop mirroring ``_lstm_recurrence_bwd_impl``
-  that keeps only the dgates . R^T chain inside the loop; dR is one einsum
-  afterwards, and dx_proj is dgates.  The JAX package has no Pallas
-  backward, so neither does this module.
+  post-activation gates (not masked), c after the mask, and hs.
+* The backward mirrors ``_lstm_recurrence_bwd_impl`` (a reverse lax.scan
+  in the JAX package, which has no Pallas kernel for it): the dgates .
+  R^T chain runs over the steps, dx_proj is dgates, and dR is one GEMM
+  afterwards (hs shifted by a step against dgates).  On CUDA the
+  chain is the hand-written kernel ``icl_torch/csrc/lstm_recurrence_bwd.cu``
+  (:func:`lstm_recurrence_bwd_kernel`: all L steps in one launch, R^T held
+  in the shared memory of a cluster as the forward holds R), counted in
+  ``lstm_recurrence.bwd.launches`` (its bf16 mode in
+  ``lstm_recurrence.bwd_bf16.launches``) and, while a profile runs, in
+  the counter ``lstm.bwd.kernel``.  :func:`lstm_recurrence_bwd` is its
+  plain version, a Python reverse loop: the CPU path and the reference.
 
 Two dtypes: float32, and bfloat16 (``--compute_dtype bf16``; the
 reference's lax.scan in bf16).  In bf16 x_proj, R, hs, h_final and the
@@ -39,7 +46,8 @@ each computed in f32 and rounded once, and the kernel's bf16 entry point
 source), with h . R on the tensor cores (``mma.sync`` bf16, each chunk of
 16 products summed in f32, the chunks added in order); its launches count
 in ``lstm_recurrence.bf16.launches``.  The backward runs in the
-residuals' dtype, as the reference's does.
+residuals' dtype, as the reference's does; the kernel's bf16 mode rounds
+where the plain loop's eager bf16 ops round (the note in its source).
 """
 
 from __future__ import annotations
@@ -127,7 +135,8 @@ def lstm_recurrence_fwd(x_proj, mask, R, residuals: bool = False):
 def lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf):
     """Reverse loop of ``_lstm_recurrence_bwd_impl`` -> (dx_proj, dR), in
     the residuals' dtype (the cotangents are cast to it, as the reference
-    casts them to its compute dtype)."""
+    casts them to its compute dtype): the plain version of
+    :func:`lstm_recurrence_bwd_kernel`."""
     G, L, B, H = hs.shape
     m = mask[..., None].to(hs.dtype)                      # [G, L, B, 1]
     dhs, dhf = dhs.to(hs.dtype), dhf.to(hs.dtype)
@@ -149,16 +158,44 @@ def lstm_recurrence_bwd(gates, c, hs, R, mask, dhs, dhf):
         dgates[:, t] = torch.cat([di, df, dg, do], dim=-1)
         dh = torch.bmm(dgates[:, t], Rt) + dh * (1 - mt)
         dc = dc_t * f + dc * (1 - mt)
-    # post-mask h shifted by one step is the true previous state
-    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
-    dR = torch.einsum("glbh,glbk->ghk", h_prev, dgates)  # one GEMM
-    return dgates, dR
+    return dgates, _dR(hs, dgates)
+
+
+def _dR(hs, dgates):
+    """One GEMM over the sequence: the post-mask h of step t - 1 is the
+    true previous state of step t, and step 0's (zero) adds nothing."""
+    return torch.einsum("glbh,glbk->ghk", hs[:, :-1], dgates[:, 1:])
+
+
+def lstm_recurrence_bwd_kernel(gates, c, hs, R, mask, dhs, dhf):
+    """What :func:`lstm_recurrence_bwd` computes, for CUDA tensors of one
+    dtype, float32 or bfloat16 (the bf16 mode, counted apart): the L steps
+    in one launch of ``csrc/lstm_recurrence_bwd.cu``, dR one GEMM after
+    it.  Empty inputs (G, L or B = 0) return without a launch.  The
+    arguments are checked before the library is built."""
+    G, L, B, H = hs.shape
+    _check_bwd(gates, c, hs, R, mask, dhs, dhf, G, L, B, H)
+    dgates = torch.empty_like(gates)
+    if G == 0 or L == 0 or B == 0:
+        return dgates, _dR(hs, dgates)
+    bf16 = hs.dtype == torch.bfloat16
+    entry = f"icl_lstm_recurrence_bwd_{'bf16' if bf16 else 'f32'}"
+    fn = getattr(_build.load("lstm_recurrence_bwd", entry, _ARGTYPES), entry)
+    Rt = R.transpose(1, 2).contiguous()   # the kernel's loads coalesce on it
+    dev = hs.device
+    err = fn(gates.data_ptr(), c.data_ptr(), mask.data_ptr(), Rt.data_ptr(),
+             dhs.data_ptr(), dhf.data_ptr(), dgates.data_ptr(), G, L, B, H,
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "lstm_recurrence_bwd")
+    (lstm_recurrence.bwd_bf16 if bf16 else lstm_recurrence.bwd).launches += 1
+    trace.count("lstm.bwd.kernel")
+    return dgates, _dR(hs, dgates)
 
 
 class LSTMRecurrence(torch.autograd.Function):
-    """Kernel (or plain) forward with residuals; plain reverse-loop
-    backward (see the module docstring), span ``lstm.backward``
-    (:mod:`icl_torch.util.trace`)."""
+    """Kernel (or plain) forward with residuals; the backward kernel on
+    CUDA, the plain reverse loop on the CPU (see the module docstring),
+    span ``lstm.backward`` (:mod:`icl_torch.util.trace`)."""
 
     @staticmethod
     def forward(ctx, x_proj, mask, R):
@@ -174,8 +211,11 @@ class LSTMRecurrence(torch.autograd.Function):
         # on CUDA this runs on autograd's device thread
         with trace.span("lstm.backward"):
             gates, c, hs, R, mask = ctx.saved_tensors
-            dx_proj, dR = lstm_recurrence_bwd(gates, c, hs, R, mask, dhs,
-                                              dhf)
+            bwd = (lstm_recurrence_bwd_kernel if hs.device.type == "cuda"
+                   else lstm_recurrence_bwd)
+            dx_proj, dR = bwd(gates, c, hs, R, mask,
+                              dhs.to(hs.dtype).contiguous(),
+                              dhf.to(hs.dtype).contiguous())
         return dx_proj, None, dR
 
 
@@ -189,6 +229,8 @@ def lstm_recurrence(x_proj: torch.Tensor, mask: torch.Tensor,
 
 lstm_recurrence.launches = 0   # kernel launches since the last reset
 lstm_recurrence.bf16 = SimpleNamespace(launches=0)   # those of the bf16 mode
+lstm_recurrence.bwd = SimpleNamespace(launches=0)    # the backward kernel's
+lstm_recurrence.bwd_bf16 = SimpleNamespace(launches=0)   # its bf16 mode's
 
 
 def _check(x_proj, mask, R, G, L, B, H) -> None:
@@ -215,3 +257,31 @@ def _check(x_proj, mask, R, G, L, B, H) -> None:
     if not 1 <= H <= MAX_H or G > 65535:
         raise ValueError(f"lstm_recurrence: H={H} outside 1..{MAX_H} or "
                          f"G={G} above 65535")
+
+
+def _check_bwd(gates, c, hs, R, mask, dhs, dhf, G, L, B, H) -> None:
+    named = (("gates", gates), ("c", c), ("hs", hs), ("R", R),
+             ("mask", mask), ("dhs", dhs), ("dhf", dhf))
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != hs.device:
+            raise ValueError(f"lstm_recurrence_bwd: {name} on {t.device}, "
+                             f"needs hs's CUDA device ({hs.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_recurrence_bwd: {name} is not "
+                             f"contiguous")
+        want = torch.bool if name == "mask" else hs.dtype
+        if t.dtype != want or hs.dtype not in (torch.float32,
+                                               torch.bfloat16):
+            raise TypeError(f"lstm_recurrence_bwd: {name} is {t.dtype}, "
+                            f"needs {want} (hs float32 or bfloat16)")
+    shapes = {"gates": (G, L, B, 4 * H), "c": (G, L, B, H),
+              "R": (G, H, 4 * H), "mask": (G, L, B), "dhs": (G, L, B, H),
+              "dhf": (G, B, H)}
+    for name, t in named:
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"lstm_recurrence_bwd: {name} "
+                             f"{tuple(t.shape)} does not match hs "
+                             f"{tuple(hs.shape)}, needs {shapes[name]}")
+    if not 1 <= H <= MAX_H or G > 65535:
+        raise ValueError(f"lstm_recurrence_bwd: H={H} outside 1..{MAX_H} "
+                         f"or G={G} above 65535")

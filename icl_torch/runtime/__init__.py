@@ -110,6 +110,7 @@ def _write_run_stats(path: str) -> None:
     from icl_torch.ops.lstm_recurrence import lstm_recurrence
 
     wrappers = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence,
+                "lstm_recurrence_bwd": lstm_recurrence.bwd,
                 "grid_head_train_fwd": ght.grid_head_train_fwd,
                 "grid_head_train_bwd": ght.grid_head_train_bwd,
                 "grid_head_train_loss_fwd": ght.grid_head_train_loss_fwd,
@@ -118,6 +119,7 @@ def _write_run_stats(path: str) -> None:
                 # the bf16 modes
                 "grid_head_bf16dot": grid_head.bf16dot,
                 "lstm_recurrence_bf16": lstm_recurrence.bf16,
+                "lstm_recurrence_bwd_bf16": lstm_recurrence.bwd_bf16,
                 "affinity_rank_bf16dot": affinity_rank.bf16dot,
                 # the one-pass bf16 mode of the training kernels
                 "grid_head_train_fwd_onepass": ght.grid_head_train_fwd.onepass,

@@ -24,9 +24,12 @@ from icl_torch.ops import grid_head_train as ght
 from icl_torch.ops.affinity_rank import affinity_rank, affinity_rank_reference
 from icl_torch.ops.grid_head import grid_head, grid_head_reference
 from icl_torch.ops.lstm_recurrence import (lstm_recurrence,
+                                           lstm_recurrence_bwd,
+                                           lstm_recurrence_bwd_kernel,
                                            lstm_recurrence_fwd,
                                            lstm_recurrence_reference)
 from icl_torch.params import init_params, init_relation_params
+from icl_torch.tools.kernel_bits import bf16_units
 from icl_torch.train.steps import (affinity_loss, affinity_predict,
                                    relation_loss, relation_predict)
 
@@ -113,8 +116,9 @@ def _rec_inputs(G, L, B, H, dev, seed=0):
     x_proj = torch.randn(G, L, B, 4 * H, generator=g, device=dev)
     R = torch.randn(G, H, 4 * H, generator=g, device=dev) / H ** 0.5
     lengths = torch.randint(0, L + 1, (B,), generator=g, device=dev)
-    lengths[0] = 0
-    lengths[-1] = L
+    if B:
+        lengths[0] = 0
+        lengths[-1] = L
     t = torch.arange(L, device=dev)[:, None]
     mask = torch.stack([t < lengths, (L - 1 - t) < lengths])[:G]
     return x_proj, mask.contiguous(), R
@@ -370,10 +374,127 @@ def test_recurrence_residuals_match_plain(dev, G, L, B, H):
         _assert_close(got, ref)
 
 
-@pytest.mark.parametrize("grid_loss", [True, False])
-def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
-    dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
-    flat = init_relation_params(0, dims)
+def _bwd_inputs(G, L, B, H, dev, which="both", seed=0):
+    """The backward's arguments: the forward kernel's residuals over
+    _rec_inputs (a length-0 row, a full row, the rest ragged) and random
+    cotangents, `which` of them non-zero ("both", "dhs" or "dhf")."""
+    x_proj, mask, R = _rec_inputs(G, L, B, H, dev, seed)
+    hs, _, gates, c = lstm_recurrence_fwd(x_proj, mask, R, residuals=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    dhs = torch.randn(G, L, B, H, generator=g, device=dev)
+    dhf = torch.randn(G, B, H, generator=g, device=dev)
+    if which == "dhs":
+        dhf.zero_()
+    elif which == "dhf":
+        dhs.zero_()
+    return gates, c, hs, R, mask, dhs, dhf
+
+
+def _check_bwd_kernel(args):
+    n0 = lstm_recurrence.bwd.launches
+    got = lstm_recurrence_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.bwd.launches == n0 + 1
+    for g, w in zip(got, lstm_recurrence_bwd(*args), strict=True):
+        _assert_close(g, w)
+    for g, w in zip(got, lstm_recurrence_bwd_kernel(*args)):
+        assert torch.equal(g, w)                   # bitwise repeatable
+
+
+# the train steps' shapes (the relation BiLSTM at L = 16 and 32, B = 320;
+# the affinity phrase LSTM at B = 1024), one row, a lone tile; H = 200 and
+# 256 on the 8-block cluster, 300 on the 16-block one with R on chip, 512
+# with R read from device memory
+@pytest.mark.parametrize("H", [200, 256, 300, 512])
+@pytest.mark.parametrize("B", [1, 7, 320, 1024])
+@pytest.mark.parametrize("L", [1, 16, 32])
+@pytest.mark.parametrize("G", [1, 2])
+def test_recurrence_bwd_kernel_matches_plain(dev, G, L, B, H):
+    _check_bwd_kernel(_bwd_inputs(G, L, B, H, dev))
+
+
+# only dhs or only dhf non-zero; ragged blocks (H = 1, 9, 201, 257); the
+# widths about where R leaves shared memory (368, 416, 417); two steps
+@pytest.mark.parametrize("which", ["dhs", "dhf", "both"])
+@pytest.mark.parametrize("G,L,B,H", [
+    (2, 16, 61, 200), (2, 2, 17, 200), (2, 3, 9, 1), (2, 8, 13, 9),
+    (2, 16, 13, 201), (1, 5, 9, 257), (1, 4, 9, 368), (2, 4, 9, 416),
+    (2, 4, 9, 417), (2, 48, 37, 64)])
+def test_recurrence_bwd_kernel_edges(dev, G, L, B, H, which):
+    _check_bwd_kernel(_bwd_inputs(G, L, B, H, dev, which))
+
+
+def test_recurrence_bwd_kernel_empty_and_rejects(dev):
+    n0 = lstm_recurrence.bwd.launches
+    for G, L, B in ((2, 0, 5), (2, 4, 0)):
+        args = _bwd_inputs(G, L, B, 16, dev)
+        dg, dR = lstm_recurrence_bwd_kernel(*args)
+        assert dg.shape == (G, L, B, 64) and dR.shape == (G, 16, 64)
+        assert not dR.any()
+    assert lstm_recurrence.bwd.launches == n0
+    gates, c, hs, R, mask, dhs, dhf = _bwd_inputs(2, 4, 8, 16, dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lstm_recurrence_bwd_kernel(gates.bfloat16(), c, hs, R, mask, dhs,
+                                   dhf)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_recurrence_bwd_kernel(gates, c, hs, R, mask,
+                                   dhs.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), dhf)
+    assert lstm_recurrence.bwd.launches == n0
+
+
+BWD_BF16_UNITS = 8   # the bf16 backward vs its plain loop (dx_proj, dR)
+
+
+# the bf16 mode (--compute_dtype bf16) at the train steps' shapes, past 256
+# units (R on chip, and from device memory at 512) and at small ragged H
+@pytest.mark.parametrize("G,L,B,H", [
+    (2, 32, 320, 200), (2, 16, 320, 200), (1, 16, 1024, 200),
+    (2, 16, 61, 256), (2, 16, 61, 300), (2, 8, 13, 512), (2, 8, 13, 9),
+    (2, 3, 9, 1), (2, 1, 7, 200)])
+def test_recurrence_bwd_kernel_bf16_matches_plain(dev, G, L, B, H):
+    args = [t.bfloat16() if t.is_floating_point() else t
+            for t in _bwd_inputs(G, L, B, H, dev)]
+    n0, n1 = lstm_recurrence.bwd.launches, lstm_recurrence.bwd_bf16.launches
+    got = lstm_recurrence_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert (lstm_recurrence.bwd.launches,
+            lstm_recurrence.bwd_bf16.launches) == (n0, n1 + 1)
+    for name, g, w in zip(("dx_proj", "dR"), got, lstm_recurrence_bwd(*args),
+                          strict=True):
+        assert g.dtype == torch.bfloat16
+        assert bf16_units((w,), (g,)) <= BWD_BF16_UNITS, name
+    for g, w in zip(got, lstm_recurrence_bwd_kernel(*args)):
+        assert torch.equal(g, w)                   # bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recurrence_backward_launches_one_kernel(dev, dtype):
+    """LSTMRecurrence.backward on the card: one launch of the backward
+    kernel (its bf16 mode in bf16), no eager per-step launches (the
+    profiler's kernel count)."""
+    x_proj, mask, R = _rec_inputs(2, 32, 320, 200, dev)
+    x_proj = x_proj.to(dtype).requires_grad_()
+    R = R.to(dtype).requires_grad_()
+    hs, fin = lstm_recurrence(x_proj, mask, R)
+    torch.cuda.synchronize()
+    counts = (lstm_recurrence.bwd, lstm_recurrence.bwd_bf16)
+    n0 = [c.launches for c in counts]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        (hs.float().sum() + fin.float().sum()).backward()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    bf16 = dtype == torch.bfloat16
+    assert [c.launches for c in counts] == [n0[0] + (not bf16),
+                                            n0[1] + bf16]
+    assert kernels < 40, kernels           # the loop made ~35 a step
+
+
+def _relation_batch(dev):
+    """A word table and a 4-image relation batch (8 captions of up to 16
+    tokens, 8 mentions, every pair)."""
     g = torch.Generator().manual_seed(1)
     table = torch.randn(100, 300, generator=g).to(dev)
     I, C, L, M = 4, 8, 16, 8
@@ -387,7 +508,40 @@ def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
              "pair_ij": torch.stack([iu, ju], 1).expand(I, P, 2),
              "pair_label": torch.randint(0, 4, (I, P), generator=g),
              "pair_valid": torch.rand(I, P, generator=g) < 0.9}
-    batch = {k: v.contiguous().to(dev) for k, v in batch.items()}
+    return table, {k: v.contiguous().to(dev) for k, v in batch.items()}
+
+
+def test_relation_train_steps_count_one_backward_kernel_a_step(dev):
+    """``lstm.bwd.kernel`` against ``icl.train.step`` under a profile: the
+    BiLSTM's backward engages the kernel once a step."""
+    from icl_torch.train.state import create_train_state
+    from icl_torch.train.steps import make_relation_train_step
+    from icl_torch.util import trace
+
+    table, batch = _relation_batch(dev)
+    model = RelationModel(300, 200, 800, fused=True, dropout=0.5, device=dev)
+    state = create_train_state(model, seed=5)
+    step = make_relation_train_step(class_weights=[0.3, 1, 1, 1],
+                                    grid_loss=True)
+    step(state, table, batch)                       # outside the profile
+    trace.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            step(state, table, batch)
+        torch.cuda.synchronize()
+    snap = trace.snapshot()
+    trace.reset()
+    assert snap["spans"]["icl.train.step"]["count"] == 3
+    assert snap["spans"]["icl.lstm.backward"]["count"] == 3
+    assert snap["counters"]["lstm.bwd.kernel"] == 3
+
+
+@pytest.mark.parametrize("grid_loss", [True, False])
+def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
+    dims = {"emb_dim": 300, "lstm_hidden": 200, "head_hidden": 800}
+    flat = init_relation_params(0, dims)
+    table, batch = _relation_batch(dev)
     seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32, device=dev)
     cw = torch.tensor([0.3, 1.0, 1.0, 1.0], device=dev)
     out = {}
@@ -397,7 +551,10 @@ def test_train_loss_and_grads_kernel_path_match_plain(dev, grid_loss):
         model.load_flat(flat)
         loss, metrics = relation_loss(model, table, batch, seeds, cw,
                                       grid_loss)
+        n0 = lstm_recurrence.bwd.launches
         loss.backward()
+        # the kernel path's BiLSTM backward is one launch of the kernel
+        assert lstm_recurrence.bwd.launches == n0 + fused
         out[fused] = (metrics, {k: p.grad for k, p in
                                 model.named_parameters()})
     for k in out[False][0]:
@@ -526,7 +683,9 @@ def test_affinity_train_kernel_path_matches_plain(dev, grid_loss):
         model.load_flat(flat)
         loss, metrics = affinity_loss(model, table, batch, seeds, None,
                                       grid_loss)
+        n0 = lstm_recurrence.bwd.launches
         loss.backward()
+        assert lstm_recurrence.bwd.launches == n0 + fused
         out[fused] = (metrics, {k: p.grad for k, p in
                                 model.named_parameters()})
     for k in out[False][0]:
