@@ -317,6 +317,11 @@ class AffinityBatcher:
         # the box block's rows staged, and those that hold a box
         trace.count("batch.box_rows", I * B)
         trace.count("batch.box_rows_real", real)
+        # the grid the head's kernels launch over, and its candidate cells
+        # (grid_valid), those a loss is taken over
+        trace.count("batch.grid_cells", I * M * B)
+        trace.count("batch.grid_cells_real",
+                    int(np.count_nonzero(a["grid_valid"])))
         return ImageBatch(arrays=with_box_dtype(a, self.box_dtype),
                           id_index=id_index, shape_key=key)
 

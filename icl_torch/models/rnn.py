@@ -7,8 +7,8 @@ hold the last valid state and ``final`` is the state at the last valid
 step.  The input projection is one plain matmul for all steps (and, in the
 BiLSTM, both directions); the recurrence goes to
 :func:`icl_torch.ops.lstm_recurrence` (the hand-written kernel on CUDA, and
-the reference's residual-set backward: on CUDA in f32 a second kernel, all
-steps in one launch; in bf16 and on the CPU a plain reverse loop) when
+the reference's residual-set backward: on CUDA a second kernel, all steps
+in one launch, in f32 and bf16 alike; on the CPU a plain reverse loop) when
 ``use_kernel`` is set, else to its plain version (differentiated by
 autograd step by step).  The kernels
 take at most ``MAX_H`` (512) units: a wider LSTM on CUDA is refused when

@@ -6,12 +6,13 @@ and totals, the ``icl.`` ranges in the Chrome trace, the bounded log.  The
 prefetch worker cannot see the profiler's flag: its spans and counters are
 kept for exactly the items taken while a profile runs.  The places that
 carry spans: the batch copy to the device (``icl.h2d``), the affinity
-batcher's box-row counters, the image tasks' train step and the LSTM
-recurrence's backward, and ``--profile_dir``'s spans file.  The recurrence's
-backward on autograd's device thread runs only on the card; PERF.md gives
-the check made there.
+batcher's box-row and grid-cell counters, the image tasks' train step and
+the LSTM recurrence's backward, and ``--profile_dir``'s spans file.  The
+recurrence's backward on autograd's device thread runs only on the card;
+PERF.md gives the check made there.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -28,7 +29,8 @@ from icl_torch.cli._common import to_device
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
-from icl_torch.data.pipeline import (load_affinity_dataset,
+from icl_torch.data.pipeline import (AffinityDataset, AffinityImage,
+                                     load_affinity_dataset,
                                      load_relation_dataset)
 from icl_torch.models.relation import RelationModel
 from icl_torch.testing.synth import SynthConfig, generate_dataset
@@ -238,8 +240,46 @@ def test_affinity_box_row_counters_are_the_staged_and_the_valid_rows(
     real = sum(int(b.arrays["box_valid"].sum()) for b in batches)
     assert real == sum(im.box_feats.shape[0] for im in ds.images)
     assert real < staged       # a short last batch and bucket padding
-    assert trace.snapshot()["counters"] == {"batch.box_rows": staged,
-                                            "batch.box_rows_real": real}
+    grid = sum(b.arrays["grid_valid"].size for b in batches)
+    cells = sum(int(b.arrays["grid_valid"].sum()) for b in batches)
+    assert trace.snapshot()["counters"] == {
+        "batch.box_rows": staged, "batch.box_rows_real": real,
+        "batch.grid_cells": grid, "batch.grid_cells_real": cells}
+
+
+def _hand_image(img_id: str, M: int, nb: int, valid) -> AffinityImage:
+    return AffinityImage(
+        img_id=img_id, phrase_tokens=np.ones((M, 4), np.int32),
+        phrase_len=np.full(M, 2, np.int32),
+        mention_ids=[f"doc:{img_id};caption:0;mention:{r}" for r in range(M)],
+        box_feats=np.ones((nb, 5), np.float32), box_idx=list(range(nb)),
+        grid_label=np.zeros((M, nb), np.int32),
+        grid_valid=np.asarray(valid, bool).reshape(M, nb))
+
+
+@pytest.mark.parametrize("profiled", [True, False])
+def test_affinity_grid_cell_counters_on_a_hand_built_batch(profiled):
+    """Two images in one (M, B) = (4, 4) bucket of a 3-image batch: the
+    grid is 3 x 4 x 4 = 48 cells, of which 3 + 4 = 7 are candidates (one
+    image's cells partly left out, as a .feats file may leave them)."""
+    ds = AffinityDataset(images=[
+        _hand_image("a.jpg", 3, 2, [1, 0, 1, 1, 0, 0]),
+        _hand_image("b.jpg", 2, 3, [1, 1, 1, 1, 0, 0])], box_dim=5)
+    batcher = AffinityBatcher(images_per_batch=3,
+                              mention_spec=BucketSpec((4,)),
+                              box_spec=BucketSpec((4,)), phrase_len=4,
+                              with_ids=False)
+    with _profile() if profiled else contextlib.nullcontext():
+        (b,) = batcher.batches(ds)
+    assert b.arrays["grid_valid"].shape == (3, 4, 4)
+    counters = trace.snapshot()["counters"]
+    if not profiled:
+        assert counters == {}
+        return
+    assert counters["batch.grid_cells"] == 48
+    assert counters["batch.grid_cells_real"] == 7
+    assert counters["batch.box_rows"] == 12
+    assert counters["batch.box_rows_real"] == 5
 
 
 def test_relation_train_step_records_its_phases_once_a_step(data):
