@@ -1584,33 +1584,40 @@ def _train(dev, check) -> dict:
         step = make_relation_train_step(class_weights=cw, grid_loss=True)
         for i in range(n):
             batch = batches[len(losses) % len(batches)]
-            if i == 0:      # the plain model's step from the same params
-                plain.load_flat(model.flat_params())
-                plain.zero_grad(set_to_none=True)
-                loss_p, want = relation_loss(
-                    plain, table, batch, state.dropout_seeds(
-                        batch["tokens"].shape[0]),
-                    torch.tensor(cw, device=dev), step.grid_loss)
-                loss_p.backward()
+            # every step against the plain model's from the same params and
+            # seeds: the first eager, the rest replays of the step's graphs
+            plain.load_flat(model.flat_params())
+            plain.zero_grad(set_to_none=True)
+            loss_p, want = relation_loss(
+                plain, table, batch, state.dropout_seeds(
+                    batch["tokens"].shape[0]),
+                torch.tensor(cw, device=dev), step.grid_loss)
+            loss_p.backward()
+            # held past backward, the plain model's autograd graph would
+            # keep its parameters' gradient nodes on the default stream,
+            # where a CUDA graph capture of its step cannot go
+            want = {k: v.detach() for k, v in want.items()}
+            del loss_p
+            how = _graph_path(step)
             metrics = step(state, table, batch)
+            how = how(step)
             loss = metrics["loss"].item()
             losses.append(loss)
-            print(f"train step {state.step} ({form} form): loss {loss:.6f} "
-                  f"acc {metrics['acc'].item():.4f}")
+            print(f"train step {state.step} ({form} form, {how}): loss "
+                  f"{loss:.6f} acc {metrics['acc'].item():.4f}")
             if not np.isfinite(loss):
                 raise RuntimeError(f"non-finite loss at step {state.step}")
-            if i == 0:
-                for k, v in want.items():
-                    check(f"train {form} form step 1 {k}: kernel path vs "
-                          f"plain", metrics[k], v.detach())
-                grads = dict(plain.named_parameters())
-                errs = [check(f"train {form} form grad {k}", p.grad,
-                              grads[k].grad, quiet=True)
-                        for k, p in model.named_parameters()]
-                print(f"check train {form} form step 1: {len(errs)} "
-                      f"parameter gradients, kernel path vs plain, max|d| "
-                      f"{max(e for e, _ in errs):.3e} (smallest gate "
-                      f"{min(t for _, t in errs):.1e})")
+            for k, v in want.items():
+                check(f"train {form} form step {i + 1} ({how}) {k}: kernel "
+                      f"path vs plain", metrics[k], v)
+            grads = dict(plain.named_parameters())
+            errs = [check(f"train {form} form step {i + 1} grad {k}", p.grad,
+                          grads[k].grad, quiet=True)
+                    for k, p in model.named_parameters()]
+            print(f"check train {form} form step {i + 1} ({how}): "
+                  f"{len(errs)} parameter gradients, kernel path vs plain, "
+                  f"max|d| {max(e for e, _ in errs):.3e} (smallest gate "
+                  f"{min(t for _, t in errs):.1e})")
     probs = relation_predict(model, table, batches[0])
     valid = batches[0]["pair_valid"]
     if (not torch.isfinite(probs).all()
@@ -1627,9 +1634,8 @@ def _train(dev, check) -> dict:
     step = make_relation_train_step(class_weights=[0.3, 1.0, 1.0, 1.0],
                                     grid_loss=True)
     plain_state = create_train_state(plain, params=model.flat_params())
-    _reset(kernels)
-    step(state, table, batch)
-    per_step = _count(kernels, "one relation train step, grid loss")
+    per_step = _replay_counts(step, state, table, batch, kernels,
+                              "one relation train step, grid loss")
     profiles = [_profile(f"relation train step, grid loss, kernel path "
                          f"[I={batch['tokens'].shape[0]}]",
                          lambda: step(state, table, batch)),
@@ -1637,7 +1643,8 @@ def _train(dev, check) -> dict:
                          lambda: relation_predict(model, table, batch))]
     times = {}
     for name, st in (("kernel", state), ("plain", plain_state)):
-        step(st, table, batch)
+        for _ in range(2):      # a new state's eager step, then its capture
+            step(st, table, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):
@@ -1775,6 +1782,39 @@ def _drive(httpd) -> dict:
                 "client_p50": lat[len(lat) // 2], "n": len(lat),
                 "server_p50": health["latency_ms"]["relation"]["p50_ms"],
                 "batch_ms": batch_ms}}
+
+
+def _graph_path(step):
+    """Before a train step, a function that names, after it, the path the
+    step took through its CUDA graphs (``icl_torch.train.graphs``)."""
+    on = step.graphed._on
+    n = None if on is None else len(on.graphs)
+
+    def after(step):
+        graphs = step.graphed._on.graphs
+        if n is None:
+            return "eager"
+        if len(graphs) == n:
+            return "replay"
+        return ("capture, replay" if list(graphs.values())[-1] is not None
+                else "eager, its capture failed")
+    return after
+
+
+def _replay_counts(step, state, table, batch, kernels, phase) -> dict:
+    """The launch counts of one train step that replays its graph, held to
+    those of the eager step that begins the new step maker's path."""
+    _reset(kernels)
+    step(state, table, batch)                   # eager
+    eager = _count(kernels, f"{phase}, eager")
+    step(state, table, batch)                   # the capture
+    _reset(kernels)
+    step(state, table, batch)
+    replay = _count(kernels, f"{phase}, a replay of its graph")
+    if replay != eager:
+        raise RuntimeError(f"{phase}: a replay counts {replay}, the eager "
+                           f"step {eager}")
+    return replay
 
 
 def _reset(kernels: dict) -> None:
@@ -1956,34 +1996,37 @@ def _affinity(dev, check) -> dict:
             raise RuntimeError(f"affinity {form} form: wrong step form")
         for i in range(n):
             batch = batches[len(losses) % len(batches)]
-            if i == 0:      # the plain model's step from the same params
-                plain.load_flat(model.flat_params())
-                plain.zero_grad(set_to_none=True)
-                loss_p, want = affinity_loss(
-                    plain, table, batch, state.dropout_seeds(I),
-                    None if cw is None else torch.tensor(cw, device=dev),
-                    step.grid_loss)
-                loss_p.backward()
+            # every step against the plain model's, as in ``_train``
+            plain.load_flat(model.flat_params())
+            plain.zero_grad(set_to_none=True)
+            loss_p, want = affinity_loss(
+                plain, table, batch, state.dropout_seeds(I),
+                None if cw is None else torch.tensor(cw, device=dev),
+                step.grid_loss)
+            loss_p.backward()
+            want = {k: v.detach() for k, v in want.items()}  # as there
+            del loss_p
+            how = _graph_path(step)
             metrics = step(state, table, batch)
+            how = how(step)
             loss = metrics["loss"].item()
             losses.append(loss)
-            print(f"affinity train step {state.step} ({form} form): loss "
-                  f"{loss:.6f} acc {metrics['acc'].item():.4f}")
+            print(f"affinity train step {state.step} ({form} form, {how}): "
+                  f"loss {loss:.6f} acc {metrics['acc'].item():.4f}")
             if not np.isfinite(loss):
                 raise RuntimeError(f"non-finite affinity loss at step "
                                    f"{state.step}")
-            if i == 0:
-                for k, v in want.items():
-                    check(f"affinity train {form} form step 1 {k}: kernel "
-                          f"path vs plain", metrics[k], v.detach())
-                grads = dict(plain.named_parameters())
-                errs = [check(f"affinity train {form} form grad {k}", p.grad,
-                              grads[k].grad, quiet=True)
-                        for k, p in model.named_parameters()]
-                print(f"check affinity train {form} form step 1: "
-                      f"{len(errs)} parameter gradients, kernel path vs "
-                      f"plain, max|d| {max(e for e, _ in errs):.3e} "
-                      f"(smallest gate {min(t for _, t in errs):.1e})")
+            for k, v in want.items():
+                check(f"affinity train {form} form step {i + 1} ({how}) {k}: "
+                      f"kernel path vs plain", metrics[k], v)
+            grads = dict(plain.named_parameters())
+            errs = [check(f"affinity train {form} form step {i + 1} grad "
+                          f"{k}", p.grad, grads[k].grad, quiet=True)
+                    for k, p in model.named_parameters()]
+            print(f"check affinity train {form} form step {i + 1} ({how}): "
+                  f"{len(errs)} parameter gradients, kernel path vs plain, "
+                  f"max|d| {max(e for e, _ in errs):.3e} (smallest gate "
+                  f"{min(t for _, t in errs):.1e})")
     launches.update({k: launches.get(k, 0) + n for k, n in
                      _read(train_kernels, "affinity training").items()})
     print(f"affinity train: losses {[round(x, 6) for x in losses]}")
@@ -1991,10 +2034,9 @@ def _affinity(dev, check) -> dict:
     # per-step times of both paths on the fullest batch, grid loss
     step = make_affinity_train_step(grid_loss=True)
     plain_state = create_train_state(plain, params=model.flat_params())
-    _reset(train_kernels)
-    step(state, table, batches[0])
-    per_unit["affinity train step"] = _count(
-        train_kernels, "one affinity train step, grid loss")
+    per_unit["affinity train step"] = _replay_counts(
+        step, state, table, batches[0], train_kernels,
+        "one affinity train step, grid loss")
     profiles = [_profile("affinity train step, grid loss, kernel path",
                          lambda: step(state, table, batches[0])),
                 _profile("affinity predict with ranking, kernel path, the "
@@ -2013,7 +2055,8 @@ def _affinity(dev, check) -> dict:
         lambda: affinity_predict(bf, bf_table, bf_batch, rank=True)))
     step_ms = {}
     for name, st in (("kernel", state), ("plain", plain_state)):
-        step(st, table, batches[0])
+        for _ in range(2):      # a new state's eager step, then its capture
+            step(st, table, batches[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(5):

@@ -42,6 +42,7 @@ from icl_torch.ops import _build
 from icl_torch.ops.grid_head import (aligned16, check_grid_size,
                                      check_no_grad, dot_plan,
                                      grid_head_reference, launch_plan)
+from icl_torch.util import trace
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _SMEM = 227 * 1024   # a block's shared memory
@@ -80,8 +81,8 @@ def affinity_rank(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
                                 whole_rows=True).mma
     _launch(X, Y, b1, W2, b2, box_valid, out, affinity_col,
             "mma" if mma else "fma" if fast_dot else "f32")
-    (affinity_rank.bf16dot if fast_dot else affinity_rank).launches += 1
-    affinity_rank.bf16dot.mma_launches += mma
+    trace.launched(affinity_rank.bf16dot if fast_dot else affinity_rank)
+    trace.launched(affinity_rank.bf16dot, mma, "mma_launches")
     return out
 
 

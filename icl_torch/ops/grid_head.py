@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from icl_torch.ops import _build
+from icl_torch.util import trace
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 MAX_O = 8           # kMaxO in csrc/grid_head_tile.cuh
@@ -232,12 +233,12 @@ def grid_head(X: torch.Tensor, Y: torch.Tensor, b1: torch.Tensor,
     if fast_dot:
         mma = dot_plan(G, A, B, K, O, aligned16(X, Y, b1)).mma
         _fast_dot(X, Y, b1, W2, b2, out, mma)
-        grid_head.bf16dot.launches += 1
-        grid_head.bf16dot.mma_launches += mma
+        trace.launched(grid_head.bf16dot)
+        trace.launched(grid_head.bf16dot, mma, "mma_launches")
         return out
     plan = launch_plan(G, A, B, K, O, aligned16(X, Y, b1, W2))
     _launch("icl_grid_head_f32", X, Y, b1, W2, b2, out, plan.ksplit)
-    grid_head.launches += 1
+    trace.launched(grid_head)
     return out
 
 

@@ -57,6 +57,7 @@ import torch
 from icl_torch.ops import _build
 from icl_torch.ops.ce import onehot_ce
 from icl_torch.ops.grid_head import aligned16, check_grid_size, launch_plan
+from icl_torch.util import trace
 
 MAX_O = 8            # kMaxO in csrc/grid_head_tile.cuh
 _BWD_SMEM = 227 * 1024   # a block's shared memory: the backward kernels' limit
@@ -341,7 +342,7 @@ def _launch(entry, wrapper, exact, like, *args, dims, rate, plan=None):
         *((plan.ksplit,) if plan is not None else ()), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, wrapper.__name__)
-    (wrapper if exact else wrapper.onepass).launches += 1
+    trace.launched(wrapper if exact else wrapper.onepass)
 
 
 def _check_bwd_grid(what, A, B, O):

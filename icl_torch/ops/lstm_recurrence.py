@@ -128,7 +128,7 @@ def lstm_recurrence_fwd(x_proj, mask, R, residuals: bool = False):
                                    else (None, None)),
              G, L, B, H, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lstm_recurrence")
-    (lstm_recurrence.bf16 if bf16 else lstm_recurrence).launches += 1
+    trace.launched(lstm_recurrence.bf16 if bf16 else lstm_recurrence)
     return hs, h_final, *res
 
 
@@ -187,7 +187,7 @@ def lstm_recurrence_bwd_kernel(gates, c, hs, R, mask, dhs, dhf):
              dhs.data_ptr(), dhf.data_ptr(), dgates.data_ptr(), G, L, B, H,
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "lstm_recurrence_bwd")
-    (lstm_recurrence.bwd_bf16 if bf16 else lstm_recurrence.bwd).launches += 1
+    trace.launched(lstm_recurrence.bwd_bf16 if bf16 else lstm_recurrence.bwd)
     trace.count("lstm.bwd.kernel")
     return dgates, _dR(hs, dgates)
 

@@ -104,36 +104,15 @@ def _place_ranks(device: torch.device) -> tuple[torch.device, str]:
 
 
 def _write_run_stats(path: str) -> None:
-    from icl_torch.ops.affinity_rank import affinity_rank
-    from icl_torch.ops.grid_head import grid_head
-    from icl_torch.ops import grid_head_train as ght
-    from icl_torch.ops.lstm_recurrence import lstm_recurrence
+    from icl_torch.ops import launch_counters
 
-    wrappers = {"grid_head": grid_head, "lstm_recurrence": lstm_recurrence,
-                "lstm_recurrence_bwd": lstm_recurrence.bwd,
-                "grid_head_train_fwd": ght.grid_head_train_fwd,
-                "grid_head_train_bwd": ght.grid_head_train_bwd,
-                "grid_head_train_loss_fwd": ght.grid_head_train_loss_fwd,
-                "grid_head_train_loss_bwd": ght.grid_head_train_loss_bwd,
-                "affinity_rank": affinity_rank,
-                # the bf16 modes
-                "grid_head_bf16dot": grid_head.bf16dot,
-                "lstm_recurrence_bf16": lstm_recurrence.bf16,
-                "lstm_recurrence_bwd_bf16": lstm_recurrence.bwd_bf16,
-                "affinity_rank_bf16dot": affinity_rank.bf16dot,
-                # the one-pass bf16 mode of the training kernels
-                "grid_head_train_fwd_onepass": ght.grid_head_train_fwd.onepass,
-                "grid_head_train_bwd_onepass": ght.grid_head_train_bwd.onepass,
-                "grid_head_train_loss_fwd_onepass":
-                    ght.grid_head_train_loss_fwd.onepass,
-                "grid_head_train_loss_bwd_onepass":
-                    ght.grid_head_train_loss_bwd.onepass}
     rank = _boot.get("process_id", 0)
     with open(f"{path}.rank{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": _boot.get("num_processes", 1),
                    "backend": _boot.get("backend"),
                    "device": str(_boot.get("device")),
-                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "launches": {k: fn.launches
+                                for k, fn in launch_counters().items()},
                    "all_reduce": dict(_mesh.REDUCE_STATS)}, f)
 
 

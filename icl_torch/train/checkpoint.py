@@ -91,9 +91,17 @@ def to_host(tree: dict) -> dict:
 
 def load_into(state: TrainState, payload: dict) -> None:
     """Copy a payload (``model``, ``optimizer``, ``step``, ``seed``) into
-    the live state, in place; the tensors land on the state's device."""
+    the live state, in place; the tensors land on the state's device.
+
+    Adam's groups keep the live ``capturable``: a state that ran the CUDA
+    graphs (:mod:`icl_torch.train.graphs`) saves it on, which Adam on the
+    CPU, or eager under a process group, cannot step with."""
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    saved = payload["optimizer"]
+    groups = [{**g, "capturable": live.get("capturable", False)} for g, live
+              in zip(saved["param_groups"], state.optimizer.param_groups,
+                     strict=True)]
+    state.optimizer.load_state_dict({**saved, "param_groups": groups})
     state.step = int(payload["step"])
     state.seed = int(payload["seed"])
 

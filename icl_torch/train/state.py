@@ -36,13 +36,17 @@ class TrainState:
         masks them as one process would.  Both numbers enter a
         ``SeedSequence`` (torch's CPU generator would keep only the low 32
         bits of one packed 64-bit seed, which dropped the run's seed)."""
+        return torch.from_numpy(self.host_dropout_seeds(n_global, rows)).to(
+            next(self.model.parameters()).device)
+
+    def host_dropout_seeds(self, n_global: int,
+                           rows: tuple[int, int] | None = None
+                           ) -> np.ndarray:
+        """:meth:`dropout_seeds` as the host draws them, a numpy array."""
         rng = np.random.default_rng(np.random.SeedSequence(
             [self.seed & 0xFFFFFFFF, self.step & 0xFFFFFFFF]))
         seeds = rng.integers(0, 2 ** 31 - 1, n_global, dtype=np.int32)
-        if rows is not None:
-            seeds = seeds[rows[0]:rows[1]]
-        return torch.from_numpy(seeds).to(
-            next(self.model.parameters()).device)
+        return seeds if rows is None else seeds[rows[0]:rows[1]]
 
     def tensors(self) -> list[torch.Tensor]:
         """Every tensor of the state, in a fixed order: the model's

@@ -19,6 +19,10 @@ count of valid examples.  Two train forms per task, as in the reference:
 A class weight <= 0 turns the grid-loss form off (see
 :func:`make_relation_train_step`).
 
+On CUDA outside a process group the relation and affinity steps run as one
+CUDA graph per batch key (:mod:`icl_torch.train.graphs`), the same loss,
+backward and Adam replayed in one launch.
+
 Data parallelism (a ``mesh`` given to a step maker, under a process group):
 the loss is ``sum ce*w / max(sum w, 1)`` over the GLOBAL batch, and the
 ranks hold different weight sums, so a mean of per-rank means would be
@@ -47,6 +51,7 @@ from icl_torch.models.nonvisual import MentionFFNN, mean_pool_tokens
 from icl_torch.models.relation import RelationModel
 from icl_torch.ops.affinity_rank import affinity_rank
 from icl_torch.ops.ce import onehot_ce
+from icl_torch.train import graphs
 from icl_torch.train.state import TrainState
 from icl_torch.util import trace
 
@@ -256,9 +261,11 @@ def affinity_loss(model: AffinityModel, table: torch.Tensor, batch: dict,
 
 def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
                      other_form: str, mesh: Mesh | None = None) -> Callable:
-    """The image tasks' step; spans (:mod:`icl_torch.util.trace`)
-    ``train.step`` over ``train.forward`` (the loss), ``train.backward``
-    and ``train.optimizer`` (Adam)."""
+    """The image tasks' step.  On CUDA outside a process group it runs
+    as one CUDA graph per batch key (:mod:`icl_torch.train.graphs`); else
+    eagerly, with spans (:mod:`icl_torch.util.trace`) ``train.forward``
+    (the loss), ``train.backward`` and ``train.optimizer`` (Adam).  Both
+    lie in span ``train.step`` and count one ``train.step``."""
     if grid_loss and class_weights is not None and any(
             w <= 0 for w in class_weights):
         LOG.warning("grid_loss disabled: a class weight <= 0 would drop "
@@ -278,26 +285,42 @@ def _make_train_step(loss_fn, images_key: str, class_weights, grid_loss,
                                             device=device)
         return cw_on[device]
 
+    def eager(state: TrainState, table: torch.Tensor, batch: dict,
+              dp: Mesh | None = None, set_to_none: bool = True) -> dict:
+        cw = class_weight_tensor(table.device)
+        seeds = _seeds(state, batch[images_key].shape[0], dp)
+        state.optimizer.zero_grad(set_to_none=set_to_none)
+        with trace.span("train.forward"):
+            loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
+                                    grid_loss, dp)
+        with trace.span("train.backward"):
+            loss.backward()
+        if dp is not None:
+            _sync_gradients(state, dp)
+        with trace.span("train.optimizer"):
+            state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    graphed = graphs.GraphedStep(
+        lambda state, table, batch: eager(state, table, batch,
+                                          set_to_none=False),
+        lambda state, table, batch, seeds: loss_fn(
+            state.model, table, batch, seeds,
+            class_weight_tensor(table.device), grid_loss),
+        images_key)
+
     def train_step(state: TrainState, table: torch.Tensor,
                    batch: dict) -> dict:
         with trace.span("train.step"):
-            cw = class_weight_tensor(table.device)
+            trace.count("train.step")
             dp = _active(mesh)
-            seeds = _seeds(state, batch[images_key].shape[0], dp)
-            state.optimizer.zero_grad(set_to_none=True)
-            with trace.span("train.forward"):
-                loss, metrics = loss_fn(state.model, table, batch, seeds, cw,
-                                        grid_loss, dp)
-            with trace.span("train.backward"):
-                loss.backward()
-            if dp is not None:
-                _sync_gradients(state, dp)
-            with trace.span("train.optimizer"):
-                state.apply_gradients()
-            return {k: v.detach() for k, v in metrics.items()}
+            if dp is None and graphs.graphable(table):
+                return graphed(state, table, batch)
+            return eager(state, table, batch, dp)
 
     train_step.grid_loss = grid_loss
     train_step.class_weight_tensor = class_weight_tensor
+    train_step.graphed = graphed
     return train_step
 
 

@@ -29,10 +29,18 @@ counters made there are timed and kept with the item, whatever the flag,
 and :func:`take`, on the thread that receives the item, records them if a
 profile is running there and drops them otherwise.  So they are kept for
 exactly the items taken while a profile runs.
+
+The kernel wrappers of :mod:`icl_torch.ops` count their launches through
+:func:`launched`, in their own ``launches`` attributes, kept whether or not
+a profile runs.  A CUDA graph's capture records work without running it:
+the counts and launches made while :func:`tape` is open go to its list
+instead, whatever the flag, and :func:`replay` makes them again at every
+replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import threading
@@ -65,6 +73,7 @@ _tls = _Local()
 _ids = itertools.count(1)
 _lock = threading.Lock()
 _log: dict = {"events": [], "dropped": 0, "spans": {}, "counters": {}}
+_tape: list | None = None   # where counts go while :func:`tape` is open
 
 
 def enabled() -> bool:
@@ -154,8 +163,43 @@ def count(name: str, n: int = 1) -> None:
     held = _tls.held
     if held is not None:
         held.counts.append((name, n))
+    elif _tape is not None:
+        _tape.append((name, n))
     elif _profiler_enabled():
         _record((), ((name, n),))
+
+
+def launched(counter, n: int = 1, attr: str = "launches") -> None:
+    """Add ``n`` to a kernel wrapper's count of its launches,
+    ``counter.<attr>``; while :func:`tape` is open, to its list instead."""
+    if _tape is not None:
+        _tape.append(((counter, attr), n))
+    else:
+        setattr(counter, attr, getattr(counter, attr) + n)
+
+
+@contextlib.contextmanager
+def tape():
+    """While open, the counts (:func:`count`) made on every thread not
+    under :func:`hold` (autograd's device thread too) and the launches
+    (:func:`launched`) go to the list it yields, not to the log or the
+    wrappers, whether or not a profile runs: those of work recorded into a
+    CUDA graph, which each replay makes again (:func:`replay`)."""
+    global _tape
+    _tape = counts = []
+    try:
+        yield counts
+    finally:
+        _tape = None
+
+
+def replay(counts: list) -> None:
+    """Make again the counts and launches a :func:`tape` took."""
+    for key, n in counts:
+        if isinstance(key, str):
+            count(key, n)
+        else:
+            launched(key[0], n, key[1])
 
 
 def hold(name: str, fn):

@@ -513,7 +513,9 @@ def _relation_batch(dev):
 
 def test_relation_train_steps_count_one_backward_kernel_a_step(dev):
     """``lstm.bwd.kernel`` against ``icl.train.step`` under a profile: the
-    BiLSTM's backward engages the kernel once a step."""
+    BiLSTM's backward engages the kernel once a step, the steps replaying
+    their CUDA graph (captured outside the profile), where no host span of
+    the backward is left."""
     from icl_torch.train.state import create_train_state
     from icl_torch.train.steps import make_relation_train_step
     from icl_torch.util import trace
@@ -523,7 +525,8 @@ def test_relation_train_steps_count_one_backward_kernel_a_step(dev):
     state = create_train_state(model, seed=5)
     step = make_relation_train_step(class_weights=[0.3, 1, 1, 1],
                                     grid_loss=True)
-    step(state, table, batch)                       # outside the profile
+    for _ in range(2):                  # eager, then the capture
+        step(state, table, batch)                   # outside the profile
     trace.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -533,8 +536,9 @@ def test_relation_train_steps_count_one_backward_kernel_a_step(dev):
     snap = trace.snapshot()
     trace.reset()
     assert snap["spans"]["icl.train.step"]["count"] == 3
-    assert snap["spans"]["icl.lstm.backward"]["count"] == 3
+    assert "icl.lstm.backward" not in snap["spans"]
     assert snap["counters"]["lstm.bwd.kernel"] == 3
+    assert snap["counters"]["train.graph.replay"] == 3
 
 
 @pytest.mark.parametrize("grid_loss", [True, False])

@@ -7,7 +7,8 @@ prefetch worker cannot see the profiler's flag: its spans and counters are
 kept for exactly the items taken while a profile runs.  The places that
 carry spans: the batch copy to the device (``icl.h2d``), the affinity
 batcher's box-row and grid-cell counters, the image tasks' train step and
-the LSTM recurrence's backward, and ``--profile_dir``'s spans file.  The
+the LSTM recurrence's backward, and ``--profile_dir``'s spans file; the
+tape a CUDA graph's capture counts onto, launches too, and its replay.  The
 recurrence's backward on autograd's device thread runs only on the card;
 PERF.md gives the check made there.
 """
@@ -18,6 +19,7 @@ import os
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -280,6 +282,46 @@ def test_affinity_grid_cell_counters_on_a_hand_built_batch(profiled):
     assert counters["batch.grid_cells_real"] == 7
     assert counters["batch.box_rows"] == 12
     assert counters["batch.box_rows_real"] == 5
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_a_tape_takes_the_counts_of_every_thread_not_under_hold(profiled):
+    """What a CUDA graph's capture counts goes on the tape, not into the
+    log, profile or not, from this thread and from another (on the card,
+    autograd's device thread); a worker under ``hold`` keeps its own; once
+    the tape closes, counting is as before."""
+    with _profile() if profiled else contextlib.nullcontext():
+        with trace.tape() as counts:
+            trace.count("k", 2)
+            other = threading.Thread(target=trace.count, args=("k", 1))
+            other.start()
+            other.join(timeout=60)
+            held = trace.hold("w", lambda: trace.count("h", 1))[1]
+        trace.count("after", 1)
+    assert not other.is_alive()
+    assert sorted(counts) == [("k", 1), ("k", 2)]
+    assert held.counts == [("h", 1)]
+    assert trace.snapshot()["counters"] == ({"after": 1} if profiled else {})
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_replay_makes_again_the_launches_and_counts_a_tape_took(profiled):
+    """A wrapper's launch count (:func:`trace.launched`) goes on the tape,
+    not onto the wrapper, while the tape is open; each replay adds the
+    launches to the wrapper and the counts to the log (while a profile
+    runs), as the work would have."""
+    wrapper = SimpleNamespace(launches=5, mma_launches=0)
+    with _profile() if profiled else contextlib.nullcontext():
+        trace.launched(wrapper)
+        with trace.tape() as counts:
+            trace.launched(wrapper)
+            trace.launched(wrapper, True, "mma_launches")
+            trace.count("k", 2)
+        assert (wrapper.launches, wrapper.mma_launches) == (6, 0)
+        for _ in range(3):
+            trace.replay(counts)
+    assert (wrapper.launches, wrapper.mma_launches) == (9, 3)
+    assert trace.snapshot()["counters"] == ({"k": 6} if profiled else {})
 
 
 def test_relation_train_step_records_its_phases_once_a_step(data):
