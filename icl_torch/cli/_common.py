@@ -594,6 +594,29 @@ def dump_run_config(args, model_dir: str, rt, precision: Precision) -> None:
         json.dump(info, f, indent=2, sort_keys=True, default=str)
 
 
+def loop_config(args, model_dir: str, rt):
+    """The train loop's settings, from a task's ``--train`` flags."""
+    from icl_torch.train.loop import LoopConfig
+
+    return LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
+                      ckpt_every=args.ckpt_every,
+                      profile_dir=args.profile_dir, resume=args.resume,
+                      metrics_path=args.metrics_file, seed=args.seed,
+                      eval_every=args.eval_every,
+                      early_stop=args.early_stop, mesh=rt.mesh)
+
+
+def finish_training(state, model_dir: str, model_config: dict) -> None:
+    """Write the task's ``model_config.json`` (the main process only),
+    which ``--predict`` and the server read, and log where the run ended."""
+    from icl_torch.dist.mesh import is_main_process
+
+    if is_main_process():
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump(model_config, f)
+    LOG.info("trained to step %d; checkpoints in %s", state.step, model_dir)
+
+
 def default_scores_path(args, task: str) -> str:
     return args.scores_file or os.path.join(
         args.data_dir, f"{args.data_split}.{task}.scores")

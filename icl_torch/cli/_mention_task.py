@@ -30,29 +30,25 @@ rank 0 merges the ``.scores`` parts and the ``--eval`` tables.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import json
-import os
-import time
 
 import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, begin_predict,
-                                   default_model_dir, default_scores_path,
-                                   dump_run_config, init_runtime,
-                                   load_embeddings, read_model_config,
-                                   report_parity, restore_for_predict,
-                                   round_to_data_axis, to_device,
-                                   weights_archive)
+                                   default_model_dir, dump_run_config,
+                                   finish_training, init_runtime,
+                                   load_embeddings, loop_config,
+                                   read_model_config, report_parity,
+                                   restore_for_predict, round_to_data_axis,
+                                   to_device, weights_archive)
+from icl_torch.cli._predict import (mention_rows, predict_in_order,
+                                    print_eval, write_scores)
 from icl_torch.data.buckets import Bucketizer, BucketSpec
 from icl_torch.data.pipeline import load_mention_dataset
 from icl_torch.dist.mesh import is_main_process, local_data_rows
-from icl_torch.eval.scoredict import ScoreDict, merge_sharded
-from icl_torch.io.scores import write_scores_sharded
 from icl_torch.train.evalhook import build_mention_eval_hook
-from icl_torch.train.loop import LoopConfig, prefetch, run_training
+from icl_torch.train.loop import run_training
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import make_mention_train_step, mention_predict
 from icl_torch.util.log import LOG
@@ -85,10 +81,10 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     bs = round_to_data_axis(args.batch_size, rt, bool(args.predict),
                             "batch_size")
     bz = Bucketizer(BucketSpec((ds.max_len,)), batch_size=bs)
-    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
-              "labels": ds.labels}
 
     if args.train:
+        arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
+                  "labels": ds.labels}
         step = make_mention_train_step(mesh=rt.mesh)
         lo, hi = local_data_rows(rt.mesh, bs)    # one process: every row
 
@@ -103,21 +99,13 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
                                           mesh=rt.mesh)
         if is_main_process():
             dump_run_config(args, model_dir, rt, prec)
-        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
-                         ckpt_every=args.ckpt_every,
-                         profile_dir=args.profile_dir, resume=args.resume,
-                         metrics_path=args.metrics_file, seed=args.seed,
-                         eval_every=args.eval_every,
-                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, *a: step(s, table, *a),
-                             make_batches, cfg, eval_fn=eval_fn)
-        if is_main_process():
-            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-                json.dump({"task": task, "hidden": hidden,
-                           "num_classes": len(classes),
-                           "dropout": args.dropout}, f)
-        LOG.info("trained to step %d; checkpoints in %s", state.step,
-                 model_dir)
+                             make_batches, loop_config(args, model_dir, rt),
+                             eval_fn=eval_fn)
+        finish_training(state, model_dir,
+                        {"task": task, "hidden": hidden,
+                         "num_classes": len(classes),
+                         "dropout": args.dropout})
         return
 
     # --predict
@@ -130,36 +118,12 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
         ds = dataclasses.replace(ds, token_ids=ds.token_ids[lo:hi],
                                  lengths=ds.lengths[lo:hi],
                                  labels=ds.labels[lo:hi], ids=ds.ids[lo:hi])
-        # `arrays` was captured from the FULL dataset above: rebuild from
-        # the slice, or the bucketizer pairs local lengths and ids with
-        # global feature rows
-        arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths,
-                  "labels": ds.labels}
-    probs_by_id: dict[str, np.ndarray] = {}
-
-    def _consume(b, dev_p):
-        p = dev_p.cpu().numpy()
-        for row, eid in enumerate(b.ids):
-            probs_by_id[eid] = p[row]
-
-    # dispatch-ahead pipeline (see icl_torch/cli/relation.py)
-    pending: collections.deque = collections.deque()
-    t_sweep = time.perf_counter()
-    for _, b in prefetch(bz.batches(ds.lengths, arrays, ds.ids), depth=4):
-        tok, ln = to_device((b.arrays["token_ids"], b.arrays["lengths"]),
-                            device)
-        pending.append((b, mention_predict(model, table, tok, ln)))
-        if len(pending) > 3:
-            _consume(*pending.popleft())
-    while pending:
-        _consume(*pending.popleft())
-    dt = max(time.perf_counter() - t_sweep, 1e-9)
-    LOG.info("predict sweep: %d mentions in %.2f s (%.0f mentions/s), batch "
-             "assembly and host bookkeeping included", len(ds.ids), dt,
-             len(ds.ids) / dt)
-    # ids in dataset order, not batch order
-    probs = (np.stack([probs_by_id[eid] for eid in ds.ids]) if ds.ids
-             else np.zeros((0, len(classes))))
+    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths}
+    probs = predict_in_order(
+        (b for _, b in bz.batches(ds.lengths, arrays, ds.ids)), device,
+        lambda a: mention_predict(model, table, a["token_ids"],
+                                  a["lengths"]),
+        mention_rows, ds.ids, "mentions", len(classes))
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_ffnn
         from icl_torch.models.nonvisual import mean_pool_tokens
@@ -174,19 +138,7 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
             p_oracle = oracle_ffnn(to_numpy(model.flat_params()), pooled)
             max_diff = float(np.abs(probs[:n] - p_oracle).max())
         report_parity(max_diff)
-    scores_path = default_scores_path(args, task)
-    write_scores_sharded(scores_path, ds.ids, probs,
-                         num_classes=len(classes),
-                         total_examples=total_mentions, class_order=classes,
-                         meta={"task": task, "split": args.data_split,
-                               "checkpoint_step": int(state.step)})
-    LOG.info("wrote %d scores (%d total) to %s", len(ds.ids),
-             total_mentions, scores_path)
+    scores_path = write_scores(args, task, classes, ds.ids, probs,
+                               total_mentions, state.step)
     if args.eval:
-        sd = ScoreDict(labels=list(classes))
-        preds = probs.argmax(-1)
-        for g, p in zip(ds.labels, preds):
-            sd.increment(classes[int(g)], classes[int(p)])
-        merged = merge_sharded(sd, scores_path)   # None off process 0
-        if merged is not None:
-            print(merged.table())
+        print_eval(classes, ds.labels, probs, scores_path)

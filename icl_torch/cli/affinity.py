@@ -26,34 +26,28 @@ merges the ``--rank_file`` as it merges the ``.scores``.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import json
-import os
-import time
 
-import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    begin_predict, default_model_dir,
-                                   default_scores_path,
-                                   dump_run_config, init_runtime,
-                                   load_embeddings, oracle_parity,
-                                   parse_task_args, read_model_config,
-                                   resolve_compute_dtype,
+                                   dump_run_config, finish_training,
+                                   init_runtime, load_embeddings, loop_config,
+                                   oracle_parity, parse_task_args,
+                                   read_model_config, resolve_compute_dtype,
                                    restore_for_predict, round_to_data_axis,
                                    to_device, use_fused, weights_archive)
+from icl_torch.cli._predict import (image_rows, predict_in_order, print_eval,
+                                    write_scores)
 from icl_torch.data.imagebatch import AffinityBatcher
 from icl_torch.data.pipeline import load_affinity_dataset
 from icl_torch.dist.mesh import is_main_process, local_data_rows
-from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.captions import parse_mention_id
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.models.affinity import AFFINITY_CLASSES, AffinityModel
 from icl_torch.train.evalhook import build_eval_hook
-from icl_torch.train.loop import (LoopConfig, prefetch, profile_trace,
-                                  run_training)
+from icl_torch.train.loop import profile_trace, run_training
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import affinity_predict, make_affinity_train_step
 from icl_torch.util.log import LOG
@@ -135,25 +129,17 @@ def main(argv=None) -> None:
             batcher, mesh=rt.mesh)
         if is_main_process():
             dump_run_config(args, model_dir, rt, prec)
-        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
-                         ckpt_every=args.ckpt_every,
-                         profile_dir=args.profile_dir, resume=args.resume,
-                         metrics_path=args.metrics_file, seed=args.seed,
-                         eval_every=args.eval_every,
-                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, b: step(s, table, b),
-                             make_batches, cfg, eval_fn=eval_fn)
-        if is_main_process():
-            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-                json.dump({"task": "affinity",
-                           "lstm_hidden": args.lstm_hidden_width,
-                           "head_hidden": args.head_hidden,
-                           "dropout": args.dropout,
-                           "phrase_enc": args.phrase_enc,
-                           "compute_dtype": args.compute_dtype,
-                           "box_dim": ds.box_dim}, f)
-        LOG.info("trained to step %d; checkpoints in %s", state.step,
-                 model_dir)
+                             make_batches, loop_config(args, model_dir, rt),
+                             eval_fn=eval_fn)
+        finish_training(state, model_dir,
+                        {"task": "affinity",
+                         "lstm_hidden": args.lstm_hidden_width,
+                         "head_hidden": args.head_hidden,
+                         "dropout": args.dropout,
+                         "phrase_enc": args.phrase_enc,
+                         "compute_dtype": args.compute_dtype,
+                         "box_dim": ds.box_dim})
         return
 
     restore_for_predict(state, model_dir, "affinity")
@@ -165,58 +151,28 @@ def main(argv=None) -> None:
                                     for im in ds.images])
     if (lo, hi) != (0, len(ds.images)):
         ds = dataclasses.replace(ds, images=ds.images[lo:hi])
-    swept_cells = ds.num_cells
-    probs_by_id: dict[str, np.ndarray] = {}
-    sd = ScoreDict(labels=list(AFFINITY_CLASSES))
-    rank_by_id: dict[str, float] = {}
-    want_rank = bool(args.rank_file)
+    # dataset order: per image, mention-major over the valid cells
+    order = []
+    for im in ds.images:
+        for r, mid in enumerate(im.mention_ids):
+            _, ci, mi = parse_mention_id(mid)
+            for c, bi in enumerate(im.box_idx):
+                if im.grid_valid[r, c]:
+                    order.append(im.cell_id(ci, mi, bi))
 
-    def packed_fn(jb):
+    def predict(jb):
         """ONE host fetch per batch: softmax probs and (when ranking) the
         per-image box-ranking distribution ride in a single
-        [I,M,B,2(+1)] tensor."""
-        if not want_rank:
-            return affinity_predict(model, table, jb)
+        [I, M*B, 2(+1)] tensor."""
+        if not args.rank_file:
+            return affinity_predict(model, table, jb).flatten(1, 2)
         probs, rank = affinity_predict(model, table, jb, rank=True)
-        return torch.cat([probs, rank[..., None]], dim=-1)
+        return torch.cat([probs, rank[..., None]], dim=-1).flatten(1, 2)
 
-    def _consume(b, dev_packed):
-        packed = dev_packed.cpu().numpy()             # [I,M,B,2(+rank)]
-        B = packed.shape[2]
-        # one fancy-index copy per batch (per-cell views would pin every
-        # batch's packed array for the whole sweep)
-        idx = np.asarray([(s, *divmod(cell, B))
-                          for s, cell, _ in b.id_index], np.int64
-                         ).reshape(-1, 3)
-        sel = packed[idx[:, 0], idx[:, 1], idx[:, 2]]
-        preds = sel[:, :2].argmax(axis=1) if args.eval else None
-        labels = b.arrays["grid_label"]
-        for k, (s, cell, cid) in enumerate(b.id_index):
-            probs_by_id[cid] = sel[k, :2]
-            if want_rank:
-                rank_by_id[cid] = float(sel[k, 2])
-            if preds is not None:   # ScoreDict only feeds the --eval table
-                r, c = idx[k, 1], idx[k, 2]
-                sd.increment(AFFINITY_CLASSES[int(labels[s, r, c])],
-                             AFFINITY_CLASSES[int(preds[k])])
-
-    # dispatch-ahead pipeline (see icl_torch/cli/relation.py): batch
-    # assembly in a prefetch thread + several predicts queued before the
-    # oldest result is pulled to the host
-    pending: collections.deque = collections.deque()
-    t_sweep = time.perf_counter()
     with profile_trace(args.profile_dir):
-        for b in prefetch(batcher.batches(ds), depth=4):
-            jb = to_device(b.arrays, device)
-            pending.append((b, packed_fn(jb)))
-            if len(pending) > 3:
-                _consume(*pending.popleft())
-        while pending:
-            _consume(*pending.popleft())
-    dt = max(time.perf_counter() - t_sweep, 1e-9)
-    LOG.info("predict sweep: %d cells in %.2f s (%.0f cells/s), batch "
-             "assembly and host bookkeeping included", swept_cells, dt,
-             swept_cells / dt)
+        out = predict_in_order(
+            batcher.batches(ds), device, predict, image_rows, order, "cells",
+            len(AFFINITY_CLASSES) + bool(args.rank_file))
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_affinity
         from icl_torch.params import to_numpy
@@ -229,30 +185,12 @@ def main(argv=None) -> None:
             lambda arrays: oracle_affinity(params, emb.table, arrays,
                                            phrase_enc=phrase_enc),
             "grid_valid")
-    # write in dataset order: per image, mention-major over valid cells
-    order = []
-    for im in ds.images:
-        for r, mid in enumerate(im.mention_ids):
-            img, ci, mi = parse_mention_id(mid)
-            for c, bi in enumerate(im.box_idx):
-                if im.grid_valid[r, c]:
-                    order.append(im.cell_id(ci, mi, bi))
-    out = (np.stack([probs_by_id[cid] for cid in order]) if order
-           else np.zeros((0, len(AFFINITY_CLASSES))))
-    scores_path = default_scores_path(args, "affinity")
-    write_scores_sharded(scores_path, order, out,
-                         num_classes=len(AFFINITY_CLASSES),
-                         total_examples=total_cells,
-                         class_order=AFFINITY_CLASSES,
-                         meta={"task": "affinity", "split": args.data_split,
-                               "checkpoint_step": int(state.step)})
-    LOG.info("wrote %d scores (%d total) to %s", len(order), total_cells,
-             scores_path)
+    probs, ranks = out[:, :2], out[:, 2:]
+    scores_path = write_scores(args, "affinity", AFFINITY_CLASSES, order,
+                               probs, total_cells, state.step)
     if args.rank_file:
-        ranks_out = np.array([[rank_by_id[cid]] for cid in order]
-                             ).reshape(len(order), 1)
         write_scores_sharded(
-            args.rank_file, order, ranks_out, num_classes=1,
+            args.rank_file, order, ranks, num_classes=1,
             total_examples=total_cells, class_order=["rank_prob"],
             meta={"task": "affinity_rank", "split": args.data_split,
                   "ranked_by": ("box-ranking kernel" if model.fused else
@@ -261,9 +199,8 @@ def main(argv=None) -> None:
                           "per mention"})
         LOG.info("wrote %d rank probs to %s", len(order), args.rank_file)
     if args.eval:
-        merged = merge_sharded(sd, scores_path)   # None off process 0
-        if merged is not None:
-            print(merged.table())
+        gold = [g for im in ds.images for g in im.grid_label[im.grid_valid]]
+        print_eval(AFFINITY_CLASSES, gold, probs, scores_path)
 
 
 if __name__ == "__main__":

@@ -32,34 +32,27 @@ tables.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import json
-import os
-import time
 
-import numpy as np
 import torch
 
 from icl_torch.cli._common import (apply_precision, base_parser, bucket_spec,
                                    begin_predict, default_model_dir,
-                                   default_scores_path,
-                                   dump_run_config, init_runtime,
-                                   load_embeddings, oracle_parity,
-                                   parse_task_args, read_model_config,
-                                   resolve_compute_dtype,
+                                   dump_run_config, finish_training,
+                                   init_runtime, load_embeddings, loop_config,
+                                   oracle_parity, parse_task_args,
+                                   read_model_config, resolve_compute_dtype,
                                    restore_for_predict, round_to_data_axis,
                                    to_device, use_fused, weights_archive)
+from icl_torch.cli._predict import (image_rows, predict_in_order, print_eval,
+                                    write_scores)
 from icl_torch.data.imagebatch import RelationBatcher
 from icl_torch.data.pairs import RELATION_CLASSES
 from icl_torch.data.pipeline import load_relation_dataset
 from icl_torch.dist.mesh import is_main_process, local_data_rows
-from icl_torch.eval.scoredict import ScoreDict, merge_sharded
-from icl_torch.io.scores import write_scores_sharded
 from icl_torch.models.relation import RelationModel
 from icl_torch.train.evalhook import build_eval_hook
-from icl_torch.train.loop import (LoopConfig, prefetch, profile_trace,
-                                  run_training)
+from icl_torch.train.loop import profile_trace, run_training
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import make_relation_train_step, relation_predict
 from icl_torch.util.log import LOG
@@ -139,23 +132,15 @@ def main(argv=None) -> None:
             batcher, class_weights=class_weights, mesh=rt.mesh)
         if is_main_process():
             dump_run_config(args, model_dir, rt, prec)
-        cfg = LoopConfig(epochs=args.epochs, ckpt_dir=model_dir,
-                         ckpt_every=args.ckpt_every,
-                         profile_dir=args.profile_dir, resume=args.resume,
-                         metrics_path=args.metrics_file, seed=args.seed,
-                         eval_every=args.eval_every,
-                         early_stop=args.early_stop, mesh=rt.mesh)
         state = run_training(state, lambda s, b: step(s, table, b),
-                             make_batches, cfg, eval_fn=eval_fn)
-        if is_main_process():
-            with open(os.path.join(model_dir, "model_config.json"), "w") as f:
-                json.dump({"task": "relation",
-                           "lstm_hidden": args.lstm_hidden_width,
-                           "head_hidden": args.head_hidden,
-                           "dropout": args.dropout,
-                           "compute_dtype": args.compute_dtype}, f)
-        LOG.info("trained to step %d; checkpoints in %s", state.step,
-                 model_dir)
+                             make_batches, loop_config(args, model_dir, rt),
+                             eval_fn=eval_fn)
+        finish_training(state, model_dir,
+                        {"task": "relation",
+                         "lstm_hidden": args.lstm_hidden_width,
+                         "head_hidden": args.head_hidden,
+                         "dropout": args.dropout,
+                         "compute_dtype": args.compute_dtype})
         return
 
     restore_for_predict(state, model_dir, "relation")
@@ -167,43 +152,12 @@ def main(argv=None) -> None:
                            weights=[len(im.pair_ids) for im in ds.images])
     if (lo, hi) != (0, len(ds.images)):
         ds = dataclasses.replace(ds, images=ds.images[lo:hi])
-    swept_pairs = sum(len(im.pair_ids) for im in ds.images)
-    probs_by_id: dict[str, np.ndarray] = {}
-    sd = ScoreDict(labels=list(RELATION_CLASSES))
-
-    def _consume(b, dev_probs):
-        probs = dev_probs.cpu().numpy()
-        # one fancy-index copy per batch: per-row views (probs[s, pi])
-        # would pin every batch's full probs array for the whole sweep
-        idx = np.asarray([(s, pi) for s, pi, _ in b.id_index], np.int64
-                         ).reshape(-1, 2)
-        sel = probs[idx[:, 0], idx[:, 1]]
-        preds = sel.argmax(axis=1) if args.eval else None
-        labels = b.arrays["pair_label"]
-        for k, (s, pi, pid) in enumerate(b.id_index):
-            probs_by_id[pid] = sel[k]
-            if preds is not None:   # ScoreDict only feeds the --eval table
-                sd.increment(RELATION_CLASSES[int(labels[s, pi])],
-                             RELATION_CLASSES[int(preds[k])])
-
-    # dispatch-ahead pipeline: batch assembly runs in a prefetch thread and
-    # several predicts stay queued on the device before the oldest result
-    # is pulled to the host, so the device-to-host read overlaps the
-    # device's work AND the host's padding instead of serialising with them
-    pending: collections.deque = collections.deque()
-    t_sweep = time.perf_counter()
+    order = [pid for im in ds.images for pid in im.pair_ids]
     with profile_trace(args.profile_dir):
-        for b in prefetch(batcher.batches(ds), depth=4):
-            jb = to_device(b.arrays, device)
-            pending.append((b, relation_predict(model, table, jb)))
-            if len(pending) > 3:
-                _consume(*pending.popleft())
-        while pending:
-            _consume(*pending.popleft())
-    dt = max(time.perf_counter() - t_sweep, 1e-9)
-    LOG.info("predict sweep: %d pairs in %.2f s (%.0f pairs/s), batch "
-             "assembly and host bookkeeping included", swept_pairs, dt,
-             swept_pairs / dt)
+        probs = predict_in_order(
+            batcher.batches(ds), device,
+            lambda jb: relation_predict(model, table, jb), image_rows, order,
+            "pairs", len(RELATION_CLASSES))
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_relation
         from icl_torch.params import to_numpy
@@ -215,25 +169,12 @@ def main(argv=None) -> None:
                                        to_device(b.arrays, device)),
             lambda arrays: oracle_relation(params, emb.table, arrays),
             "pair_valid")
-    order = [pid for im in ds.images for pid in im.pair_ids]
-    out = (np.stack([probs_by_id[pid] for pid in order]) if order
-           else np.zeros((0, len(RELATION_CLASSES))))
-    scores_path = default_scores_path(args, "relation")
-    write_scores_sharded(scores_path, order, out,
-                         num_classes=len(RELATION_CLASSES),
-                         total_examples=total_pairs,
-                         class_order=RELATION_CLASSES,
-                         meta={"task": "relation", "split": args.data_split,
-                               "checkpoint_step": int(state.step)})
-    LOG.info("wrote %d scores (%d total) to %s", len(order), total_pairs,
-             scores_path)
+    scores_path = write_scores(args, "relation", RELATION_CLASSES, order,
+                               probs, total_pairs, state.step)
     if args.eval:
-        # multi-process: each rank counted its own image slice; the merged
-        # table equals the single-process one (counts are additive) and
-        # only process 0 prints it
-        merged = merge_sharded(sd, scores_path)
-        if merged is not None:
-            print(merged.table())
+        print_eval(RELATION_CLASSES,
+                   [g for im in ds.images for g in im.pair_label], probs,
+                   scores_path)
 
 
 if __name__ == "__main__":
