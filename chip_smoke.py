@@ -108,6 +108,13 @@ command lines as two data-parallel ranks on the one card:
    then 2 steps with class weights [0, 1] (the guard takes the cell form);
    the first step of each form held against the plain path; the recurrence
    and K5-K8 launch; per-step times;
+8b. staging from pinned slabs (``icl_torch.data.staging``): the relation
+   and affinity batches of one epoch of a planted 128-image split (boxes
+   at 4096-d), padded into the pool's slabs after 0xFF was written over
+   them, each in one copy, against the same batches padded into fresh
+   zeros and copied array by array: every device tensor bit-equal, at a
+   256-byte offset; then the graphed train step (first step eager, then
+   captures and replays) from one state on each feed: the same losses;
 9. the command lines: a planted split on disk (train 128 images, dev 32,
    boxes at 4096-d) through ``icl_torch.cli.relation.main`` and
    ``icl_torch.cli.affinity.main`` on the card at full width, every
@@ -325,6 +332,7 @@ from icl_torch.cli import joint as joint_cli
 from icl_torch.cli import nonvisual as nonvisual_cli
 from icl_torch.cli import relation as relation_cli
 from icl_torch import native, runtime
+from icl_torch.data import staging
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.embeddings import EmbeddingStore
 from icl_torch.data.imagebatch import AffinityBatcher, RelationBatcher
@@ -1285,6 +1293,9 @@ def main() -> int:
     if failures:
         raise RuntimeError(f"affinity checks failed: {failures}")
 
+    # 8b. batches staged from the pinned slabs
+    _staging(dev)
+
     with tempfile.TemporaryDirectory(prefix="icl_chip_cli_") as cli_dir, \
             tempfile.TemporaryDirectory(prefix="icl_chip_mention_") as men_dir:
         # 9. the command lines
@@ -2086,6 +2097,102 @@ class _Said(logging.Handler):
         """The first group of ``pattern`` in every line it matches."""
         return [float(m.group(1)) for m in
                 (re.search(pattern, line) for line in self.lines) if m]
+
+
+def _staging(dev) -> None:
+    """Phase 8b: the batches of reused, dirtied pinned slabs against fresh
+    zeros copied array by array, on the device and through the graphed
+    train step; raises on any difference."""
+    pool = staging.POOL
+    with tempfile.TemporaryDirectory(prefix="icl_chip_staging_") as d:
+        generate_dataset(d, "train", SynthConfig(
+            planted=True, emb_dim=DIMS["emb_dim"], vocab_size=VOCAB,
+            max_caption_len=32, max_mentions_per_caption=3,
+            max_boxes_per_image=20, num_images=128, seed=SEED))
+        _widen_boxes(f"{d}/train.boxes.npz", AFF_DIMS["box_dim"], SEED)
+        emb = EmbeddingStore.load(f"{d}/embeddings.txt")
+        sets = {"relation": (RelationBatcher(images_per_batch=64,
+                                             with_ids=False),
+                             load_relation_dataset(d, "train", emb)),
+                "affinity": (AffinityBatcher(
+                    images_per_batch=64, mention_spec=BucketSpec((8, 16, 32)),
+                    box_spec=BucketSpec((8, 16, 32)), phrase_len=16,
+                    with_ids=False),
+                    load_affinity_dataset(d, "train", emb))}
+
+    def epoch(task):
+        batcher, ds = sets[task]
+        return [b.arrays for b in batcher.batches(
+            ds, rng=np.random.default_rng(SEED))]
+
+    pool.engaged = False
+    fresh = {task: epoch(task) for task in sets}
+    if any(pool.find(a) for a in fresh["affinity"] + fresh["relation"]):
+        raise RuntimeError("staging: a batch padded into a slab while the "
+                           "pool was off")
+    pool.engage()
+    for task in sets:
+        epoch(task)                     # the slabs, dropped at once
+    torch.cuda.synchronize()
+    if not all(s.idle() for s in pool._slabs):
+        raise RuntimeError("staging: a slab is busy with no batch alive")
+    for s in pool._slabs:
+        s.buf.fill_(0xFF)
+    slab = {task: epoch(task) for task in sets}
+    feeds = {}
+    for task in sets:
+        arrays = {"slab": [], "array": []}
+        for a, b in zip(fresh[task], slab[task], strict=True):
+            found = pool.find(b)
+            if found is None or found[1].keys() != b.keys():
+                raise RuntimeError(f"staging: a {task} batch is not in one "
+                                   f"slab")
+            got = staging.stage(b, dev)
+            want = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+            base = got[next(iter(got))].untyped_storage().data_ptr()
+            for k, w in want.items():
+                g = got[k]
+                if (g.shape != w.shape or g.dtype != w.dtype
+                        or not g.is_contiguous()
+                        or g.untyped_storage().data_ptr() != base
+                        or (g.data_ptr() - base) % staging.ALIGN
+                        or g.cpu().numpy().tobytes()
+                        != w.cpu().numpy().tobytes()):
+                    raise RuntimeError(f"staging: {task} field {k} from the "
+                                       f"slab differs from fresh zeros")
+            arrays["slab"].append(got)
+            arrays["array"].append(want)
+        feeds[task] = arrays
+        print(f"check staging {task}: {len(slab[task])} batches from reused "
+              f"0xFF slabs, each in one copy, bit-equal to fresh zeros "
+              f"copied array by array")
+    print(f"staging: {len(pool._slabs)} slabs, {pool.bytes / 2**20:.0f} MiB "
+          f"pinned")
+    del slab, fresh
+
+    table = torch.from_numpy(emb.table).to(dev)
+    models = {"relation": (lambda: RelationModel(
+                  **DIMS, fused=True, dropout=RATE, device=dev),
+                  lambda: make_relation_train_step(
+                      class_weights=[0.3, 1.0, 1.0, 1.0], grid_loss=True)),
+              "affinity": (lambda: AffinityModel(
+                  **AFF_DIMS, fused=True, dropout=RATE, device=dev),
+                  lambda: make_affinity_train_step(grid_loss=True))}
+    for task, (make_model, make_step) in models.items():
+        flat = make_model().flat_params()
+        losses = {}
+        for feed, batches in feeds[task].items():
+            state = create_train_state(make_model(), seed=SEED, params=flat)
+            step = make_step()
+            order = [0, 1, 0, 1, 0] if len(batches) > 1 else [0] * 4
+            losses[feed] = [step(state, table, batches[i])["loss"].item()
+                            for i in order]
+        if losses["slab"] != losses["array"]:
+            raise RuntimeError(f"staging: {task} train losses from the slabs "
+                               f"{losses['slab']} differ from "
+                               f"{losses['array']}")
+        print(f"check staging {task} graphed train step: losses "
+              f"{[round(x, 6) for x in losses['slab']]} equal on both feeds")
 
 
 def _same_checkpoint(a: dict, b: dict) -> list:

@@ -624,8 +624,10 @@ def default_scores_path(args, task: str) -> str:
 
 def to_device(arrays, device: torch.device):
     """A batcher's arrays (a dict, or a tuple of them) as tensors on
-    ``device``: on CUDA through pinned memory with ``non_blocking`` copies,
-    so the copy overlaps the work already queued."""
-    from icl_torch.dist.mesh import shard_batch_local
+    ``device`` (:func:`icl_torch.data.staging.stage`): on CUDA a batch
+    padded into one pinned slab in one ``non_blocking`` copy, any other
+    array pinned and copied alone, so the copy overlaps the work already
+    queued."""
+    from icl_torch.data.staging import stage
 
-    return shard_batch_local(arrays, None, device)
+    return stage(arrays, device)

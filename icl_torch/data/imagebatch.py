@@ -28,6 +28,12 @@ affinity batch arrays::
 
 Padded slots index row 0 and are masked everywhere downstream.
 
+Both batchers pad into the fields :func:`icl_torch.data.staging.zeros`
+hands them: fresh ``np.zeros`` arrays, or, once the process has staged a
+batch onto a CUDA device, views of one reused pinned slab, which they zero
+wherever they do not fill, so a batch reads byte for byte the same either
+way and goes to the device in one copy.
+
 The port's own copy of ``icl/data/imagebatch.py``: ``icl_torch`` imports
 nothing of the JAX package, and ``tests/test_torch_data.py`` holds the two
 copies to the same outputs.  Rationale below is the original's; where it
@@ -42,6 +48,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from icl_torch.data import staging
 from icl_torch.data.buckets import BucketSpec
 from icl_torch.data.pipeline import AffinityDataset, AffinityImage, RelationDataset, RelationImage
 from icl_torch.util import trace
@@ -213,19 +220,19 @@ class RelationBatcher:
         group = group[lo:hi]
         I = hi - lo
         fields = [self._image_fields(im, key) for im in group]
-        names = [n for n, _, _ in self._FIELD_SPECS
-                 if self.build_grid or not n.startswith("grid_")]
-        a = {}
-        for name, code, dt in self._FIELD_SPECS:
-            if name not in names:
-                continue
-            buf = np.zeros((I,) + self._field_shape(code, key), dt)
-            if fields:
-                buf[:len(fields)] = np.stack([f[name] for f in fields])
-            a[name] = buf
-        iv = np.zeros((I,), bool)
-        iv[:len(fields)] = True
-        a["img_valid"] = iv
+        n = len(fields)
+        a, clean = staging.zeros(
+            [(name, (I,) + self._field_shape(code, key), dt)
+             for name, code, dt in self._FIELD_SPECS
+             if self.build_grid or not name.startswith("grid_")]
+            + [("img_valid", (I,), bool)])
+        for name, buf in a.items():
+            if name == "img_valid":
+                buf[:n] = True
+            elif fields:
+                buf[:n] = np.stack([f[name] for f in fields])
+            if not clean:
+                buf[n:] = 0
         id_index: list[tuple[int, int, str]] = []
         if self.with_ids:
             for s, im in enumerate(group):
@@ -259,6 +266,10 @@ class AffinityBatcher:
         # prefetch thread), before the pinned copy (with_box_dtype)
         self.box_dtype = box_dtype
 
+    # the batch's fields, in the order of its arrays
+    _FIELDS = ("phrase_tokens", "phrase_len", "box_feats", "box_valid",
+               "grid_label", "grid_valid", "img_valid")
+
     def shape_of(self, im: AffinityImage) -> tuple[int, int]:
         M = self.mention_spec.bucket_of(im.phrase_tokens.shape[0])
         B = self.box_spec.bucket_of(im.box_feats.shape[0])
@@ -283,15 +294,22 @@ class AffinityBatcher:
         lo, hi = host_rows if host_rows is not None else (0, self.ipb)
         group = group[lo:hi]
         I, L = hi - lo, self.L
-        a = {
-            "phrase_tokens": np.zeros((I, M, L), np.int32),
-            "phrase_len": np.zeros((I, M), np.int32),
-            "box_feats": np.zeros((I, B, D), np.float32),
-            "box_valid": np.zeros((I, B), bool),
-            "grid_label": np.zeros((I, M, B), np.int32),
-            "grid_valid": np.zeros((I, M, B), bool),
-            "img_valid": np.zeros((I,), bool),
-        }
+        # the box block last, so a bf16 batch (its box block a tensor of
+        # its own, with_box_dtype) copies none of the slab's f32 block
+        a, clean = staging.zeros([
+            ("phrase_tokens", (I, M, L), np.int32),
+            ("phrase_len", (I, M), np.int32),
+            ("box_valid", (I, B), bool),
+            ("grid_label", (I, M, B), np.int32),
+            ("grid_valid", (I, M, B), bool),
+            ("img_valid", (I,), bool),
+            ("box_feats", (I, B, D), np.float32)])
+        a = {k: a[k] for k in self._FIELDS}
+        if not clean:   # a reused slab: all but the box block's real rows
+            for k, buf in a.items():
+                if k != "box_feats":
+                    buf.fill(0)
+            a["box_feats"][len(group):] = 0
         id_index: list[tuple[int, int, str]] = []
         from icl_torch.io.captions import parse_mention_id
         real = 0
@@ -302,6 +320,8 @@ class AffinityBatcher:
             a["phrase_tokens"][s, :m] = im.phrase_tokens[:m, :L]
             a["phrase_len"][s, :m] = np.minimum(im.phrase_len[:m], L)
             a["box_feats"][s, :b] = im.box_feats[:b]
+            if not clean:
+                a["box_feats"][s, b:] = 0
             a["box_valid"][s, :b] = True
             a["grid_label"][s, :m, :b] = im.grid_label[:m, :b]
             a["grid_valid"][s, :m, :b] = im.grid_valid[:m, :b]

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from icl_torch.util import trace
+from icl_torch.data.staging import stage
 from icl_torch.util.log import LOG
 
 DATA_AXIS = "data"
@@ -136,83 +136,27 @@ def local_data_rows(mesh: Mesh, global_rows: int) -> tuple[int, int]:
     return mesh.data_row * per, (mesh.data_row + 1) * per
 
 
-def _as_tensor(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))
-
-
-def _to_device(x, device: torch.device) -> torch.Tensor:
-    if device.type != "cuda" or (isinstance(x, torch.Tensor)
-                                 and x.device.type == "cuda"):
-        return _as_tensor(x).to(device)
-    with trace.span("h2d.pin"):
-        t = _as_tensor(x).pin_memory()
-    return t.to(device, non_blocking=True)
-
-
-def _map(tree: Any, fn: Callable) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
-def _pinned_pool(device: torch.device) -> tuple[int, int]:
-    """(allocations, their microseconds) of PyTorch's pinned host-memory
-    pool so far; zeros off CUDA."""
-    if device.type != "cuda":
-        return 0, 0
-    s = torch.cuda.memory.host_memory_stats()
-    return (int(s.get("num_host_alloc", 0)),
-            int(s.get("host_alloc_time.total", 0)))
-
-
-def _staged(tree: Any, fn: Callable, device: torch.device) -> Any:
-    """``_map(tree, fn)`` as span ``h2d``: the bytes and arrays put on the
-    device and, where this thread sees the profile (not on a prefetch
-    worker), how much the pinned pool grew meanwhile (``pool_allocs``,
-    ``pool_alloc_us``: its ``cudaHostAlloc`` calls and their time)."""
-    with trace.span("h2d") as sp:
-        if not sp:
-            return _map(tree, fn)
-        pool = _pinned_pool(device) if trace.enabled() else None
-        sizes = []
-
-        def copy(x):
-            t = fn(x)
-            sizes.append(t.numel() * t.element_size())
-            return t
-
-        out = _map(tree, copy)
-        sp.set(bytes=sum(sizes), arrays=len(sizes))
-        if pool is not None:
-            after = _pinned_pool(device)
-            sp.set(pool_allocs=after[0] - pool[0],
-                   pool_alloc_us=after[1] - pool[1])
-        return out
-
-
 def shard_batch_local(local_batch: Any, mesh: Mesh,
                       device: torch.device) -> Any:
     """THIS process's rows of a batch (those of :func:`local_data_rows`,
-    already cut) as tensors on its device: span ``h2d``, each array's
-    pinning ``h2d.pin`` (:mod:`icl_torch.util.trace`)."""
-    return _staged(local_batch, lambda x: _to_device(x, device), device)
+    already cut) as tensors on its device (:func:`icl_torch.data.staging
+    .stage`: a batch padded into one slab in one copy)."""
+    return stage(local_batch, device)
 
 
 def shard_batch(batch: Any, mesh: Mesh, device: torch.device) -> Any:
     """Cut this rank's rows out of a whole host batch (dicts, tuples and
     lists of arrays whose leading axis is the batch) and copy them to the
-    device.  Single-process: all rows."""
+    device, each array alone.  Single-process: all rows, as
+    :func:`shard_batch_local`."""
     if process_count() == 1:
         return shard_batch_local(batch, mesh, device)
 
     def cut(x):
         lo, hi = local_data_rows(mesh, int(np.shape(x)[0]))
-        return _to_device(x[lo:hi], device)
+        return x[lo:hi]
 
-    return _staged(batch, cut, device)
+    return stage(batch, device, cut)
 
 
 # how far a rank's freshly made state may lie from rank 0's and still be
