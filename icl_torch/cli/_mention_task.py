@@ -54,6 +54,18 @@ from icl_torch.train.steps import make_mention_train_step, mention_predict
 from icl_torch.util.log import LOG
 
 
+def predict_parts(model, table, ds, bz):
+    """The ``--predict`` sweep of a loaded model over a split, its word
+    vectors on the model's device: the bucketizer's batches (token ids and
+    lengths), the predict function, where each mention's row lies in its
+    output, and the mention ids in dataset order."""
+    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths}
+    return ((b for _, b in bz.batches(ds.lengths, arrays, ds.ids)),
+            lambda a: mention_predict(model, table, a["token_ids"],
+                                      a["lengths"]),
+            mention_rows, ds.ids)
+
+
 def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
     rt = init_runtime(args)
     device = rt.device
@@ -118,12 +130,9 @@ def run(args, task: str, model_cls, classes: tuple[str, ...]) -> None:
         ds = dataclasses.replace(ds, token_ids=ds.token_ids[lo:hi],
                                  lengths=ds.lengths[lo:hi],
                                  labels=ds.labels[lo:hi], ids=ds.ids[lo:hi])
-    arrays = {"token_ids": ds.token_ids, "lengths": ds.lengths}
-    probs = predict_in_order(
-        (b for _, b in bz.batches(ds.lengths, arrays, ds.ids)), device,
-        lambda a: mention_predict(model, table, a["token_ids"],
-                                  a["lengths"]),
-        mention_rows, ds.ids, "mentions", len(classes))
+    batches, predict, where, ids = predict_parts(model, table, ds, bz)
+    probs = predict_in_order(batches, device, predict, where, ids,
+                             "mentions", len(classes), task)
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_ffnn
         from icl_torch.models.nonvisual import mean_pool_tokens

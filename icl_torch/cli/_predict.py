@@ -3,8 +3,14 @@ the scatter of each example's row into dataset order, the ``.scores``
 write and the ``--eval`` table.
 
 What differs by task stays in the CLI: the batches, the predict function,
-where each example's row lies in that function's output, the ids in
-dataset order and the gold labels.
+where each example's row lies in that function's output and the ids in
+dataset order (each CLI's ``predict_parts``, which the benchmark's joint
+driver calls too), and the gold labels.
+
+While a profile runs (:mod:`icl_torch.util.trace`), span ``icl.sweep``
+covers each :func:`predict_in_order` (attributes ``task``, ``unit``,
+``examples``), counter ``predict.<unit>`` adds the examples of each batch
+read back, and span ``icl.scores.write`` covers each :func:`write_scores`.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from icl_torch.cli._common import default_scores_path, to_device
 from icl_torch.eval.scoredict import ScoreDict, merge_sharded
 from icl_torch.io.scores import write_scores_sharded
 from icl_torch.train.loop import prefetch
+from icl_torch.util import trace
 from icl_torch.util.log import LOG
 
 PREFETCH_DEPTH = 4   # batches assembled ahead on the prefetch thread
@@ -63,17 +70,19 @@ def _read(b, dev_out, where):
 
 
 def predict_in_order(batches, device, predict, where, ids, unit: str,
-                     width: int) -> np.ndarray:
+                     width: int, task: str) -> np.ndarray:
     """:func:`sweep` over ``batches``, logged as one "predict sweep" line;
     returns the rows of ``ids`` in that (dataset) order, ``[len(ids),
     width]`` in the output's dtype."""
     pos = {eid: k for k, eid in enumerate(ids)}
     out = None
     t_sweep = time.perf_counter()
-    for _, got, rows in sweep(batches, device, predict, where):
-        if out is None:
-            out = np.empty((len(ids), width), rows.dtype)
-        out[[pos[eid] for eid in got]] = rows
+    with trace.span("sweep", task=task, unit=unit, examples=len(ids)):
+        for _, got, rows in sweep(batches, device, predict, where):
+            trace.count("predict." + unit, len(got))
+            if out is None:
+                out = np.empty((len(ids), width), rows.dtype)
+            out[[pos[eid] for eid in got]] = rows
     dt = max(time.perf_counter() - t_sweep, 1e-9)
     LOG.info("predict sweep: %d %s in %.2f s (%.0f %s/s), batch "
              "assembly and host bookkeeping included", len(ids), unit, dt,
@@ -91,10 +100,11 @@ def write_scores(args, task: str, classes, ids, probs: np.ndarray,
     """This process's ``.scores`` rows (merged on process 0 in a sharded
     run); returns the file's path."""
     path = default_scores_path(args, task)
-    write_scores_sharded(path, ids, probs, num_classes=len(classes),
-                         total_examples=total, class_order=classes,
-                         meta={"task": task, "split": args.data_split,
-                               "checkpoint_step": int(step)})
+    with trace.span("scores.write", task=task, rows=len(ids)):
+        write_scores_sharded(path, ids, probs, num_classes=len(classes),
+                             total_examples=total, class_order=classes,
+                             meta={"task": task, "split": args.data_split,
+                                   "checkpoint_step": int(step)})
     LOG.info("wrote %d scores (%d total) to %s", len(ids), total, path)
     return path
 

@@ -50,7 +50,50 @@ from icl_torch.train.evalhook import build_eval_hook
 from icl_torch.train.loop import profile_trace, run_training
 from icl_torch.train.state import create_train_state
 from icl_torch.train.steps import affinity_predict, make_affinity_train_step
+from icl_torch.util import trace
 from icl_torch.util.log import LOG
+
+
+def predict_parts(model, table, ds, batcher, rank: bool):
+    """The ``--predict`` sweep of a loaded model over a split, its word
+    vectors on the model's device: the batches, the predict function (the
+    box ranking in a last column with ``rank``), where each cell's row lies
+    in its output, and the cell ids in dataset order."""
+    # dataset order: per image, mention-major over the valid cells
+    order = []
+    for im in ds.images:
+        for r, mid in enumerate(im.mention_ids):
+            _, ci, mi = parse_mention_id(mid)
+            for c, bi in enumerate(im.box_idx):
+                if im.grid_valid[r, c]:
+                    order.append(im.cell_id(ci, mi, bi))
+
+    def predict(jb):
+        """ONE host fetch per batch: softmax probs and (when ranking) the
+        per-image box-ranking distribution ride in a single
+        [I, M*B, 2(+1)] tensor."""
+        if not rank:
+            return affinity_predict(model, table, jb).flatten(1, 2)
+        probs, ranking = affinity_predict(model, table, jb, rank=True)
+        return torch.cat([probs, ranking[..., None]], dim=-1).flatten(1, 2)
+
+    return batcher.batches(ds), predict, image_rows, order
+
+
+def write_rank(path: str, split: str, order, ranks, total: int,
+               fused: bool) -> None:
+    """``--rank_file``: each cell's share of its mention's softmax over the
+    image's boxes (merged on process 0 in a sharded run)."""
+    with trace.span("scores.write", task="affinity_rank", rows=len(order)):
+        write_scores_sharded(
+            path, order, ranks, num_classes=1, total_examples=total,
+            class_order=["rank_prob"],
+            meta={"task": "affinity_rank", "split": split,
+                  "ranked_by": ("box-ranking kernel" if fused else
+                                "rank_boxes"),
+                  "note": "per-image softmax over candidate boxes "
+                          "per mention"})
+    LOG.info("wrote %d rank probs to %s", len(order), path)
 
 
 def main(argv=None) -> None:
@@ -151,28 +194,13 @@ def main(argv=None) -> None:
                                     for im in ds.images])
     if (lo, hi) != (0, len(ds.images)):
         ds = dataclasses.replace(ds, images=ds.images[lo:hi])
-    # dataset order: per image, mention-major over the valid cells
-    order = []
-    for im in ds.images:
-        for r, mid in enumerate(im.mention_ids):
-            _, ci, mi = parse_mention_id(mid)
-            for c, bi in enumerate(im.box_idx):
-                if im.grid_valid[r, c]:
-                    order.append(im.cell_id(ci, mi, bi))
-
-    def predict(jb):
-        """ONE host fetch per batch: softmax probs and (when ranking) the
-        per-image box-ranking distribution ride in a single
-        [I, M*B, 2(+1)] tensor."""
-        if not args.rank_file:
-            return affinity_predict(model, table, jb).flatten(1, 2)
-        probs, rank = affinity_predict(model, table, jb, rank=True)
-        return torch.cat([probs, rank[..., None]], dim=-1).flatten(1, 2)
-
+    batches, predict, where, order = predict_parts(
+        model, table, ds, batcher, bool(args.rank_file))
     with profile_trace(args.profile_dir):
-        out = predict_in_order(
-            batcher.batches(ds), device, predict, image_rows, order, "cells",
-            len(AFFINITY_CLASSES) + bool(args.rank_file))
+        out = predict_in_order(batches, device, predict, where, order,
+                               "cells",
+                               len(AFFINITY_CLASSES) + bool(args.rank_file),
+                               "affinity")
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_affinity
         from icl_torch.params import to_numpy
@@ -189,15 +217,8 @@ def main(argv=None) -> None:
     scores_path = write_scores(args, "affinity", AFFINITY_CLASSES, order,
                                probs, total_cells, state.step)
     if args.rank_file:
-        write_scores_sharded(
-            args.rank_file, order, ranks, num_classes=1,
-            total_examples=total_cells, class_order=["rank_prob"],
-            meta={"task": "affinity_rank", "split": args.data_split,
-                  "ranked_by": ("box-ranking kernel" if model.fused else
-                                "rank_boxes"),
-                  "note": "per-image softmax over candidate boxes "
-                          "per mention"})
-        LOG.info("wrote %d rank probs to %s", len(order), args.rank_file)
+        write_rank(args.rank_file, args.data_split, order, ranks,
+                   total_cells, model.fused)
     if args.eval:
         gold = [g for im in ds.images for g in im.grid_label[im.grid_valid]]
         print_eval(AFFINITY_CLASSES, gold, probs, scores_path)

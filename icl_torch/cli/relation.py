@@ -58,6 +58,16 @@ from icl_torch.train.steps import make_relation_train_step, relation_predict
 from icl_torch.util.log import LOG
 
 
+def predict_parts(model, table, ds, batcher):
+    """The ``--predict`` sweep of a loaded model over a split, its word
+    vectors on the model's device: the batches, the predict function,
+    where each pair's row lies in its output, and the pair ids in dataset
+    order."""
+    order = [pid for im in ds.images for pid in im.pair_ids]
+    return (batcher.batches(ds),
+            lambda jb: relation_predict(model, table, jb), image_rows, order)
+
+
 def main(argv=None) -> None:
     p = base_parser(
         "relation",
@@ -152,12 +162,10 @@ def main(argv=None) -> None:
                            weights=[len(im.pair_ids) for im in ds.images])
     if (lo, hi) != (0, len(ds.images)):
         ds = dataclasses.replace(ds, images=ds.images[lo:hi])
-    order = [pid for im in ds.images for pid in im.pair_ids]
+    batches, predict, where, order = predict_parts(model, table, ds, batcher)
     with profile_trace(args.profile_dir):
-        probs = predict_in_order(
-            batcher.batches(ds), device,
-            lambda jb: relation_predict(model, table, jb), image_rows, order,
-            "pairs", len(RELATION_CLASSES))
+        probs = predict_in_order(batches, device, predict, where, order,
+                                 "pairs", len(RELATION_CLASSES), "relation")
     if args.oracle_parity or args.oracle_parity_full:
         from icl_torch.eval.oracle import oracle_relation
         from icl_torch.params import to_numpy

@@ -1,0 +1,9 @@
+"""Share of the traced window inside affinity's predict sweeps (with the
+ranking): the program's spans ``icl.sweep`` of that task
+(``icl_torch/cli/_predict.py: predict_in_order``), %."""
+
+from portbench.lib.sweeps import sweep_share
+
+
+def read(run: dict):
+    return sweep_share(run, ("affinity",))

@@ -155,7 +155,7 @@ def test_the_sweep_keeps_order_reads_once_and_scatters(form, n_batches,
     outs.clear()
     host.clear()
     got = _predict.predict_in_order(iter(batches), torch.device("cpu"),
-                                    predict, where, ids, "units", C)
+                                    predict, where, ids, "units", C, "t")
     want = _dict_and_stack(form, batches, host, ids)
     assert got.shape == (len(ids), C) and want.shape == got.shape
     np.testing.assert_array_equal(got, want)

@@ -393,3 +393,57 @@ def test_profile_dir_writes_the_chrome_trace_and_the_spans_file(
     assert ("batch.box_rows" in totals["counters"]) == (task == "affinity")
     # the file holds the profile's spans; the log is empty after it
     assert trace.snapshot()["events"] == []
+
+
+def _mention_sweep_and_writes(tmp_path):
+    """A ten-mention sweep in batches of four, its ``.scores`` and a rank
+    file written, through the task CLIs' shared functions."""
+    from icl_torch.cli import _predict
+    from icl_torch.data.buckets import Bucketizer
+
+    ids = [f"doc:x;caption:0;mention:{k}" for k in range(10)]
+    arrays = {"token_ids": np.arange(10, dtype=np.int32)[:, None],
+              "lengths": np.ones(10, np.int32)}
+    batches = (b for _, b in Bucketizer(BucketSpec((1,)), batch_size=4)
+               .batches(arrays["lengths"], arrays, ids))
+    rows = _predict.predict_in_order(
+        batches, CPU, lambda a: a["token_ids"].float().repeat(1, 2) / 10,
+        _predict.mention_rows, ids, "mentions", 2, "nonvisual")
+    args = SimpleNamespace(scores_file=str(tmp_path / "n.scores"),
+                           data_split="dev", data_dir=None)
+    _predict.write_scores(args, "nonvisual", ("visual", "nonvisual"), ids,
+                          rows, len(ids), 0)
+    taffinity.write_rank(str(tmp_path / "a.rank"), "dev", ids, rows[:, :1],
+                         len(ids), True)
+    return rows
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_the_predict_sweep_and_the_scores_writes_are_spans(
+        profiled, tmp_path, monkeypatch):
+    if not profiled:
+        def refuse(*a, **k):
+            raise AssertionError("record_function entered with tracing off")
+        monkeypatch.setattr(trace, "record_function", refuse)
+    with _profile() if profiled else contextlib.nullcontext():
+        rows = _mention_sweep_and_writes(tmp_path)
+    np.testing.assert_allclose(rows[:, 0], np.arange(10) / 10, rtol=1e-6)
+    assert open(tmp_path / "n.scores").read().count("\n") == 10
+    snap = trace.snapshot()
+    if not profiled:
+        assert snap == {"spans": {}, "counters": {}, "events": [],
+                        "dropped": 0}
+        return
+    sweeps = [e for e in snap["events"] if e["name"] == "icl.sweep"]
+    assert [e["attrs"] for e in sweeps] == [
+        {"task": "nonvisual", "unit": "mentions", "examples": 10}]
+    # the prefetch worker's spans and the copies lie inside the sweep
+    inside = {e["parent"] for e in snap["events"]
+              if e["name"] == "icl.prefetch.wait"}
+    assert inside == {sweeps[0]["id"]}
+    writes = [e["attrs"] for e in snap["events"]
+              if e["name"] == "icl.scores.write"]
+    assert writes == [{"task": "nonvisual", "rows": 10},
+                      {"task": "affinity_rank", "rows": 10}]
+    # one count a batch read back, each of its examples
+    assert snap["counters"] == {"predict.mentions": 10}
